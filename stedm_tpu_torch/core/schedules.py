@@ -3,7 +3,7 @@
 A copy of the numpy parts of stedm_tpu/core/schedules.py (the port imports
 nothing from the JAX package): schedules are computed in float64 on the host
 and frozen to float32, as the reference does. Only the linear schedule and
-the buffer the sampler reads are kept.
+the buffers the sampler and the training loss read are kept.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 def make_beta_schedule(schedule: str, n_timestep: int, linear_start: float = 1e-4,
@@ -51,16 +52,48 @@ def make_ddim_sampling_parameters(alphacums: np.ndarray, ddim_timesteps: np.ndar
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """The DDPM buffers the sampler reads, float32 numpy arrays of shape [T]."""
+    """The DDPM buffers the sampler and the loss read, float32 numpy arrays of
+    shape [T] (stedm_tpu schedules.py:70-149). ``lvlb_weights`` has its t=0
+    entry overwritten by the t=1 entry, as the reference does."""
 
     num_timesteps: int
     alphas_cumprod: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
+    lvlb_weights: np.ndarray
 
     @classmethod
     def create(cls, beta_schedule: str = "linear", timesteps: int = 1000,
                linear_start: float = 1e-4, linear_end: float = 2e-2) -> "DiffusionSchedule":
         betas = make_beta_schedule(beta_schedule, timesteps, linear_start=linear_start,
                                    linear_end=linear_end)
-        alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+        alphas = 1.0 - betas
+        alphas_cumprod = np.cumprod(alphas, axis=0)
+        alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+        posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
+        # the eps parameterization's weights (the shipped config's);
+        # posterior_variance[0] == 0 makes lvlb[0] inf, overwritten as the
+        # reference does (ddpm.py:163-171)
+        with np.errstate(divide="ignore"):
+            lvlb = betas ** 2 / (2 * posterior_variance * alphas * (1 - alphas_cumprod))
+        lvlb[0] = lvlb[1]
+        f32 = lambda a: np.asarray(a, dtype=np.float32)  # noqa: E731
         return cls(num_timesteps=int(betas.shape[0]),
-                   alphas_cumprod=alphas_cumprod.astype(np.float32))
+                   alphas_cumprod=f32(alphas_cumprod),
+                   sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
+                   sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
+                   lvlb_weights=f32(lvlb))
+
+    @staticmethod
+    def gather(buf: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        """``buf[t]`` on t's device, shaped to broadcast over ``ndim - 1``
+        trailing axes."""
+        return torch.as_tensor(buf, device=t.device)[t].reshape((-1,) + (1,) * (ndim - 1))
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """Forward-process sample x_t ~ q(x_t | x_0) in fp32 (stedm_tpu
+        schedules.py:139-149); ``t`` is an int tensor of shape [B]."""
+        a = self.gather(self.sqrt_alphas_cumprod, t, x_start.dim())
+        s = self.gather(self.sqrt_one_minus_alphas_cumprod, t, x_start.dim())
+        return a * x_start.float() + s * noise

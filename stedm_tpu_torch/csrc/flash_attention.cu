@@ -8,7 +8,10 @@
 // 512]). Computes O = softmax(Q K^T * sm_scale) V with an fp32 running max
 // and sum per query row; P is rounded to bf16 before P V, as the stock kernel
 // and the reference's exact path do. Key positions past T are masked, so T
-// need not be a multiple of the tile.
+// need not be a multiple of the tile. When asked, it also writes the fp32
+// log-sum-exp of each query row (natural log of sum_j exp(s_ij * sm_scale)),
+// which the backward kernels (csrc/flash_attention_bwd.cu) use to rebuild P;
+// the stock kernel saves its running max and sum for the same purpose.
 //
 // What bounds it on the H100: the two matrix products. At the VQ shape they
 // are ~2.7e11 flops a call against 3e8 bytes of input and output, far above
@@ -106,8 +109,8 @@ size_t smem_bytes(int d) {
 template <int DVS>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int T, int D,
-                 float scale_log2) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int T, int D, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldq = D + PAD, ldv = DVS + PAD;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -216,13 +219,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  // ---- normalise and write this warp's rows ----
+  // ---- normalise and write this warp's rows (and their LSE) ----
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const float inv = 1.f / l[r];
     const int row = q0 + warp * 16 + g + 8 * r;
+    // the blocks of one query tile (one per O slice) hold identical row
+    // statistics: the first writes them
+    if (lse != nullptr && blockIdx.z == 0 && tg == 0 && row < T)
+      lse[(size_t)blockIdx.y * T + row] = (m[r] + log2f(l[r])) * 0.6931471805599453f;
     if (row < T) {
       bf16* out = o + head + (size_t)row * D + dv0 + 2 * tg;
 #pragma unroll
@@ -234,15 +241,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DVS>
-int launch(const void* q, const void* k, const void* v, void* o, int bh, int t, int d,
-           float sm_scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int t,
+           int d, float sm_scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<DVS>(d);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DVS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t + BQ - 1) / BQ, bh, d / DVS);
   flash_fwd_kernel<DVS><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, t, d,
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, t, d,
       sm_scale * 1.4426950408889634f);  // log2(e): the softmax runs on exp2
   return (int)cudaGetLastError();
 }
@@ -252,15 +259,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int t, 
 extern "C" {
 
 // q, k, v, o: [BH, T, D] contiguous bf16 on the device; D a multiple of 64,
-// at most 512. Returns the cudaError_t of the launch.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+// at most 512. lse: [BH, T] fp32, or null when the caller needs no LSE.
+// Returns the cudaError_t of the launch.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                         int bh, int t, int d, float sm_scale, void* stream) {
   if (d % 64 != 0 || d > 512 || d <= 0 || t <= 0 || bh <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   // the widest O slice that divides D: 256 (128 registers a thread) at most
-  if (d % 256 == 0) return launch<256>(q, k, v, o, bh, t, d, sm_scale, s);
-  if (d % 128 == 0) return launch<128>(q, k, v, o, bh, t, d, sm_scale, s);
-  return launch<64>(q, k, v, o, bh, t, d, sm_scale, s);
+  float* l = (float*)lse;
+  if (d % 256 == 0) return launch<256>(q, k, v, o, l, bh, t, d, sm_scale, s);
+  if (d % 128 == 0) return launch<128>(q, k, v, o, l, bh, t, d, sm_scale, s);
+  return launch<64>(q, k, v, o, l, bh, t, d, sm_scale, s);
 }
 
 }  // extern "C"

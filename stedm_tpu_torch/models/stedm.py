@@ -46,8 +46,12 @@ class STEDM(nn.Module):
             self.agg = blocks[style_agg]()
 
     def encode_first_stage(self, x: torch.Tensor) -> torch.Tensor:
-        """Image -> scaled pre-quant latent (stedm_tpu stedm.py:94-98)."""
-        return self.scale_factor * self.first_stage.encode(x).float()
+        """Image -> scaled pre-quant latent, without gradient: the frozen codec
+        runs under ``no_grad`` and the latent is detached, as the reference's
+        ``stop_gradient`` (stedm_tpu stedm.py:94-98)."""
+        with torch.no_grad():
+            z = self.first_stage.encode(x)
+            return (self.scale_factor * z.float()).detach()
 
     def decode_first_stage(self, z: torch.Tensor, force_not_quantize: bool = False):
         """Latent -> image (stedm_tpu stedm.py:100-104)."""
@@ -72,9 +76,9 @@ class STEDM(nn.Module):
 FLAGSHIP_PATCH = 256
 
 
-def flagship_configs() -> dict:
-    """The landscape-config flagship of bench.py:199-212."""
-    patch = FLAGSHIP_PATCH
+def flagship_configs(patch: int = FLAGSHIP_PATCH) -> dict:
+    """The landscape-config flagship of bench.py:199-212 at ``patch``² (256 for
+    sampling, 512 for training as tools/bench_train.py runs it)."""
     return dict(
         unet_config=dict(in_channels=6, out_channels=3, model_channels=128,
                          num_res_blocks=2, channel_mult=(1, 4, 8), num_heads=8,
@@ -88,30 +92,41 @@ def flagship_configs() -> dict:
 
 
 def build_flagship(batch: int = 8, device=None, dtype: torch.dtype = torch.bfloat16,
-                   seed: int = 0):
+                   seed: int = 0, patch: int = FLAGSHIP_PATCH, nonzero_init: bool = False):
     """Flagship model with random weights from ``seed``, a bench batch and the
     schedule, mirroring bench.py:190-227: bf16 compute, fp32 parameters and
     GroupNorm statistics, and +0.005 on every 4-D parameter (the zero-init
     output convs would otherwise make the CFG rescale divide 0 by 0).
 
+    ``nonzero_init`` first gives the zero-initialised layers (every
+    ``AttentionBlock.proj_out``, the ResBlock output convs and the U-Net
+    ``out`` conv) PyTorch's default random init, as a training run needs: a
+    zero ``proj_out`` makes the gradient reaching the attention exactly zero.
+
     Runs on ``cuda`` unless ``device`` says otherwise (``"meta"`` builds the
     structure only). Returns ``(model, batch_dict, schedule)``; the batch is
-    NHWC: an all-background one-hot layout and uniform(-1, 1) style images
-    drawn with numpy from ``seed``."""
+    NHWC: an all-background one-hot layout, uniform(-1, 1) style images and
+    then uniform(-1, 1) images (``image``, for training), drawn with numpy
+    from ``seed``."""
     dev = resolve_device(device)
     cuda_devs = [dev.index or 0] if dev.type == "cuda" else []
     with torch.random.fork_rng(devices=cuda_devs), torch.device(dev):
         torch.manual_seed(seed)
-        model = STEDM(dtype=dtype, **flagship_configs()).eval()
+        model = STEDM(dtype=dtype, **flagship_configs(patch)).eval()
+        if nonzero_init:
+            for layer in model.unet.zero_init_layers():
+                layer.reset_parameters()
     with torch.no_grad():
         for prm in model.parameters():
             if prm.dim() == 4:
                 prm.add_(0.005)
-    patch = FLAGSHIP_PATCH
     seg = torch.zeros((batch, patch, patch, 2), device=dev)
     seg[..., 0] = 1.0
-    style = np.random.default_rng(seed).uniform(-1, 1, (batch, 1, patch, patch, 3))
+    rng = np.random.default_rng(seed)
+    style = rng.uniform(-1, 1, (batch, 1, patch, patch, 3))
+    image = rng.uniform(-1, 1, (batch, patch, patch, 3))
     batch_dict = {"segmentation": seg,
-                  "style_imgs": torch.as_tensor(style, dtype=torch.float32).to(dev)}
+                  "style_imgs": torch.as_tensor(style, dtype=torch.float32).to(dev),
+                  "image": torch.as_tensor(image, dtype=torch.float32).to(dev)}
     schedule = DiffusionSchedule.create("linear", 1000, 0.0015, 0.0205)
     return model, batch_dict, schedule

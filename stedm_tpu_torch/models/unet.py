@@ -7,6 +7,11 @@ reads: ``time_embed.{0,2}``, ``input_blocks.{i}.{j}``, ``middle_block.{0..3}``
 ``out.{0,2}``. ResBlock keeps ``in_layers.{0,2}``, ``emb_layers.1``,
 ``out_layers.{0,3}`` and ``skip_connection``.
 
+``use_checkpoint`` recomputes every ResBlock and AttentionBlock in the
+backward pass (``torch.utils.checkpoint``) instead of keeping their
+activations, as the JAX U-Net's ``nn.remat`` (unet.py:117-121, :145,
+:191-195); off by default, as there.
+
 The deep-feature cache in/out of the JAX U-Net (unet.py:154-175, :255-283)
 belongs to the serving slice and is not here.
 """
@@ -18,6 +23,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from stedm_tpu_torch.models.attention import AttentionBlock
 from stedm_tpu_torch.models.layers import (
@@ -72,10 +78,11 @@ class UNet(nn.Module):
                  attention_resolutions: Sequence[int] = (32, 16, 8),
                  channel_mult: Sequence[int] = (1, 4, 8), num_heads: int = 8,
                  context_dim: int = 512, attn_impl: str = "exact",
-                 dtype: torch.dtype = torch.float32):
+                 use_checkpoint: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         mc = model_channels
         self.model_channels, self.context_dim, self.dtype = mc, context_dim, dtype
+        self.use_checkpoint = use_checkpoint
         temb = 4 * mc
 
         def attn(ch):
@@ -115,10 +122,22 @@ class UNet(nn.Module):
         self.out = nn.ModuleDict({"0": GNSiLU(ch), "2": conv3x3(ch, out_channels,
                                                                 zero_init=True)})
 
-    @staticmethod
-    def _run(block: nn.ModuleList, h, emb):
+    def zero_init_layers(self) -> list[nn.Module]:
+        """The layers that start at zero: every ``AttentionBlock.proj_out``,
+        the ResBlock output convs and the ``out`` conv."""
+        layers = [m.proj_out for m in self.modules() if isinstance(m, AttentionBlock)]
+        layers += [m.out_layers["3"] for m in self.modules() if isinstance(m, ResBlock)]
+        return layers + [self.out["2"]]
+
+    def _call(self, layer: nn.Module, *args):
+        if self.use_checkpoint and torch.is_grad_enabled() and \
+                isinstance(layer, (ResBlock, ResBlockStyle, AttentionBlock)):
+            return checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
+
+    def _run(self, block: nn.ModuleList, h, emb):
         for layer in block:
-            h = layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+            h = self._call(layer, h, emb) if isinstance(layer, ResBlock) else self._call(layer, h)
         return h
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
@@ -138,7 +157,7 @@ class UNet(nn.Module):
             hs.append(h)
 
         mid = self.middle_block
-        h = mid[0](h, emb)
+        h = self._call(mid[0], h, emb)
         if context is None:
             context = torch.zeros((x.shape[0], self.context_dim), dtype=self.dtype,
                                   device=x.device)
@@ -147,9 +166,9 @@ class UNet(nn.Module):
             h = channels_last(torch.cat([h] * k))
             emb = torch.cat([emb] * k)
             hs = [channels_last(torch.cat([s] * k)) for s in hs]
-        h = mid[1](h, context.to(self.dtype))
-        h = mid[2](h)
-        h = mid[3](h, emb)
+        h = self._call(mid[1], h, context.to(self.dtype))
+        h = self._call(mid[2], h)
+        h = self._call(mid[3], h, emb)
 
         for block in self.output_blocks:
             h = channels_last(torch.cat([h, hs.pop()], dim=1))

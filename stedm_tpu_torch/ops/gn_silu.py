@@ -26,6 +26,12 @@ between blocks. So the kernel is a split reduction in two launches:
 
 A workspace, not atomics, keeps the summation order (and the result) fixed
 from run to run.
+
+Gradients: ``GNSiLUFunction`` runs the kernel (or, on the CPU, the plain
+version) forward and ``gn_silu_backward_reference`` backward, a plain PyTorch
+port of stedm_tpu's ``_gn_silu_bwd`` (gn_silu.py:239-278), which is jnp and
+not a TPU kernel. ``gn_silu`` takes the Function whenever an input requires
+grad, on either device, so the CPU tests exercise the ported backward.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from stedm_tpu_torch.ops import LAUNCHES
+from stedm_tpu_torch.ops import LAUNCHES, PLAIN_CALLS
 
 # programs to aim for per launch: four waves over the H100's 132 SMs
 _TARGET_PROGRAMS = 4 * 132
@@ -43,11 +49,10 @@ _BLOCK_R = 64
 _STATS_BLOCK_C = 128
 
 
-def gn_silu_reference(x, gamma, beta, add=None, film_scale=None, film_shift=None,
-                      *, groups: int = 32, eps: float = 1e-5,
-                      apply_silu: bool = True) -> torch.Tensor:
-    """Plain version on NHWC ``x``; the numerics of stedm_tpu's
-    ``_forward_parts`` + ``gn_silu_reference``."""
+def _forward_parts(x, gamma, beta, add, film_scale, film_shift, groups: int, eps: float):
+    """stedm_tpu's ``_forward_parts`` (gn_silu.py:166-186), fp32: the
+    normalised ``xhat``, ``rstd`` ``[B, 1, G, 1]``, the affine output ``z`` and
+    the pre-activation ``wv`` (``z`` after FiLM)."""
     b, h, w, c = x.shape
     xf = x.float()
     if add is not None:
@@ -58,11 +63,56 @@ def gn_silu_reference(x, gamma, beta, add=None, film_scale=None, film_shift=None
     rstd = torch.rsqrt(var + eps)
     xhat = ((xg - mean) * rstd).reshape(b, h, w, c)
     z = xhat * gamma.float() + beta.float()
+    wv = z
     if film_scale is not None:
-        z = z * (1.0 + film_scale.float()[:, None, None, :]) \
+        wv = z * (1.0 + film_scale.float()[:, None, None, :]) \
             + film_shift.float()[:, None, None, :]
-    y = F.silu(z) if apply_silu else z
+    return xhat, rstd, z, wv
+
+
+def gn_silu_reference(x, gamma, beta, add=None, film_scale=None, film_shift=None,
+                      *, groups: int = 32, eps: float = 1e-5,
+                      apply_silu: bool = True) -> torch.Tensor:
+    """Plain version on NHWC ``x``; the numerics of stedm_tpu's
+    ``_forward_parts`` + ``gn_silu_reference``."""
+    wv = _forward_parts(x, gamma, beta, add, film_scale, film_shift, groups, eps)[3]
+    y = F.silu(wv) if apply_silu else wv
     return y.to(x.dtype)
+
+
+def gn_silu_backward_reference(g, x, gamma, beta, add=None, film_scale=None,
+                               film_shift=None, *, groups: int = 32, eps: float = 1e-5,
+                               apply_silu: bool = True):
+    """The gradients of ``gn_silu`` for the output gradient ``g``: a plain port
+    of stedm_tpu's ``_gn_silu_bwd`` (gn_silu.py:239-278), recomputing the
+    statistics through ``_forward_parts``. Returns ``(dx, d_gamma, d_beta,
+    d_add, d_film_scale, d_film_shift)``, each in its input's dtype (None for
+    an absent input)."""
+    b, h, w, c = x.shape
+    cg = c // groups
+    xhat, rstd, z, wv = _forward_parts(x, gamma, beta, add, film_scale, film_shift,
+                                       groups, eps)
+    gf = g.float()
+    if apply_silu:
+        sig = torch.sigmoid(wv)
+        dw = gf * sig * (1.0 + wv * (1.0 - sig))
+    else:
+        dw = gf
+    d_fs = d_fsh = None
+    dz = dw
+    if film_scale is not None:
+        d_fs = (dw * z).sum(dim=(1, 2)).to(film_scale.dtype)
+        d_fsh = dw.sum(dim=(1, 2)).to(film_shift.dtype)
+        dz = dw * (1.0 + film_scale.float()[:, None, None, :])
+    d_gamma = (dz * xhat).sum(dim=(0, 1, 2)).to(gamma.dtype)
+    d_beta = dz.sum(dim=(0, 1, 2)).to(beta.dtype)
+    dxhat = (dz * gamma.float()).reshape(b, h * w, groups, cg)
+    xhat_g = xhat.reshape(b, h * w, groups, cg)
+    m1 = dxhat.mean(dim=(1, 3), keepdim=True)
+    m2 = (dxhat * xhat_g).mean(dim=(1, 3), keepdim=True)
+    dx = (rstd * (dxhat - m1 - xhat_g * m2)).reshape(b, h, w, c)
+    d_add = dx.sum(dim=(1, 2)).to(add.dtype) if add is not None else None
+    return dx.to(x.dtype), d_gamma, d_beta, d_add, d_fs, d_fsh
 
 
 def _kernels():
@@ -217,15 +267,41 @@ def gn_silu_triton(x, gamma, beta, add=None, film_scale=None, film_shift=None,
     return out
 
 
+class GNSiLUFunction(torch.autograd.Function):
+    """``gn_silu`` with a gradient: the Triton kernel forward on CUDA tensors
+    (the plain version on CPU tensors); ``gn_silu_backward_reference``
+    backward, on an output gradient made contiguous NHWC first."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, add, film_scale, film_shift, groups: int, eps: float,
+                apply_silu: bool):
+        fn = gn_silu_triton if x.is_cuda else gn_silu_reference
+        ctx.save_for_backward(x, gamma, beta, add, film_scale, film_shift)
+        ctx.cfg = dict(groups=groups, eps=eps, apply_silu=apply_silu)
+        return fn(x, gamma, beta, add, film_scale, film_shift, **ctx.cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors   # read once: checkpointing allows one unpack
+        if saved[0].is_cuda:
+            PLAIN_CALLS["gn_silu_bwd"] += 1
+        grads = gn_silu_backward_reference(g.contiguous(), *saved, **ctx.cfg)
+        return (*grads, None, None, None)
+
+
 def gn_silu(x, gamma, beta, add=None, film_scale=None, film_shift=None, *,
             groups: int = 32, eps: float = 1e-5, apply_silu: bool = True):
     """GroupNorm(+add | +FiLM)(+SiLU) over NHWC ``x``; gamma/beta ``[C]``,
     add / film_scale / film_shift ``[B, C]``. CUDA tensors launch the Triton
-    kernel; CPU tensors take the plain version."""
+    kernel; CPU tensors take the plain version; when an input requires grad
+    the call goes through ``GNSiLUFunction``."""
     if (film_scale is None) != (film_shift is None):
         raise ValueError("film_scale and film_shift come together")
     if add is not None and film_scale is not None:
         raise ValueError("add and FiLM are exclusive")
+    inputs = (x, gamma, beta, add, film_scale, film_shift)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return GNSiLUFunction.apply(*inputs, groups, eps, apply_silu)
     fn = gn_silu_triton if x.is_cuda else gn_silu_reference
     return fn(x, gamma, beta, add, film_scale, film_shift, groups=groups, eps=eps,
               apply_silu=apply_silu)

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX/Flax nor the JAX package."""
+"""The port stands alone: it imports neither JAX/Flax nor the JAX package,
+for sampling and for training."""
 
 import ast
 import subprocess
@@ -23,6 +24,16 @@ with torch.no_grad():
     img = vq.decode(torch.randn(1, 8, 8, 3))
     eps = unet(torch.randn(1, 6, 8, 8), torch.tensor([10]), torch.randn(1, 512))
 assert img.shape == (1, 16, 16, 3) and eps.shape == (1, 3, 8, 8)
+# the training slice: its modules import, and a backward runs through the
+# GroupNorm and flash-attention Functions (their plain versions on the CPU)
+from stedm_tpu_torch.core import diffusion
+from stedm_tpu_torch.train import ema, optim
+net = UNet(model_channels=32, channel_mult=(1, 2), num_res_blocks=1, attn_impl="flash",
+           use_checkpoint=True)
+for layer in net.zero_init_layers():
+    layer.reset_parameters()
+net(torch.randn(1, 6, 8, 8), torch.tensor([10]), torch.randn(1, 512)).square().mean().backward()
+assert all(float(p.grad.abs().max()) > 0 for n, p in net.named_parameters() if "qkv" in n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "stedm_tpu"))
 print("LOADED", bad)
