@@ -14,7 +14,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    path's shapes, with the tolerance it prints, timed beside its plain
    version, a PyTorch library call computing the same function (a yardstick
    only; the port never calls it) and its bound on an H100; the forward
-   kernels at the sampling and the training shapes;
+   kernels at the sampling and the training shapes, the flash forward also
+   at a ragged T, at Dh 256 and on the strided views that the U-Net's
+   AttentionBlock hands it, bit for bit against contiguous copies;
    2b. the flash-attention backward kernels (dkv, dq), launched directly and
    through ``FlashAttentionFunction``, against ``attention_backward_reference``
    at the training shapes, and the forward's output and LSE against
@@ -84,15 +86,21 @@ def card_line() -> str:
 
 def time_ms(fn, iters: int, flush=None) -> float:
     """Mean device time of ``fn()`` in ms over ``iters`` launches, each timed
-    with CUDA events after the L2 was flushed (``flush``), after 2 warm-ups."""
+    with CUDA events after the L2 was flushed (``flush``), after 2 warm-ups.
+    The card is kept busy for about half a millisecond before the first
+    event, so that the host has queued ``fn``'s launches by the time the
+    card reaches them: the events then bracket device time, not the host's
+    path through the wrapper."""
     import torch
 
+    spin = int(0.5e-3 * torch.cuda.get_device_properties(0).clock_rate * 1e3)
     for _ in range(2):
         fn()
     total = 0.0
     for _ in range(iters):
         if flush is not None:
             flush()
+        torch.cuda._sleep(spin)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -198,9 +206,11 @@ def check_attention(torch, rec, flush):
     from stedm_tpu_torch.ops import blocked_attention as a
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    # U-Net bottleneck and VQ decoder at 256^2 (sampling), VQ encoder at 512^2
-    # (training's frozen encode, batch 8)
-    for shape in ((16, 8, 256, 128), (8, 1, 4096, 512), (8, 1, 16384, 512)):
+    # U-Net bottleneck and VQ decoder at 256^2 (sampling); the U-Net bottleneck
+    # and the VQ encoder at 512^2 (training: the first with the LSE, the second
+    # the frozen encode, batch 8); a ragged T and the head dimension between
+    for shape in ((16, 8, 256, 128), (8, 1, 4096, 512), (8, 8, 1024, 128), (8, 1, 16384, 512),
+                  (2, 4, 200, 64), (2, 2, 520, 256)):
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         s = shape[-1] ** -0.5
@@ -211,7 +221,7 @@ def check_attention(torch, rec, flush):
         for i in range(shape[0]):
             e, o = _attention_close(torch, got[i:i + 1], q[i:i + 1], k[i:i + 1], v[i:i + 1], s)
             err, ok = max(err, e), ok and o
-        iters = 10 if shape[2] <= 256 else 3
+        iters = 10 if shape[2] <= 1024 else 3
         ms = time_ms(lambda: a.flash_attention_cuda(q, k, v, s), iters, flush)
         ms_lse = time_ms(lambda: a.flash_attention_cuda(q, k, v, s, return_lse=True), iters,
                          flush)
@@ -223,6 +233,28 @@ def check_attention(torch, rec, flush):
         bh, t, d = shape[0] * shape[1], shape[2], shape[3]
         rec.add(shape, err, ok, ms, pms, lib, 4 * bh * t * d * 2, 4 * bh * t * t * d,
                 BF16_FLOPS)
+    # the layout the U-Net's AttentionBlock hands over: q, k, v as views of
+    # the packed projection, O written token-major so that merging the heads
+    # is a view; the same kernel on contiguous copies must give the same bits
+    proj = torch.randn((16, 256, 8, 3, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = proj.permute(0, 2, 3, 1, 4).unbind(2)
+    s = 128 ** -0.5
+    out = torch.empty((16, 256, 8, 128), device="cuda", dtype=torch.bfloat16).permute(0, 2, 1, 3)
+    got = a.flash_attention_cuda(q, k, v, s, out=out)
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    same = torch.equal(got, a.flash_attention_cuda(qc, kc, vc, s))
+    merged = got.transpose(1, 2).reshape(16, 256, 8 * 128)
+    is_view = merged.data_ptr() == got.data_ptr() and merged.is_contiguous()
+    ms = time_ms(lambda: a.flash_attention_cuda(q, k, v, s, out=out), 10, flush)
+    ms_copies = time_ms(lambda: a.flash_attention_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(), s).transpose(1, 2).reshape(16, 256, 1024),
+        10, flush)
+    log(f"  flash_attention strided [16, 8, 256, 128] (views of a [16, 256, 8, 3, 128] "
+        f"projection, O laid out [16, 256, 8, 128]): equal to the contiguous launch bit for "
+        f"bit: {same}; merging the heads is a view: {is_view}; kernel_ms {ms:.4f} against "
+        f"{ms_copies:.4f} with the three copies in and the one out")
+    require(same, "the strided launch differs from the contiguous one")
+    require(is_view, "the token-major output does not merge its heads as a view")
 
 
 def check_nearest(torch, rec, flush):
@@ -627,7 +659,7 @@ def train_flagship(torch, out_dir: Path) -> dict:
 # device-kernel name patterns, first match wins
 _CATEGORIES = (
     ("gn_silu (Triton)", r"stats_kernel|apply_kernel"),
-    ("flash_attention (CUDA)", r"flash_fwd_kernel"),
+    ("flash_attention (CUDA)", r"flash_fwd_"),
     ("flash_attention_bwd_dkv (CUDA)", r"flash_bwd_dkv_kernel"),
     ("flash_attention_bwd_dq (CUDA)", r"flash_bwd_dq_kernel"),
     ("nearest_code (CUDA)", r"nearest_code_kernel"),
@@ -716,8 +748,13 @@ def main() -> int:
     builds = build_all(["flash_attention", "flash_attention_bwd", "nearest_code"])
     (out_dir / "nvcc.log").write_text("\n".join(f"== {k}\n{v}" for k, v in builds.items()))
     for stem, text in builds.items():
-        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
-        log(f"  built {stem}: {'; '.join(regs) or 'ok'}")
+        regs = [ln.strip() for ln in text.splitlines() if "Used" in ln and "registers" in ln]
+        spills = [ln.strip() for ln in text.splitlines()
+                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        serialised = sum("(C7512)" in ln or "(C7514)" in ln for ln in text.splitlines())
+        log(f"  built {stem}: {'; '.join(regs) or 'ok'}; "
+            f"{len(spills)} of {len(regs)} kernels spill{': ' + '; '.join(spills) if spills else ''}; "
+            f"{serialised} with serialised wgmma")
     log(f"  build {time.time() - t0:.1f} s")
 
     log("== phase 2: kernels against their plain versions (bf16 unless stated)")

@@ -28,20 +28,23 @@ def simple_loss(pred: torch.Tensor, target: torch.Tensor,
 
 def p_losses(eps_fn: Callable, schedule: DiffusionSchedule, x_start: torch.Tensor,
              t: torch.Tensor, noise: torch.Tensor, *, loss_type: str = "l1",
-             logvar: torch.Tensor | None = None, original_elbo_weight: float = 0.0
+             parameterization: str = "eps", logvar: torch.Tensor | None = None,
+             l_simple_weight: float = 1.0, original_elbo_weight: float = 0.0
              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Conditional denoising loss (reference ddpm.py:1015-1048), eps
-    parameterization (the model predicts the noise).
+    """Conditional denoising loss (reference ddpm.py:1015-1048).
 
-    ``eps_fn(x_noisy, t)`` applies the conditioned model; ``logvar`` is the
-    per-timestep log-variance buffer ``[T]`` (None: zeros, the shipped
-    config). Returns ``(loss, {"loss_simple", "loss_vlb", "loss"})``."""
+    ``eps_fn(x_noisy, t)`` applies the conditioned model; with the ``eps``
+    parameterization it predicts the noise, otherwise (``x0``) ``x_start``.
+    ``logvar`` is the per-timestep log-variance buffer ``[T]`` (None: zeros,
+    the shipped config). Returns ``(loss, {"loss_simple", "loss_vlb",
+    "loss"})``."""
     x_noisy = schedule.q_sample(x_start, t, noise)
-    loss_per_sample = simple_loss(eps_fn(x_noisy, t), noise, loss_type)
+    target = noise if parameterization == "eps" else x_start
+    loss_per_sample = simple_loss(eps_fn(x_noisy, t), target, loss_type)
 
     loss_simple = loss_per_sample.mean()
     logvar_t = torch.zeros_like(loss_per_sample) if logvar is None else logvar[t]
-    loss = (loss_per_sample / torch.exp(logvar_t) + logvar_t).mean()
+    loss = (loss_per_sample / torch.exp(logvar_t) + logvar_t).mean() * l_simple_weight
 
     lvlb = schedule.gather(schedule.lvlb_weights, t, 1)
     loss_vlb = (lvlb * loss_per_sample).mean()

@@ -64,18 +64,23 @@ class DiffusionSchedule:
 
     @classmethod
     def create(cls, beta_schedule: str = "linear", timesteps: int = 1000,
-               linear_start: float = 1e-4, linear_end: float = 2e-2) -> "DiffusionSchedule":
+               linear_start: float = 1e-4, linear_end: float = 2e-2,
+               parameterization: str = "eps") -> "DiffusionSchedule":
         betas = make_beta_schedule(beta_schedule, timesteps, linear_start=linear_start,
                                    linear_end=linear_end)
         alphas = 1.0 - betas
         alphas_cumprod = np.cumprod(alphas, axis=0)
         alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
         posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
-        # the eps parameterization's weights (the shipped config's);
-        # posterior_variance[0] == 0 makes lvlb[0] inf, overwritten as the
-        # reference does (ddpm.py:163-171)
-        with np.errstate(divide="ignore"):
-            lvlb = betas ** 2 / (2 * posterior_variance * alphas * (1 - alphas_cumprod))
+        if parameterization == "eps":
+            # posterior_variance[0] == 0 makes lvlb[0] inf, overwritten as the
+            # reference does (ddpm.py:163-171)
+            with np.errstate(divide="ignore"):
+                lvlb = betas ** 2 / (2 * posterior_variance * alphas * (1 - alphas_cumprod))
+        elif parameterization == "x0":
+            lvlb = 0.5 * np.sqrt(alphas_cumprod) / (2.0 * 1 - alphas_cumprod)
+        else:
+            raise NotImplementedError(f"parameterization {parameterization}")
         lvlb[0] = lvlb[1]
         f32 = lambda a: np.asarray(a, dtype=np.float32)  # noqa: E731
         return cls(num_timesteps=int(betas.shape[0]),

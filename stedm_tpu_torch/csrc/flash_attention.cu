@@ -3,254 +3,714 @@
 // Replaces the stock Pallas TPU kernel
 // jax.experimental.pallas.ops.tpu.flash_attention.flash_attention, which the
 // JAX package calls from stedm_tpu/ops/blocked_attention.py:flash_sdpa (the
-// U-Net bottleneck AttentionBlock, [2B, 8, 256, 128]) and from
-// stedm_tpu/models/vq.py:AttnBlockVQ (the VQ decoder mid-block, [B, 1, 4096,
-// 512]). Computes O = softmax(Q K^T * sm_scale) V with an fp32 running max
-// and sum per query row; P is rounded to bf16 before P V, as the stock kernel
-// and the reference's exact path do. Key positions past T are masked, so T
-// need not be a multiple of the tile. When asked, it also writes the fp32
-// log-sum-exp of each query row (natural log of sum_j exp(s_ij * sm_scale)),
-// which the backward kernels (csrc/flash_attention_bwd.cu) use to rebuild P;
-// the stock kernel saves its running max and sum for the same purpose.
+// U-Net bottleneck AttentionBlock: [2B, 8, 256, 128] when sampling at 256^2,
+// [B, 8, 1024, 128] when training at 512^2) and from
+// stedm_tpu/models/vq.py:AttnBlockVQ (the VQ mid-blocks: [B, 1, 4096, 512]
+// and [B, 1, 16384, 512]). Computes O = softmax(Q K^T * sm_scale) V with fp32
+// logits and an fp32 running max and sum per query row; P is rounded to bf16
+// before P V, as the stock kernel and the reference's exact path do. Key
+// positions past T are masked, so T need not be a multiple of the tile. When
+// asked, it also writes the fp32 log-sum-exp of each query row (natural log
+// of sum_j exp(s_ij * sm_scale)), which the backward kernels
+// (csrc/flash_attention_bwd.cu) use to rebuild P.
 //
-// What bounds it on the H100: the two matrix products. At the VQ shape they
-// are ~2.7e11 flops a call against 3e8 bytes of input and output, far above
-// the card's ~295 flops/byte balance point, so the bound is tensor-core
-// throughput. At the U-Net shape (T = 256) the work per call is small and
-// launch and tile-fill overheads dominate.
+// What bounds it on the H100. At Dh 512 the two matrix products: 4 T^2 Dh
+// operations a head against 8 T Dh bytes, far above the card's ~295
+// operations a byte, so the tensor cores are the limit, and they reach their
+// rate only through wgmma. A 64-row query tile is all the registers allow
+// there (its fp32 O is 128 KB), and Q, one K tile and one V tile of 64 keys
+// already fill the shared memory, so the products of one tile cannot overlap
+// the softmax of the next: the kernel runs at about half the peak, with the
+// loads hidden. At T = 256 and Dh 128 a call moves 33.5 MB and runs 17
+// GFLOP: bytes, the launch, and the latency of a load-compute-store chain;
+// at T = 1024 the products again, with the softmax's exponentials to hide.
 //
-// Design (FlashAttention-2 layout on mma.sync; wgmma/TMA pipelines are later
-// work):
-//   * one block of 4 warps per (batch*head, 64-query tile, DVS-wide slice of
-//     the value dimension); each warp owns 16 query rows, so the softmax
-//     needs only shuffles among the 4 lanes that share a row;
-//   * S = Q K^T, the running max/sum and the O accumulator stay in registers
-//     in the m16n8k16 accumulator layout; P is repacked from S's registers
-//     into the A operand of P V without touching shared memory;
-//   * Dh = 512 does not fit a naive tile: an fp32 O accumulator of 16 x 512
-//     would need 256 registers a thread. So a block keeps a DVS = 256 slice of
-//     O (128 registers) and the two blocks of a query tile each compute Q K^T
-//     over the full Dh (2x the Q K^T work at Dh = 512, accepted for now);
-//   * Q (64 x Dh) is loaded into shared memory once; each 64-key tile of K
-//     (64 x Dh) and of V (64 x DVS) is copied in with cp.async, V landing
-//     while Q K^T runs; fragments come out of shared memory with ldmatrix
-//     (rows padded by 16 bytes, so the 8 row addresses of an ldmatrix hit
-//     distinct banks).
+// Design:
+//   * a block is three warpgroups: two consumers that run wgmma and one
+//     producer, one thread of which starts the TMA loads; setmaxnreg moves
+//     the producer's registers to the consumers (24 and 240 a thread), which
+//     the 128 fp32 O values a thread at Dh 256 and 512 need;
+//   * q, k, v are read through 4-D tensor maps {Dh, T, H, B} built from the
+//     tensors' strides, so any batch, head and token stride is taken as it
+//     is; a tile lands in shared memory as 64-column sub-tiles in the
+//     128-byte swizzle that the wgmma descriptors read; rows past T arrive as
+//     zeros; full/empty mbarriers hand the tiles back and forth;
+//   * S = Q K^T: Q (A) and the K tile (B, K-major) from shared memory; O += P
+//     V: the V tile [keys, Dh] as an MN-major B, so V is never transposed;
+//   * Dh <= 256 (flash_fwd_small): each consumer warpgroup owns 64 query rows
+//     of a 128-row tile and the whole O of them in registers; P goes from
+//     S's registers into the A operand of P V. K and V tiles go through
+//     rings of two stages (three at Dh 64) shared by both warpgroups, so K
+//     and V are read once per 128 rows; a K slot is freed as soon as its
+//     Q K^T has landed, a V slot after its P V. Inside a warpgroup Q K^T of
+//     tile i + 1 is started before P V of tile i and the softmax of tile i + 1
+//     runs under that P V; the two warpgroups take turns at starting (named
+//     barriers), so one's softmax runs under the other's products. The
+//     kernel is persistent, one block an SM walking over (head, query tile)
+//     items, with a second Q buffer where it fits: the producer loads the
+//     next item's Q, K and V while this item's last products and its
+//     epilogue run;
+//   * Dh > 256 (flash_fwd_wide): the two consumers share one 64-row query tile,
+//     each owning half of O's columns. S is computed once: each takes half
+//     of the key tile's columns over the full Dh, the row maxima are
+//     combined through shared memory, and P (bf16, 64 x 64, 8 KB) goes
+//     through shared memory as the A operand of both warpgroups' P V. Q, one
+//     K tile, one V tile and P fill the 227 KB, so instead of whole stages
+//     the K tile and the two V halves are released separately: K for tile
+//     i + 1 loads while the softmax and P V of tile i run, each V half while
+//     Q K^T of the next tile runs. Each consumer's 32 m64n32k16 of a tile
+//     go to two accumulators in turn: a chain on one accumulator runs at the
+//     wgmma's latency, not its rate.
+//     A 2-block cluster (one O half a block, K multicast, S exchanged
+//     through distributed shared memory) is the other way to one Q K^T; two
+//     warpgroups of one block were taken because their exchange needs only
+//     named barriers and the block's own shared memory;
+//   * the softmax runs on exp2 with the scale folded into one fused
+//     multiply-add an element; keys >= T are masked to -inf in the last tile
+//     only; rows >= T are not stored.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "wgmma_sm90.cuh"
 
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per tile
-constexpr int THREADS = 128; // 4 warps x 16 query rows
-constexpr int PAD = 8;       // bf16 row padding (16 bytes)
+namespace {
 
 using bf16 = __nv_bfloat16;
 
-__device__ inline uint32_t smem_addr(const void* p) {
+constexpr int WG = 128;             // threads of a warpgroup
+constexpr int THREADS = 3 * WG;     // two consumer warpgroups, then the producer's
+// registers a thread after setmaxnreg: (24 + 2 * 240) * 128 = 64512 of the SM's 65536
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+
+template <int REGS>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+
+constexpr int SUB = 64;             // columns of a sub-tile: 128 bytes, one swizzle row
+constexpr int ROW_BYTES = SUB * 2;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ inline void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
 }
 
-__device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
 }
 
-// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, col-major)
-__device__ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Spin until the barrier has left the phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One TMA box {64 columns, rows of the map's box, 1, 1} at (col, row, head,
+// batch) into shared memory; its bytes are counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int head, int batch) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+         "r"(head), "r"(batch)
+      : "memory");
 }
 
-__device__ inline uint32_t pack_bf16x2(float lo, float hi) {
+// Barrier among the 256 consumer threads, 0 .. 255 (id 0 is __syncthreads).
+__device__ __forceinline__ void consumer_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(2 * WG) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Start copying a rows x cols bf16 tile (cols a multiple of 8) from global
-// memory, row stride src_ld, into shared memory with row stride dst_ld; rows at
-// or past valid_rows are zero-filled (cp.async with a source size of 0).
-__device__ inline void load_tile_async(bf16* dst, int dst_ld, const bf16* src, int src_ld,
-                                       int rows, int cols, int valid_rows) {
-  const int vec_per_row = cols / 8;
-  for (int i = threadIdx.x; i < rows * vec_per_row; i += THREADS) {
-    const int r = i / vec_per_row;
-    const int c = (i % vec_per_row) * 8;
-    const bool ok = r < valid_rows;
-    const bf16* from = ok ? src + (size_t)r * src_ld + c : src;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst + r * dst_ld + c)), "l"(from), "r"(ok ? 16 : 0));
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+struct Params {
+  bf16* o;
+  float* lse;             // [B, H, T] or null
+  int64_t o_sb, o_sh, o_st;  // element strides of o (last dimension contiguous)
+  int t, h, nbh;          // tokens, heads, batch * heads
+  float scale_log2;       // sm_scale * log2(e): the softmax runs on exp2
+};
+
+// SMs of the current device, asked once (the cards of one host are alike).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  return n;
 }
 
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-template <int DVS>
-size_t smem_bytes(int d) {
-  return sizeof(bf16) * ((size_t)(BQ + BK) * (d + PAD) + (size_t)BK * (DVS + PAD));
-}
-
-template <int DVS>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int T, int D, float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldq = D + PAD, ldv = DVS + PAD;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * ldq;
-  bf16* Vs = Ks + BK * ldq;
-
-  const int q0 = blockIdx.x * BQ;
-  const size_t head = (size_t)blockIdx.y * T * D;
-  const int dv0 = blockIdx.z * DVS;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;   // accumulator row (and row + 8) of this lane
-  const int tg = lane & 3;   // accumulator columns 2 tg, 2 tg + 1 of each 8-wide tile
-  // ldmatrix row addresses of this lane: A operand (16 x 16 at Q rows),
-  // B = K^T (two 8-key tiles x 16 of Dh), B = V (16 keys x two 8-wide tiles)
-  const bf16* qa = Qs + (warp * 16 + (lane & 15)) * ldq + (lane >> 4) * 8;
-  const bf16* kb = Ks + ((lane & 7) + ((lane >> 4) << 3)) * ldq + ((lane >> 3) & 1) * 8;
-  const bf16* vb = Vs + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ldv + (lane >> 4) * 8;
-
-  load_tile_async(Qs, ldq, q + head + (size_t)q0 * D, D, BQ, D, T - q0);
-
-  float acc[DVS / 8][4];
+// Masks the keys >= t of a tile (columns key0 + 8 j + 2 tg + (e & 1)) and
+// returns this lane's row maxima of the raw logits, reduced over its quad.
+template <int NREG>
+__device__ __forceinline__ void mask_and_max(float (&s)[NREG], int key0, int t, int tg,
+                                             bool ragged, float (&mx)[2]) {
+  if (ragged) {
 #pragma unroll
-  for (int j = 0; j < DVS / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max (log2 units) of rows g, g + 8
-  float l[2] = {0.f, 0.f};              // this lane's share of the running sum
-
-  for (int kt = 0; kt < T; kt += BK) {
-    const int nk = T - kt < BK ? T - kt : BK;
-    __syncthreads();  // the previous tile's readers of Ks / Vs are done
-    load_tile_async(Ks, ldq, k + head + (size_t)kt * D, D, BK, D, nk);
-    load_tile_async(Vs, ldv, v + head + (size_t)kt * D + dv0, D, BK, DVS, nk);
-    cp_async_wait<1>();  // Q and K have landed; V may still be in flight
-    __syncthreads();
-
-    // ---- S = Q K^T over the full head dimension ----
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      ldmatrix_x4(a, qa + kk);
-#pragma unroll
-      for (int j = 0; j < BK / 8; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, kb + j * 8 * ldq + kk);
-        mma_bf16(s[j], a, b[0], b[1]);
-        mma_bf16(s[j + 1], a, b[2], b[3]);
-      }
-    }
-
-    // ---- online softmax (log2 domain); keys past T are masked ----
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt + j * 8 + 2 * tg + (e & 1);
-        const float x = key < T ? s[j][e] * scale_log2 : -INFINITY;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < DVS / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // ---- O += P V: P (bf16) straight from S's registers ----
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < DVS / 8; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vb + kk * 16 * ldv + j * 8);
-        mma_bf16(acc[j], a, b[0], b[1]);
-        mma_bf16(acc[j + 1], a, b[2], b[3]);
-      }
-    }
+    for (int i = 0; i < NREG; ++i)
+      if (key0 + (i / 4) * 8 + 2 * tg + (i & 1) >= t) s[i] = -INFINITY;
   }
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < NREG; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+}
 
-  // ---- normalise and write this warp's rows (and their LSE) ----
+// s <- exp2(s * scale - m_new) and the running sum; mx holds the tile's raw
+// row maxima. alpha = exp2(m_old - m_new) is what the O accumulator has to be
+// rescaled by (`rescale`) before this tile's P V is added to it.
+template <int NREG>
+__device__ __forceinline__ void softmax_scores(float (&s)[NREG], const float (&mx)[2],
+                                               float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                               float scale_log2) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float inv = 1.f / l[r];
-    const int row = q0 + warp * 16 + g + 8 * r;
-    // the blocks of one query tile (one per O slice) hold identical row
-    // statistics: the first writes them
-    if (lse != nullptr && blockIdx.z == 0 && tg == 0 && row < T)
-      lse[(size_t)blockIdx.y * T + row] = (m[r] + log2f(l[r])) * 0.6931471805599453f;
-    if (row < T) {
-      bf16* out = o + head + (size_t)row * D + dv0 + 2 * tg;
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    alpha[r] = exp2f(m[r] - m_new);  // 0 on the first tile (m = -inf)
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
 #pragma unroll
-      for (int j = 0; j < DVS / 8; ++j)
-        *reinterpret_cast<uint32_t*>(out + j * 8) =
-            pack_bf16x2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+  for (int i = 0; i < NREG; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = exp2f(fmaf(s[i], scale_log2, -m[r]));
+    l[r] += s[i];
+  }
+}
+
+template <int OREG>
+__device__ __forceinline__ void rescale(float (&o)[OREG], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < OREG; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+// Rows row0 + {0, 8} of this lane, columns col0 + 8 j + 2 tg + {0, 1}.
+template <int OREG>
+__device__ __forceinline__ void store_rows(const Params& p, const float (&o)[OREG],
+                                           const float (&inv)[2], int b, int h, int row0,
+                                           int col0, int tg) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= p.t) continue;
+    bf16* out = p.o + b * p.o_sb + h * p.o_sh + row * p.o_st + col0 + 2 * tg;
+#pragma unroll
+    for (int j = 0; j < OREG / 4; ++j)
+      *reinterpret_cast<uint32_t*>(out + j * 8) =
+          pack_bf16x2(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Dh <= 256: 128 query rows an item, 64 a consumer warpgroup, O whole in
+// registers, P from registers, rings of K and V tiles, persistent blocks.
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct Small {
+  static constexpr int BM = 128;
+  static constexpr int BK = D <= 128 ? 128 : 64;
+  static constexpr int NSUB = D / SUB;
+  static constexpr int Q_BYTES = NSUB * BM * ROW_BYTES;
+  static constexpr int KV_BYTES = NSUB * BK * ROW_BYTES;   // one K or one V tile
+  static constexpr int BUDGET = 224 * 1024;
+  // a second Q buffer where two K/V stages still fit beside it, then stages
+  static constexpr int QBUF = 2 * Q_BYTES + 4 * KV_BYTES <= BUDGET ? 2 : 1;
+  static constexpr int STAGES = (BUDGET - QBUF * Q_BYTES) / (2 * KV_BYTES) >= 3 ? 3 : 2;
+  static constexpr int BARS = QBUF * Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int SMEM = BARS + 128 + 1024;           // + barriers + alignment slack
+  static dim3 grid(const Params& p) {                      // one block an SM, or an item
+    const int nwork = (p.t + BM - 1) / BM * p.nbh;
+    return dim3(nwork < sm_count() ? nwork : sm_count());
+  }
+};
+
+// Persistent: the grid is one block an SM, and block x takes the work items
+// x, x + gridDim.x, ... of (batch * head, 128-row query tile), query tiles of
+// one head next to each other. The producer runs ahead across items, so the
+// next item's Q and first K/V tiles land while this item's last products and
+// its epilogue run.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_small(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v, const Params p) {
+  using C = Small<D>;
+  constexpr int BK = C::BK, NSUB = C::NSUB, STAGES = C::STAGES, QBUF = C::QBUF;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t kv_s = base + QBUF * C::Q_BYTES, bars = base + C::BARS;
+  auto q_full = [&](int qb) { return bars + 8 * qb; };
+  auto q_empty = [&](int qb) { return bars + 16 + 8 * qb; };
+  auto k_full = [&](int s) { return bars + 32 + 8 * s; };
+  auto v_full = [&](int s) { return bars + 32 + 8 * (STAGES + s); };
+  auto k_empty = [&](int s) { return bars + 32 + 8 * (2 * STAGES + s); };
+  auto v_empty = [&](int s) { return bars + 32 + 8 * (3 * STAGES + s); };
+
+  const int ntiles = (p.t + BK - 1) / BK;
+  const int nq = (p.t + C::BM - 1) / C::BM;      // query tiles a head
+  const int nwork = nq * p.nbh;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < QBUF; ++qb) {
+      mbar_init(q_full(qb), 1);
+      mbar_init(q_empty(qb), 2 * WG);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 2 * WG);
+      mbar_init(v_empty(s), 2 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 2 * WG) {
+      int it = 0;                                  // K/V tiles loaded so far, over all items
+      int item = 0;
+      for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++item) {
+        const int bh = w / nq, q0 = (w % nq) * C::BM;
+        const int b = bh / p.h, h = bh % p.h;
+        const int qb = item % QBUF;
+        const uint32_t q_s = base + qb * C::Q_BYTES;
+        mbar_wait(q_empty(qb), ((item / QBUF) & 1) ^ 1);
+        mbar_expect_tx(q_full(qb), C::Q_BYTES);
+        for (int sub = 0; sub < NSUB; ++sub)
+          tma_load(q_s + sub * C::BM * ROW_BYTES, &map_q, q_full(qb), sub * SUB, q0, h, b);
+        for (int i = 0; i < ntiles; ++i, ++it) {
+          const int s = it % STAGES;
+          const uint32_t free_parity = ((it / STAGES) & 1) ^ 1;
+          const uint32_t k_s = kv_s + s * 2 * C::KV_BYTES, v_s = k_s + C::KV_BYTES;
+          mbar_wait(k_empty(s), free_parity);
+          mbar_expect_tx(k_full(s), C::KV_BYTES);
+          for (int sub = 0; sub < NSUB; ++sub)
+            tma_load(k_s + sub * BK * ROW_BYTES, &map_k, k_full(s), sub * SUB, i * BK, h, b);
+          mbar_wait(v_empty(s), free_parity);
+          mbar_expect_tx(v_full(s), C::KV_BYTES);
+          for (int sub = 0; sub < NSUB; ++sub)
+            tma_load(v_s + sub * BK * ROW_BYTES, &map_v, v_full(s), sub * SUB, i * BK, h, b);
+        }
+      }
+    }
+  } else {
+    reg_alloc<CONSUMER_REGS>();
+    const int cw = wg;                             // consumer index: query rows 64 cw ..
+    const int warp = (threadIdx.x % WG) / 32, lane = threadIdx.x % 32;
+    const int g = lane >> 2, tg = lane & 3;
+
+    // Software pipeline: Q K^T of tile i + 1 is started before P V of tile i,
+    // and the softmax of tile i + 1 runs while P V of tile i is on the tensor
+    // cores; O is rescaled only after that P V has landed. `it` counts K/V
+    // tiles over all items, as the producer does.
+    float o[D / 2], sc[BK / 2], mx[2], alpha[2], m[2], l[2];
+    uint32_t pa[BK / 16][4];
+    uint32_t q_w = 0;                              // this warpgroup's rows of the item's Q
+    auto start_qk = [&](int it) {
+      const uint32_t k_s = kv_s + (it % STAGES) * 2 * C::KV_BYTES;
+      mbar_wait(k_full(it % STAGES), (it / STAGES) & 1);
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int sub = kk / 4, off = (kk % 4) * 32;
+        wgmma::ss<0>(sc, wgmma::descriptor(q_w / 16 + (sub * C::BM * ROW_BYTES + off) / 16, 16),
+                     wgmma::descriptor(k_s / 16 + (sub * BK * ROW_BYTES + off) / 16, 16),
+                     kk != 0);
+      }
+      wgmma::commit();
+    };
+    auto start_pv = [&](int it) {
+      const uint32_t v_s = kv_s + (it % STAGES) * 2 * C::KV_BYTES + C::KV_BYTES;
+      mbar_wait(v_full(it % STAGES), (it / STAGES) & 1);
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma::rs(o, pa[kk], wgmma::descriptor(v_s / 16 + kk * ROW_BYTES, BK * ROW_BYTES), 1);
+      wgmma::commit();
+    };
+    // the tile's softmax: P (bf16) goes from S's registers into the A operand of P V
+    auto scores = [&](int i) {
+      mask_and_max(sc, i * BK, p.t, tg, (i + 1) * BK > p.t, mx);
+      softmax_scores(sc, mx, m, l, alpha, p.scale_log2);
+    };
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+
+    // The two warpgroups take turns at starting their products (named
+    // barriers 2 and 3, one a warpgroup: it waits on its own, the other
+    // arrives there), so that one's softmax runs under the other's products
+    // instead of both waiting for the tensor cores at once.
+    auto take_turn = [&]() { asm volatile("bar.sync %0, %1;\n" :: "r"(2 + cw), "n"(2 * WG) : "memory"); };
+    auto pass_turn = [&]() { asm volatile("bar.arrive %0, %1;\n" :: "r"(3 - cw), "n"(2 * WG) : "memory"); };
+    if (cw == 1) pass_turn();                            // warpgroup 0 goes first
+
+    int it = 0, item = 0;
+    for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++item) {
+      const int bh = w / nq, q0 = (w % nq) * C::BM;
+      const int qb = item % QBUF;
+      q_w = base + qb * C::Q_BYTES + cw * 64 * ROW_BYTES;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      m[0] = m[1] = -INFINITY;   // running max (scaled, log2 units) of rows g, g + 8
+      l[0] = l[1] = 0.f;         // this lane's share of the running sum
+
+      mbar_wait(q_full(qb), (item / QBUF) & 1);
+      take_turn();
+      start_qk(it);
+      pass_turn();
+      wgmma::wait<0>();
+      mbar_arrive(k_empty(it % STAGES));
+      scores(0);                                           // O is still zero: no rescale
+      pack_p();
+      for (int i = 0; i + 1 < ntiles; ++i, ++it) {
+        take_turn();
+        start_qk(it + 1);
+        start_pv(it);
+        pass_turn();
+        wgmma::wait<1>();                                  // S of tile i + 1 has landed
+        mbar_arrive(k_empty((it + 1) % STAGES));
+        if (i + 2 == ntiles) mbar_arrive(q_empty(qb));     // that was the item's last read of Q
+        scores(i + 1);
+        wgmma::wait<0>();                                  // P V of tile i has landed
+        mbar_arrive(v_empty(it % STAGES));
+        rescale(o, alpha);
+        pack_p();
+      }
+      if (ntiles == 1) mbar_arrive(q_empty(qb));
+      take_turn();
+      start_pv(it);
+      pass_turn();
+      wgmma::wait<0>();
+      mbar_arrive(v_empty(it % STAGES));
+      ++it;
+
+      float inv[2];
+      const int row0 = q0 + cw * 64 + warp * 16 + g;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = quad_sum(l[r]);
+        inv[r] = 1.f / l[r];
+        const int row = row0 + 8 * r;
+        if (p.lse != nullptr && tg == 0 && row < p.t)
+          p.lse[(int64_t)bh * p.t + row] = (m[r] + log2f(l[r])) * 0.6931471805599453f;
+      }
+      store_rows(p, o, inv, bh / p.h, bh % p.h, row0, 0, tg);
     }
   }
 }
 
-template <int DVS>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int t,
-           int d, float sm_scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DVS>(d);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DVS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((t + BQ - 1) / BQ, bh, d / DVS);
-  flash_fwd_kernel<DVS><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, t, d,
-      sm_scale * 1.4426950408889634f);  // log2(e): the softmax runs on exp2
+// ---------------------------------------------------------------------------
+// 256 < Dh <= 512: 64 query rows a block; consumer c owns O's columns of the
+// sub-tiles [SUB0, SUB0 + NS) and computes S for keys 32 c .. 32 c + 31 of
+// each 64-key tile; P goes through shared memory.
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct Wide {
+  static constexpr int BM = 64, BK = 64;
+  static constexpr int NSUB = D / SUB;
+  static constexpr int N0 = (NSUB + 1) / 2;                // sub-tiles of consumer 0
+  static constexpr int TILE_BYTES = NSUB * 64 * ROW_BYTES;  // Q, a K tile or a V tile
+  static constexpr int SUB_BYTES = 64 * ROW_BYTES;
+  static constexpr int P_OFF = 3 * TILE_BYTES;
+  static constexpr int STAT_OFF = P_OFF + SUB_BYTES;       // row maxima, then row sums: [2][64] each
+  static constexpr int BARS = STAT_OFF + 4 * 64 * 4;
+  static constexpr int SMEM = BARS + 64 + 1024;
+  static dim3 grid(const Params& p) { return dim3((p.t + BM - 1) / BM, p.nbh); }
+};
+
+template <int D, int CW>
+__device__ __forceinline__ void wide_consumer(const Params& p, unsigned char* smem, uint32_t base,
+                                              uint32_t bars, int q0, int b, int h, int ntiles) {
+  using C = Wide<D>;
+  constexpr int NSUB = C::NSUB, N0 = C::N0;
+  constexpr int SUB0 = CW == 0 ? 0 : N0;
+  constexpr int NS = CW == 0 ? N0 : NSUB - N0;
+  constexpr int NCOL = NS * SUB;                 // this consumer's O columns
+  const uint32_t q_s = base, k_s = base + C::TILE_BYTES, v_s = base + 2 * C::TILE_BYTES;
+  const uint32_t p_s = base + C::P_OFF;
+  unsigned char* p_ptr = smem + C::P_OFF;
+  float* row_max = reinterpret_cast<float*>(smem + C::STAT_OFF);   // [2][64]
+  float* row_sum = row_max + 2 * 64;                               // [2][64]
+  const uint32_t q_full = bars, k_empty = bars + 40;
+  auto k_full = [&](int c) { return bars + 8 + 8 * c; };
+  const uint32_t v_full = bars + 24 + 8 * CW, v_empty = bars + 48 + 8 * CW;
+
+  const int warp = (threadIdx.x % WG) / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  const int row_l = warp * 16 + g;               // this lane's rows row_l, row_l + 8 of the tile
+
+  float o[NCOL / 2];
+#pragma unroll
+  for (int i = 0; i < NCOL / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const uint32_t parity = i & 1;
+
+    // ---- S (64 x 32) = Q K^T for this consumer's keys, over the full Dh ----
+    // two accumulators, summed below: a chain of m64n32k16 on one
+    // accumulator runs at the wgmma's latency, not its rate
+    float sc[16], sc1[16];
+    mbar_wait(k_full(0), parity);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if (kk == N0 * 4) mbar_wait(k_full(1), parity);
+      const int sub = kk / 4, off = (kk % 4) * 32;
+      const uint64_t da = wgmma::descriptor(q_s / 16 + (sub * C::SUB_BYTES + off) / 16, 16);
+      const uint64_t db = wgmma::descriptor(
+          k_s / 16 + (sub * C::SUB_BYTES + CW * 32 * ROW_BYTES + off) / 16, 16);
+      if (kk % 2 == 0) wgmma::ss<0>(sc, da, db, kk >= 2);
+      if (kk % 2 == 1) wgmma::ss<0>(sc1, da, db, kk >= 2);
+    }
+    wgmma::commit();
+    wgmma::wait<0>();
+#pragma unroll
+    for (int e = 0; e < 16; ++e) sc[e] += sc1[e];
+    mbar_arrive(k_empty);
+
+    // ---- row maxima over both consumers' halves ----
+    float mx[2];
+    mask_and_max(sc, i * 64 + CW * 32, p.t, tg, (i + 1) * 64 > p.t, mx);
+    if (tg == 0) {
+      row_max[CW * 64 + row_l] = mx[0];
+      row_max[CW * 64 + row_l + 8] = mx[1];
+    }
+    consumer_sync(1);   // both halves' maxima are written; P of the last tile has been read
+    mx[0] = fmaxf(mx[0], row_max[(1 - CW) * 64 + row_l]);
+    mx[1] = fmaxf(mx[1], row_max[(1 - CW) * 64 + row_l + 8]);
+    float alpha[2];
+    softmax_scores(sc, mx, m, l, alpha, p.scale_log2);
+    rescale(o, alpha);
+
+    // ---- P (bf16) into its swizzled K-major tile: columns 32 CW + 8 j + 2 tg ----
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_l + 8 * r;
+        const int chunk = (4 * CW + j) ^ (row & 7);
+        *reinterpret_cast<uint32_t*>(p_ptr + row * ROW_BYTES + chunk * 16 + tg * 4) =
+            pack_bf16x2(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    consumer_sync(2);   // P is whole and visible to wgmma
+
+    // ---- O[:, this consumer's columns] += P V ----
+    mbar_wait(v_full, parity);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma::ss<1>(o, wgmma::descriptor(p_s / 16 + kk * 2, 16),
+                         wgmma::descriptor(v_s / 16 + (SUB0 * C::SUB_BYTES) / 16 + kk * ROW_BYTES,
+                                           C::SUB_BYTES), 1);
+    wgmma::commit();
+    wgmma::wait<0>();
+    mbar_arrive(v_empty);
+  }
+
+  // ---- the row sums of both halves, then normalise and store ----
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  if (tg == 0) {
+    row_sum[CW * 64 + row_l] = l[0];
+    row_sum[CW * 64 + row_l + 8] = l[1];
+  }
+  consumer_sync(1);
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float total = l[r] + row_sum[(1 - CW) * 64 + row_l + 8 * r];
+    inv[r] = 1.f / total;
+    const int row = q0 + row_l + 8 * r;
+    if (CW == 0 && p.lse != nullptr && tg == 0 && row < p.t)
+      p.lse[(int64_t)blockIdx.y * p.t + row] = (m[r] + log2f(total)) * 0.6931471805599453f;
+  }
+  store_rows(p, o, inv, b, h, q0 + row_l, SUB0 * SUB, tg);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v, const Params p) {
+  using C = Wide<D>;
+  constexpr int NSUB = C::NSUB, N0 = C::N0;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  // barriers: q_full, k_full[2], v_full[2], k_empty, v_empty[2]
+  const uint32_t bars = base + C::BARS;
+  const uint32_t q_full = bars, k_empty = bars + 40;
+  auto k_full = [&](int c) { return bars + 8 + 8 * c; };
+  auto v_full = [&](int c) { return bars + 24 + 8 * c; };
+  auto v_empty = [&](int c) { return bars + 48 + 8 * c; };
+
+  const int q0 = blockIdx.x * C::BM;
+  const int b = blockIdx.y / p.h, h = blockIdx.y % p.h;
+  const int ntiles = (p.t + C::BK - 1) / C::BK;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(k_empty, 2 * WG);
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(k_full(c), 1);
+      mbar_init(v_full(c), 1);
+      mbar_init(v_empty(c), WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 2 * WG) {
+      const uint32_t q_s = base, k_s = base + C::TILE_BYTES, v_s = base + 2 * C::TILE_BYTES;
+      mbar_expect_tx(q_full, C::TILE_BYTES);
+      for (int sub = 0; sub < NSUB; ++sub)
+        tma_load(q_s + sub * C::SUB_BYTES, &map_q, q_full, sub * SUB, q0, h, b);
+      for (int i = 0; i < ntiles; ++i) {
+        const uint32_t free_parity = (i & 1) ^ 1;
+        mbar_wait(k_empty, free_parity);
+        for (int c = 0; c < 2; ++c) {
+          const int s0 = c == 0 ? 0 : N0, s1 = c == 0 ? N0 : NSUB;
+          mbar_expect_tx(k_full(c), (s1 - s0) * C::SUB_BYTES);
+          for (int sub = s0; sub < s1; ++sub)
+            tma_load(k_s + sub * C::SUB_BYTES, &map_k, k_full(c), sub * SUB, i * 64, h, b);
+        }
+        for (int c = 0; c < 2; ++c) {
+          const int s0 = c == 0 ? 0 : N0, s1 = c == 0 ? N0 : NSUB;
+          mbar_wait(v_empty(c), free_parity);
+          mbar_expect_tx(v_full(c), (s1 - s0) * C::SUB_BYTES);
+          for (int sub = s0; sub < s1; ++sub)
+            tma_load(v_s + sub * C::SUB_BYTES, &map_v, v_full(c), sub * SUB, i * 64, h, b);
+        }
+      }
+    }
+  } else if (wg == 0) {
+    reg_alloc<CONSUMER_REGS>();
+    wide_consumer<D, 0>(p, smem, base, bars, q0, b, h, ntiles);
+  } else {
+    reg_alloc<CONSUMER_REGS>();
+    wide_consumer<D, 1>(p, smem, base, bars, q0, b, h, ntiles);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library links no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &status);
+#endif
+    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 [B, H, T, D] tensor with element strides s = {batch, head, token} as
+// the 4-D map {D, T, H, B}, read in boxes of 64 columns x `rows` tokens.
+bool make_map(CUtensorMap* map, const void* ptr, int b, int h, int t, int d, const int64_t* s,
+              int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)h, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)s[2] * 2, (cuuint64_t)s[1] * 2, (cuuint64_t)s[0] * 2};
+  const cuuint32_t box[4] = {SUB, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename Cfg, typename Kernel>
+int launch(Kernel kernel, const void* q, const void* k, const void* v, const Params& p, int b,
+           int d, const int64_t* strides, cudaStream_t stream) {
+  static bool configured = false;   // one per instantiation
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           Cfg::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  CUtensorMap map_q, map_k, map_v;
+  if (!make_map(&map_q, q, b, p.h, p.t, d, strides, Cfg::BM) ||
+      !make_map(&map_k, k, b, p.h, p.t, d, strides + 3, Cfg::BK) ||
+      !make_map(&map_v, v, b, p.h, p.t, d, strides + 6, Cfg::BK))
+    return (int)cudaErrorInvalidValue;
+  kernel<<<Cfg::grid(p), THREADS, Cfg::SMEM, stream>>>(map_q, map_k, map_v, p);
   return (int)cudaGetLastError();
 }
 
@@ -258,18 +718,28 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 extern "C" {
 
-// q, k, v, o: [BH, T, D] contiguous bf16 on the device; D a multiple of 64,
-// at most 512. lse: [BH, T] fp32, or null when the caller needs no LSE.
-// Returns the cudaError_t of the launch.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                        int bh, int t, int d, float sm_scale, void* stream) {
-  if (d % 64 != 0 || d > 512 || d <= 0 || t <= 0 || bh <= 0) return (int)cudaErrorInvalidValue;
+// q, k, v, o: bf16 [B, H, T, D] on the device, last dimension contiguous;
+// strides: the element strides {batch, head, token} of q, k, v and o (12
+// values), each a multiple of 8 (16 bytes), bases 16-byte aligned. D a
+// multiple of 64, at most 512. lse: contiguous fp32 [B, H, T], or null when
+// the caller needs no LSE. Returns the cudaError_t of the launch.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b,
+                        int h, int t, int d, const int64_t* strides, float sm_scale,
+                        void* stream) {
+  if (d % 64 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  // the widest O slice that divides D: 256 (128 registers a thread) at most
-  float* l = (float*)lse;
-  if (d % 256 == 0) return launch<256>(q, k, v, o, l, bh, t, d, sm_scale, s);
-  if (d % 128 == 0) return launch<128>(q, k, v, o, l, bh, t, d, sm_scale, s);
-  return launch<64>(q, k, v, o, l, bh, t, d, sm_scale, s);
+  const Params p = {(bf16*)o, (float*)lse, strides[9], strides[10], strides[11], t, h, b * h,
+                    sm_scale * 1.4426950408889634f};
+#define SMALL(D) case D: return launch<Small<D>>(flash_fwd_small<D>, q, k, v, p, b, d, strides, s)
+#define WIDE(D) case D: return launch<Wide<D>>(flash_fwd_wide<D>, q, k, v, p, b, d, strides, s)
+  switch (d) {
+    SMALL(64); SMALL(128); SMALL(192); SMALL(256);
+    WIDE(320); WIDE(384); WIDE(448); WIDE(512);
+  }
+#undef SMALL
+#undef WIDE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -31,8 +31,11 @@ class AttentionBlock(nn.Module):
         heads = self.num_heads
         dh = c // heads
         xs = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        # q, k, v as [B, heads, T, dh] views of the packed projection: the
+        # forward kernel reads them in place, and its output comes back laid
+        # out [B, T, heads, dh], so merging the heads below is a view too
         qkv = self.qkv(xs).reshape(b, h * w, heads, 3, dh).permute(0, 2, 3, 1, 4)
-        q, k, v = (qkv[:, :, i].contiguous() for i in range(3))
+        q, k, v = qkv.unbind(2)
         out = sdpa(q, k, v, float(dh) ** -0.25, impl=self.attn_impl)
         out = self.proj_out(out.transpose(1, 2).reshape(b, h * w, c))
         return x + out.reshape(b, h, w, c).permute(0, 3, 1, 2)

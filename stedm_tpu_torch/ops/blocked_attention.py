@@ -4,7 +4,9 @@
 ``csrc/flash_attention.cu`` (the port of the stock Pallas TPU flash-attention
 forward that stedm_tpu/ops/blocked_attention.py:flash_sdpa and
 models/vq.py:AttnBlockVQ call) on CUDA tensors, and ``attention_reference``
-on CPU tensors. When a gradient is wanted it goes through
+on CPU tensors. The forward reads q, k and v through their strides (any
+16-byte-aligned batch, head and token pitch, last dimension contiguous) and
+writes O in any such layout. When a gradient is wanted it goes through
 ``FlashAttentionFunction``, whose backward launches the two kernels of
 ``csrc/flash_attention_bwd.cu`` (the ports of the stock kernel's ``dkv`` and
 ``dq`` Pallas kernels, flash_attention.py:941 and :1287) on CUDA tensors and
@@ -91,23 +93,33 @@ def attention_backward_reference(q, k, v, o, lse, do, sm_scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _fwd_lib():
-    fn = load_library("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+_FNS: dict[str, object] = {}
+
+
+def _kernel_fn(stem: str, name: str, argtypes):
+    """The C entry point ``name`` of ``csrc/<stem>.cu``, its ctypes signature set once."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(load_library(stem), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _FNS[name] = fn
     return fn
+
+
+def _fwd_lib():
+    return _kernel_fn("flash_attention", "flash_attention_fwd",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                      + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
 
 
 def _bwd_lib(name: str, n_ptrs: int):
-    fn = getattr(load_library("flash_attention_bwd"), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                                ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _kernel_fn("flash_attention_bwd", name,
+                      [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3
+                      + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _check_qkv(q, k, v):
+    """The backward kernels' demands: contiguous bf16 CUDA tensors of one shape."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_tensor(t, name, torch.bfloat16, 4)
         if t.data_ptr() % 16:
@@ -116,19 +128,53 @@ def _check_qkv(q, k, v):
         raise ValueError(f"q, k, v shapes differ: {q.shape}, {k.shape}, {v.shape}")
 
 
-def flash_attention_cuda(q, k, v, sm_scale: float, return_lse: bool = False):
-    """Launch the forward kernel on contiguous bf16 ``[B, H, T, Dh]`` CUDA
-    tensors; with ``return_lse`` also returns the fp32 ``[B, H, T]`` LSE."""
-    _check_qkv(q, k, v)
+def check_strided(t: torch.Tensor, name: str) -> tuple[int, int, int]:
+    """What the forward kernel takes of a ``[B, H, T, Dh]`` tensor's layout:
+    the last dimension contiguous, every row on a 16-byte boundary (the base
+    and the batch, head and token pitches; a TMA tensor map carries any such
+    strides). Returns the element strides ``(batch, head, token)``; a
+    dimension of size 1 is never stepped over, so it reports the row length."""
+    if t.dim() != 4:
+        raise ValueError(f"{name} must have 4 dims, got {tuple(t.shape)}")
+    if t.dtype != torch.bfloat16:
+        raise ValueError(f"{name} must be {torch.bfloat16}, got {t.dtype}")
+    d = t.shape[-1]
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}'s last dimension must be contiguous, got stride "
+                         f"{t.stride(-1)}")
+    strides = tuple(t.stride(i) if t.shape[i] > 1 else d for i in range(3))
+    if t.data_ptr() % 16 or any(s % 8 or s <= 0 for s in strides):
+        raise ValueError(f"{name}'s rows must start on 16-byte boundaries: data_ptr "
+                         f"{t.data_ptr():#x}, strides {tuple(t.stride())}")
+    return strides
+
+
+def flash_attention_cuda(q, k, v, sm_scale: float, return_lse: bool = False, out=None):
+    """Launch the forward kernel on bf16 ``[B, H, T, Dh]`` CUDA tensors whose
+    last dimension is contiguous (any 16-byte-aligned batch, head and token
+    strides). ``out`` is where O is written, in any such layout (default: a
+    new contiguous tensor); with ``return_lse`` also returns the fp32
+    ``[B, H, T]`` LSE."""
+    if not (q.shape == k.shape == v.shape):
+        raise ValueError(f"q, k, v shapes differ: {q.shape}, {k.shape}, {v.shape}")
     b, h, t, d = q.shape
     if d % 64 or d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} must be a multiple of 64 and at most "
                          f"{MAX_HEAD_DIM}")
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    elif out.shape != q.shape:
+        raise ValueError(f"out must have q's shape {tuple(q.shape)}, got {tuple(out.shape)}")
+    strides = []
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if not x.is_cuda or x.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on q's device")
+        strides += check_strided(x, name)
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32) if return_lse else None
     err = _fwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     None if lse is None else lse.data_ptr(), b * h, t, d,
-                     float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+                     None if lse is None else lse.data_ptr(), b, h, t, d,
+                     (ctypes.c_int64 * 12)(*strides), float(sm_scale),
+                     torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     LAUNCHES["flash_attention"] += 1
@@ -197,10 +243,13 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float):
 
 class FlashAttentionFunction(torch.autograd.Function):
     """softmax(q k^T * sm_scale) v with the flash kernels on CUDA tensors and
-    the plain versions on CPU tensors; saves q, k, v, the output and the LSE."""
+    the plain versions on CPU tensors; saves q, k, v, the output and the LSE.
+    q, k and v are made contiguous first: the backward kernels take nothing
+    else."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale: float):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         fwd = flash_attention_cuda if q.is_cuda else attention_reference
         out, lse = fwd(q, k, v, sm_scale, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -217,11 +266,17 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 def flash_attention(q, k, v, sm_scale: float):
     """softmax(q k^T * sm_scale) v over ``[B, H, T, Dh]``; differentiable
-    through ``FlashAttentionFunction`` whenever an input requires grad."""
+    through ``FlashAttentionFunction`` whenever an input requires grad.
+    Without a gradient, q, k and v may be strided views (see
+    ``check_strided``), and on a CUDA tensor the result is laid out
+    ``[B, T, H, Dh]`` in memory, so that merging the heads behind it
+    (``out.transpose(1, 2).reshape(B, T, H * Dh)``) is a view."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, float(sm_scale))
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, sm_scale)
+        b, h, t, d = q.shape
+        out = torch.empty((b, t, h, d), device=q.device, dtype=q.dtype).permute(0, 2, 1, 3)
+        return flash_attention_cuda(q, k, v, sm_scale, out=out)
     return attention_reference(q, k, v, sm_scale)
 
 

@@ -68,6 +68,96 @@ def test_flash_attention_gates_head_dim(cuda):
         a.flash_attention(q, q, q, 0.1)
 
 
+def _attention_tolerance(q, k, v, s, ref):
+    """2^-7 (P |V| + |ref|): both sides round P and the output to bf16."""
+    p = torch.softmax((q.float() @ k.float().transpose(-1, -2)) * s, dim=-1)
+    return 2 ** -7 * (p @ v.float().abs() + ref.float().abs())
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 40, 64), (1, 2, 200, 64), (2, 2, 200, 128),
+                                   (1, 2, 200, 256), (1, 1, 40, 512), (1, 1, 4096 + 8, 512),
+                                   (1, 2, 333, 320), (1, 2, 333, 448)])
+def test_flash_attention_forward_ragged_and_lse(cuda, shape):
+    """Every head-dimension class at ragged T (below a tile, between tiles,
+    long): O against the plain version, the LSE against torch.logsumexp, and
+    a second run equal to the first bit for bit."""
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    q, k, v = (torch.randn(shape, generator=cuda, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    s = shape[-1] ** -0.5
+    got, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+    ref = a.attention_reference(q, k, v, s)
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool(((got.float() - ref.float()).abs() <= _attention_tolerance(q, k, v, s, ref)).all())
+    lse_ref = torch.logsumexp((q.float() @ k.float().transpose(-1, -2)) * s, -1)
+    # fp32 sums in another order
+    assert bool(((lse - lse_ref).abs() <= 1e-5 * lse_ref.abs() + 1e-4).all())
+    again, lse_again = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+    assert torch.equal(got, again) and torch.equal(lse, lse_again)
+    assert torch.equal(got, a.flash_attention_cuda(q, k, v, s))   # without the LSE
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 1100, 64), (3, 16, 700, 128), (6, 30, 100, 192),
+                                   (8, 4, 1000, 256), (5, 40, 60, 128)])
+def test_flash_attention_more_work_items_than_blocks(cuda, shape):
+    """Up to Dh 256 the kernel is persistent: more (head, query tile) items
+    than SMs, so a block walks over several, with one, two and many key tiles
+    an item and with one and two Q buffers."""
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    q, k, v = (torch.randn(shape, generator=cuda, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    s = shape[-1] ** -0.5
+    got, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+    for i in range(shape[0]):   # a sample at a time keeps the fp32 logits small
+        qi, ki, vi = q[i:i + 1], k[i:i + 1], v[i:i + 1]
+        ref = a.attention_reference(qi, ki, vi, s)
+        tol = _attention_tolerance(qi, ki, vi, s, ref)
+        assert bool(((got[i:i + 1].float() - ref.float()).abs() <= tol).all()), i
+        lse_ref = torch.logsumexp((qi.float() @ ki.float().transpose(-1, -2)) * s, -1)
+        assert bool(((lse[i:i + 1] - lse_ref).abs() <= 1e-5 * lse_ref.abs() + 1e-4).all()), i
+    again = a.flash_attention_cuda(q, k, v, s)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("b,t,h,dh", [(2, 256, 8, 128), (1, 200, 4, 64), (2, 70, 1, 512)])
+def test_flash_attention_strided_equals_contiguous(cuda, b, t, h, dh):
+    """q, k, v as views of a packed [B, T, H, 3, Dh] projection and a
+    token-major output: bit for bit the contiguous launch."""
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    proj = torch.randn((b, t, h, 3, dh), generator=cuda, device="cuda").to(torch.bfloat16)
+    q, k, v = proj.permute(0, 2, 3, 1, 4).unbind(2)
+    assert not q.is_contiguous()
+    s = dh ** -0.5
+    out = torch.empty((b, t, h, dh), device="cuda", dtype=torch.bfloat16).permute(0, 2, 1, 3)
+    got = a.flash_attention_cuda(q, k, v, s, out=out)
+    assert got.data_ptr() == out.data_ptr()
+    ref = a.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), s)
+    assert torch.equal(got, ref)
+    # the no-gradient entry point lays O out token-major, so the heads merge as a view
+    via = a.flash_attention(q, k, v, s)
+    assert torch.equal(via, ref)
+    merged = via.transpose(1, 2).reshape(b, t, h * dh)
+    assert merged.data_ptr() == via.data_ptr()
+
+
+def test_flash_attention_cuda_refusals(cuda):
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    q = torch.zeros(1, 2, 64, 72, dtype=torch.bfloat16, device="cuda")
+    ok = q[..., :64]
+    a.flash_attention_cuda(ok, ok, ok, 0.1)                 # a row pitch of 144 bytes is fine
+    with pytest.raises(ValueError):
+        a.flash_attention_cuda(q[..., 4:68], ok, ok, 0.1)   # rows start 8 bytes off
+    with pytest.raises(ValueError):
+        a.flash_attention_cuda(ok, ok, ok.float(), 0.1)
+    with pytest.raises(ValueError):
+        a.flash_attention_cuda(ok, ok, ok, 0.1, out=torch.empty(1, 2, 64, 128, device="cuda",
+                                                                 dtype=torch.bfloat16))
+
+
 def test_nearest_code_kernel(cuda):
     from stedm_tpu_torch.ops import quantize as qz
 

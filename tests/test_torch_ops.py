@@ -122,6 +122,82 @@ def test_sdpa_exact_and_chunked_match_jax(shape):
     assert pattn.sdpa(tq, tk, tv, scale, impl="auto").shape == tq.shape
 
 
+def _packed_views(b, t, h, dh, seed):
+    """q, k, v as ``[B, H, T, Dh]`` views of one packed ``[B, T, H, 3, Dh]``
+    projection, the layout the U-Net's AttentionBlock hands the kernel."""
+    proj = np.random.default_rng(seed).normal(size=(b, t, h, 3, dh)).astype(np.float32)
+    return torch.from_numpy(proj).permute(0, 2, 3, 1, 4).unbind(2)
+
+
+@pytest.mark.parametrize("b,t,h,dh", [(2, 64, 4, 32), (1, 50, 2, 64)], ids=["even", "ragged"])
+def test_attention_on_strided_views_equals_contiguous_and_jax(b, t, h, dh):
+    q, k, v = _packed_views(b, t, h, dh, seed=t)
+    assert not q.is_contiguous() and q.stride(-1) == 1
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    scale = float(dh) ** -0.25
+    ref = np.asarray(jattn.sdpa(*(jnp.asarray(x.numpy()) for x in (qc, kc, vc)), scale,
+                                impl="exact"))
+    for impl in ("exact", "chunked", "flash", "auto"):
+        got = pattn.sdpa(q, k, v, scale, impl=impl)
+        assert torch.equal(got, pattn.sdpa(qc, kc, vc, scale, impl=impl)), impl
+        np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
+    got = pattn.flash_attention(q, k, v, scale ** 2)
+    assert torch.equal(got, pattn.flash_attention(qc, kc, vc, scale ** 2))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
+    # merging the heads behind the attention gives the same values either way
+    merged = got.transpose(1, 2).reshape(b, t, h * dh)
+    np.testing.assert_allclose(merged.numpy(), ref.transpose(0, 2, 1, 3).reshape(b, t, h * dh),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_attention_gradients_through_strided_views_match_contiguous():
+    """Under autograd the Function makes its inputs contiguous; the gradient
+    still reaches the packed projection, equal to the contiguous graph's."""
+    proj = torch.from_numpy(np.random.default_rng(3).normal(size=(1, 40, 2, 3, 64))
+                            .astype(np.float32))
+    grads = []
+    for contiguous in (False, True):
+        leaf = proj.clone().requires_grad_()
+        q, k, v = leaf.permute(0, 2, 3, 1, 4).unbind(2)
+        if contiguous:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        pattn.flash_attention(q, k, v, 0.125).square().sum().backward()
+        grads.append(leaf.grad)
+    assert torch.equal(*grads) and float(grads[0].abs().max()) > 0
+
+
+def test_check_strided_accepts_the_packed_layout():
+    proj = torch.zeros(2, 16, 4, 3, 64, dtype=torch.bfloat16)
+    for x in proj.permute(0, 2, 3, 1, 4).unbind(2):
+        assert pattn.check_strided(x, "x") == (16 * 4 * 3 * 64, 3 * 64, 4 * 3 * 64)
+    out = torch.empty(2, 16, 4, 64, dtype=torch.bfloat16).permute(0, 2, 1, 3)
+    assert pattn.check_strided(out, "out") == (16 * 4 * 64, 64, 4 * 64)
+    # a dimension of size 1 reports the row length, whatever torch says of it
+    one = torch.empty(2, 1, 16, 64, dtype=torch.bfloat16)
+    assert pattn.check_strided(one, "one") == (16 * 64, 64, 64)
+
+
+@pytest.mark.parametrize("case", ["last_stride", "token_pitch", "base", "dtype", "rank"])
+def test_check_strided_refusals(case):
+    base = torch.zeros(2, 2, 16, 72, dtype=torch.bfloat16)
+    bad = {
+        "last_stride": lambda: base.transpose(2, 3)[..., :64],  # last dimension strided
+        "token_pitch": lambda: torch.zeros(2, 2, 16, 68, dtype=torch.bfloat16)[..., :64],
+        "base": lambda: base[..., 4:68],                        # rows start 8 bytes off
+        "dtype": lambda: base.float()[..., :64],
+        "rank": lambda: base[0, ..., :64],
+    }[case]()
+    with pytest.raises(ValueError):
+        pattn.check_strided(bad, "q")
+    assert pattn.check_strided(base[..., :64], "q") == (2 * 16 * 72, 16 * 72, 72)
+
+
+def test_flash_attention_cuda_refuses_cpu_tensors():
+    q = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        pattn.flash_attention_cuda(q, q, q, 0.125)
+
+
 def test_sdpa_rejects_unknown_impl():
     q = torch.zeros(1, 1, 4, 64)
     with pytest.raises(ValueError):
