@@ -17,9 +17,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernels at the sampling and the training shapes, the flash forward also
    at a ragged T, at Dh 256 and on the strided views that the U-Net's
    AttentionBlock hands it, bit for bit against contiguous copies;
-   2b. the flash-attention backward kernels (dkv, dq), launched directly and
-   through ``FlashAttentionFunction``, against ``attention_backward_reference``
-   at the training shapes, and the forward's output and LSE against
+   2b. the flash-attention backward (its Di pass and the fused kernel for dQ,
+   dK and dV), launched directly and through ``FlashAttentionFunction`` on
+   the AttentionBlock's strided views, against ``attention_backward_reference``
+   at the training shapes, two launches bit for bit, the Di pass against
+   ``_row_dot``, and the forward's output and LSE against
    ``attention_reference`` and ``torch.logsumexp``;
    2c. ``GNSiLUFunction`` on the card (Triton forward, plain backward): its
    output against ``gn_silu_reference``, its gradients against autograd of
@@ -336,19 +338,26 @@ def _abs_bound(*pairs):
     return sum(a.float().abs() @ b.float().abs() for a, b in pairs)
 
 
-def check_attention_backward(torch, rec_dkv, rec_dq, flush):
-    """Phase 2b: dkv and dq against the plain backward, the forward's LSE
-    against torch.logsumexp; times beside the plain backward and the
-    autograd backward of SDPA (both compute dq, dk and dv together: compare
-    them with dkv + dq)."""
+def check_attention_backward(torch, rec, flush):
+    """Phase 2b: the backward (Di pass + fused kernel) against the plain
+    backward, the forward's LSE against torch.logsumexp; times beside the
+    plain backward and the autograd backward of SDPA (all three compute dq,
+    dk and dv together)."""
     from stedm_tpu_torch.ops import blocked_attention as a
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     # 512^2 training bottleneck, a shorter sequence, the tiny card model's Dh
     for shape in ((8, 8, 1024, 128), (4, 8, 256, 128), (2, 4, 64, 64)):
-        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-                       for _ in range(4))
-        s = shape[-1] ** -0.5
+        b, h, t, dh = shape
+        # q, k, v as the AttentionBlock hands them over: views of one packed
+        # [B, T, H, 3, Dh] projection; the output gradient token-major, as it
+        # comes back through the head merge
+        proj = torch.randn((b, t, h, 3, dh), generator=gen, device="cuda").to(torch.bfloat16)
+        qv, kv, vv = proj.permute(0, 2, 3, 1, 4).unbind(2)
+        q, k, v = qv.contiguous(), kv.contiguous(), vv.contiguous()
+        do_tm = torch.randn((b, t, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+        do = do_tm.permute(0, 2, 1, 3).contiguous()
+        s = dh ** -0.5
         o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
         logits = (q.float() @ k.float().transpose(-1, -2)) * s
         lse_ref = torch.logsumexp(logits, -1)
@@ -361,74 +370,95 @@ def check_attention_backward(torch, rec_dkv, rec_dq, flush):
         log(f"  forward O {list(shape)}: max_abs_err={o_err:.3e} (tolerance 2^-7 (P|V| + |ref|)) "
             f"{'ok' if o_ok else 'OUT OF TOLERANCE'}")
         require(o_ok, f"forward output disagrees with attention_reference at {list(shape)}")
-        di = a._row_dot(do, o)
-        dk, dv = a.flash_attention_bwd_dkv_cuda(q, k, v, lse, do, di, s)
-        dq = a.flash_attention_bwd_dq_cuda(q, k, v, lse, do, di, s)
-        # the same gradients through FlashAttentionFunction, as the model takes
-        # them; the output gradient reaches it non-contiguous, as it does
-        # behind the AttentionBlock's reshape
-        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        out_fn = a.flash_attention(*leaves, s)
-        grads_fn = torch.autograd.grad(out_fn.transpose(1, 2), leaves,
-                                       do.transpose(1, 2).contiguous())
-        del leaves
+        ws = torch.empty(a.bwd_workspace_bytes(b * h, t, dh), device="cuda", dtype=torch.uint8)
+        got = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s, workspace=ws)
+        # the Di pass: [BH, nq, 2, 64] of LSE * log2(e) and Di, padded past T
+        nq = (t + 63) // 64
+        stats = ws[:b * h * nq * 2 * 64 * 4].view(torch.float32).view(b * h, nq, 2, 64)
+        stats = stats.transpose(1, 2).reshape(b, h, 2, nq * 64)
+        di_ref = a._row_dot(do, o)
+        di_err = float((stats[:, :, 1, :t] - di_ref).abs().max())
+        di_tol = 1e-5 * float((do.float() * o.float()).abs().sum(-1).max())
+        lse2_err = float((stats[:, :, 0, :t] - lse * 1.4426950408889634).abs().max())
+        pad_ok = bool((stats[:, :, 1, t:] == 0).all() and torch.isinf(stats[:, :, 0, t:]).all())
+        log(f"  Di pass {list(shape)}: Di max_abs_err={di_err:.3e} against _row_dot (tolerance "
+            f"{di_tol:.3e}: fp32 sums in another order), LSE*log2(e) {lse2_err:.3e}, padding "
+            f"{'ok' if pad_ok else 'WRONG'}")
+        require(di_err <= di_tol and lse2_err <= 1e-5 * float(lse.abs().max()) + 1e-6 and pad_ok,
+                f"the Di pass disagrees at {list(shape)}")
+        again = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+        # the same gradients through FlashAttentionFunction on the strided
+        # views, as the model takes them
+        leaves = proj.detach().clone().requires_grad_()
+        lq, lk, lv = leaves.permute(0, 2, 3, 1, 4).unbind(2)
+        out_fn = a.flash_attention(lq, lk, lv, s)
+        out_fn.transpose(1, 2).backward(do_tm)
+        grads_fn = leaves.grad.permute(0, 2, 3, 1, 4).unbind(2)
         ref = a.attention_backward_reference(q, k, v, o, lse, do, s)
         torch.cuda.synchronize()
-        # the kernels are deterministic, so the Function's results equal the
-        # direct launches bit for bit
-        same = torch.equal(out_fn, o) and all(
-            torch.equal(x, y) for x, y in zip(grads_fn, (dq, dk, dv)))
-        del out_fn
+        # dQ's parts are added in a fixed order: two launches give the same
+        # bits, and so do the Function on the views and the direct launch
+        run_diff = max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, again))
+        same = torch.equal(out_fn.detach(), o) and all(
+            torch.equal(x, y) for x, y in zip(grads_fn, got))
+        del out_fn, leaves, again
         # P and dS round to bf16 on both sides (at most one ulp apart), the
         # sums run in other orders and the outputs round to bf16: within 2^-7
         # of the sum of |terms| plus |ref|
         p = torch.softmax(logits, -1)
         del logits
-        ds = p * (do.float() @ v.float().transpose(-1, -2) - di[..., None]) * s
+        ds = p * (do.float() @ v.float().transpose(-1, -2) - di_ref[..., None]) * s
         errs, fn_errs = {}, {}
-        for name, got, got_fn, r, bound in (
-                ("dq", dq, grads_fn[0], ref[0], _abs_bound((ds, k))),
-                ("dk", dk, grads_fn[1], ref[1], _abs_bound((ds.transpose(-1, -2), q))),
-                ("dv", dv, grads_fn[2], ref[2], _abs_bound((p.transpose(-1, -2), do)))):
+        for name, g, g_fn, r, bound in (
+                ("dq", got[0], grads_fn[0], ref[0], _abs_bound((ds, k))),
+                ("dk", got[1], grads_fn[1], ref[1], _abs_bound((ds.transpose(-1, -2), q))),
+                ("dv", got[2], grads_fn[2], ref[2], _abs_bound((p.transpose(-1, -2), do)))):
             tol = 2 ** -7 * (bound + r.float().abs())
-            for out, g in ((errs, got), (fn_errs, got_fn)):
-                diff = (g.float() - r.float()).abs()
+            for out, x in ((errs, g), (fn_errs, g_fn)):
+                diff = (x.float() - r.float()).abs()
                 out[name] = (float(diff.max()), bool((diff <= tol).all()))
             del diff, bound, tol
         del p, ds, ref, grads_fn
-        for label, e in (("kernels", errs), ("FlashAttentionFunction", fn_errs)):
+        for label, e in (("kernel", errs), ("FlashAttentionFunction (strided views)", fn_errs)):
             log(f"  backward {list(shape)} {label}: " + ", ".join(
                 f"{n} max_abs_err={x:.3e} {'ok' if ok else 'OUT OF TOLERANCE'}"
                 for n, (x, ok) in e.items()) + " (tolerance 2^-7 (sum|terms| + |ref|))")
-        log(f"  FlashAttentionFunction output and gradients equal the direct launches bit "
-            f"for bit: {same}")
+        log(f"  two launches: max |diff| {run_diff:.3e} (run to run); FlashAttentionFunction on "
+            f"the strided views equals the direct launch bit for bit: {same}")
+        require(run_diff == 0.0, f"two backward launches differ at {list(shape)}")
         require(same and all(ok for _, ok in fn_errs.values()),
                 f"FlashAttentionFunction's gradients disagree at {list(shape)}")
+        # the kernel and SDPA's backward in turns (kernel, SDPA, SDPA, kernel,
+        # kernel, SDPA), before the fp32 plain version; each the fastest of
+        # its three turns: a turn now and then reads several times the others
+        # (the host's path through the wrapper or autograd outlasting the
+        # 0.5 ms head start on a shared host CPU)
         iters = 10
-        ms_dkv = time_ms(lambda: a.flash_attention_bwd_dkv_cuda(q, k, v, lse, do, di, s),
-                         iters, flush)
-        ms_dq = time_ms(lambda: a.flash_attention_bwd_dq_cuda(q, k, v, lse, do, di, s),
-                        iters, flush)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=s)
+        kernel = lambda: a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+        library = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+        order = (kernel, library, library, kernel, kernel, library)
+        turns = [time_ms(f, iters, flush) for f in order]
+        k_turns = [t_ for f, t_ in zip(order, turns) if f is kernel]
+        l_turns = [t_ for f, t_ in zip(order, turns) if f is library]
+        ms, lib = min(k_turns), min(l_turns)
+        del out, leaves
+        ms_views = time_ms(lambda: a.flash_attention_bwd_cuda(qv, kv, vv, o, lse, do, s), iters,
+                           flush)
         ms_di = time_ms(lambda: a._row_dot(do, o), iters, flush)
         pms = time_ms(lambda: a.attention_backward_reference(q, k, v, o, lse, do, s), 3, flush)
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=s)
-        lib = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters,
-                      flush)
-        del out, leaves
-        bh, t, dh = shape[0] * shape[1], shape[2], shape[3]
-        n = bh * t * dh
-        pair_bound = max((5 * n * 2 + bh * t * 4 + 3 * n * 2) / HBM_BYTES_PER_S,
-                         10 * bh * t * t * dh / BF16_FLOPS) * 1e3
-        log(f"  backward {list(shape)}: dkv+dq {ms_dkv + ms_dq:.4f} ms (+ Di {ms_di:.4f} ms "
-            f"in torch) against the pair's bound {pair_bound:.4f} ms (10 BH T^2 Dh flops)")
-        # each kernel's own function: dkv needs S, dV, dP, dK (8 BH T^2 Dh
-        # flops), dq needs S, dP, dQ (6); both read q, k, v, dO, LSE and Di
-        reads = 4 * n * 2 + 2 * bh * t * 4
-        rec_dkv.add(shape, max(errs["dk"][0], errs["dv"][0]), errs["dk"][1] and errs["dv"][1],
-                    ms_dkv, pms, lib, reads + 2 * n * 2, 8 * bh * t * t * dh, BF16_FLOPS)
-        rec_dq.add(shape, errs["dq"][0], errs["dq"][1], ms_dq, pms, lib, reads + n * 2,
-                   6 * bh * t * t * dh, BF16_FLOPS)
+        log(f"  backward {list(shape)}: {ms:.4f} ms (Di pass, fused kernel, dQ conversion; turns "
+            + ", ".join(f"{x:.4f}" for x in k_turns) + f") on contiguous q, k, v, {ms_views:.4f} "
+            f"ms on the strided views; SDPA's backward {lib:.4f} ms (turns "
+            + ", ".join(f"{x:.4f}" for x in l_turns) + f"); Di as a torch expression "
+            f"(_row_dot) alone takes {ms_di:.4f} ms")
+        n = b * h * t * dh
+        # reads q, k, v, o, dO and the LSE, writes dq, dk, dv; the five
+        # products 10 BH T^2 Dh flops
+        rec.add(shape, max(e for e, _ in errs.values()), all(ok for _, ok in errs.values()), ms,
+                pms, lib, 5 * n * 2 + b * h * t * 4 + 3 * n * 2, 10 * b * h * t * t * dh,
+                BF16_FLOPS)
 
 
 def check_gn_backward(torch, flush):
@@ -543,8 +573,8 @@ def tiny_train_parity(torch):
         after = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
         runs[dev] = (losses, grads, {k: after[k] - before[k] for k in before}, counts)
     (lc, gc, dc, _), (lg, gg, dg, counts) = runs["cpu"], runs["cuda"]
-    require(counts["flash_attention_bwd_dkv"] >= 3 and counts["flash_attention_bwd_dq"] >= 3,
-            f"the card's tiny training did not launch the backward kernels: {counts}")
+    require(counts["flash_attention_bwd"] >= 3,
+            f"the card's tiny training did not launch the backward kernel: {counts}")
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
     log(f"  losses card {['%.5f' % x for x in lg]} cpu {['%.5f' % x for x in lc]}: max rel err "
         f"{loss_err:.3e} (tolerance 2e-2)")
@@ -573,6 +603,7 @@ def tiny_train_parity(torch):
 
 def train_flagship(torch, out_dir: Path) -> dict:
     """Phase 4b: full-width training (the second main path); returns its numbers."""
+    from stedm_tpu_torch.models.attention import AttentionBlock
     from stedm_tpu_torch.models.layers import GNSiLU
     from stedm_tpu_torch.models.stedm import build_flagship
     from stedm_tpu_torch.ops import LAUNCHES, PLAIN_CALLS, reset_launch_counts
@@ -601,9 +632,11 @@ def train_flagship(torch, out_dir: Path) -> dict:
         f"micro-step {counts}, plain GN backward calls {plain['gn_silu_bwd']}; GN modules "
         f"{n_gn}")
     require(bool(torch.isfinite(m["loss"])), "non-finite training loss")
-    for name in ("gn_silu", "flash_attention", "flash_attention_bwd_dkv",
-                 "flash_attention_bwd_dq"):
+    for name in ("gn_silu", "flash_attention", "flash_attention_bwd"):
         require(counts[name] >= 1, f"no {name} launch in a training micro-step: {counts}")
+    n_attn = sum(isinstance(x, AttentionBlock) for x in model.unet.modules())
+    require(counts["flash_attention_bwd"] == n_attn,
+            f"{counts['flash_attention_bwd']} backward launches for {n_attn} AttentionBlocks")
     require(plain["gn_silu_bwd"] >= 1, "no GN backward in a training micro-step")
     for g, mod in groups.items():
         grads = [p.grad for p in mod.parameters()]
@@ -660,8 +693,7 @@ def train_flagship(torch, out_dir: Path) -> dict:
 _CATEGORIES = (
     ("gn_silu (Triton)", r"stats_kernel|apply_kernel"),
     ("flash_attention (CUDA)", r"flash_fwd_"),
-    ("flash_attention_bwd_dkv (CUDA)", r"flash_bwd_dkv_kernel"),
-    ("flash_attention_bwd_dq (CUDA)", r"flash_bwd_dq_kernel"),
+    ("flash_attention_bwd (CUDA)", r"flash_bwd"),
     ("nearest_code (CUDA)", r"nearest_code_kernel"),
     ("convolution (cuDNN)", r"conv|cudnn|fprop|dgrad|wgrad|implicit|xmma_.*(nhwc|nchw)"),
     ("matmul (cuBLAS)", r"gemm|cutlass|cublas|splitK|nvjet"),
@@ -766,12 +798,10 @@ def main() -> int:
         "flash_attention": KernelRecord(
             "flash_attention", "cuda", "stedm_tpu_torch/csrc/flash_attention.cu",
             "stedm_tpu/ops/blocked_attention.py:99"),
-        "flash_attention_bwd_dkv": KernelRecord(
-            "flash_attention_bwd_dkv", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
-            f"{stock_flash}:941"),
-        "flash_attention_bwd_dq": KernelRecord(
-            "flash_attention_bwd_dq", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
-            f"{stock_flash}:1287"),
+        "flash_attention_bwd": KernelRecord(
+            "flash_attention_bwd", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
+            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
+            "(_flash_attention_bwd_dq)"),
         "nearest_code": KernelRecord("nearest_code", "cuda",
                                      "stedm_tpu_torch/csrc/nearest_code.cu",
                                      "stedm_tpu/ops/quantize.py:62"),
@@ -779,9 +809,9 @@ def main() -> int:
     check_gn(torch, recs["gn_silu"], flush)
     check_attention(torch, recs["flash_attention"], flush)
     check_nearest(torch, recs["nearest_code"], flush)
-    log("== phase 2b: flash-attention backward kernels against their plain version")
-    check_attention_backward(torch, recs["flash_attention_bwd_dkv"],
-                             recs["flash_attention_bwd_dq"], flush)
+    log("== phase 2b: flash-attention backward (Di pass + fused kernel) against its plain "
+        "version")
+    check_attention_backward(torch, recs["flash_attention_bwd"], flush)
     log("== phase 2c: GroupNorm+SiLU backward (GNSiLUFunction) against autograd")
     check_gn_backward(torch, flush)
     del scratch

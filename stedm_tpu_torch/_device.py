@@ -3,7 +3,8 @@
 CUDA sources under ``stedm_tpu_torch/csrc/`` are compiled with ``nvcc`` for
 ``sm_90a`` into one shared library each, with a plain C interface loaded
 through ``ctypes``. The libraries go to ``build/kernels/`` at the repository
-root (git-ignored) at first use; a library older than its source is rebuilt.
+root (git-ignored) at first use; a library older than its source or than
+any ``csrc/*.cuh`` header is rebuilt.
 """
 
 from __future__ import annotations
@@ -50,9 +51,13 @@ def _lib_path(stem: str) -> Path:
 
 
 def _stale(stem: str) -> bool:
+    """Whether ``lib<stem>.so`` is missing or older than its source or than
+    any header under ``csrc/`` (the sources include them)."""
     lib = _lib_path(stem)
-    src = CSRC / f"{stem}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{stem}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(src.stat().st_mtime for src in sources)
 
 
 def _start_build(stem: str) -> tuple[subprocess.Popen, Path]:

@@ -11,8 +11,8 @@
 // before P V, as the stock kernel and the reference's exact path do. Key
 // positions past T are masked, so T need not be a multiple of the tile. When
 // asked, it also writes the fp32 log-sum-exp of each query row (natural log
-// of sum_j exp(s_ij * sm_scale)), which the backward kernels
-// (csrc/flash_attention_bwd.cu) use to rebuild P.
+// of sum_j exp(s_ij * sm_scale)), which the backward
+// (csrc/flash_attention_bwd.cu) uses to rebuild P.
 //
 // What bounds it on the H100. At Dh 512 the two matrix products: 4 T^2 Dh
 // operations a head against 8 T Dh bytes, far above the card's ~295
@@ -75,80 +75,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_async.cuh"
 #include "wgmma_sm90.cuh"
 
 namespace {
 
+using namespace sm90;
 using bf16 = __nv_bfloat16;
 
-constexpr int WG = 128;             // threads of a warpgroup
 constexpr int THREADS = 3 * WG;     // two consumer warpgroups, then the producer's
 // registers a thread after setmaxnreg: (24 + 2 * 240) * 128 = 64512 of the SM's 65536
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-
-template <int REGS>
-__device__ __forceinline__ void reg_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REGS));
-}
-
-template <int REGS>
-__device__ __forceinline__ void reg_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REGS));
-}
-
-constexpr int SUB = 64;             // columns of a sub-tile: 128 bytes, one swizzle row
-constexpr int ROW_BYTES = SUB * 2;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// Spin until the barrier has left the phase of the given parity.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One TMA box {64 columns, rows of the map's box, 1, 1} at (col, row, head,
-// batch) into shared memory; its bytes are counted on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int row, int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
-         "r"(head), "r"(batch)
-      : "memory");
-}
-
-// Barrier among the 256 consumer threads, 0 .. 255 (id 0 is __syncthreads).
-__device__ __forceinline__ void consumer_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(2 * WG) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -167,17 +104,6 @@ struct Params {
   int t, h, nbh;          // tokens, heads, batch * heads
   float scale_log2;       // sm_scale * log2(e): the softmax runs on exp2
 };
-
-// SMs of the current device, asked once (the cards of one host are alike).
-inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
 
 // Masks the keys >= t of a tile (columns key0 + 8 j + 2 tg + (e & 1)) and
 // returns this lane's row maxima of the raw logits, reduced over its quad.
@@ -655,56 +581,14 @@ flash_fwd_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
 // Host side
 // ---------------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so the library links no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &status);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                              &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A bf16 [B, H, T, D] tensor with element strides s = {batch, head, token} as
-// the 4-D map {D, T, H, B}, read in boxes of 64 columns x `rows` tokens.
-bool make_map(CUtensorMap* map, const void* ptr, int b, int h, int t, int d, const int64_t* s,
-              int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)h, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)s[2] * 2, (cuuint64_t)s[1] * 2, (cuuint64_t)s[0] * 2};
-  const cuuint32_t box[4] = {SUB, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename Cfg, typename Kernel>
 int launch(Kernel kernel, const void* q, const void* k, const void* v, const Params& p, int b,
            int d, const int64_t* strides, cudaStream_t stream) {
-  static bool configured = false;   // one per instantiation
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           Cfg::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  // set before every launch, so that a launch from another host thread
+  // (autograd's worker, when a checkpointed block recomputes) sees it
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Cfg::SMEM);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap map_q, map_k, map_v;
   if (!make_map(&map_q, q, b, p.h, p.t, d, strides, Cfg::BM) ||
       !make_map(&map_k, k, b, p.h, p.t, d, strides + 3, Cfg::BK) ||

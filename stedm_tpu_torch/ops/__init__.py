@@ -2,7 +2,9 @@
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched the kernel on
 the card (calls that took the plain version on a CPU tensor do not count), so
-a run can show that its main path went through the kernels.
+a run can show that its main path went through the kernels. The flash
+backward's Di pass and fused kernel are launched together and count once,
+under ``flash_attention_bwd``.
 
 ``PLAIN_CALLS`` counts the passes that run plain PyTorch on the card where a
 kernel's gradient is needed but the TPU side had no kernel either (the
@@ -10,8 +12,7 @@ GroupNorm backward, a jnp function in the JAX package); they are not kernel
 launches and stay out of ``LAUNCHES``.
 """
 
-LAUNCHES = {"gn_silu": 0, "flash_attention": 0, "flash_attention_bwd_dkv": 0,
-            "flash_attention_bwd_dq": 0, "nearest_code": 0}
+LAUNCHES = {"gn_silu": 0, "flash_attention": 0, "flash_attention_bwd": 0, "nearest_code": 0}
 PLAIN_CALLS = {"gn_silu_bwd": 0}
 
 

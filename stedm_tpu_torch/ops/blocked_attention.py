@@ -7,11 +7,13 @@ models/vq.py:AttnBlockVQ call) on CUDA tensors, and ``attention_reference``
 on CPU tensors. The forward reads q, k and v through their strides (any
 16-byte-aligned batch, head and token pitch, last dimension contiguous) and
 writes O in any such layout. When a gradient is wanted it goes through
-``FlashAttentionFunction``, whose backward launches the two kernels of
-``csrc/flash_attention_bwd.cu`` (the ports of the stock kernel's ``dkv`` and
-``dq`` Pallas kernels, flash_attention.py:941 and :1287) on CUDA tensors and
-``attention_backward_reference`` on CPU tensors. The backward takes head
-dimensions 64 and 128; the VQ attention (Dh 512) runs only without gradient.
+``FlashAttentionFunction``, whose backward launches
+``csrc/flash_attention_bwd.cu`` (a Di pass and one fused kernel for dQ, dK
+and dV: the port of the stock kernel's ``dkv`` and ``dq`` Pallas kernels,
+flash_attention.py:941 and :1287) on CUDA tensors, reading the same strided
+views, and ``attention_backward_reference`` on CPU tensors. The backward
+takes head dimensions 64 and 128; the VQ attention (Dh 512) runs only
+without gradient.
 
 ``sdpa`` keeps the JAX dispatch by name. ``exact``, ``chunked``, ``flash`` and
 ``auto`` name TPU memory strategies for one function, so on a CUDA tensor all
@@ -76,8 +78,8 @@ def attention_reference(q, k, v, sm_scale: float, return_lse: bool = False):
 
 
 def attention_backward_reference(q, k, v, o, lse, do, sm_scale: float):
-    """Plain version of the two backward kernels, step by step: P rebuilt from
-    the LSE in the log2 domain, Di = rowsum(dO o O), dV = P^T dO,
+    """Plain version of the backward (Di pass and fused kernel), step by step:
+    P rebuilt from the LSE in the log2 domain, Di = rowsum(dO o O), dV = P^T dO,
     dP = dO V^T, dS = P o (dP - Di) * sm_scale, dK = dS^T Q, dQ = dS K; P and
     dS rounded to q's dtype before their products, every sum fp32. Returns
     ``(dq, dk, dv)`` in the dtypes of q, k, v."""
@@ -96,12 +98,12 @@ def attention_backward_reference(q, k, v, o, lse, do, sm_scale: float):
 _FNS: dict[str, object] = {}
 
 
-def _kernel_fn(stem: str, name: str, argtypes):
+def _kernel_fn(stem: str, name: str, argtypes, restype=ctypes.c_int):
     """The C entry point ``name`` of ``csrc/<stem>.cu``, its ctypes signature set once."""
     fn = _FNS.get(name)
     if fn is None:
         fn = getattr(load_library(stem), name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fn.argtypes, fn.restype = argtypes, restype
         _FNS[name] = fn
     return fn
 
@@ -112,24 +114,21 @@ def _fwd_lib():
                       + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
 
 
-def _bwd_lib(name: str, n_ptrs: int):
-    return _kernel_fn("flash_attention_bwd", name,
-                      [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3
-                      + [ctypes.c_float, ctypes.c_void_p])
+def _bwd_lib():
+    return _kernel_fn("flash_attention_bwd", "flash_attention_bwd",
+                      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                      + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
 
 
-def _check_qkv(q, k, v):
-    """The backward kernels' demands: contiguous bf16 CUDA tensors of one shape."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_cuda_tensor(t, name, torch.bfloat16, 4)
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary (cp.async)")
-    if not (q.shape == k.shape == v.shape):
-        raise ValueError(f"q, k, v shapes differ: {q.shape}, {k.shape}, {v.shape}")
+def bwd_workspace_bytes(bh: int, t: int, d: int) -> int:
+    """Device bytes the backward needs: the Di pass's output, the dQ turn
+    counters and, with more than one 128-key tile, the fp32 sums of dQ."""
+    return _kernel_fn("flash_attention_bwd", "flash_attention_bwd_workspace", [ctypes.c_int] * 3,
+                      ctypes.c_size_t)(bh, t, d)
 
 
 def check_strided(t: torch.Tensor, name: str) -> tuple[int, int, int]:
-    """What the forward kernel takes of a ``[B, H, T, Dh]`` tensor's layout:
+    """What the flash kernels take of a ``[B, H, T, Dh]`` tensor's layout:
     the last dimension contiguous, every row on a 16-byte boundary (the base
     and the batch, head and token pitches; a TMA tensor map carries any such
     strides). Returns the element strides ``(batch, head, token)``; a
@@ -182,76 +181,88 @@ def flash_attention_cuda(q, k, v, sm_scale: float, return_lse: bool = False, out
 
 
 def _row_dot(do, o):
-    """Di = rowsum(dO o O) in fp32, ``[B, H, T]``; computed outside the stock
-    kernels too (flash_attention.py:273-275)."""
+    """Di = rowsum(dO o O) in fp32, ``[B, H, T]``: the plain version of the
+    backward's Di pass (jnp outside the stock kernels,
+    flash_attention.py:273-275)."""
     return (do.float() * o.float()).sum(-1)
 
 
-def _check_bwd(q, k, v, lse, do, di):
-    _check_qkv(q, k, v)
-    check_cuda_tensor(do, "do", torch.bfloat16, 4)
-    if do.shape != q.shape or do.data_ptr() % 16:
-        raise ValueError(f"do must be q's shape {tuple(q.shape)} on a 16-byte boundary")
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=None):
+    """Launch the backward on the forward's inputs, its output ``o`` and LSE
+    (fp32 ``[B, H, T]``, contiguous) and the output gradient ``do``: a small
+    pass computes Di = rowsum(do * o) on the card, then one fused kernel
+    computes all three gradients (``csrc/flash_attention_bwd.cu``). q, k, v,
+    o and do are bf16 ``[B, H, T, Dh]`` CUDA tensors in any layout
+    ``check_strided`` takes, Dh 64 or 128. Returns contiguous ``(dq, dk, dv)``;
+    ``LAUNCHES["flash_attention_bwd"]`` counts the call's launches (the Di
+    pass, the kernel and, past one 128-key tile, the dQ conversion) once.
+    ``workspace``, a uint8 CUDA tensor of at least
+    ``bwd_workspace_bytes(B * H, T, Dh)`` bytes, is used instead of a new one
+    when given; it starts with the Di pass's output, fp32 ``[B * H,
+    ceil(T / 64), 2, 64]``: LSE * log2(e) (+inf past T), then Di (0 past T)."""
+    if not (q.shape == k.shape == v.shape == o.shape == do.shape):
+        raise ValueError(f"q, k, v, o, do shapes differ: {q.shape}, {k.shape}, {v.shape}, "
+                         f"{o.shape}, {do.shape}")
     b, h, t, d = q.shape
     if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"the flash-attention backward kernels take head dims "
+        raise ValueError(f"the flash-attention backward kernel takes head dims "
                          f"{BWD_HEAD_DIMS}, got {d} (Dh 512 comes with codec "
                          "fine-tuning)")
-    for name, r in (("lse", lse), ("di", di)):
-        check_cuda_tensor(r, name, torch.float32, 3)
-        if tuple(r.shape) != (b, h, t):
-            raise ValueError(f"{name} must be [B, H, T] = {(b, h, t)}, got {tuple(r.shape)}")
-    return b, h, t, d
-
-
-def flash_attention_bwd_dkv_cuda(q, k, v, lse, do, di, sm_scale: float):
-    """Launch the dkv kernel on the forward's inputs, its LSE, the output
-    gradient ``do`` and ``di`` = rowsum(do * o) (fp32 ``[B, H, T]``);
-    returns ``(dk, dv)``."""
-    b, h, t, d = _check_bwd(q, k, v, lse, do, di)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _bwd_lib("flash_attention_bwd_dkv", 8)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, t, d, float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    strides = []
+    for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if not x.is_cuda or x.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on q's device")
+        strides += check_strided(x, name)
+    check_cuda_tensor(lse, "lse", torch.float32, 3)
+    if tuple(lse.shape) != (b, h, t) or lse.device != q.device:
+        raise ValueError(f"lse must be [B, H, T] = {(b, h, t)} on q's device, got "
+                         f"{tuple(lse.shape)}")
+    dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(3))
+    nbytes = bwd_workspace_bytes(b * h, t, d)
+    if workspace is None:
+        workspace = torch.empty(nbytes, device=q.device, dtype=torch.uint8)
+    elif (workspace.device != q.device or workspace.dtype != torch.uint8
+          or workspace.numel() < nbytes or workspace.data_ptr() % 256):
+        raise ValueError(f"workspace must be {nbytes} bytes (uint8) on q's device, "
+                         "256-byte aligned")
+    err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     workspace.data_ptr(), b, h, t, d, (ctypes.c_int64 * 15)(*strides),
+                     float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention_bwd_dkv launch failed: cudaError {err}")
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
-    return dk, dv
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {err}")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
 
 
-def flash_attention_bwd_dq_cuda(q, k, v, lse, do, di, sm_scale: float):
-    """Launch the dq kernel on the same inputs; returns ``dq``."""
-    b, h, t, d = _check_bwd(q, k, v, lse, do, di)
-    dq = torch.empty_like(q)
-    err = _bwd_lib("flash_attention_bwd_dq", 7)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq.data_ptr(), b * h, t, d, float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention_bwd_dq launch failed: cudaError {err}")
-    LAUNCHES["flash_attention_bwd_dq"] += 1
-    return dq
-
-
-def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float):
-    """Both backward kernels on one Di; returns ``(dq, dk, dv)``."""
-    di = _row_dot(do, o)
-    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, lse, do, di, sm_scale)
-    return flash_attention_bwd_dq_cuda(q, k, v, lse, do, di, sm_scale), dk, dv
+def _readable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernels can read its layout (``check_strided``),
+    else a contiguous copy (an output gradient may arrive expanded, with
+    stride 0, or with a non-contiguous last dimension)."""
+    try:
+        check_strided(t, "t")
+    except ValueError:
+        return t.contiguous()
+    return t
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """softmax(q k^T * sm_scale) v with the flash kernels on CUDA tensors and
     the plain versions on CPU tensors; saves q, k, v, the output and the LSE.
-    q, k and v are made contiguous first: the backward kernels take nothing
-    else."""
+    On the card both kernels read q, k, v and the output gradient through
+    their strides (views of a packed projection need no copy), and the
+    output is laid out ``[B, T, H, Dh]``, as ``flash_attention`` lays it out
+    without a gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale: float):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        fwd = flash_attention_cuda if q.is_cuda else attention_reference
-        out, lse = fwd(q, k, v, sm_scale, return_lse=True)
+        if q.is_cuda:
+            b, h, t, d = q.shape
+            q, k, v = _readable(q), _readable(k), _readable(v)
+            out = torch.empty((b, t, h, d), device=q.device, dtype=q.dtype).permute(0, 2, 1, 3)
+            out, lse = flash_attention_cuda(q, k, v, sm_scale, return_lse=True, out=out)
+        else:
+            out, lse = attention_reference(q, k, v, sm_scale, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.sm_scale = sm_scale
         return out
@@ -259,18 +270,20 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_cuda if q.is_cuda else attention_backward_reference
-        dq, dk, dv = bwd(q, k, v, out, lse, do.contiguous(), ctx.sm_scale)
+        if q.is_cuda:
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, _readable(do), ctx.sm_scale)
+        else:
+            dq, dk, dv = attention_backward_reference(q, k, v, out, lse, do, ctx.sm_scale)
         return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, sm_scale: float):
     """softmax(q k^T * sm_scale) v over ``[B, H, T, Dh]``; differentiable
     through ``FlashAttentionFunction`` whenever an input requires grad.
-    Without a gradient, q, k and v may be strided views (see
-    ``check_strided``), and on a CUDA tensor the result is laid out
-    ``[B, T, H, Dh]`` in memory, so that merging the heads behind it
-    (``out.transpose(1, 2).reshape(B, T, H * Dh)``) is a view."""
+    q, k and v may be strided views (see ``check_strided``), and on a CUDA
+    tensor the result is laid out ``[B, T, H, Dh]`` in memory, so that
+    merging the heads behind it (``out.transpose(1, 2).reshape(B, T, H *
+    Dh)``) is a view."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, float(sm_scale))
     if q.is_cuda:

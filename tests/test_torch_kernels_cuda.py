@@ -175,8 +175,23 @@ def _abs_bound(*pairs):
     return sum(a.float().abs() @ b.float().abs() for a, b in pairs)
 
 
+def _backward_tolerance(q, k, v, o, do, s, ref):
+    """2^-7 (sum of |terms| + |ref|) for dq, dk, dv: P and dS are rounded to
+    bf16 on both sides (at most one ulp apart), the sums run in other orders
+    and the outputs round to bf16."""
+    p = torch.softmax((q.float() @ k.float().transpose(-1, -2)) * s, -1)
+    dp = do.float() @ v.float().transpose(-1, -2)
+    ds = p * (dp - (do.float() * o.float()).sum(-1, keepdim=True)) * s
+    bounds = (_abs_bound((ds, k)), _abs_bound((ds.transpose(-1, -2), q)),
+              _abs_bound((p.transpose(-1, -2), do)))
+    return [2 ** -7 * (bd + r.float().abs()) for bd, r in zip(bounds, ref)]
+
+
+# ragged T below one 128-key tile, between tiles and long; Dh 64 and 128; and
+# more (head, key tile) blocks than SMs (3 * 48 heads of two key tiles)
 @pytest.mark.parametrize("shape", [(2, 2, 256, 128), (1, 3, 70, 64), (1, 2, 130, 128),
-                                   (2, 4, 4, 64)])
+                                   (2, 4, 4, 64), (1, 2, 40, 128), (2, 2, 200, 64),
+                                   (1, 2, 1100, 128), (3, 48, 130, 64), (2, 40, 256, 128)])
 def test_flash_attention_backward_kernels(cuda, shape):
     from stedm_tpu_torch.ops import blocked_attention as a
 
@@ -189,46 +204,116 @@ def test_flash_attention_backward_kernels(cuda, shape):
     torch.testing.assert_close(lse, torch.logsumexp(logits, -1), rtol=1e-5, atol=1e-5)
     got = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
     ref = a.attention_backward_reference(q, k, v, o, lse, do, s)
-    # P and dS are rounded to bf16 on both sides (at most one ulp apart), the
-    # sums run in other orders and the outputs round to bf16: within 2^-7 of
-    # the sum of |terms| plus |ref|
-    p = torch.softmax(logits, -1)
-    dp = do.float() @ v.float().transpose(-1, -2)
-    ds = p * (dp - (do.float() * o.float()).sum(-1, keepdim=True)) * s
-    bounds = (_abs_bound((ds, k)), _abs_bound((ds.transpose(-1, -2), q)),
-              _abs_bound((p.transpose(-1, -2), do)))
-    for name, g, r, bound in zip(("dq", "dk", "dv"), got, ref, bounds):
+    for name, g, r, tol in zip(("dq", "dk", "dv"), got, ref,
+                               _backward_tolerance(q, k, v, o, do, s, ref)):
         d = (g.float() - r.float()).abs()
-        assert bool((d <= 2 ** -7 * (bound + r.float().abs())).all()), (name, float(d.max()))
+        assert bool((d <= tol).all()), (name, float(d.max()))
+    # dQ's parts are added in a fixed order: a second launch gives the same bits
+    again = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+    for name, g, g2 in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.parametrize("b,t,h,dh", [(2, 256, 8, 128), (1, 200, 4, 64), (2, 1030, 2, 128)])
+def test_flash_attention_backward_strided_equals_contiguous(cuda, b, t, h, dh):
+    """q, k, v as views of a packed [B, T, H, 3, Dh] projection and a
+    token-major output gradient: bit for bit the launch on contiguous copies."""
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    proj = torch.randn((b, t, h, 3, dh), generator=cuda, device="cuda").to(torch.bfloat16)
+    q, k, v = proj.permute(0, 2, 3, 1, 4).unbind(2)
+    do = torch.randn((b, t, h, dh), generator=cuda, device="cuda").to(torch.bfloat16)
+    do = do.permute(0, 2, 1, 3)
+    assert not (q.is_contiguous() or do.is_contiguous())
+    s = dh ** -0.5
+    o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+    got = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+    ref = a.flash_attention_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                     o.contiguous(), lse, do.contiguous(), s)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.equal(g, r), name
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 70, 64), (1, 2, 300, 128)])
+def test_flash_attention_backward_di_pass(cuda, shape):
+    """The Di pass's output at the head of the workspace: LSE * log2(e) and
+    Di = rowsum(dO o O) per 64-row query tile, +inf and 0 past T."""
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    b, h, t, dh = shape
+    q, k, v, do = (torch.randn(shape, generator=cuda, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = a.flash_attention_cuda(q, k, v, dh ** -0.5, return_lse=True)
+    ws = torch.empty(a.bwd_workspace_bytes(b * h, t, dh), device="cuda", dtype=torch.uint8)
+    a.flash_attention_bwd_cuda(q, k, v, o, lse, do, dh ** -0.5, workspace=ws)
+    nq = (t + 63) // 64
+    stats = ws[:b * h * nq * 2 * 64 * 4].view(torch.float32).view(b, h, nq, 2, 64)
+    stats = stats.transpose(2, 3).reshape(b, h, 2, nq * 64)
+    # fp32 sums of Dh products in another order
+    torch.testing.assert_close(stats[:, :, 1, :t], a._row_dot(do, o), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stats[:, :, 0, :t], lse * 1.4426950408889634, rtol=1e-6,
+                               atol=1e-6)
+    assert bool((stats[:, :, 1, t:] == 0).all() and torch.isinf(stats[:, :, 0, t:]).all())
 
 
 def test_flash_attention_function_launches_backward_kernels(cuda):
     from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
 
-    q, k, v = (torch.randn(1, 2, 96, 64, generator=cuda, device="cuda")
-               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    proj = torch.randn(1, 96, 2, 3, 64, generator=cuda, device="cuda").to(torch.bfloat16)
+    proj.requires_grad_()
+    q, k, v = proj.permute(0, 2, 3, 1, 4).unbind(2)
     do = torch.randn(1, 96, 2, 64, generator=cuda, device="cuda").to(torch.bfloat16)
     before = dict(LAUNCHES)
     out = a.flash_attention(q, k, v, 0.125)
-    # the output gradient reaches the Function non-contiguous, as behind a reshape
+    # O is laid out token-major, so the heads merge as a view; the output
+    # gradient reaches the Function as a token-major view
+    assert out.transpose(1, 2).is_contiguous()
     out.transpose(1, 2).backward(do)
-    assert LAUNCHES["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
-    assert LAUNCHES["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
-    # the kernels are deterministic: the Function's output and gradients equal
-    # the direct launches on the same saved output and LSE bit for bit
+    assert LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    # the Function's output and gradients equal the direct launches on the
+    # same saved output and LSE bit for bit
     qd, kd, vd = (t.detach() for t in (q, k, v))
     o, lse = a.flash_attention_cuda(qd, kd, vd, 0.125, return_lse=True)
     assert torch.equal(out.detach(), o)
-    direct = a.flash_attention_bwd_cuda(qd, kd, vd, o, lse, do.transpose(1, 2).contiguous(),
-                                        0.125)
-    for name, t, d in zip(("dq", "dk", "dv"), (q, k, v), direct):
-        assert torch.equal(t.grad, d), name
+    direct = a.flash_attention_bwd_cuda(qd, kd, vd, o, lse, do.transpose(1, 2), 0.125)
+    grads = proj.grad.permute(0, 2, 3, 1, 4).unbind(2)
+    for name, g, d in zip(("dq", "dk", "dv"), grads, direct):
+        assert torch.equal(g, d), name
 
 
-def test_flash_attention_backward_gates_head_dim(cuda):
+@pytest.mark.parametrize("shape", [(1, 2, 96, 64), (2, 2, 300, 128), (1, 1, 200, 512)])
+def test_flash_attention_launches_from_another_thread(cuda, shape):
+    """Autograd runs a backward (and a checkpointed block's recomputed
+    forward) on its own host thread: the kernels launch there as they do
+    on the thread that first launched them."""
+    import threading
+
     from stedm_tpu_torch.ops import blocked_attention as a
 
-    q = torch.randn(1, 1, 64, 512, generator=cuda, device="cuda").to(torch.bfloat16)
+    q, k, v, do = (torch.randn(shape, generator=cuda, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    s = shape[-1] ** -0.5
+    bwd = shape[-1] in a.BWD_HEAD_DIMS
+
+    def run():
+        o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+        return (o, lse, *a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)) if bwd else (o, lse)
+
+    here = run()
+    there = []
+    worker = threading.Thread(target=lambda: there.append(run()))
+    worker.start()
+    worker.join()
+    assert len(there) == 1, "the launch on the other thread raised"
+    for x, y in zip(here, there[0]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dh", [256, 512])
+def test_flash_attention_backward_gates_head_dim(cuda, dh):
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    q = torch.randn(1, 1, 64, dh, generator=cuda, device="cuda").to(torch.bfloat16)
     o, lse = a.flash_attention_cuda(q, q, q, 0.05, return_lse=True)
     with pytest.raises(ValueError, match="head dims"):
         a.flash_attention_bwd_cuda(q, q, q, o, lse, o, 0.05)
