@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. header: the card's name and power limit (nvidia-smi), torch's version; the
    CUDA kernels are built from ``stedm_tpu_torch/csrc`` (one nvcc per source,
-   all at once) and the Triton kernel compiles at its first launch;
+   all at once);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes, with the tolerance it prints, timed beside its plain
    version, a PyTorch library call computing the same function (a yardstick
@@ -23,7 +23,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at the training shapes, two launches bit for bit, the Di pass against
    ``_row_dot``, and the forward's output and LSE against
    ``attention_reference`` and ``torch.logsumexp``;
-   2c. ``GNSiLUFunction`` on the card (Triton forward, plain backward): its
+   2c. ``GNSiLUFunction`` on the card (CUDA forward, plain backward): its
    output against ``gn_silu_reference``, its gradients against autograd of
    ``gn_silu_reference`` at the 512^2 U-Net training shapes;
 3. a tiny STEDM on the card against the same model on the CPU (plain
@@ -33,9 +33,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4. the flagship main path: ``build_flagship(batch=8)`` at 256^2, bf16,
    ``make_sample_fn`` with DDIM-50, CFG 1.5, rescale 0.7 and shared-encoder
    batched CFG, as bench.py runs it; launch counts are zeroed just before and
-   read just after, and a second warm run is timed;
+   read just after (the cold run also logs the GN calls by shape and the sum
+   of their bounds), and a second warm run is timed;
 5. a profile of one more warm run: device time by kernel category and the
-   device's idle share (full table in ``<out>/profile.txt``);
+   device's idle share (full table in ``<out>/profile.txt``), one GN device
+   kernel for each GN launch and no Triton kernel; then the host time of a
+   GN and a nearest-code wrapper call with the card kept busy;
    4b. full-width training, the second main path: ``build_flagship(batch=8,
    patch=512, nonzero_init=True)``, ``make_train_step`` with AdamW lr 1e-4,
    weight decay 0.01, accumulation 4 and the EMA, as tools/bench_train.py
@@ -173,12 +176,12 @@ def check_gn(torch, rec, flush):
             kw["add"] = vec()
         elif mode == "film":
             kw["film_scale"], kw["film_shift"] = vec(), vec()
-        got = g.gn_silu_triton(x, gamma, beta, **kw)
+        got = g.gn_silu_cuda(x, gamma, beta, **kw)
         ref = g.gn_silu_reference(x, gamma, beta, **kw)
         torch.cuda.synchronize()
         # bf16 output: the two may round to neighbouring bf16 values (2^-7 relative)
         err, ok = bf16_close(got, ref, rel=2 ** -7, abs_=2 ** -9)
-        ms = time_ms(lambda: g.gn_silu_triton(x, gamma, beta, **kw), 10, flush)
+        ms = time_ms(lambda: g.gn_silu_cuda(x, gamma, beta, **kw), 10, flush)
         pms = time_ms(lambda: g.gn_silu_reference(x, gamma, beta, **kw), 3, flush)
         xc = x.permute(0, 3, 1, 2)
         lib = time_ms(lambda: torch.nn.functional.silu(
@@ -281,8 +284,93 @@ def check_nearest(torch, rec, flush):
     ms = time_ms(lambda: qz.nearest_code_cuda(z, cb), 10, flush)
     pms = time_ms(lambda: qz.nearest_code_reference(z, cb), 3, flush)
     lib = time_ms(lambda: torch.cdist(z, cb).argmin(dim=1), 3, flush)
-    rec.add((n, n_embed), err, ok, ms, pms, lib, 12 * n + 16 * n_embed + 4 * n,
+    rec.add((n, n_embed), err, ok, ms, pms, lib, 12 * n + 12 * n_embed + 4 * n,
             7 * n * n_embed, FP32_FLOPS)
+    # the kernel's own floor, a model and not a measurement (so it stays out
+    # of the kernels line): 7 issue slots a (token, code) pair (3 multiplies,
+    # 2 adds, a fused multiply-add, a minimum) over 4 schedulers of 32 lanes
+    # an SM at the card's highest clock; the clock under load:
+    # tools/torch_nearest_code_variants.py
+    props = torch.cuda.get_device_properties(0)
+    floor = 7 * n * n_embed / (props.multi_processor_count * 4 * 32 * props.clock_rate * 1e3) * 1e3
+    log(f"  nearest_code issue-slot floor {floor:.4f} ms (modelled: {props.multi_processor_count} "
+        f"SMs at the card's highest clock, {props.clock_rate / 1e3:.0f} MHz)")
+
+
+def host_us_per_call(torch, fn, calls: int = 200) -> float:
+    """Host time of one wrapper call in microseconds, with the card kept busy
+    (a long sleep kernel ahead of the calls) so that the launches queue and
+    the clock reads the wrapper's own path: checks, plan lookup, ctypes."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(50e-3 * torch.cuda.get_device_properties(0).clock_rate * 1e3))
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def wrapper_host_times(torch) -> dict:
+    from stedm_tpu_torch.ops import gn_silu as g
+    from stedm_tpu_torch.ops import quantize as qz
+
+    x = torch.randn(16, 8, 8, 2048, device="cuda").to(torch.bfloat16)
+    gamma, beta = torch.ones(2048, device="cuda"), torch.zeros(2048, device="cuda")
+    add = torch.randn(16, 2048, device="cuda").to(torch.bfloat16)
+    z, cb = torch.randn(32768, 3, device="cuda"), torch.randn(8192, 3, device="cuda")
+    times = {"gn_silu": host_us_per_call(torch, lambda: g.gn_silu(x, gamma, beta, add=add)),
+             "nearest_code": host_us_per_call(torch, lambda: qz.nearest_code(z, cb)),
+             "torch silu (one ATen launch)": host_us_per_call(
+                 torch, lambda: torch.nn.functional.silu(x))}
+    log("  host time a wrapper call, card busy: " + ", ".join(
+        f"{k} {v:.1f} us" for k, v in times.items()) + " ([16, 8^2, 2048] add; N 32768 x 8192)")
+    return times
+
+
+class GNCallLog:
+    """Records the shape and mode of every GN kernel launch while active, by
+    standing in for ``gn_silu_cuda`` in its module (the wrappers look it up
+    at call time)."""
+
+    def __init__(self):
+        from stedm_tpu_torch.ops import gn_silu as g
+
+        self.module, self.calls = g, {}
+
+    def __enter__(self):
+        launch = self.original = self.module.gn_silu_cuda
+
+        def recorded(x, gamma, beta, add=None, film_scale=None, film_shift=None, **kw):
+            mode = "add" if add is not None else "film" if film_scale is not None else "plain"
+            vec = (add if add is not None else film_scale)
+            key = (tuple(x.shape), mode, x.element_size(),
+                   0 if vec is None else vec.element_size(), gamma.element_size())
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return launch(x, gamma, beta, add, film_scale, film_shift, **kw)
+
+        self.module.gn_silu_cuda = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.gn_silu_cuda = self.original
+
+    def report(self) -> float:
+        """Logs the calls by shape with each one's bound (x read, y written,
+        gamma, beta and the vectors read once) and returns the sum of the
+        bounds in ms."""
+        total = 0.0
+        for (shape, mode, es, vs, ps), n in sorted(self.calls.items(), key=lambda kv: -kv[1]):
+            b, c = shape[0], shape[3]
+            numel = b * shape[1] * shape[2] * c
+            nbytes = 2 * numel * es + 2 * c * ps + {"plain": 0, "add": 1, "film": 2}[mode] * b * c * vs
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            total += n * bound
+            log(f"    gn_silu {list(shape)} {mode}: {n} calls x bound {bound:.4f} ms")
+        log(f"  GN calls of one sampled batch: {sum(self.calls.values())}, sum of their bounds "
+            f"{total:.3f} ms (the yardstick of the gn_silu category)")
+        return total
 
 
 def tiny_parity(torch):
@@ -462,7 +550,7 @@ def check_attention_backward(torch, rec, flush):
 
 
 def check_gn_backward(torch, flush):
-    """Phase 2c: GNSiLUFunction on the card (Triton forward, plain backward)
+    """Phase 2c: GNSiLUFunction on the card (CUDA forward, plain backward)
     against autograd of gn_silu_reference at the 512^2 U-Net training shapes."""
     from stedm_tpu_torch.ops import gn_silu as g
 
@@ -484,7 +572,7 @@ def check_gn_backward(torch, flush):
 
         y, leaves = graph(g.gn_silu)                 # GNSiLUFunction
         y_ref, leaves_ref = graph(g.gn_silu_reference)
-        # the Function's forward output (the Triton kernel), as check_gn holds it
+        # the Function's forward output (the CUDA kernel), as check_gn holds it
         y_err, y_ok = bf16_close(y.detach(), y_ref.detach(), rel=2 ** -7, abs_=2 ** -9)
         log(f"  gn_silu forward (GNSiLUFunction) {list(shape)} {mode}: max_abs_err={y_err:.3e} "
             f"{'ok' if y_ok else 'OUT OF TOLERANCE'} (tolerance 2^-7 |ref| + 2^-9)")
@@ -691,7 +779,7 @@ def train_flagship(torch, out_dir: Path) -> dict:
 
 # device-kernel name patterns, first match wins
 _CATEGORIES = (
-    ("gn_silu (Triton)", r"stats_kernel|apply_kernel"),
+    ("gn_silu (CUDA)", r"gn_silu_kernel"),
     ("flash_attention (CUDA)", r"flash_fwd_"),
     ("flash_attention_bwd (CUDA)", r"flash_bwd"),
     ("nearest_code (CUDA)", r"nearest_code_kernel"),
@@ -706,7 +794,7 @@ _CATEGORIES = (
 
 
 def profile_main_path(torch, run, unprofiled_ms: float, out_dir: Path,
-                      table: str = "profile.txt") -> None:
+                      table: str = "profile.txt") -> list:
     """Device time by kernel category over one warm main-path run
     (torch.profiler; CUDA kernel events only, so nothing counts twice). The
     idle share is also given against ``unprofiled_ms``, the wall time of the
@@ -727,7 +815,7 @@ def profile_main_path(torch, run, unprofiled_ms: float, out_dir: Path,
     busy_ms = sum(ms for _, _, ms in kernels)
     if busy_ms == 0:
         log("  the profiler saw no device time")
-        return
+        return kernels
     by_cat: dict[str, float] = {}
     for name, _, ms in kernels:
         cat = next((c for c, pat in _CATEGORIES if re.search(pat, name)), "other")
@@ -742,6 +830,7 @@ def profile_main_path(torch, run, unprofiled_ms: float, out_dir: Path,
         f"{ms:10.3f} ms {n:6d}x {name}" for name, n, ms in top))
     for name, n, ms in top[:8]:
         log(f"    top: {ms:8.2f} ms {n:5d}x {name[:100]}")
+    return kernels
 
 
 def main() -> int:
@@ -777,7 +866,7 @@ def main() -> int:
     log(f"== phase 1: header\n  card: {card}\n  torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; TF32 off for fp32 matmul and cuDNN")
     out_dir.mkdir(parents=True, exist_ok=True)
-    builds = build_all(["flash_attention", "flash_attention_bwd", "nearest_code"])
+    builds = build_all(["gn_silu", "flash_attention", "flash_attention_bwd", "nearest_code"])
     (out_dir / "nvcc.log").write_text("\n".join(f"== {k}\n{v}" for k, v in builds.items()))
     for stem, text in builds.items():
         regs = [ln.strip() for ln in text.splitlines() if "Used" in ln and "registers" in ln]
@@ -793,7 +882,7 @@ def main() -> int:
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB
     flush = scratch.zero_
     recs = {
-        "gn_silu": KernelRecord("gn_silu", "triton", "stedm_tpu_torch/ops/gn_silu.py",
+        "gn_silu": KernelRecord("gn_silu", "cuda", "stedm_tpu_torch/csrc/gn_silu.cu",
                                 "stedm_tpu/ops/gn_silu.py:125"),
         "flash_attention": KernelRecord(
             "flash_attention", "cuda", "stedm_tpu_torch/csrc/flash_attention.cu",
@@ -833,8 +922,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     reset_launch_counts()
     t1 = time.time()
-    img = sample(model, batch, generator=gen.manual_seed(0))
-    torch.cuda.synchronize()
+    with GNCallLog() as gn_log:
+        img = sample(model, batch, generator=gen.manual_seed(0))
+        torch.cuda.synchronize()
     cold_s = time.time() - t1
     counts = dict(LAUNCHES)
     n_gn_unet = sum(isinstance(m, GNSiLU) for m in model.unet.modules())
@@ -846,6 +936,8 @@ def main() -> int:
     require(counts["gn_silu"] >= n_gn_unet * 50, f"too few GN launches: {counts}")
     require(counts["flash_attention"] >= 51, f"too few attention launches: {counts}")
     require(counts["nearest_code"] >= 1, f"no nearest-code launch: {counts}")
+    require(sum(gn_log.calls.values()) == counts["gn_silu"], "the GN call log missed calls")
+    gn_bound_ms = gn_log.report()
     t1 = time.time()
     img2 = sample(model, batch, generator=gen.manual_seed(0))
     torch.cuda.synchronize()
@@ -866,11 +958,22 @@ def main() -> int:
         + f"; median {batch_size / median_s:.4f}")
 
     log("== phase 5: where the device time goes (one more warm run, profiled)")
-    profile_main_path(torch, lambda: sample(model, batch, generator=gen.manual_seed(0)),
-                      median_s * 1e3, out_dir)
+    reset_launch_counts()
+    kernels = profile_main_path(torch, lambda: sample(model, batch, generator=gen.manual_seed(0)),
+                                median_s * 1e3, out_dir)
+    gn_kernels = sum(n for name, n, _ in kernels if "gn_silu_kernel" in name)
+    gn_ms = sum(ms for name, _, ms in kernels if "gn_silu_kernel" in name)
+    foreign = [name for name, _, _ in kernels if "triton" in name.lower()
+               or name.startswith(("stats_kernel", "apply_kernel"))]
+    log(f"  GN device kernels {gn_kernels} for {LAUNCHES['gn_silu']} wrapper launches, "
+        f"{gn_ms:.2f} ms against the sum of their bounds {gn_bound_ms:.3f} ms; Triton kernels: "
+        f"{len(foreign)}")
+    require(gn_kernels == LAUNCHES["gn_silu"], "GN device kernels and launches differ")
+    require(not foreign, f"Triton kernels on the main path: {foreign[:3]}")
     del model, sample, img, img2
     torch.cuda.empty_cache()
 
+    host_us = wrapper_host_times(torch)
     log("== phase 4b: full-width training (512^2, batch 8, bf16, AdamW lr 1e-4, wd 0.01, "
         "accumulation 4, EMA)")
     train = train_flagship(torch, out_dir)
@@ -886,7 +989,8 @@ def main() -> int:
     log(f"  total {time.time() - t0:.1f} s")
     print(json.dumps({"flagship_img_per_s": ips,
                       "flagship_img_per_s_runs": [batch_size / t for t in [warm_s] + more],
-                      **train, "card": card}))
+                      "gn_bound_ms_sample_batch": gn_bound_ms, "gn_ms_sample_batch": gn_ms,
+                      "host_us_per_call": host_us, **train, "card": card}))
     print(json.dumps({"kernels": [r.entry for r in recs.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,9 +7,10 @@ NHWC tensors like the reference; modules work on NCHW-logical tensors in
 
 Entry points (``models.stedm.build_flagship``, ``train.steps.make_sample_fn``)
 run on ``cuda`` unless the caller passes another device, and raise when no
-card is present and none was given. The three hand-written kernels live in
-``csrc/`` (CUDA C++, built with ``nvcc`` at first use) and ``ops/gn_silu.py``
-(Triton); each has a plain PyTorch version beside it that runs on CPU tensors.
+card is present and none was given. The hand-written kernels live in
+``csrc/`` (CUDA C++, one library a source, built with ``nvcc`` at first use);
+each has a plain PyTorch version beside it, in ``ops/``, that runs on CPU
+tensors.
 """
 
 from stedm_tpu_torch._device import resolve_device

@@ -10,6 +10,7 @@ any ``csrc/*.cuh`` header is rebuilt.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -85,6 +86,12 @@ def build_all(stems) -> dict[str, str]:
     return {s: _finish_build(s, *pt) for s, pt in started.items()}
 
 
+# H100 shared memory: what a block may use, and the least a block of a
+# cluster kernel asks for so that two never share an SM (an SM has 228 KB
+# for its blocks): the cluster kernels' plans count on one block an SM
+SMEM_LIMIT = 232448
+ONE_PER_SM = 118784
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -95,6 +102,21 @@ def load_library(stem: str) -> ctypes.CDLL:
             _finish_build(stem, *_start_build(stem))
         _LIBS[stem] = ctypes.CDLL(str(_lib_path(stem)))
     return _LIBS[stem]
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(stem: str, sizes: tuple, smem: int, index: int) -> tuple:
+    """Clusters of each of ``sizes`` blocks, ``smem`` bytes of dynamic shared
+    memory each, that device ``index`` holds at once: the
+    ``<stem>_max_active_clusters`` of ``csrc/<stem>.cu``
+    (cudaOccupancyMaxActiveClusters on that library's kernel)."""
+    fn = getattr(load_library(stem), f"{stem}_max_active_clusters")
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    with torch.cuda.device(index):
+        got = tuple(fn(k, smem) for k in sizes)
+    if min(got) < 1:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters of {stem} failed: {got}")
+    return got
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtype, ndim: int) -> None:

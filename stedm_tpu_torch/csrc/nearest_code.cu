@@ -2,77 +2,222 @@
 //
 // Replaces the TPU kernel _nearest_code_pallas (stedm_tpu/ops/quantize.py:62,
 // body _kernel :32). For each token z, returns argmin_j ||c_j||^2 - 2 z.c_j
-// (the constant ||z||^2 is dropped); ties go to the lowest index.
+// (the constant ||z||^2 is dropped); ties go to the lowest index, as the
+// kernel's jnp.min over indices of equal distances (:48-52).
 //
-// What bounds it on the H100: fp32 FMA throughput. With a 3-wide embedding
-// each (token, code) pair costs ~7 flops and reads nothing new from device
-// memory once the codebook is on chip: ~2e9 flops per decode at batch 8
-// (32768 tokens x 8192 codes) against 0.5 MB of tokens in and indices out.
-// A matrix-unit formulation would pad the 3-wide contraction to 16 and
-// waste most of the tensor core; the TPU kernel's MXU dot has the same issue.
+// What bounds it on the H100: instruction issue. With a 3-wide embedding a
+// (token, code) pair costs 3 multiplies, 2 adds and one fused multiply-add for
+// the distance; a running (min, argmin) adds a compare and two selects: 9
+// issue slots a pair, ~2.4e9 a decode at batch 8 (32768 tokens x 8192 codes),
+// against 0.5 MB of tokens in and indices out. A matrix-unit formulation would pad the 3-wide contraction to
+// 8 and round it in TF32, losing the fp32 indices.
 //
-// Design: one thread per token, 256 tokens a block. The codebook streams
-// through shared memory in 2048-code chunks packed as float4(c0, c1, c2,
-// ||c||^2) (32 KB a chunk; every thread reads the same entry at once, a
-// broadcast). Each thread keeps a running (min, argmin) in registers and
-// updates it with a strict '<' in code order, so ties keep the lowest index.
-// The distance is formed in the TPU kernel's order of operations, without
-// fused multiply-adds: d = ||c||^2 - 2 * ((z0 c0 + z1 c1) + z2 c2).
+// Design:
+// - register blocking: a thread holds 2 tokens, so one shared-memory load of a
+//   code serves 2 distances; a CTA of 8 warps covers 512 tokens (4 warps of
+//   4 tokens measure alike, 16 warps of 1 token or 8 tokens a thread slower:
+//   tools/torch_nearest_code_variants.py);
+// - the codebook is split across the CTAs of a cluster (up to 8), rank r
+//   taking the r-th slice in code order, so that the grid fills the card: the
+//   plan (ops/quantize.py) picks the split whose clusters the device holds at
+//   once, one CTA an SM (its shared memory sees to that), 2 at N = 32768;
+// - each CTA brings its slice in by a bulk copy and packs it in shared memory
+//   as float4 (c0, c1, c2, ||c||^2), ||c||^2 computed here;
+// - the argmin in two passes, 7 issue slots a pair: the first keeps only the
+//   minimum of each block of 32 codes (one fminf a pair) and, with a strict
+//   '<' in block order, the first block that holds the overall minimum; the
+//   second computes that block's distances again (the same operations, so
+//   the same bits) and takes the first code equal to the minimum. That is
+//   the code a running strict '<' in code order keeps, ties included;
+// - the CTAs then meet through DSMEM, each combining a share of the tokens
+//   over the ranks in rank order with a strict '<', so ties keep the lowest
+//   index;
+// - the distance is formed in the TPU kernel's order of operations:
+//   d = ||c||^2 - 2 * ((z0 c0 + z1 c1) + z2 c2), the products and sums
+//   rounded one by one; fmaf(-2, dot, ||c||^2) rounds the same value once
+//   (2 * dot is exact), so it equals __fsub_rn(||c||^2, 2 * dot) bit for bit.
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <math.h>
+
+#include "sm90_async.cuh"
 
 namespace {
 
-constexpr int TOKENS_PER_BLOCK = 256;
-constexpr int CODE_CHUNK = 2048;
+namespace cg = cooperative_groups;
 
-__global__ void __launch_bounds__(TOKENS_PER_BLOCK)
-nearest_code_kernel(const float* __restrict__ z, const float4* __restrict__ cb,
-                    int* __restrict__ out, int n, int n_embed) {
-  __shared__ float4 chunk[CODE_CHUNK];
-  const int tok = blockIdx.x * TOKENS_PER_BLOCK + threadIdx.x;
-  float z0 = 0.f, z1 = 0.f, z2 = 0.f;
-  if (tok < n) {
-    z0 = z[3 * (size_t)tok];
-    z1 = z[3 * (size_t)tok + 1];
-    z2 = z[3 * (size_t)tok + 2];
+constexpr int THREADS = 256;
+constexpr int TPT = 2;                    // tokens a thread
+constexpr int TILE = THREADS * TPT;       // tokens a CTA
+constexpr int BLOCK = 32;                 // codes whose minimum the first pass compares at once
+
+// ||c||^2 - 2 z.c in the TPU kernel's order of operations (the file's head)
+__device__ __forceinline__ float distance(float z0, float z1, float z2, float4 c) {
+  const float dot = __fadd_rn(__fadd_rn(__fmul_rn(z0, c.x), __fmul_rn(z1, c.y)),
+                              __fmul_rn(z2, c.z));
+  return fmaf(-2.f, dot, c.w);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+nearest_code_kernel(const float* __restrict__ z, const float* __restrict__ cb,
+                    int* __restrict__ out, int n, int n_embed, int codes_per_cta,
+                    int scratch_off, int bar_off) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / split;
+  const int code0 = rank * codes_per_cta;
+  const int count = max(0, min(n_embed - code0, codes_per_cta));
+  const int bulk = count & ~3;            // codes by bulk copy: 48-byte multiples
+  float4* codes = reinterpret_cast<float4*>(smem);
+  float* raw = reinterpret_cast<float*>(smem + scratch_off);   // the slice as it lies
+  const uint32_t bar = sm90::smem_u32(smem + bar_off);
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  float best = INFINITY;
-  int best_i = 0;
-  for (int start = 0; start < n_embed; start += CODE_CHUNK) {
-    const int cnt = n_embed - start < CODE_CHUNK ? n_embed - start : CODE_CHUNK;
-    __syncthreads();
-    for (int j = threadIdx.x; j < cnt; j += TOKENS_PER_BLOCK) chunk[j] = cb[start + j];
-    __syncthreads();
-    for (int j = 0; j < cnt; ++j) {
-      const float4 c = chunk[j];
-      float dot = __fmul_rn(z0, c.x);
-      dot = __fadd_rn(dot, __fmul_rn(z1, c.y));
-      dot = __fadd_rn(dot, __fmul_rn(z2, c.z));
-      const float d = __fsub_rn(c.w, __fmul_rn(2.f, dot));
-      if (d < best) {
-        best = d;
-        best_i = start + j;
+  __syncthreads();
+  if (threadIdx.x == 0 && bulk > 0) {
+    sm90::mbar_expect_tx(bar, bulk * 12);
+    sm90::bulk_load(sm90::smem_u32(raw), cb + 3 * static_cast<size_t>(code0), bulk * 12, bar);
+  }
+  for (int i = 3 * bulk + threadIdx.x; i < 3 * count; i += THREADS)
+    raw[i] = cb[3 * static_cast<size_t>(code0) + i];
+
+  float z0[TPT], z1[TPT], z2[TPT];
+#pragma unroll
+  for (int k = 0; k < TPT; ++k) {
+    const int tok = tile * TILE + k * THREADS + threadIdx.x;
+    const bool in = tok < n;
+    z0[k] = in ? z[3 * static_cast<size_t>(tok)] : 0.f;
+    z1[k] = in ? z[3 * static_cast<size_t>(tok) + 1] : 0.f;
+    z2[k] = in ? z[3 * static_cast<size_t>(tok) + 2] : 0.f;
+  }
+  if (bulk > 0) sm90::mbar_wait(bar, 0);
+  __syncthreads();
+  for (int j = threadIdx.x; j < count; j += THREADS) {
+    const float c0 = raw[3 * j], c1 = raw[3 * j + 1], c2 = raw[3 * j + 2];
+    codes[j] = make_float4(c0, c1, c2, __fadd_rn(__fadd_rn(__fmul_rn(c0, c0),
+                                                          __fmul_rn(c1, c1)),
+                                                __fmul_rn(c2, c2)));
+  }
+  __syncthreads();
+
+  // pass 1: the minimum of each block of BLOCK codes, one fminf a pair, and
+  // the first block whose minimum is below every earlier block's
+  float best[TPT];
+  int best_blk[TPT];
+#pragma unroll
+  for (int k = 0; k < TPT; ++k) {
+    best[k] = INFINITY;
+    best_blk[k] = 0;
+  }
+  for (int j0 = 0; j0 < count; j0 += BLOCK) {
+    float m[TPT];
+#pragma unroll
+    for (int k = 0; k < TPT; ++k) m[k] = INFINITY;
+    if (j0 + BLOCK <= count) {
+#pragma unroll
+      for (int i = 0; i < BLOCK; ++i) {
+        const float4 c = codes[j0 + i];
+#pragma unroll
+        for (int k = 0; k < TPT; ++k) m[k] = fminf(m[k], distance(z0[k], z1[k], z2[k], c));
+      }
+    } else {
+      for (int j = j0; j < count; ++j) {
+        const float4 c = codes[j];
+#pragma unroll
+        for (int k = 0; k < TPT; ++k) m[k] = fminf(m[k], distance(z0[k], z1[k], z2[k], c));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < TPT; ++k) {
+      if (m[k] < best[k]) {
+        best[k] = m[k];
+        best_blk[k] = j0;
       }
     }
   }
-  if (tok < n) out[tok] = best_i;
+  // pass 2: the first code of that block at the minimum, the one a strict
+  // '<' in code order keeps (the block's distances all formed at once, last
+  // to first); with no finite minimum, the slice's first code
+  int best_i[TPT];
+#pragma unroll
+  for (int k = 0; k < TPT; ++k) {
+    best_i[k] = code0;
+    if (best[k] < INFINITY) {
+#pragma unroll
+      for (int i = BLOCK - 1; i >= 0; --i) {
+        const int j = best_blk[k] + i;
+        const float d = distance(z0[k], z1[k], z2[k], codes[min(j, count - 1)]);
+        if (j < count && d == best[k]) best_i[k] = code0 + j;
+      }
+    }
+  }
+
+  // the slice is packed: its scratch holds this CTA's (min, argmin) a token
+  float* res_d = raw;
+  int* res_i = reinterpret_cast<int*>(raw + TILE);
+#pragma unroll
+  for (int k = 0; k < TPT; ++k) {
+    res_d[k * THREADS + threadIdx.x] = best[k];
+    res_i[k * THREADS + threadIdx.x] = best_i[k];
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  // rank r combines the r-th share of the tile's tokens over all ranks
+  const int share = TILE / split;
+  for (int t = rank * share + threadIdx.x; t < (rank + 1) * share; t += THREADS) {
+    float d = INFINITY;
+    int idx = 0;
+    for (int r = 0; r < split; ++r) {
+      const float dr = cluster.map_shared_rank(res_d, r)[t];
+      if (dr < d) {
+        d = dr;
+        idx = cluster.map_shared_rank(res_i, r)[t];
+      }
+    }
+    const int tok = tile * TILE + t;
+    if (tok < n) out[tok] = idx;
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 }  // namespace
 
 extern "C" {
 
-// z: [n, 3] fp32; cb: [n_embed] float4 (c0, c1, c2, ||c||^2); out: [n] int32.
-// All contiguous on the device. Returns the cudaError_t of the launch.
-int nearest_code_launch(const void* z, const void* cb, void* out, int n, int n_embed,
+// z: [n, 3] fp32; cb: [n_embed, 3] fp32, 16-byte aligned; out: [n] int32; all
+// contiguous on the device. split (1..8, a power of two) CTAs of a cluster
+// share a tile of 512 tokens, rank r taking codes [r * codes_per_cta, ...);
+// codes_per_cta a multiple of 4. scratch_off, bar_off, smem: the
+// shared-memory layout (ops/quantize.py). Returns the cudaError_t of the launch.
+int nearest_code_launch(const void* z, const void* cb, void* out, int n, int n_embed, int split,
+                        int codes_per_cta, int scratch_off, int bar_off, int smem,
                         void* stream) {
-  if (n <= 0 || n_embed <= 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (n + TOKENS_PER_BLOCK - 1) / TOKENS_PER_BLOCK;
-  nearest_code_kernel<<<blocks, TOKENS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float*)z, (const float4*)cb, (int*)out, n, n_embed);
+  if (n <= 0 || n_embed <= 0 || split < 1 || split > 8 || TILE % split != 0 ||
+      codes_per_cta % 4 != 0 || split * codes_per_cta < n_embed)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(nearest_code_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sm90::cluster_launch(&attr, ((n + TILE - 1) / TILE) * split,
+                                                      THREADS, split, smem, (cudaStream_t)stream);
+  err = cudaLaunchKernelEx(&cfg, nearest_code_kernel, (const float*)z, (const float*)cb,
+                           (int*)out, n, n_embed, codes_per_cta, scratch_off, bar_off);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Clusters of `split` CTAs with `smem` bytes of dynamic shared memory each
+// that the device holds at once, or a negative cudaError_t.
+int nearest_code_max_active_clusters(int split, int smem) {
+  return sm90::max_active_clusters(nearest_code_kernel, THREADS, split, smem);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): register reallocation between
-// warpgroups, mbarriers, TMA tile loads and bulk copies, named barriers, and
-// the host-side tensor maps built from a tensor's strides.
+// Hopper building blocks shared by the kernels of csrc/: register
+// reallocation between warpgroups, mbarriers, TMA tile loads and bulk copies,
+// named barriers, the host-side tensor maps built from a tensor's strides,
+// and the launch and occupancy query of a thread-block cluster kernel
+// (gn_silu.cu, nearest_code.cu).
 //
 // Shared-memory tiles are kept as sub-tiles of 64 bf16 columns (128 bytes, one
 // row of the 128-byte swizzle), the layout the wgmma descriptors of
@@ -166,6 +167,39 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int b, int h, int t, int
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A launch of `grid` blocks of `threads` threads with `smem` bytes of dynamic
+// shared memory in clusters of `cluster` along x; `attr` holds the cluster
+// attribute the returned config points to.
+inline cudaLaunchConfig_t cluster_launch(cudaLaunchAttribute* attr, int grid, int threads,
+                                         int cluster, int smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of `cluster` blocks of `kernel` (`threads` threads, `smem` bytes of
+// dynamic shared memory each) that the device holds at once
+// (cudaOccupancyMaxActiveClusters), or a negative cudaError_t.
+template <typename Kernel>
+inline int max_active_clusters(Kernel kernel, int threads, int cluster, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_launch(&attr, cluster, threads, cluster, smem, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace sm90

@@ -1,4 +1,4 @@
-"""Fused GroupNorm(+embedding add | +FiLM)(+SiLU): Triton kernel and plain version.
+"""Fused GroupNorm(+embedding add | +FiLM)(+SiLU): CUDA kernel and plain version.
 
 Replaces the TPU kernel ``_gn_silu_pallas`` (stedm_tpu/ops/gn_silu.py:125,
 body ``_make_kernel`` :53). Semantics follow ``gn_silu_reference`` there
@@ -7,25 +7,18 @@ statistics, in fp32; statistics are fp32 E[x^2] - E[x]^2 over each of the 32
 groups of a sample; the affine, then FiLM ``y * (1 + scale) + shift``, then
 SiLU; the output has x's dtype.
 
-Kernel note. On the H100 the op is bound by memory bandwidth: it has to read
-x once for the statistics and once more for the normalisation (the 50 MB L2
-keeps some of the second read on chip) and write y once, about 3 bytes of
-traffic per bf16 element against a handful of flops. The TPU kernel keeps a
-whole sample in VMEM (``MAX_ELEMS_PER_SAMPLE``, :38); a Hopper block cannot
-(the VQ decoder's 256^2 x 256 slab is 16.8 M elements), and nothing carries
-between blocks. So the kernel is a split reduction in two launches:
-
-1. programs over (sample, row chunk, 128-channel block) write per-channel
-   fp32 sums of x and x^2 of their tile to a workspace, loads contiguous
-   over C;
-2. programs over (sample, row chunk, channel block) fold the workspace over
-   chunks and over the channels of each group, then normalise, apply
-   affine/FiLM/SiLU and write their tile. These channel blocks hold whole
-   groups, so the fold stays inside one program even where C/32 is not a
-   power of two.
-
-A workspace, not atomics, keeps the summation order (and the result) fixed
-from run to run.
+Kernel note (``csrc/gn_silu.cu``). The op is bound by memory bandwidth: one
+read of x and one write of y against a handful of flops an element. The TPU
+kernel keeps a whole sample in VMEM (``MAX_ELEMS_PER_SAMPLE``, :38); a Hopper
+block cannot, but a thread-block cluster can hold a (sample, channel block)
+slab in its CTAs' shared memory, which they read from each other (DSMEM). So
+the kernel is one launch a call: a cluster owns a (sample, channel block) of
+whole groups and its CTAs split the rows; each CTA brings its tile in by TMA
+and sums it as it lands, the CTAs exchange their sums through DSMEM in rank
+order (the same bits on every run), and each normalises its tile from shared
+memory. Where a slab does not fit (the VQ shapes), each CTA keeps what fits
+and reads the rest again. ``_launch_plan`` (pure arithmetic, so the CPU tests
+reach it) fixes every size.
 
 Gradients: ``GNSiLUFunction`` runs the kernel (or, on the CPU, the plain
 version) forward and ``gn_silu_backward_reference`` backward, a plain PyTorch
@@ -36,17 +29,40 @@ grad, on either device, so the CPU tests exercise the ported backward.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
+from stedm_tpu_torch._device import ONE_PER_SM, SMEM_LIMIT, load_library, max_active_clusters
 from stedm_tpu_torch.ops import LAUNCHES, PLAIN_CALLS
 
-# programs to aim for per launch: four waves over the H100's 132 SMs
-_TARGET_PROGRAMS = 4 * 132
-_BLOCK_R = 64
-_STATS_BLOCK_C = 128
+# Launch-plan constants (H100; the shared-memory limit and the
+# one-CTA-an-SM floor are _device's): threads a CTA, the bytes a pipeline
+# stage aims at, and the cost model's rates: what the kernel draws from HBM
+# when reads and writes mix (below the 3.35 TB/s peak), the rate one CTA
+# moves bytes at, its fixed time, the time it spends on each box of rows it
+# handles, and what a cluster's exchange of sums adds
+# (tools/torch_gn_plan_sweep.py).
+_THREADS = 512
+_STAGE_BYTES = 32768
+_MAX_SLOTS = 32
+_MAX_CLUSTER = 8
+_HBM_BYTES_PER_US = 2.4e6
+_CTA_BYTES_PER_US = 3.6e4
+_CTA_US = 10.0
+_BOX_US = 0.1
+_CLUSTER_US = 1.3
+# clusters of 1..8 such CTAs an H100 holds at once (132 SMs;
+# cudaOccupancyMaxActiveClusters, tools/torch_gn_plan_sweep.py), for the CPU
+# tests; the wrapper asks the device (_device.max_active_clusters)
+_H100_ACTIVE = (132, 66, 39, 30, 22, 17, 15, 15)
+# the order of the ints handed to the kernel (csrc/gn_silu.cu, PlanIdx)
+_PLAN_KEYS = ("cg", "width", "col_blocks", "cluster", "rows_per_cta", "box_rows", "box_cols",
+              "boxes_per_stage", "box_stride", "stage_stride", "slots", "row_phases",
+              "groups_per_block", "red_off", "part_off", "gstat_off", "bar_off", "smem")
 
 
 def _forward_parts(x, gamma, beta, add, film_scale, film_shift, groups: int, eps: float):
@@ -115,167 +131,179 @@ def gn_silu_backward_reference(g, x, gamma, beta, add=None, film_scale=None,
     return dx.to(x.dtype), d_gamma, d_beta, d_add, d_fs, d_fsh
 
 
-def _kernels():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def stats_kernel(x_ptr, add_ptr, ws_ptr, HW, C, rows_per_chunk, n_chunks,
-                     HAS_ADD: tl.constexpr, BLOCK_R: tl.constexpr,
-                     BLOCK_C: tl.constexpr):
-        b = tl.program_id(0)
-        k = tl.program_id(1)
-        r0 = k * rows_per_chunk
-        r_end = tl.minimum(r0 + rows_per_chunk, HW)
-        x_base = x_ptr + b.to(tl.int64) * HW * C
-        ws_base = ws_ptr + (b * n_chunks + k).to(tl.int64) * 2 * C
-        cols = tl.program_id(2) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        if HAS_ADD:
-            a = tl.load(add_ptr + b * C + cols, mask=cmask, other=0.0).to(tl.float32)
-        s = tl.zeros([BLOCK_C], dtype=tl.float32)
-        sq = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for r in range(r0, r_end, BLOCK_R):
-            rows = r + tl.arange(0, BLOCK_R)
-            m = (rows < r_end)[:, None] & cmask[None, :]
-            offs = rows[:, None].to(tl.int64) * C + cols[None, :]
-            v = tl.load(x_base + offs, mask=m, other=0.0).to(tl.float32)
-            if HAS_ADD:
-                v = tl.where(m, v + a[None, :], 0.0)
-            s += tl.sum(v, axis=0)
-            sq += tl.sum(v * v, axis=0)
-        tl.store(ws_base + cols, s, mask=cmask)
-        tl.store(ws_base + C + cols, sq, mask=cmask)
-
-    @triton.jit
-    def apply_kernel(x_ptr, out_ptr, gamma_ptr, beta_ptr, add_ptr, fs_ptr,
-                     fsh_ptr, ws_ptr, HW, C, CG, GPB, rows_per_chunk, n_chunks,
-                     inv_n, eps, HAS_ADD: tl.constexpr, HAS_FILM: tl.constexpr,
-                     APPLY_SILU: tl.constexpr, BLOCK_R: tl.constexpr,
-                     BLOCK_C: tl.constexpr, BLOCK_K: tl.constexpr,
-                     BLOCK_G: tl.constexpr):
-        b = tl.program_id(0)
-        k = tl.program_id(1)
-        r0 = k * rows_per_chunk
-        r_end = tl.minimum(r0 + rows_per_chunk, HW)
-        x_base = x_ptr + b.to(tl.int64) * HW * C
-        out_base = out_ptr + b.to(tl.int64) * HW * C
-        ws_base = ws_ptr + (b * n_chunks).to(tl.int64) * 2 * C
-        width = GPB * CG                      # whole groups per channel block
-        lc = tl.arange(0, BLOCK_C)
-        gl = lc // CG                         # group of each column, block-local
-        gs = tl.arange(0, BLOCK_G)
-        cols = tl.program_id(2) * width + lc
-        cmask = (lc < width) & (cols < C)
-        # fold the per-chunk partial sums of these channels
-        s = tl.zeros([BLOCK_C], dtype=tl.float32)
-        sq = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for k0 in range(0, n_chunks, BLOCK_K):
-            ks = k0 + tl.arange(0, BLOCK_K)
-            m = (ks < n_chunks)[:, None] & cmask[None, :]
-            offs = (ks * 2 * C)[:, None] + cols[None, :]
-            s += tl.sum(tl.load(ws_base + offs, mask=m, other=0.0), axis=0)
-            sq += tl.sum(tl.load(ws_base + offs + C, mask=m, other=0.0), axis=0)
-        # fold channels to groups and broadcast the statistics back
-        gm = (gl[None, :] == gs[:, None]) & cmask[None, :]
-        mean_g = tl.sum(tl.where(gm, s[None, :], 0.0), axis=1) * inv_n
-        msq_g = tl.sum(tl.where(gm, sq[None, :], 0.0), axis=1) * inv_n
-        rstd_g = tl.rsqrt(msq_g - mean_g * mean_g + eps)
-        mean_c = tl.sum(tl.where(gm, mean_g[:, None], 0.0), axis=0)
-        rstd_c = tl.sum(tl.where(gm, rstd_g[:, None], 0.0), axis=0)
-        gamma = tl.load(gamma_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        beta = tl.load(beta_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        if HAS_ADD:
-            a = tl.load(add_ptr + b * C + cols, mask=cmask, other=0.0).to(tl.float32)
-        if HAS_FILM:
-            fs = 1.0 + tl.load(fs_ptr + b * C + cols, mask=cmask, other=0.0).to(tl.float32)
-            fsh = tl.load(fsh_ptr + b * C + cols, mask=cmask, other=0.0).to(tl.float32)
-        for r in range(r0, r_end, BLOCK_R):
-            rows = r + tl.arange(0, BLOCK_R)
-            m = (rows < r_end)[:, None] & cmask[None, :]
-            offs = rows[:, None].to(tl.int64) * C + cols[None, :]
-            v = tl.load(x_base + offs, mask=m, other=0.0).to(tl.float32)
-            if HAS_ADD:
-                v = v + a[None, :]
-            y = (v - mean_c[None, :]) * rstd_c[None, :] * gamma[None, :] + beta[None, :]
-            if HAS_FILM:
-                y = y * fs[None, :] + fsh[None, :]
-            if APPLY_SILU:
-                y = y * tl.sigmoid(y)
-            tl.store(out_base + offs, y.to(out_ptr.dtype.element_ty), mask=m)
-
-    return triton, stats_kernel, apply_kernel
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
-_KERNELS = None
+def _plan_for(b, hw, c, cg, es, width, cluster, active):
+    """The sizes of one (channel-block width, cluster size) candidate, with
+    its modelled time; None when its shared memory cannot hold one box."""
+    vec = 16 // es                          # elements of a 16-byte vector
+    row_phases = _THREADS // (width // vec)
+    rows0 = -(-hw // cluster)
+    target = max(1, min(256, _STAGE_BYTES // (width * es), rows0))
+    box_rows = max(d for d in range(1, target + 1) if rows0 % d == 0)
+    if 2 * box_rows < target:               # no good divisor: round the rows up
+        box_rows = target
+    rows_per_cta = _round_up(rows0, box_rows)
+    box_cols = max(d for d in range(vec, min(width, 256) + 1, vec) if width % d == 0)
+    boxes_per_stage = width // box_cols
+    box_stride = _round_up(box_rows * box_cols * es, 128)   # TMA destinations 128-byte aligned
+    stage_stride = boxes_per_stage * box_stride
+    red = 2 * row_phases * width * 4        # fp32 sums of each row phase
+    part = _round_up(2 * (width // cg) * 4, 16)   # the CTA's group sums, read by the other ranks
+    gstat = part
+    n_boxes = rows_per_cta // box_rows
+    slots = min(_MAX_SLOTS, n_boxes,
+                (SMEM_LIMIT - red - part - gstat - 128) // (stage_stride + 8))
+    if slots < 1:
+        return None
+    red_off = slots * stage_stride
+    part_off = red_off + red
+    gstat_off = part_off + part
+    bar_off = gstat_off + gstat
+    smem = max(bar_off + 8 * slots + 128, ONE_PER_SM)   # 128: the kernel aligns its base
+    col_blocks = c // width
+    units = b * col_blocks                  # one cluster each
+    waves = -(-units // active[cluster - 1])
+    reread = max(0, n_boxes - slots) * box_rows * width * es
+    cta_us = (_CTA_US + (2 * rows_per_cta * width * es + reread) / _CTA_BYTES_PER_US
+              + 2 * n_boxes * _BOX_US     # each box is summed, then normalised
+              + (_CLUSTER_US if cluster > 1 else 0.0))
+    nbytes = 2 * b * hw * c * es + reread * units * cluster
+    # HBM-bound, each further wave still pays a CTA's fixed time
+    cost_us = max(waves * cta_us, nbytes / _HBM_BYTES_PER_US + (waves - 1) * _CTA_US)
+    return dict(cg=cg, width=width, col_blocks=col_blocks, cluster=cluster,
+                rows_per_cta=rows_per_cta, box_rows=box_rows, box_cols=box_cols,
+                boxes_per_stage=boxes_per_stage, box_stride=box_stride,
+                stage_stride=stage_stride, slots=slots, row_phases=row_phases,
+                groups_per_block=width // cg, red_off=red_off, part_off=part_off,
+                gstat_off=gstat_off, bar_off=bar_off, smem=smem, resident=n_boxes <= slots,
+                blocks=units * cluster, waves=waves, reread_bytes=reread * units * cluster,
+                cost_us=cost_us)
 
 
-def _launch_plan(b: int, hw: int, c: int, groups: int) -> dict:
-    """Grid and block sizes; pure arithmetic so the CPU tests reach it."""
+@functools.lru_cache(maxsize=None)
+def _launch_plan(b: int, hw: int, c: int, groups: int, elem_bytes: int,
+                 active: tuple = _H100_ACTIVE) -> dict:
+    """Cluster layout of one call; pure arithmetic so the CPU tests reach it.
+
+    A channel block holds whole groups and 16-byte rows (at least 128 bytes
+    where C allows, for whole DRAM bursts), at most one 16-byte vector a
+    thread across; a cluster of 1-8 CTAs (portable sizes) splits the rows.
+    ``active``: the clusters of each size the device holds at once, one CTA
+    an SM. Of all candidates the plan takes the least modelled time: the
+    waves of clusters times one CTA's time (a fixed part, its bytes at one
+    CTA's rate: x once, y once, plus what does not fit and is read again,
+    a part for each box of rows and one for the cluster's exchange of sums
+    through DSMEM), or all bytes at the HBM rate plus the fixed part of each
+    further wave if that is longer; then the wider block, then the smaller
+    cluster."""
+    if c % groups:
+        raise ValueError(f"C={c} is not a multiple of groups={groups}")
     cg = c // groups
-    block_c = max(_STATS_BLOCK_C, 1 << (cg - 1).bit_length())
-    gpb = min(groups, block_c // cg)
-    col_blocks = math.ceil(groups / gpb)
-    n_chunks = max(1, min(math.ceil(_TARGET_PROGRAMS / (b * col_blocks)),
-                          math.ceil(hw / _BLOCK_R)))
-    rows = math.ceil(math.ceil(hw / n_chunks) / _BLOCK_R) * _BLOCK_R
-    n_chunks = math.ceil(hw / rows)
-    return dict(cg=cg, block_c=block_c, gpb=gpb, block_g=1 << (gpb - 1).bit_length(),
-                col_blocks=col_blocks, stats_col_blocks=math.ceil(c / _STATS_BLOCK_C),
-                rows_per_chunk=rows, n_chunks=n_chunks,
-                block_k=min(64, 1 << (n_chunks - 1).bit_length()))
+    vec = 16 // elem_bytes
+    unit = math.lcm(cg, vec)
+    min_bytes = min(128, c * elem_bytes)
+    widths = [w for w in range(unit, min(c, _THREADS * vec) + 1, unit)
+              if c % w == 0 and w * elem_bytes >= min_bytes]
+    best = None
+    for width in widths:
+        for cluster in range(1, min(_MAX_CLUSTER, hw) + 1):
+            p = _plan_for(b, hw, c, cg, elem_bytes, width, cluster, active)
+            if p is not None and (best is None or (p["cost_us"], -width, cluster) < best[0]):
+                best = ((p["cost_us"], -width, cluster), p)
+    if best is None:
+        raise ValueError(f"no cluster layout for C={c}, groups={groups}")
+    return best[1]
 
 
-def gn_silu_triton(x, gamma, beta, add=None, film_scale=None, film_shift=None,
-                   *, groups: int = 32, eps: float = 1e-5,
-                   apply_silu: bool = True) -> torch.Tensor:
-    """Launch the two-pass Triton kernel on a contiguous NHWC CUDA tensor."""
-    global _KERNELS
-    if not x.is_cuda or x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("gn_silu kernel takes a contiguous NHWC CUDA tensor")
-    if x.dtype not in (torch.bfloat16, torch.float32):
+def _device_active(index: int) -> tuple:
+    """``_H100_ACTIVE`` as device ``index`` reports it."""
+    return max_active_clusters("gn_silu", tuple(range(1, _MAX_CLUSTER + 1)), SMEM_LIMIT, index)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    fn = load_library("gn_silu").gn_silu_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ints(plan: dict):
+    """A plan as the ints the kernel takes."""
+    return (ctypes.c_int * len(_PLAN_KEYS))(*(plan[k] for k in _PLAN_KEYS))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(b, hw, c, groups, elem_bytes, active):
+    return _ints(_launch_plan(b, hw, c, groups, elem_bytes, active))
+
+
+_FLOAT_TYPES = (torch.bfloat16, torch.float32)
+
+
+def gn_silu_cuda(x, gamma, beta, add=None, film_scale=None, film_shift=None,
+                 *, groups: int = 32, eps: float = 1e-5, apply_silu: bool = True) -> torch.Tensor:
+    """Launch the kernel on a contiguous NHWC CUDA tensor (bf16 or fp32);
+    gamma and beta ``[C]``, the vectors ``[B, C]``, each bf16 or fp32."""
+    if not x.is_cuda or x.dim() != 4 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("gn_silu kernel takes a contiguous, 16-byte aligned NHWC CUDA tensor")
+    if x.dtype not in _FLOAT_TYPES:
         raise ValueError(f"gn_silu kernel takes bf16 or fp32, got {x.dtype}")
     b, h, w, c = x.shape
     if c % groups:
         raise ValueError(f"C={c} is not a multiple of groups={groups}")
+    if (film_scale is None) != (film_shift is None) or (add is not None and film_scale is not None):
+        raise ValueError("FiLM takes film_scale and film_shift together, and not with add")
     for name, t in (("gamma", gamma), ("beta", beta)):
-        if t.shape != (c,) or not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous CUDA [C] tensor")
-    for name, t in (("add", add), ("film_scale", film_scale), ("film_shift", film_shift)):
-        if t is not None and (t.shape != (b, c) or not t.is_cuda or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous CUDA [B, C] tensor")
-    if _KERNELS is None:
-        _KERNELS = _kernels()
-    triton, stats_kernel, apply_kernel = _KERNELS
-    p = _launch_plan(b, h * w, c, groups)
+        if (t.shape != (c,) or t.device != x.device or not t.is_contiguous()
+                or t.dtype != gamma.dtype or t.dtype not in _FLOAT_TYPES):
+            raise ValueError(f"{name} must be a contiguous [C] tensor on x's device, "
+                             "gamma and beta both bf16 or both fp32")
+    vecs = [t for t in (add, film_scale, film_shift) if t is not None]
+    for t in vecs:
+        if (t.shape != (b, c) or t.device != x.device or not t.is_contiguous()
+                or t.dtype != vecs[0].dtype or t.dtype not in _FLOAT_TYPES):
+            raise ValueError("add / film_scale / film_shift must be contiguous [B, C] tensors "
+                             "on x's device, all bf16 or all fp32")
+    ints = _plan_ints(b, h * w, c, groups, x.element_size(), _device_active(x.device.index or 0))
+    return _launch(x, gamma, beta, add, film_scale, film_shift, eps, apply_silu, ints)
+
+
+def _launch(x, gamma, beta, add, film_scale, film_shift, eps, apply_silu, ints):
+    """One launch of the kernel on inputs ``gn_silu_cuda`` has checked, with
+    the plan ``ints`` (``_ints`` of a ``_plan_for`` candidate: the card
+    tests and tools/torch_gn_plan_sweep.py try plans the wrapper would not
+    choose)."""
+    b, h, w, c = x.shape
+    vecs = [t for t in (add, film_scale, film_shift) if t is not None]
     out = torch.empty_like(x)
-    ws = torch.empty((b, p["n_chunks"], 2, c), device=x.device, dtype=torch.float32)
-    dummy = gamma   # stands in for absent optional pointers; never read
-    stats_kernel[(b, p["n_chunks"], p["stats_col_blocks"])](
-        x, add if add is not None else dummy, ws, h * w, c, p["rows_per_chunk"],
-        p["n_chunks"], HAS_ADD=add is not None, BLOCK_R=_BLOCK_R,
-        BLOCK_C=_STATS_BLOCK_C, num_warps=4)
-    apply_kernel[(b, p["n_chunks"], p["col_blocks"])](
-        x, out, gamma, beta, add if add is not None else dummy,
-        film_scale if film_scale is not None else dummy,
-        film_shift if film_shift is not None else dummy, ws, h * w, c, p["cg"],
-        p["gpb"], p["rows_per_chunk"], p["n_chunks"], 1.0 / (h * w * p["cg"]),
-        eps, HAS_ADD=add is not None, HAS_FILM=film_scale is not None,
-        APPLY_SILU=apply_silu, BLOCK_R=_BLOCK_R, BLOCK_C=p["block_c"],
-        BLOCK_K=p["block_k"], BLOCK_G=p["block_g"], num_warps=4)
+    mode = 1 if add is not None else 2 if film_scale is not None else 0
+    v0 = add if add is not None else film_scale
+    err = _lib()(x.data_ptr(), out.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                 v0.data_ptr() if v0 is not None else None,
+                 film_shift.data_ptr() if film_shift is not None else None,
+                 int(x.dtype == torch.float32), int(gamma.dtype == torch.bfloat16),
+                 int(bool(vecs) and vecs[0].dtype == torch.bfloat16), mode, int(apply_silu),
+                 b, h * w, c, ints, eps, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"gn_silu launch failed: cudaError {err}")
     LAUNCHES["gn_silu"] += 1
     return out
 
 
 class GNSiLUFunction(torch.autograd.Function):
-    """``gn_silu`` with a gradient: the Triton kernel forward on CUDA tensors
+    """``gn_silu`` with a gradient: the CUDA kernel forward on CUDA tensors
     (the plain version on CPU tensors); ``gn_silu_backward_reference``
     backward, on an output gradient made contiguous NHWC first."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, add, film_scale, film_shift, groups: int, eps: float,
                 apply_silu: bool):
-        fn = gn_silu_triton if x.is_cuda else gn_silu_reference
+        fn = gn_silu_cuda if x.is_cuda else gn_silu_reference
         ctx.save_for_backward(x, gamma, beta, add, film_scale, film_shift)
         ctx.cfg = dict(groups=groups, eps=eps, apply_silu=apply_silu)
         return fn(x, gamma, beta, add, film_scale, film_shift, **ctx.cfg)
@@ -292,7 +320,7 @@ class GNSiLUFunction(torch.autograd.Function):
 def gn_silu(x, gamma, beta, add=None, film_scale=None, film_shift=None, *,
             groups: int = 32, eps: float = 1e-5, apply_silu: bool = True):
     """GroupNorm(+add | +FiLM)(+SiLU) over NHWC ``x``; gamma/beta ``[C]``,
-    add / film_scale / film_shift ``[B, C]``. CUDA tensors launch the Triton
+    add / film_scale / film_shift ``[B, C]``. CUDA tensors launch the CUDA
     kernel; CPU tensors take the plain version; when an input requires grad
     the call goes through ``GNSiLUFunction``."""
     if (film_scale is None) != (film_shift is None):
@@ -302,6 +330,6 @@ def gn_silu(x, gamma, beta, add=None, film_scale=None, film_shift=None, *,
     inputs = (x, gamma, beta, add, film_scale, film_shift)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
         return GNSiLUFunction.apply(*inputs, groups, eps, apply_silu)
-    fn = gn_silu_triton if x.is_cuda else gn_silu_reference
+    fn = gn_silu_cuda if x.is_cuda else gn_silu_reference
     return fn(x, gamma, beta, add, film_scale, film_shift, groups=groups, eps=eps,
               apply_silu=apply_silu)

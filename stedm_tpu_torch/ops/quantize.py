@@ -2,16 +2,19 @@
 
 ``nearest_code`` launches the CUDA kernel in ``csrc/nearest_code.cu`` (the
 port of stedm_tpu/ops/quantize.py:_nearest_code_pallas) on CUDA tensors and
-the plain version on CPU tensors.
+the plain version on CPU tensors. The kernel splits the codebook across the
+CTAs of a cluster (``_launch_plan``) and packs it itself.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from stedm_tpu_torch._device import check_cuda_tensor, load_library
+from stedm_tpu_torch._device import (ONE_PER_SM, SMEM_LIMIT, check_cuda_tensor, load_library,
+                                     max_active_clusters)
 from stedm_tpu_torch.ops import LAUNCHES
 
 
@@ -26,32 +29,67 @@ def nearest_code_reference(z_flat: torch.Tensor, codebook: torch.Tensor) -> torc
     return torch.argmin(d, dim=1).to(torch.int32)
 
 
-def pack_codebook(codebook: torch.Tensor) -> torch.Tensor:
-    """[n_embed, 3] -> [n_embed, 4] rows (c0, c1, c2, ||c||^2), fp32."""
-    cb = codebook.float()
-    return torch.cat([cb, (cb ** 2).sum(dim=1, keepdim=True)], dim=1).contiguous()
+_TILE = 512               # tokens a CTA (csrc/nearest_code.cu, TILE)
+_SPLITS = (1, 2, 4, 8)    # CTAs of a cluster sharing a tile: portable sizes
+# clusters of 1, 2, 4 and 8 CTAs an H100 holds at once, one CTA an SM (132
+# SMs; cudaOccupancyMaxActiveClusters, tools/torch_nearest_code_variants.py),
+# for the CPU tests; the wrapper asks the device (_device.max_active_clusters)
+_H100_ACTIVE = (132, 66, 30, 15)
 
 
+@functools.lru_cache(maxsize=None)
+def _launch_plan(n: int, n_embed: int, active: tuple = _H100_ACTIVE) -> dict:
+    """How the codebook is split across a cluster; pure arithmetic so the
+    CPU tests reach it. ``active``: the clusters of each size in ``_SPLITS``
+    the device holds at once. The split is the largest whose clusters, one
+    a tile of tokens, all run at once (so the grid is one wave that fills
+    the SMs); at least 1. Rank r of a cluster takes codes [r *
+    codes_per_cta, (r + 1) * codes_per_cta) (code order), packed in shared
+    memory as float4 (c0, c1, c2, ||c||^2) at offset 0; the scratch behind
+    it holds the slice as it lies, then the CTA's (min, argmin) a token; the
+    bulk copy's mbarrier comes last."""
+    tiles = -(-n // _TILE)
+    split = max([s for s, a in zip(_SPLITS, active) if tiles <= a] or [1])
+    while split > 1 and -(-n_embed // split) < 4:
+        split //= 2
+    codes_per_cta = -(-(-(-n_embed // split)) // 4) * 4   # a multiple of 4: 48-byte copies
+    scratch_off = 16 * codes_per_cta
+    bar_off = scratch_off + max(12 * codes_per_cta, 8 * _TILE)
+    smem = max(bar_off + 16, ONE_PER_SM)
+    if bar_off + 16 > SMEM_LIMIT:
+        raise ValueError(f"a codebook of {n_embed} codes does not fit {split} CTAs")
+    return dict(split=split, codes_per_cta=codes_per_cta, tiles=tiles,
+                scratch_off=scratch_off, bar_off=bar_off, smem=smem)
+
+
+def _device_active(index: int) -> tuple:
+    """``_H100_ACTIVE`` as device ``index`` reports it."""
+    return max_active_clusters("nearest_code", _SPLITS, ONE_PER_SM, index)
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
-    lib = load_library("nearest_code")
-    fn = lib.nearest_code_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn = load_library("nearest_code").nearest_code_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def nearest_code_cuda(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel: z ``[N, 3]`` fp32, codebook ``[n_embed, 3]``."""
+    """Launch the kernel: z ``[N, 3]`` fp32, codebook ``[n_embed, 3]`` fp32."""
     check_cuda_tensor(z_flat, "z_flat", torch.float32, 2)
-    if z_flat.shape[1] != 3 or codebook.dim() != 2 or codebook.shape[1] != 3:
+    check_cuda_tensor(codebook, "codebook", torch.float32, 2)
+    if z_flat.shape[1] != 3 or codebook.shape[1] != 3:
         raise ValueError("the kernel takes a 3-wide embedding")
     if codebook.device != z_flat.device:
         raise ValueError("codebook and z_flat must share a device")
-    packed = pack_codebook(codebook)
-    out = torch.empty(z_flat.shape[0], dtype=torch.int32, device=z_flat.device)
-    err = _lib()(z_flat.data_ptr(), packed.data_ptr(), out.data_ptr(),
-                 z_flat.shape[0], packed.shape[0],
+    if codebook.data_ptr() % 16:
+        raise ValueError("the codebook must be 16-byte aligned (its bulk copy)")
+    n, n_embed = z_flat.shape[0], codebook.shape[0]
+    p = _launch_plan(n, n_embed, _device_active(z_flat.device.index or 0))
+    out = torch.empty(n, dtype=torch.int32, device=z_flat.device)
+    err = _lib()(z_flat.data_ptr(), codebook.data_ptr(), out.data_ptr(), n, n_embed,
+                 p["split"], p["codes_per_cta"], p["scratch_off"], p["bar_off"], p["smem"],
                  torch.cuda.current_stream(z_flat.device).cuda_stream)
     if err:
         raise RuntimeError(f"nearest_code launch failed: cudaError {err}")

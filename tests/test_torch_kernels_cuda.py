@@ -1,7 +1,7 @@
 """The port's hand-written kernels against their plain versions on the card.
 
-These need a CUDA card, nvcc and triton; without a card they skip (the CPU
-tests hold the plain versions against the JAX package). On a card machine:
+These need a CUDA card and nvcc; without a card they skip (the CPU tests hold
+the plain versions against the JAX package). On a card machine:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 """
@@ -43,6 +43,102 @@ def test_gn_silu_kernel(cuda, shape, mode):
     got = g.gn_silu(x, gamma, beta, **kw)
     # neighbouring bf16 values (2^-7 relative)
     _close(got, g.gn_silu_reference(x, gamma, beta, **kw), 2 ** -7, 2 ** -9)
+
+
+def _gn_case(gen, shape, mode, x_dtype, vec_dtype):
+    b, c = shape[0], shape[3]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(x_dtype)
+    gamma = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    names = {"plain": [], "add": ["add"], "film": ["film_scale", "film_shift"]}[mode]
+    kw = {n: (0.5 * torch.randn(b, c, generator=gen, device="cuda")).to(vec_dtype)
+          for n in names}
+    return x, gamma, beta, kw
+
+
+@pytest.mark.parametrize("shape,mode", [((2, 8, 8, 128), "add"), ((3, 7, 5, 96), "film"),
+                                        ((2, 16, 16, 640), "plain"), ((1, 128, 128, 128), "add")])
+def test_gn_silu_kernel_fp32(cuda, shape, mode):
+    """fp32 x and vectors, at a resident and at a re-read shape."""
+    from stedm_tpu_torch.ops import gn_silu as g
+
+    x, gamma, beta, kw = _gn_case(cuda, shape, mode, torch.float32, torch.float32)
+    got = g.gn_silu_cuda(x, gamma, beta, **kw)
+    assert got.dtype == torch.float32
+    # fp32 sums in another order; rsqrtf and __expf within a few ulps
+    torch.testing.assert_close(got, g.gn_silu_reference(x, gamma, beta, **kw), rtol=1e-4,
+                               atol=1e-4)
+
+
+# a slab that stays resident and one whose CTAs read part of their tile
+# again (64 boxes of rows a CTA, 13 slots), bf16 x with bf16 and fp32 vectors
+@pytest.mark.parametrize("shape,mode,resident", [((2, 96, 96, 256), "add", True),
+                                                 ((1, 256, 256, 64), "film", False),
+                                                 ((2, 128, 128, 128), "plain", False)])
+@pytest.mark.parametrize("vec_dtype", [torch.bfloat16, torch.float32])
+def test_gn_silu_kernel_resident_and_reread(cuda, shape, mode, resident, vec_dtype):
+    from stedm_tpu_torch.ops import gn_silu as g
+
+    b, h, w, c = shape
+    assert g._launch_plan(b, h * w, c, 32, 2, g._device_active(0))["resident"] == resident
+    x, gamma, beta, kw = _gn_case(cuda, shape, mode, torch.bfloat16, vec_dtype)
+    got = g.gn_silu_cuda(x, gamma, beta, eps=1e-6, **kw)
+    _close(got, g.gn_silu_reference(x, gamma, beta, eps=1e-6, **kw), 2 ** -7, 2 ** -9)
+    # the sums meet in a fixed order: a second launch gives the same bits
+    assert torch.equal(got, g.gn_silu_cuda(x, gamma, beta, eps=1e-6, **kw))
+
+
+def test_gn_silu_kernel_empty_last_cta(cuda):
+    """9 rows (3 channels a group) over a cluster of 8 CTAs of 2 rows each:
+    the last three CTAs have none and still meet the cluster's barriers."""
+    from stedm_tpu_torch.ops import gn_silu as g
+
+    shape = (3, 3, 3, 96)
+    p = g._plan_for(3, 9, 96, 3, 2, 96, 8, g._device_active(0))
+    assert p["cluster"] == 8 and p["rows_per_cta"] == 2
+    for mode in ("plain", "add", "film"):
+        x, gamma, beta, kw = _gn_case(cuda, shape, mode, torch.bfloat16, torch.bfloat16)
+        vecs = [kw.get(k) for k in ("add", "film_scale", "film_shift")]
+        got = g._launch(x, gamma, beta, *vecs, 1e-5, True, g._ints(p))
+        _close(got, g.gn_silu_reference(x, gamma, beta, **kw), 2 ** -7, 2 ** -9)
+        assert torch.equal(got, g._launch(x, gamma, beta, *vecs, 1e-5, True, g._ints(p)))
+        # the plan the wrapper picks itself agrees too
+        _close(g.gn_silu_cuda(x, gamma, beta, **kw), g.gn_silu_reference(x, gamma, beta, **kw),
+               2 ** -7, 2 ** -9)
+
+
+def test_gn_silu_kernel_launches_from_another_thread(cuda):
+    """Autograd's worker thread (a checkpointed block's recomputed forward)
+    launches the kernel as the first thread does."""
+    import threading
+
+    from stedm_tpu_torch.ops import gn_silu as g
+
+    x, gamma, beta, kw = _gn_case(cuda, (2, 16, 16, 640), "add", torch.bfloat16, torch.float32)
+    here = g.gn_silu_cuda(x, gamma, beta, **kw)
+    there = []
+    worker = threading.Thread(target=lambda: there.append(g.gn_silu_cuda(x, gamma, beta, **kw)))
+    worker.start()
+    worker.join()
+    assert len(there) == 1 and torch.equal(here, there[0])
+
+
+def test_gn_silu_kernel_refusals(cuda):
+    from stedm_tpu_torch.ops import gn_silu as g
+
+    x, gamma, beta, kw = _gn_case(cuda, (2, 8, 8, 128), "add", torch.bfloat16, torch.float32)
+    with pytest.raises(ValueError):
+        g.gn_silu_cuda(x.half(), gamma, beta)
+    with pytest.raises(ValueError):
+        g.gn_silu_cuda(x.permute(0, 2, 1, 3), gamma, beta)
+    with pytest.raises(ValueError):
+        g.gn_silu_cuda(x, gamma, beta.bfloat16())
+    with pytest.raises(ValueError):
+        g.gn_silu_cuda(x, gamma, beta, film_scale=kw["add"], film_shift=kw["add"].bfloat16())
+    with pytest.raises(ValueError):
+        g.gn_silu_cuda(x, gamma, beta, film_scale=kw["add"])
+    with pytest.raises(ValueError):
+        g.gn_silu_cuda(x, gamma, beta, add=kw["add"], film_scale=kw["add"], film_shift=kw["add"])
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 256, 128), (1, 1, 200, 512), (1, 3, 70, 64),
@@ -167,6 +263,59 @@ def test_nearest_code_kernel(cuda):
     diff = (got != ref).nonzero().flatten()
     d = lambda i: ((z[diff].double() - cb[i[diff].long()].double()) ** 2).sum(1)
     assert bool(((d(got) - d(ref)).abs() <= 1e-5 * (1 + (z[diff] ** 2).sum(1))).all())
+
+
+# N not a multiple of the 512-token tile; codebooks split across 8, 8 and 1
+# CTAs, slices of 1024, 132 and 8 codes (132: blocks of 64 codes with a
+# partial last one), the last slice not a multiple of 4 codes (its tail
+# loaded by threads)
+@pytest.mark.parametrize("n,n_embed", [(3000, 8192), (2049, 1030), (70, 5)])
+def test_nearest_code_kernel_duplicated_codes(cuda, n, n_embed):
+    """A codebook whose second half repeats its first, each code also
+    repeated within its slice, and tokens placed on codes: the lower index
+    must win every tie, across the CTAs of a cluster and within one."""
+    from stedm_tpu_torch.ops import quantize as qz
+
+    half = (n_embed + 1) // 2
+    base = torch.randn(half, 3, generator=cuda, device="cuda")
+    cb = torch.cat([base, base])[:n_embed].contiguous()
+    cb[1::7] = cb[0::7][:cb[1::7].shape[0]]         # neighbours within a slice too
+    pick = torch.randint(0, n_embed, (n,), generator=cuda, device="cuda")
+    z = cb[pick].clone()
+    z[::3] += 0.01 * torch.randn(z[::3].shape, generator=cuda, device="cuda")
+    got = qz.nearest_code_cuda(z, cb)
+    ref = qz.nearest_code_reference(z, cb)
+    # exact ties on the duplicates: the first index of equal rows wins
+    rows = [tuple(r) for r in cb.tolist()]
+    first = {}
+    for i, row in enumerate(rows):
+        first.setdefault(row, i)
+    assert all(first[rows[i]] == i for i in got.tolist())
+    diff = (got != ref).nonzero().flatten()
+    d = lambda i: ((z[diff].double() - cb[i[diff].long()].double()) ** 2).sum(1)
+    assert bool(((d(got) - d(ref)).abs() <= 1e-5 * (1 + (z[diff] ** 2).sum(1))).all())
+    assert torch.equal(got, qz.nearest_code_cuda(z, cb))
+
+
+# the flagship decode (split 2, 4096 codes a CTA), split 4, and splits of 8
+# whose slices hold 128 and 20 codes (the last rank of the latter none)
+@pytest.mark.parametrize("n,n_embed", [(32768, 8192), (8192, 8192), (1000, 1000), (513, 130)])
+def test_nearest_code_kernel_is_the_argmin_in_its_own_order(cuda, n, n_embed):
+    """On a coarse grid many distances tie exactly. The kernel's index is
+    the first minimum of the distances formed in its own order of rounding
+    (||c||^2 - 2 ((z0 c0 + z1 c1) + z2 c2), each product and sum rounded),
+    which torch's elementwise fp32 ops reproduce, for every token."""
+    from stedm_tpu_torch.ops import quantize as qz
+
+    cb = (torch.randint(-6, 7, (n_embed, 3), generator=cuda, device="cuda") * 0.25).float()
+    z = (torch.randint(-8, 9, (n, 3), generator=cuda, device="cuda") * 0.125).float()
+    got = qz.nearest_code_cuda(z, cb)
+    w = (cb[:, 0] * cb[:, 0] + cb[:, 1] * cb[:, 1]) + cb[:, 2] * cb[:, 2]
+    want = []
+    for zc in z.split(4096):
+        dot = (zc[:, :1] * cb[:, 0] + zc[:, 1:2] * cb[:, 1]) + zc[:, 2:] * cb[:, 2]
+        want.append(torch.argmin(w - 2 * dot, dim=1).to(torch.int32))   # the first minimum
+    assert torch.equal(got, torch.cat(want))
 
 
 def _abs_bound(*pairs):
@@ -338,7 +487,7 @@ def test_gn_silu_function_backward(cuda, shape, mode):
         y.backward(dy)
         return [t.grad.float() for t in leaves]
 
-    got = grads(g.gn_silu)                      # GNSiLUFunction: Triton forward
+    got = grads(g.gn_silu)                      # GNSiLUFunction: CUDA forward
     ref = grads(g.gn_silu_reference)            # autograd of the plain version
     for gg, rr in zip(got, ref):
         # dx rounds to bf16; the fp32 sums run in other orders

@@ -71,18 +71,74 @@ def test_gn_silu_group_width_not_a_power_of_two():
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("c", [64, 128, 640, 1536, 2048])
-def test_gn_launch_plan_covers_whole_groups(c):
-    """The Triton launch plan (pure arithmetic): column blocks hold whole
-    groups and fit the block width; row chunks cover every row."""
-    for b, hw in ((8, 256 * 256), (16, 8 * 8), (1, 7)):
-        p = pgn._launch_plan(b, hw, c, 32)
-        assert p["gpb"] * p["cg"] <= p["block_c"] and p["gpb"] >= 1
-        assert p["col_blocks"] * p["gpb"] >= 32 > (p["col_blocks"] - 1) * p["gpb"]
-        assert p["stats_col_blocks"] * 128 >= c
-        assert p["block_g"] >= p["gpb"]
-        assert p["rows_per_chunk"] % pgn._BLOCK_R == 0
-        assert (p["n_chunks"] - 1) * p["rows_per_chunk"] < hw <= p["n_chunks"] * p["rows_per_chunk"]
+# (B, HW, C): every GN shape chip_smoke.py checks on the card, then the
+# card tests' shapes (ragged HW = 35 with 3 channels a group, an empty last
+# CTA, and the resident and re-read cases)
+_GN_PLAN_SHAPES = [(8, 64 * 64, 128), (16, 64 * 64, 640), (16, 16 * 16, 1536), (16, 8 * 8, 2048),
+                   (16, 8 * 8, 1024), (8, 256 * 256, 256), (8, 128 * 128, 128), (8, 32 * 32, 1024),
+                   (8, 512 * 512, 128), (8, 128 * 128, 512), (2, 8 * 8, 128), (2, 16 * 16, 640),
+                   (3, 7 * 5, 96), (3, 3 * 3, 96), (1, 128 * 128, 128), (2, 96 * 96, 256), (1, 256 * 256, 64)]
+# shapes whose slab is read twice in part: a (sample, channel block) of
+# 128-byte rows does not fit a cluster of at most 8 CTAs (the VQ shapes, the
+# 512^2 U-Net level 0 and the card tests' re-read cases), or fits only in
+# several waves of clusters, which the cost model prices above one wave that
+# streams ([16, 64^2, 640]: 5.2 MB a sample); every other shape stays resident
+_GN_REREAD = {(16, 64 * 64, 640), (8, 256 * 256, 256), (8, 128 * 128, 128), (8, 512 * 512, 128),
+              (8, 128 * 128, 512), (1, 128 * 128, 128), (1, 256 * 256, 64)}
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("b,hw,c", _GN_PLAN_SHAPES)
+def test_gn_launch_plan_covers_whole_groups(b, hw, c, elem_bytes):
+    """The CUDA launch plan (pure arithmetic): channel blocks of whole groups
+    and 16-byte TMA boxes, every row of a sample in exactly one CTA's boxes,
+    the shared memory within the H100's limit, portable clusters, and the
+    resident or re-read choice the design predicts."""
+    p = pgn._launch_plan(b, hw, c, 32, elem_bytes)
+    vec = 16 // elem_bytes
+    assert p["width"] % p["cg"] == 0 and p["width"] * p["col_blocks"] == c
+    assert p["groups_per_block"] * p["cg"] == p["width"]
+    assert p["width"] % p["box_cols"] == 0 and p["box_cols"] <= 256
+    assert p["box_cols"] % vec == 0 and p["box_rows"] <= 256
+    assert p["boxes_per_stage"] * p["box_cols"] == p["width"]
+    assert (p["width"] // vec) * p["row_phases"] <= pgn._THREADS
+    assert 1 <= p["cluster"] <= 8                   # at most 16; portable sizes only
+    # every row once: rank r holds rows [r * rows_per_cta, ...) in whole boxes
+    seen = []
+    for rank in range(p["cluster"]):
+        r0 = rank * p["rows_per_cta"]
+        rows = max(0, min(hw - r0, p["rows_per_cta"]))
+        boxes = -(-rows // p["box_rows"])
+        assert boxes * p["box_rows"] <= p["rows_per_cta"]
+        seen += [r0 + j * p["box_rows"] + r for j in range(boxes) for r in range(p["box_rows"])
+                 if j * p["box_rows"] + r < rows]
+    assert seen == list(range(hw))
+    # shared memory: the slots, the sums, the group statistics and the
+    # barriers one after another, within what a block may use
+    n_boxes = p["rows_per_cta"] // p["box_rows"]
+    assert 1 <= p["slots"] <= min(32, n_boxes)
+    assert p["box_stride"] % 128 == 0 and p["box_stride"] >= p["box_rows"] * p["box_cols"] * elem_bytes
+    assert p["slots"] * p["stage_stride"] <= p["red_off"]
+    assert p["red_off"] + 2 * p["row_phases"] * p["width"] * 4 <= p["part_off"]
+    assert p["part_off"] + 2 * p["groups_per_block"] * 4 <= p["gstat_off"]
+    assert p["gstat_off"] + 2 * p["groups_per_block"] * 4 <= p["bar_off"]
+    assert p["bar_off"] + 8 * p["slots"] + 128 <= p["smem"] <= 232448
+    # resident: every box has its slot; else all boxes stream through the slots
+    assert p["resident"] == (n_boxes <= p["slots"])
+    if elem_bytes == 2:
+        assert p["resident"] == ((b, hw, c) not in _GN_REREAD)
+
+
+def test_gn_launch_plan_empty_last_cta_and_fills_the_card():
+    # 9 rows over 8 CTAs of 2: the last three have no rows (the card tests' case)
+    p = pgn._plan_for(3, 9, 96, 3, 2, 96, 8, pgn._H100_ACTIVE)
+    assert p["cluster"] == 8 and p["rows_per_cta"] == 2 and p["blocks"] == 24
+    # a cluster a (sample, block) and no more clusters than the device holds
+    # at once: the chosen plans run in one wave at the sampling shapes
+    for b, hw, c in _GN_PLAN_SHAPES[:5]:
+        assert pgn._launch_plan(b, hw, c, 32, 2)["waves"] == 1
+    with pytest.raises(ValueError):
+        pgn._launch_plan(2, 64, 100, 32, 2)
 
 
 def test_cpu_wrappers_launch_nothing():
@@ -235,9 +291,34 @@ def test_nearest_code_ties_go_to_lowest_index():
     assert pq.nearest_code(z, cb).tolist() == [0, 1, 0]
 
 
+@pytest.mark.parametrize("n,n_embed", [(32768, 8192), (3000, 5000), (1500, 4096), (64, 256),
+                                         (100, 5), (5000, 1030)])
+def test_nearest_code_plan_covers_every_code_once(n, n_embed):
+    """Rank r of a cluster takes codes [r * codes_per_cta, ...): the ranks'
+    slices are in code order and cover the codebook once, each starting on a
+    16-byte boundary for its bulk copy; every token lies in one tile."""
+    p = pq._launch_plan(n, n_embed)
+    assert p["split"] in (1, 2, 4, 8) and pq._TILE % p["split"] == 0
+    assert p["codes_per_cta"] % 4 == 0
+    slices = [range(r * p["codes_per_cta"], min((r + 1) * p["codes_per_cta"], n_embed))
+              for r in range(p["split"])]
+    assert [c for sl in slices for c in sl] == list(range(n_embed))
+    assert all((12 * sl.start) % 16 == 0 for sl in slices if len(sl))
+    assert (p["tiles"] - 1) * pq._TILE < n <= p["tiles"] * pq._TILE
+    if n == 32768:        # the flagship decode: 64 tiles, clusters of 2, 128 SMs
+        assert p["split"] == 2 and p["tiles"] * p["split"] == 128
+    assert p["tiles"] <= dict(zip(pq._SPLITS, pq._H100_ACTIVE))[p["split"]] or p["split"] == 1
+
+
 def test_packed_codebook_layout():
-    cb = torch.randn(8, 3)
-    packed = pq.pack_codebook(cb)
-    assert packed.shape == (8, 4)
-    torch.testing.assert_close(packed[:, :3], cb)
-    torch.testing.assert_close(packed[:, 3], (cb ** 2).sum(1))
+    """The kernel packs its slice as float4 (c0, c1, c2, ||c||^2) from offset
+    0; the scratch behind it holds the slice as it lies (12 bytes a code),
+    then the CTA's (min, argmin) of each of its tokens; the barrier last."""
+    for n_embed in (8192, 5000, 256, 5):
+        p = pq._launch_plan(4096, n_embed)
+        assert p["scratch_off"] == 16 * p["codes_per_cta"]
+        assert p["bar_off"] - p["scratch_off"] >= max(12 * p["codes_per_cta"], 8 * pq._TILE)
+        assert p["scratch_off"] % 16 == 0 and p["bar_off"] % 8 == 0
+        assert p["bar_off"] + 16 <= p["smem"] <= 232448 and p["smem"] >= 118784
+    with pytest.raises(ValueError):
+        pq._launch_plan(16, 8 * 20000)   # a slice beyond a block's shared memory
