@@ -5,8 +5,10 @@
 // _flash_attention_bwd_dkv at :941, pallas_call :1121, and
 // _flash_attention_bwd_dq at :1287, pallas_call :1456), which the JAX
 // package reaches through the gradient of stedm_tpu/ops/blocked_attention.py:
-// flash_sdpa: the U-Net bottleneck AttentionBlock in training
-// ([B, 8, 1024, 128] at 512^2, [B, 4, T, 64] in the tiny card model).
+// flash_sdpa (the U-Net bottleneck AttentionBlock in training: [B, 8, 1024,
+// 128] at 512^2, [B, 4, T, 64] in the tiny card model) and of
+// stedm_tpu/models/vq.py:AttnBlockVQ (the codec's mid-block attention in
+// codec fine-tuning: [B, 1, 16384, 512] at 512^2, [B, 1, 4096, 512] at 256^2).
 //
 // With P = softmax(Q K^T * s) rebuilt from the forward's per-row log-sum-exp
 // (csrc/flash_attention.cu writes it) and Di = rowsum(dO o O):
@@ -15,26 +17,28 @@
 // rounds them to dO's dtype; every sum is fp32.
 //
 // What bounds it on the H100: the five matrix products, 10 BH T^2 Dh flops
-// (86 GFLOP at [8, 8, 1024, 128]) against about 100 MB of traffic, so the
-// tensor cores, which only wgmma drives at their rate. The stock TPU pair
-// (and this port's first version) computes S and dP twice, once for dK/dV
-// and once for dQ: 14 BH T^2 Dh. Here one kernel computes each product once;
-// the price is that every key tile adds a partial dQ for every query tile,
-// nk fp32 passes over dQ through the L2.
+// (86 GFLOP at [8, 8, 1024, 128], 2.75 TFLOP at [2, 1, 16384, 512]) against
+// at most a few hundred MB of traffic, so the tensor cores, which only wgmma
+// drives at their rate. The stock TPU pair (and this port's first version)
+// computes S and dP twice, once for dK/dV and once for dQ: 14 BH T^2 Dh. Here
+// one kernel computes each product once; the price is that every key tile
+// adds a partial dQ for every query tile, nk fp32 passes over dQ through the
+// L2.
 //
 // Design:
 //   * flash_bwd_prep, one small pass: Di = rowsum(dO o O) in fp32 and LSE *
 //     log2(e), written per 64-row query tile into [BH, nq, 2, 64] (rows past
 //     T: Di 0 and LSE +inf, so their P is 0), and the dQ turn counters
 //     cleared;
-//   * flash_bwd: a block owns one (batch * head, 128-key tile) and is three
+//   * flash_bwd: a block owns one (batch * head, 128-key tile) and 128
+//     columns of the head dimension (all of it at Dh 64 and 128), and is three
 //     warpgroups: two consumers, each owning 64 of the keys with their dK and
-//     dV in fp32 registers (64 + 64 a thread at Dh 128), and a producer, one
-//     thread of which loads K and V once and then streams 64-row tiles of Q
-//     and dO (TMA, 4-D tensor maps built from the tensors' strides, so views
-//     are read in place) and the tile's LSE and Di (bulk copy) through a ring
-//     of stages with full/empty mbarriers; setmaxnreg gives the consumers 240
-//     registers a thread;
+//     dV columns in fp32 registers (64 + 64 a thread at 128 columns), and a
+//     producer, one thread of which loads K and V once and then streams
+//     64-row tiles of Q and dO (TMA, 4-D tensor maps built from the tensors'
+//     strides, so views are read in place) and the tile's LSE and Di (bulk
+//     copy) through a ring of stages with full/empty mbarriers; setmaxnreg
+//     gives the consumers 240 registers a thread;
 //   * per query tile and consumer: S^T = K Q^T and dP^T = V dO^T (wgmma, both
 //     operands K-major from shared memory, issued together and waited for),
 //     P^T = exp2(S^T s log2e - LSE log2e) and dS^T = P^T o (dP^T - Di) s in
@@ -44,6 +48,24 @@
 //     through shared memory, read MN-major by the transposed-A wgmma; K
 //     MN-major), 64 columns at a time. Keys past T get P = 0 and are never
 //     written; queries past T arrive as zero rows with LSE +inf;
+//   * Dh 256 and 512 (the codec's attention): dK and dV of 64 keys over 512
+//     columns would take the whole register file, and K and V of 64 keys half
+//     the shared memory, so the head dimension is split across a thread-block
+//     cluster of Dh / 128 blocks, each the Dh-128 block above on its own 128
+//     columns of Q, K, V, dO, dK, dV and dQ. S^T and dP^T are sums over all
+//     columns: each block computes its 128-column partials (64 x 64 fp32 a
+//     consumer) and writes them to its shared memory; rank r sums a quarter
+//     of the elements over the cluster through distributed shared memory, in
+//     rank order, makes their bf16 P^T and dS^T and writes them back over
+//     its own partials of that quarter, and every block gathers all four
+//     quarters as its A fragments: each element is summed and rounded once,
+//     so every block uses the same bits of P and dS (mbarriers at cluster
+//     scope: partials written, P and dS written, and read, on every rank).
+//     A block reads 72 KB of other blocks' shared memory a tile (192 KB when
+//     every block summed all partials itself: that first version took
+//     30.1 ms at [2, 1, 16384, 512] on an NVIDIA H100 80GB HBM3 at 700 W,
+//     against 22.8 ms). The 64 KB of partials
+//     leave room for one stage of Q and dO, not two;
 //   * the two consumers take turns at issuing their products (two named
 //     barriers), so one's exponentials run under the other's products; they
 //     are coupled only where consumer 0's dQ part goes to shared memory and
@@ -62,7 +84,7 @@
 //     (T <= 128) consumer 1 writes dQ itself and the adder and the
 //     conversion have nothing to do.
 //
-// Head dimensions 64 and 128.
+// Head dimensions 64, 128, 256 and 512.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -88,20 +110,25 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Bwd {
-  static constexpr int NSUB = D / SUB;                       // also the dQ column groups
+  static constexpr int CL = D <= 128 ? 1 : D / 128;          // blocks of a cluster
+  static constexpr int DL = D / CL;                          // columns a block
+  static constexpr int NSUB = DL / SUB;                      // a block's dQ column groups
   static constexpr int KV_BYTES = NSUB * BKEYS * ROW_BYTES;  // the K or the V tile
   static constexpr int QT_BYTES = NSUB * BQ * ROW_BYTES;     // a Q or a dO tile
   static constexpr int DS_BYTES = 64 * ROW_BYTES;            // a consumer's dS^T, [64 keys][64 queries]
   static constexpr int DQ_BYTES = BQ * SUB * 4;              // a column group's dQ part, fp32
   static constexpr int STAT_BYTES = 2 * BQ * 4;              // a tile's LSE * log2(e) and Di
-  static constexpr int STAGES = 2;
+  static constexpr int STAGES = CL > 1 ? 1 : 2;
+  // a consumer's partial S^T and dP^T, [16 float4][128 threads], either consumer
+  static constexpr int X_BYTES = CL > 1 ? 2 * 16 * WG * 16 : 0;
   static constexpr int DS_OFF = 2 * KV_BYTES;                // consumer c, buffer u: + (2 c + u) DS
   static constexpr int DQ_OFF = DS_OFF + 4 * DS_BYTES;
   static constexpr int TILES_OFF = DQ_OFF + NSUB * DQ_BYTES;
   static constexpr int STATS_OFF = TILES_OFF + STAGES * 2 * QT_BYTES;
-  static constexpr int BARS_OFF = STATS_OFF + STAGES * STAT_BYTES;
-  static constexpr int SMEM = BARS_OFF + 8 * (1 + 2 * STAGES + 3 * NSUB) + 1024;  // + slack
-  static_assert(SMEM <= 227 * 1024, "shared memory");
+  static constexpr int X_OFF = STATS_OFF + STAGES * STAT_BYTES;
+  static constexpr int BARS_OFF = X_OFF + X_BYTES;
+  static constexpr int SMEM = BARS_OFF + 8 * (1 + 2 * STAGES + 3 * NSUB + 6) + 1024;  // + slack
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
 struct Params {
@@ -119,6 +146,53 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
   return v;
+}
+
+// Distributed shared memory: `addr` (this block's shared memory) as the
+// same offset in cluster rank `rank`'s ...
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// ... a 16-byte load from there, an arrival on an mbarrier there (release at
+// cluster scope), and a wait on this block's mbarrier that acquires at
+// cluster scope what the arrivals released.
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint4 ld_cluster_u4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Every thread of the cluster (not warp-aligned: the producer's threads
+// arrive from diverged paths).
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // Di, LSE * log2(e) and the turn counters for query tile blockIdx.x of head
@@ -186,7 +260,7 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
           const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
           const Params p) {
   using C = Bwd<D>;
-  constexpr int NSUB = C::NSUB, STAGES = C::STAGES;
+  constexpr int NSUB = C::NSUB, STAGES = C::STAGES, CL = C::CL, NG = D / SUB;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
@@ -199,9 +273,15 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   auto dq_half = [&](int c) { return bars + 8 + 16 * STAGES + 8 * c; };        // consumer 0's part
   auto dq_full = [&](int c) { return bars + 8 + 16 * STAGES + 8 * (NSUB + c); };  // the sum
   auto dq_empty = [&](int c) { return bars + 8 + 16 * STAGES + 8 * (2 * NSUB + c); };
+  // consumer c's partials written by every rank / read by every rank (CL > 1)
+  auto x_full = [&](int c) { return bars + 8 + 16 * STAGES + 24 * NSUB + 8 * c; };
+  auto x_empty = [&](int c) { return bars + 8 + 16 * STAGES + 24 * NSUB + 8 * (2 + c); };
+  auto y_full = [&](int c) { return bars + 8 + 16 * STAGES + 24 * NSUB + 8 * (4 + c); };  // P, dS
   auto q_tile = [&](int s) { return base + C::TILES_OFF + s * 2 * C::QT_BYTES; };  // dO after it
 
-  const int kt = blockIdx.x, bh = blockIdx.y;
+  // cluster rank `rank` (blockIdx.x % CL) owns columns col0 .. col0 + DL - 1
+  const int kt = blockIdx.x / CL, rank = blockIdx.x % CL, bh = blockIdx.y;
+  const int col0 = rank * C::DL;
   const int b = bh / p.h, h = bh % p.h;
   const int key0 = kt * BKEYS;
   const int wg = threadIdx.x / WG;
@@ -217,10 +297,18 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
       mbar_init(dq_full(c), WG);
       mbar_init(dq_empty(c), 1);
     }
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(x_full(c), CL * WG);
+      mbar_init(x_empty(c), CL * WG);
+      mbar_init(y_full(c), CL * WG);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  __syncthreads();
+  if (CL > 1)
+    cluster_sync_all();   // every rank's barriers are initialised before any remote arrival
+  else
+    __syncthreads();
 
   if (wg == 2) {
     reg_dealloc<PRODUCER_REGS>();
@@ -228,8 +316,8 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
       // ---- loads: K and V once, then Q, dO, LSE and Di a query tile ----
       mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
       for (int sub = 0; sub < NSUB; ++sub) {
-        tma_load(k_s + sub * BKEYS * ROW_BYTES, &map_k, kv_full, sub * SUB, key0, h, b);
-        tma_load(v_s + sub * BKEYS * ROW_BYTES, &map_v, kv_full, sub * SUB, key0, h, b);
+        tma_load(k_s + sub * BKEYS * ROW_BYTES, &map_k, kv_full, col0 + sub * SUB, key0, h, b);
+        tma_load(v_s + sub * BKEYS * ROW_BYTES, &map_v, kv_full, col0 + sub * SUB, key0, h, b);
       }
       for (int j = 0; j < p.nq; ++j) {
         const int s = j % STAGES;
@@ -237,8 +325,8 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
         mbar_wait(empty(s), ((j / STAGES) & 1) ^ 1);
         mbar_expect_tx(full(s), 2 * C::QT_BYTES + C::STAT_BYTES);
         for (int sub = 0; sub < NSUB; ++sub) {
-          tma_load(q_s + sub * BQ * ROW_BYTES, &map_q, full(s), sub * SUB, j * BQ, h, b);
-          tma_load(do_s + sub * BQ * ROW_BYTES, &map_do, full(s), sub * SUB, j * BQ, h, b);
+          tma_load(q_s + sub * BQ * ROW_BYTES, &map_q, full(s), col0 + sub * SUB, j * BQ, h, b);
+          tma_load(do_s + sub * BQ * ROW_BYTES, &map_do, full(s), col0 + sub * SUB, j * BQ, h, b);
         }
         bulk_load(base + C::STATS_OFF + s * C::STAT_BYTES,
                   p.stats + ((int64_t)bh * p.nq + j) * 2 * BQ, C::STAT_BYTES, full(s));
@@ -247,8 +335,9 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
       // ---- dQ: each column group's part into the fp32 sums, in key-tile order ----
       for (int j = 0; j < p.nq; ++j) {
         for (int c = 0; c < NSUB; ++c) {
-          int* turn = p.turn + ((int64_t)bh * p.nq + j) * NSUB + c;
-          float* acc = p.dq_acc + (((int64_t)bh * p.nq + j) * NSUB + c) * (C::DQ_BYTES / 4);
+          const int cg = rank * NSUB + c;          // the column group of the head
+          int* turn = p.turn + ((int64_t)bh * p.nq + j) * NG + cg;
+          float* acc = p.dq_acc + (((int64_t)bh * p.nq + j) * NG + cg) * (C::DQ_BYTES / 4);
           mbar_wait(dq_full(c), j & 1);
           if (p.nk == 1) {                         // consumer 1 wrote dQ itself
             mbar_arrive(dq_empty(c));
@@ -284,7 +373,12 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
     const int g = lane >> 2, tg = lane & 3;
     const int row_w = warp * 16 + g;               // this lane's keys: row_w, row_w + 8 of 64 cw ..
     const bool key_ok0 = key0 + cw * 64 + row_w < p.t, key_ok1 = key0 + cw * 64 + row_w + 8 < p.t;
-    const uint32_t k_w = k_s + cw * 64 * ROW_BYTES, v_w = v_s + cw * 64 * ROW_BYTES;
+    // the wgmma descriptors' addresses: a descriptor holds 14 bits of the
+    // address / 16, the offset in the block's 256 KB shared window, and in a
+    // cluster launch the window's address carries the block's rank from bit
+    // 24 (TMA, mbarriers and mapa take the full address)
+    const uint32_t dbase = base & 0x3FFFFu;
+    const uint32_t k_w = dbase + cw * 64 * ROW_BYTES, v_w = dbase + C::KV_BYTES + cw * 64 * ROW_BYTES;
     float2* dq_part = reinterpret_cast<float2*>(smem + C::DQ_OFF) + lt;
 
     // The two consumers take turns at issuing their products (named barriers
@@ -295,15 +389,114 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
     auto pass_turn = [&]() { asm volatile("bar.arrive %0, %1;\n" :: "r"(3 - cw), "n"(2 * WG) : "memory"); };
     if (cw == 1) pass_turn();                      // consumer 0 goes first
 
-    float dk[D / 2], dv[D / 2];
+    float dk[C::DL / 2], dv[C::DL / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < C::DL / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    // With a cluster, P^T and dS^T as A operands from this rank's partial
+    // S^T and dP^T: every thread writes its partials to its slots of the
+    // block's exchange buffer ([16 float4][128 threads] a consumer: S^T's 8
+    // column pairs jj, then dP^T's; thread lt of consumer c holds the same
+    // elements on every rank). Rank r then sums the partials of the column
+    // pairs jj = r JJ .. r JJ + JJ - 1 over the cluster, in rank order, makes
+    // their P^T and dS^T (bf16, packed as the A fragments) and writes them
+    // over its own S^T slots of those jj (which no other rank reads), and
+    // every rank gathers all of them: each element is summed and rounded
+    // once, by one rank, and the cluster reads 3/8 of what an all-to-all of
+    // the partials would.
+    // P^T (keys past T: 0) and dS^T = P^T o (dP^T - Di) * s of this thread's
+    // four elements of column pair jj (S^T and dP^T summed), as bf16 pairs:
+    // P^T's two rows, then dS^T's
+    auto p_ds = [&](int jj, const float* lse2, const float* di, const float (&sv)[4],
+                    const float (&dpv)[4], uint32_t (&w)[4]) {
+      const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * jj + 2 * tg);
+      const float2 d = *reinterpret_cast<const float2*>(di + 8 * jj + 2 * tg);
+      float pv[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = e < 2 ? key_ok0 : key_ok1;
+        const float lv = e & 1 ? l.y : l.x, dv_ = e & 1 ? d.y : d.x;
+        pv[e] = ok ? exp2f(fmaf(sv[e], p.scale_log2, -lv)) : 0.f;
+        ds[e] = pv[e] * (dpv[e] - dv_) * p.sm_scale;
+      }
+      w[0] = pack_bf16x2(pv[0], pv[1]);
+      w[1] = pack_bf16x2(pv[2], pv[3]);
+      w[2] = pack_bf16x2(ds[0], ds[1]);
+      w[3] = pack_bf16x2(ds[2], ds[3]);
+    };
+
+    constexpr int JJ = 8 / CL;                     // column pairs a rank finishes
+    const uint32_t x_mine = base + C::X_OFF + (cw * 16 * WG + lt) * 16;
+    auto exchange = [&](int i, const float (&st)[32], const float (&dp)[32], const float* lse2,
+                        const float* di, uint32_t (&pa)[4][4], uint32_t (&dsa)[4][4]) {
+      unsigned char* mine = smem + (x_mine - base);
+      auto slot = [&](int f) { return x_mine + f * WG * 16; };
+      if (i > 0) mbar_wait_cluster(x_empty(cw), (i - 1) & 1);   // tile i - 1's were read
+#pragma unroll
+      for (int f = 0; f < 8; ++f) {
+        *reinterpret_cast<float4*>(mine + f * WG * 16) =
+            make_float4(st[4 * f], st[4 * f + 1], st[4 * f + 2], st[4 * f + 3]);
+        *reinterpret_cast<float4*>(mine + (8 + f) * WG * 16) =
+            make_float4(dp[4 * f], dp[4 * f + 1], dp[4 * f + 2], dp[4 * f + 3]);
+      }
+#pragma unroll
+      for (int r = 0; r < CL; ++r) mbar_arrive_cluster(map_rank(x_full(cw), r));
+      mbar_wait_cluster(x_full(cw), i & 1);
+      auto sum = [&](int f) {
+        float4 a = ld_cluster_f4(map_rank(slot(f), 0));
+#pragma unroll
+        for (int r = 1; r < CL; ++r) {
+          const float4 o = ld_cluster_f4(map_rank(slot(f), r));
+          a.x += o.x;
+          a.y += o.y;
+          a.z += o.z;
+          a.w += o.w;
+        }
+        return a;
+      };
+      uint32_t w[JJ][4];
+#pragma unroll
+      for (int m = 0; m < JJ; ++m) {
+        const int jj = rank * JJ + m;
+        const float4 s4 = sum(jj), d4 = sum(8 + jj);
+        const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, dpv[4] = {d4.x, d4.y, d4.z, d4.w};
+        p_ds(jj, lse2, di, sv, dpv, w[m]);
+      }
+      // the A fragments of k-steps rank * JJ / 2 ..: P^T's, then dS^T's
+#pragma unroll
+      for (int m = 0; m < JJ / 2; ++m) {
+        const int f = rank * JJ + 2 * m;
+        *reinterpret_cast<uint4*>(mine + f * WG * 16) =
+            make_uint4(w[2 * m][0], w[2 * m][1], w[2 * m + 1][0], w[2 * m + 1][1]);
+        *reinterpret_cast<uint4*>(mine + (f + 1) * WG * 16) =
+            make_uint4(w[2 * m][2], w[2 * m][3], w[2 * m + 1][2], w[2 * m + 1][3]);
+      }
+#pragma unroll
+      for (int r = 0; r < CL; ++r) mbar_arrive_cluster(map_rank(y_full(cw), r));
+      mbar_wait_cluster(y_full(cw), i & 1);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int q = k / (JJ / 2), f = q * JJ + 2 * (k % (JJ / 2));
+        const uint4 a = ld_cluster_u4(map_rank(slot(f), q));
+        const uint4 b = ld_cluster_u4(map_rank(slot(f + 1), q));
+        pa[k][0] = a.x;
+        pa[k][1] = a.y;
+        pa[k][2] = a.z;
+        pa[k][3] = a.w;
+        dsa[k][0] = b.x;
+        dsa[k][1] = b.y;
+        dsa[k][2] = b.z;
+        dsa[k][3] = b.w;
+      }
+#pragma unroll
+      for (int r = 0; r < CL; ++r) mbar_arrive_cluster(map_rank(x_empty(cw), r));
+    };
 
     mbar_wait(kv_full, 0);
     for (int i = 0; i < p.nq; ++i) {
       const int s = i % STAGES;
-      const uint32_t q_s = q_tile(s), do_s = q_s + C::QT_BYTES;
-      const uint32_t ds_w = base + C::DS_OFF + (2 * cw + (i & 1)) * C::DS_BYTES;
+      const uint32_t q_s = q_tile(s) - base + dbase, do_s = q_s + C::QT_BYTES;
+      const uint32_t ds_w = dbase + C::DS_OFF + (2 * cw + (i & 1)) * C::DS_BYTES;
       const float* lse2 = reinterpret_cast<const float*>(smem + C::STATS_OFF + s * C::STAT_BYTES);
       const float* di = lse2 + BQ;
       mbar_wait(full(s), (i / STAGES) & 1);
@@ -313,13 +506,13 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
       take_turn();
       wgmma::fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < C::DL / 16; ++kk) {
         const int sub = kk / 4, off = (kk % 4) * 32;
         wgmma::ss<0>(st, wgmma::descriptor(k_w / 16 + (sub * BKEYS * ROW_BYTES + off) / 16, 16),
                      wgmma::descriptor(q_s / 16 + (sub * BQ * ROW_BYTES + off) / 16, 16), kk != 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < C::DL / 16; ++kk) {
         const int sub = kk / 4, off = (kk % 4) * 32;
         wgmma::ss<0>(dp, wgmma::descriptor(v_w / 16 + (sub * BKEYS * ROW_BYTES + off) / 16, 16),
                      wgmma::descriptor(do_s / 16 + (sub * BQ * ROW_BYTES + off) / 16, 16), kk != 0);
@@ -330,27 +523,25 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
 
       // ---- P^T (keys past T: 0) and dS^T = P^T o (dP^T - Di) * s, as bf16 A operands ----
       uint32_t pa[4][4], dsa[4][4];
+      if constexpr (CL > 1) {
+        exchange(i, st, dp, lse2, di, pa, dsa);
+      } else {
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * jj + 2 * tg);
-        const float2 d = *reinterpret_cast<const float2*>(di + 8 * jj + 2 * tg);
-        float pv[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool ok = e < 2 ? key_ok0 : key_ok1;
-          const float lv = e & 1 ? l.y : l.x, dv_ = e & 1 ? d.y : d.x;
-          pv[e] = ok ? exp2f(fmaf(st[4 * jj + e], p.scale_log2, -lv)) : 0.f;
-          ds[e] = pv[e] * (dp[4 * jj + e] - dv_) * p.sm_scale;
+        for (int jj = 0; jj < 8; ++jj) {
+          const float sv[4] = {st[4 * jj], st[4 * jj + 1], st[4 * jj + 2], st[4 * jj + 3]};
+          const float dpv[4] = {dp[4 * jj], dp[4 * jj + 1], dp[4 * jj + 2], dp[4 * jj + 3]};
+          uint32_t w[4];
+          p_ds(jj, lse2, di, sv, dpv, w);
+          // columns 8 jj .. 8 jj + 7 are half of the A fragment of k-step jj / 2
+          pa[jj / 2][2 * (jj & 1)] = w[0];
+          pa[jj / 2][2 * (jj & 1) + 1] = w[1];
+          dsa[jj / 2][2 * (jj & 1)] = w[2];
+          dsa[jj / 2][2 * (jj & 1) + 1] = w[3];
         }
-        // columns 8 jj .. 8 jj + 7 are half of the A fragment of k-step jj / 2
-        pa[jj / 2][2 * (jj & 1)] = pack_bf16x2(pv[0], pv[1]);
-        pa[jj / 2][2 * (jj & 1) + 1] = pack_bf16x2(pv[2], pv[3]);
-        dsa[jj / 2][2 * (jj & 1)] = pack_bf16x2(ds[0], ds[1]);
-        dsa[jj / 2][2 * (jj & 1) + 1] = pack_bf16x2(ds[2], ds[3]);
       }
       // dS^T also goes to shared memory ([64 keys][64 queries], bf16, in the
       // 128-byte swizzle: row r's 16-byte chunk c lands at chunk c ^ (r & 7))
-      unsigned char* ds_p = smem + (ds_w - base);
+      unsigned char* ds_p = smem + (ds_w - dbase);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
@@ -391,7 +582,7 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
           for (int r = 0; r < 2; ++r) {
             const int row = i * BQ + row_w + 8 * r;
             if (row >= p.t) continue;
-            bf16* out = p.dq + ((int64_t)bh * p.t + row) * D + c * SUB + 2 * tg;
+            bf16* out = p.dq + ((int64_t)bh * p.t + row) * D + (rank * NSUB + c) * SUB + 2 * tg;
 #pragma unroll
             for (int jj = 0; jj < 8; ++jj) {
               const float2 a = part[(2 * jj + r) * WG];
@@ -436,15 +627,18 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
     for (int r = 0; r < 2; ++r) {
       const int key = key0 + cw * 64 + row_w + 8 * r;
       if (key >= p.t) continue;
-      bf16* ok = p.dk + ((int64_t)bh * p.t + key) * D + 2 * tg;
-      bf16* ov = p.dv + ((int64_t)bh * p.t + key) * D + 2 * tg;
+      bf16* ok = p.dk + ((int64_t)bh * p.t + key) * D + col0 + 2 * tg;
+      bf16* ov = p.dv + ((int64_t)bh * p.t + key) * D + col0 + 2 * tg;
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj) {
+      for (int jj = 0; jj < C::DL / 8; ++jj) {
         *reinterpret_cast<uint32_t*>(ok + 8 * jj) = pack_bf16x2(dk[4 * jj + 2 * r], dk[4 * jj + 2 * r + 1]);
         *reinterpret_cast<uint32_t*>(ov + 8 * jj) = pack_bf16x2(dv[4 * jj + 2 * r], dv[4 * jj + 2 * r + 1]);
       }
     }
   }
+  // no block leaves while another rank may still read its partials or
+  // arrive on its barriers
+  if (CL > 1) cluster_sync_all();
 }
 
 // ---------------------------------------------------------------------------
@@ -494,7 +688,15 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
       t, h, l.nq);
   const Params p = {stats, acc, turn, (bf16*)dq, (bf16*)dk, (bf16*)dv, t, h, l.nq, l.nk,
                     sm_scale * LOG2E, sm_scale};
-  flash_bwd<D><<<dim3(l.nk, b * h), THREADS, C::SMEM, stream>>>(map_q, map_k, map_v, map_do, p);
+  if (C::CL == 1) {
+    flash_bwd<D><<<dim3(l.nk, b * h), THREADS, C::SMEM, stream>>>(map_q, map_k, map_v, map_do, p);
+  } else {   // clusters of CL blocks along x, one column slice each
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = cluster_launch(&attr, 0, THREADS, C::CL, C::SMEM, stream);
+    cfg.gridDim = dim3(l.nk * C::CL, b * h);
+    err = cudaLaunchKernelEx(&cfg, flash_bwd<D>, map_q, map_k, map_v, map_do, p);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (l.nk > 1)
     flash_bwd_dq_convert<D><<<tiles, D / SUB * WG, 0, stream>>>((const float2*)acc, (bf16*)dq, t,
                                                                    l.nq);
@@ -513,16 +715,22 @@ size_t flash_attention_bwd_workspace(int bh, int t, int d) { return layout(bh, t
 // token} of q, k, v, o and dout (15 values), each a multiple of 8 (16 bytes),
 // bases 16-byte aligned. lse: the forward's fp32 [B, H, T] (natural log),
 // contiguous. dq, dk, dv: contiguous bf16 [B, H, T, D] outputs. workspace:
-// flash_attention_bwd_workspace(B * H, T, D) bytes, 256-byte aligned. D 64
-// or 128. Launches the prep pass and the fused kernel on `stream`; returns
-// the cudaError_t of the launches.
+// flash_attention_bwd_workspace(B * H, T, D) bytes, 256-byte aligned. D 64,
+// 128, 256 or 512. Launches the prep pass, the fused kernel and (more than one
+// key tile) the dQ conversion on `stream`; returns the cudaError_t of the
+// launches.
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const void* lse, void* dq, void* dk, void* dv,
                         void* workspace, int b, int h, int t, int d, const int64_t* strides,
                         float sm_scale, void* stream) {
-  if ((d != 64 && d != 128) || t <= 0 || b <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+  if ((d != 64 && d != 128 && d != 256 && d != 512) || t <= 0 || b <= 0 || h <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
+  if (d == 512)
+    return launch<512>(q, k, v, o, dout, l, dq, dk, dv, workspace, b, h, t, strides, sm_scale, s);
+  if (d == 256)
+    return launch<256>(q, k, v, o, dout, l, dq, dk, dv, workspace, b, h, t, strides, sm_scale, s);
   if (d == 128)
     return launch<128>(q, k, v, o, dout, l, dq, dk, dv, workspace, b, h, t, strides, sm_scale, s);
   return launch<64>(q, k, v, o, dout, l, dq, dk, dv, workspace, b, h, t, strides, sm_scale, s);

@@ -1,4 +1,7 @@
-"""VQGAN-f4 first-stage codec (stedm_tpu/models/vq.py), forward only.
+"""VQGAN-f4 first-stage codec (stedm_tpu/models/vq.py): the frozen codec of
+the diffusion path (``encode``, ``decode``) and the training forward of codec
+fine-tuning (``training_recon``, with the taming codebook loss), whose
+gradient runs through every layer here, the mid-block attention included.
 
 Names follow the CompVis/taming torch modules that
 stedm_tpu/utils/torch_import.py:map_vq reads: ``encoder`` / ``decoder`` with
@@ -51,7 +54,8 @@ class ResnetBlockVQ(nn.Module):
 class AttnBlockVQ(nn.Module):
     """Single-head spatial self-attention, ``sm_scale = C ** -0.5`` after the
     matmul (stedm_tpu vq.py:69-103). Runs through ``flash_attention`` at
-    every T: the kernel on the card, its plain version on the CPU."""
+    every T: the kernels on the card (the forward and, when a gradient is
+    wanted, the Dh-512 backward), their plain versions on the CPU."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -116,13 +120,22 @@ class _Mid(nn.Module):
         return self.block_2(self.attn_1(self.block_1(h)))
 
 
+def _check_dropout(dropout: float) -> None:
+    if dropout:
+        raise NotImplementedError(f"dropout {dropout} in the codec's ResnetBlocks is not "
+                                  "ported (every shipped config sets 0.0)")
+
+
 class VQEncoder(nn.Module):
-    """(reference model.py:368-459)"""
+    """(reference model.py:368-459); ``double_z`` doubles the output
+    channels (the KL codec's mean and log-variance)."""
 
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
-                 resolution: int = 512, z_channels: int = 3, in_channels: int = 3):
+                 resolution: int = 512, z_channels: int = 3, in_channels: int = 3,
+                 double_z: bool = False, dropout: float = 0.0):
         super().__init__()
+        _check_dropout(dropout)
         self.conv_in = conv3x3(in_channels, ch)
         in_mult = (1,) + tuple(ch_mult)
         curr_res = resolution
@@ -144,7 +157,7 @@ class VQEncoder(nn.Module):
         self.down = nn.ModuleList(levels)
         self.mid = _Mid(block_in)
         self.norm_out = GNSiLU(block_in, _EPS)
-        self.conv_out = conv3x3(block_in, z_channels)
+        self.conv_out = conv3x3(block_in, 2 * z_channels if double_z else z_channels)
 
     def forward(self, x):
         h = self.conv_in(x)
@@ -163,8 +176,9 @@ class VQDecoder(nn.Module):
 
     def __init__(self, ch: int = 128, out_ch: int = 3, ch_mult: Sequence[int] = (1, 2, 4),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
-                 resolution: int = 512, z_channels: int = 3):
+                 resolution: int = 512, z_channels: int = 3, dropout: float = 0.0):
         super().__init__()
+        _check_dropout(dropout)
         n = len(ch_mult)
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (n - 1)
@@ -201,36 +215,66 @@ class VQDecoder(nn.Module):
 
 class VectorQuantizer(nn.Module):
     """Nearest codebook entry with the straight-through value
-    (stedm_tpu vq.py:202-231), forward only, on NHWC latents."""
+    (stedm_tpu vq.py:202-240) on NHWC latents: the gradient reaches ``z``
+    unchanged and the codebook not at all. ``with_loss`` also returns the
+    taming legacy codebook loss ``mean((sg(z_q) - z)^2) + beta mean((z_q -
+    sg(z))^2)`` and the code indices ``[B, H, W]``."""
 
-    def __init__(self, n_embed: int = 8192, embed_dim: int = 3):
+    def __init__(self, n_embed: int = 8192, embed_dim: int = 3, beta: float = 0.25):
         super().__init__()
-        self.embed_dim = embed_dim
+        self.embed_dim, self.beta = embed_dim, beta
         self.embedding = nn.Embedding(n_embed, embed_dim)
         nn.init.uniform_(self.embedding.weight, -1.0 / n_embed, 1.0 / n_embed)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, with_loss: bool = False):
         flat = z.reshape(-1, self.embed_dim).float().contiguous()
         cb = self.embedding.weight.float()
-        z_q = cb[nearest_code(flat, cb).long()].reshape(z.shape)
+        idx = nearest_code(flat.detach(), cb.detach()).long()
+        z_q = cb[idx].reshape(z.shape)
         z32 = z.float()
-        return z32 + (z_q - z32)
+        z_st = z32 + (z_q - z32).detach()
+        if not with_loss:
+            return z_st
+        emb_loss = (torch.mean(torch.square(z_q.detach() - z32))
+                    + self.beta * torch.mean(torch.square(z_q - z32.detach())))
+        return z_st, emb_loss, idx.reshape(z.shape[:-1])
+
+
+_DD_KEYS = ("ch", "ch_mult", "num_res_blocks", "attn_resolutions", "resolution", "z_channels",
+            "dropout")
+
+
+def codec_args(ddconfig: dict | None, double_z: bool) -> tuple[dict, dict]:
+    """The encoder's and the decoder's arguments from a ``ddconfig``; raises
+    on a key the codec does not take and on a ``double_z`` other than the
+    codec's own (JAX's VQ interface drops the key, its KL codec forces it
+    true)."""
+    dd = dict(ddconfig or {})
+    unknown = set(dd) - set(_DD_KEYS) - {"double_z", "in_channels", "out_ch"}
+    if unknown:
+        raise ValueError(f"unknown ddconfig keys {sorted(unknown)}")
+    if bool(dd.get("double_z", double_z)) != double_z:
+        raise ValueError(f"ddconfig double_z {dd['double_z']} where this codec's encoder "
+                         f"has double_z {double_z}")
+    args = {k: dd[k] for k in _DD_KEYS if k in dd}
+    enc = dict(args, in_channels=dd.get("in_channels", 3), double_z=double_z)
+    return enc, dict(args, out_ch=dd.get("out_ch", 3))
 
 
 class VQModelInterface(nn.Module):
-    """Pre-quant encode / quantize-then-decode (stedm_tpu vq.py:242-279).
-    ``encode`` and ``decode`` take and return NHWC."""
+    """Pre-quant encode / quantize-then-decode (stedm_tpu vq.py:242-290).
+    ``encode``, ``decode`` and ``training_recon`` take and return NHWC.
+    ``ddconfig`` takes the shipped keys: ``double_z`` must be false and a
+    non-zero ``dropout`` raises (not ported)."""
 
     def __init__(self, embed_dim: int = 3, n_embed: int = 8192, ddconfig: dict | None = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        enc, dec = codec_args(ddconfig, double_z=False)
         dd = dict(ddconfig or {})
-        keys = ("ch", "ch_mult", "num_res_blocks", "attn_resolutions", "resolution",
-                "z_channels")
-        args = {k: dd[k] for k in keys if k in dd}
-        self.dtype = dtype
-        self.encoder = VQEncoder(in_channels=dd.get("in_channels", 3), **args)
-        self.decoder = VQDecoder(out_ch=dd.get("out_ch", 3), **args)
+        self.dtype, self.n_embed = dtype, n_embed
+        self.encoder = VQEncoder(**enc)
+        self.decoder = VQDecoder(**dec)
         z_ch = dd.get("z_channels", 3)
         self.quant_conv = conv1x1(z_ch, embed_dim)
         self.post_quant_conv = conv1x1(embed_dim, z_ch)
@@ -241,6 +285,15 @@ class VQModelInterface(nn.Module):
         return self.quant_conv(self.encoder(h)).permute(0, 2, 3, 1)
 
     def decode(self, h: torch.Tensor, force_not_quantize: bool = False) -> torch.Tensor:
-        quant = h if force_not_quantize else self.quantize(h)
+        return self._decode(h if force_not_quantize else self.quantize(h))
+
+    def _decode(self, quant: torch.Tensor) -> torch.Tensor:
         q = channels_last(quant.permute(0, 3, 1, 2).to(self.dtype))
         return self.decoder(self.post_quant_conv(q)).permute(0, 2, 3, 1)
+
+    def training_recon(self, x: torch.Tensor):
+        """Image -> encode -> quantize (with the codebook loss) -> decode, the
+        codec fine-tuning forward (stedm_tpu vq.py:281-290): returns
+        ``(reconstruction, emb_loss, code_indices)``."""
+        quant, emb_loss, idx = self.quantize(self.encode(x), with_loss=True)
+        return self._decode(quant), emb_loss, idx

@@ -12,8 +12,9 @@ writes O in any such layout. When a gradient is wanted it goes through
 and dV: the port of the stock kernel's ``dkv`` and ``dq`` Pallas kernels,
 flash_attention.py:941 and :1287) on CUDA tensors, reading the same strided
 views, and ``attention_backward_reference`` on CPU tensors. The backward
-takes head dimensions 64 and 128; the VQ attention (Dh 512) runs only
-without gradient.
+takes head dimensions 64, 128 (the U-Net's AttentionBlock in diffusion
+training), 256 and 512 (the codec's AttnBlockVQ in codec fine-tuning, where
+a thread-block cluster splits the head dimension).
 
 ``sdpa`` keeps the JAX dispatch by name. ``exact``, ``chunked``, ``flash`` and
 ``auto`` name TPU memory strategies for one function, so on a CUDA tensor all
@@ -34,7 +35,7 @@ from stedm_tpu_torch._device import check_cuda_tensor, load_library
 from stedm_tpu_torch.ops import LAUNCHES
 
 MAX_HEAD_DIM = 512
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128, 256, 512)
 _LOG2E = 1.0 / math.log(2.0)
 
 
@@ -193,7 +194,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=Non
     pass computes Di = rowsum(do * o) on the card, then one fused kernel
     computes all three gradients (``csrc/flash_attention_bwd.cu``). q, k, v,
     o and do are bf16 ``[B, H, T, Dh]`` CUDA tensors in any layout
-    ``check_strided`` takes, Dh 64 or 128. Returns contiguous ``(dq, dk, dv)``;
+    ``check_strided`` takes, Dh 64, 128, 256 or 512. Returns contiguous
+    ``(dq, dk, dv)``;
     ``LAUNCHES["flash_attention_bwd"]`` counts the call's launches (the Di
     pass, the kernel and, past one 128-key tile, the dQ conversion) once.
     ``workspace``, a uint8 CUDA tensor of at least
@@ -206,8 +208,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=Non
     b, h, t, d = q.shape
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"the flash-attention backward kernel takes head dims "
-                         f"{BWD_HEAD_DIMS}, got {d} (Dh 512 comes with codec "
-                         "fine-tuning)")
+                         f"{BWD_HEAD_DIMS}, got {d}")
     strides = []
     for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         if not x.is_cuda or x.device != q.device:

@@ -6,8 +6,10 @@ The JAX tree is nested mappings of arrays with the top-level groups ``unet``,
 that stedm_tpu/utils/torch_import.py reads, so this is the inverse of that
 importer: HWIO conv kernels -> OIHW, Dense ``[in, out]`` -> Linear
 ``[out, in]``, the U-Net attention's Dense qkv/proj -> conv1d
-``[out, in, 1]``, norm ``scale`` -> ``weight``. Nothing here imports the JAX
-package.
+``[out, in, 1]``, norm ``scale`` -> ``weight``. Codec fine-tuning's pieces
+have their own: ``codec_state_dict`` (VQ or KL codec),
+``discriminator_state_dict`` (params and batch statistics) and
+``lpips_state_dict``. Nothing here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -127,6 +129,65 @@ def agg_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
 
 def cond_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
     return _convert(tree, lambda parts, _: parts)
+
+
+def codec_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
+    """A VQ or KL codec's state_dict from its JAX tree (a KL generator tree's
+    ``lossvar`` group, the loss's output log-variance, is left out)."""
+    return vq_state_dict({k: v for k, v in tree.items() if k != "lossvar"})
+
+
+def discriminator_state_dict(params: Mapping, batch_stats: Mapping | None = None
+                             ) -> dict[str, torch.Tensor]:
+    """``NLayerDiscriminator``'s state_dict from the JAX ``params`` and
+    ``batch_stats`` (the inverse of torch_import.py:map_discriminator):
+    ``main_{i}`` -> ``main.{i}``; a BatchNorm's ``scale`` / ``mean`` / ``var``
+    -> ``weight`` / ``running_mean`` / ``running_var`` (with a zero
+    ``num_batches_tracked``), an ActNorm's ``loc`` / ``scale`` -> ``[1, C, 1,
+    1]`` (with ``initialized`` set)."""
+    sd = {}
+    for name, leaves in params.items():
+        base = name.replace("main_", "main.")
+        actnorm = "loc" in leaves
+        for leaf, arr in leaves.items():
+            a = np.array(arr, dtype=np.float32)
+            if leaf == "kernel":
+                sd[f"{base}.weight"] = a.transpose(3, 2, 0, 1)
+            elif actnorm:
+                sd[f"{base}.{leaf}"] = a.reshape(1, -1, 1, 1)
+            else:
+                sd[f"{base}.{'weight' if leaf == 'scale' else leaf}"] = a
+        if actnorm:
+            sd[f"{base}.initialized"] = np.array(1, dtype=np.uint8)
+    for name, leaves in (batch_stats or {}).items():
+        base = name.replace("main_", "main.")
+        sd[f"{base}.running_mean"] = np.array(leaves["mean"], dtype=np.float32)
+        sd[f"{base}.running_var"] = np.array(leaves["var"], dtype=np.float32)
+        sd[f"{base}.num_batches_tracked"] = np.array(0, dtype=np.int64)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+# taming ScalingLayer buffers, which the JAX LPIPS keeps as constants
+_LPIPS_SHIFT = (-0.030, -0.088, -0.188)
+_LPIPS_SCALE = (0.458, 0.448, 0.450)
+
+
+def lpips_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """``LPIPS``'s state_dict from the JAX LPIPS params (the inverse of
+    torch_import.py:map_lpips): ``net/net_slice{s}_{i}`` -> ``net.slice{s}.{i}``,
+    ``lin{k}_model_1`` -> ``lin{k}.model.1``, plus the scaling buffers."""
+    sd = {"scaling_layer.shift": torch.tensor(_LPIPS_SHIFT).view(1, 3, 1, 1),
+          "scaling_layer.scale": torch.tensor(_LPIPS_SCALE).view(1, 3, 1, 1)}
+    for path, arr in _flatten(params):
+        *parts, leaf = path
+        if parts[0] == "net":
+            m = re.fullmatch(r"net_slice(\d)_(\d+)", parts[1])
+            key = f"net.slice{m[1]}.{m[2]}"
+        else:
+            key = re.sub(r"^lin(\d)_model_1$", r"lin\1.model.1", parts[0])
+        names, val = _leaf([key], leaf, arr, conv1d=False)
+        sd[".".join(names)] = torch.from_numpy(np.ascontiguousarray(val))
+    return sd
 
 
 _GROUPS = {"unet": unet_state_dict, "first_stage": vq_state_dict,

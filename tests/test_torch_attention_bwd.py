@@ -6,7 +6,9 @@ runs the stock Pallas backward kernels (``_flash_attention_bwd_dkv`` and
 replaces) in interpret mode on the CPU. The same numpy-seeded q, k, v and dO
 go through the port's plain backward ``attention_backward_reference`` and
 through ``FlashAttentionFunction`` on the CPU, fed strided views of one packed
-``[B, T, H, 3, Dh]`` projection as the U-Net's AttentionBlock feeds it.
+``[B, T, H, 3, Dh]`` projection as the U-Net's AttentionBlock feeds it; Dh
+512 at one head is the codec's AttnBlockVQ, whose gradient codec
+fine-tuning takes.
 """
 
 import jax
@@ -43,7 +45,7 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,h,t,dh", [(1, 2, 256, 128), (2, 2, 128, 64)])
+@pytest.mark.parametrize("b,h,t,dh", [(1, 2, 256, 128), (2, 2, 128, 64), (1, 1, 256, 512)])
 def test_backward_matches_stock_tpu_kernels(b, h, t, dh, dtype):
     jdt, tdt = DTYPES[dtype]
     r = np.random.default_rng(t + dh)

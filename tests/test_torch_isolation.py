@@ -1,5 +1,5 @@
 """The port stands alone: it imports neither JAX/Flax nor the JAX package,
-for sampling and for training."""
+for sampling, for diffusion training and for codec fine-tuning."""
 
 import ast
 import subprocess
@@ -34,6 +34,20 @@ for layer in net.zero_init_layers():
     layer.reset_parameters()
 net(torch.randn(1, 6, 8, 8), torch.tensor([10]), torch.randn(1, 512)).square().mean().backward()
 assert all(float(p.grad.abs().max()) > 0 for n, p in net.named_parameters() if "qkv" in n)
+# codec fine-tuning: one generator + discriminator step of a tiny VQ codec
+# with LPIPS, through the entry module
+from stedm_tpu_torch import train_ae
+from stedm_tpu_torch.models.lpips import LPIPS
+from stedm_tpu_torch.train import ae_steps, vae_losses
+codec, variant = train_ae.build_codec({"target": "VQModelInterface", "params": dict(
+    embed_dim=3, n_embed=16, ddconfig=dict(ch=32, ch_mult=[1, 2], num_res_blocks=1,
+                                           resolution=16, z_channels=3))})
+cfg = vae_losses.VAELossConfig(disc_ndf=8, disc_num_layers=1)
+state = ae_steps.create_ae_state(codec, vae_losses.build_discriminator(cfg),
+                                 *ae_steps.ae_optimizers(1e-4))
+step = ae_steps.make_ae_train_step(codec, cfg, lpips=LPIPS(), variant=variant, device="cpu")
+state, log, rec = step(state, torch.rand(1, 16, 16, 3) * 2 - 1)
+assert rec.shape == (1, 16, 16, 3) and bool(torch.isfinite(log["train/total_loss"]))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "stedm_tpu"))
 print("LOADED", bad)
