@@ -42,11 +42,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    discriminator, the GAN gated off and then live; log values, each step's
    gradients and the parameters' change held to fixed tolerances; the
    shipped BatchNorm discriminator on the same images on both;
+   3d. the tiny STEDM in the composed serving mode (refreshes (0, 3, 5) of 8
+   steps, guidance window (0.25, 0.75), CFG 1.5, phi 0.7, bf16): the eager
+   loop and the CUDA-graph block sampler on the card against the eager loop
+   on the CPU (phase 3's tolerance), and the latent z_0 of the graph replay
+   against the card's eager loop's bit for bit;
 4. the flagship main path: ``build_flagship(batch=8)`` at 256^2, bf16,
    ``make_sample_fn`` with DDIM-50, CFG 1.5, rescale 0.7 and shared-encoder
    batched CFG, as bench.py runs it; launch counts are zeroed just before and
    read just after (the cold run also logs the GN calls by shape and the sum
    of their bounds), and a second warm run is timed;
+   4d. the serving mode as bench.py's headline runs it: refreshes from
+   ``positions_from_spec("auto:5")`` on the committed drift profile (which
+   must read (0, 3, 21, 33, 41)), the window (0.35, 0.65) -> (18, 32) with
+   its forced refresh, so 6 full passes and 44 cached; eager (launch counts
+   zeroed just before and read just after: 7 flash launches, the GN launches
+   that the schedule and the module counts imply), then graph-replayed
+   (``make_host_sample_fn``: its latent z_0 equal to the eager loop's bit
+   for bit), and the exact trajectory graph-replayed (its z_0 equal to the
+   eager exact loop's; the decoded images, which the random-weight decoder
+   quantizes and saturates, are only logged); img/s of four warm runs each; the cached-vs-exact PSNR and ``measure_cache_drift`` of the
+   port's flagship, logged; then profiles of the three (device time, idle
+   share, one GN device kernel for each GN the schedule implies: the
+   profiler counts the replays, the wrappers only the capture);
 5. a profile of one more warm run: device time by kernel category and the
    device's idle share (full table in ``<out>/profile.txt``), one GN device
    kernel for each GN launch and no Triton kernel; then the host time of a
@@ -140,7 +158,7 @@ def time_ms(fn, iters: int, flush=None) -> float:
 class KernelRecord:
     """Per-kernel sums over the checked shapes plus each shape's numbers."""
 
-    PATHS = ("sample_batch", "train_micro_step", "codec_step")
+    PATHS = ("sample_batch", "serving_batch", "train_micro_step", "codec_step")
 
     def __init__(self, name, route, source, replaces, counter=None, paths=PATHS):
         # the launch counter the kernel's wrapper adds to, and the main paths
@@ -400,30 +418,27 @@ class GNCallLog:
         return total
 
 
-def tiny_parity(torch):
-    """A tiny STEDM, DDIM-4 with rescaled CFG, bf16: card (kernels) against
-    CPU (plain versions), same weights and x_T."""
+# phase 3's and 3d's tolerance, card (kernels, bf16) against CPU (plain
+# versions, bf16): mean and max absolute error of the images. bf16
+# activations, other conv algorithms and summation orders on the two
+# devices, through the U-Net passes and the decoder
+TINY_TOL = (1e-2, 0.125)
+
+
+def _tiny_sampling_models(torch):
+    """Phase 3's tiny STEDM on the CPU and a copy on the card, its batch, x_T
+    and the schedule."""
     from stedm_tpu_torch.core.schedules import DiffusionSchedule
     from stedm_tpu_torch.models.stedm import STEDM
-    from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
 
     p = 32
-    cfgs = dict(
-        unet_config=dict(in_channels=6, out_channels=3, model_channels=32,
-                         num_res_blocks=1, channel_mult=(1, 4, 8), num_heads=4,
-                         attention_resolutions=(32, 16, 8)),
-        first_stage_config=dict(embed_dim=3, n_embed=256, ddconfig=dict(
-            z_channels=3, resolution=p, in_channels=3, out_ch=3, ch=32, ch_mult=[1, 2, 2],
-            num_res_blocks=1, attn_resolutions=[])),
-        cond_stage_config=dict(n_stages=2, in_channels=2, out_channels=3),
-        style_agg="mean", style_sampling="nearby", patch_size=p)
     torch.manual_seed(4)
-    cpu = STEDM(dtype=torch.bfloat16, **cfgs).eval()
+    cpu = STEDM(dtype=torch.bfloat16, **_tiny_configs(p)).eval()
     with torch.no_grad():
         for prm in cpu.parameters():
             if prm.dim() == 4:
                 prm.add_(0.005)
-    gpu = STEDM(dtype=torch.bfloat16, **cfgs).eval()
+    gpu = STEDM(dtype=torch.bfloat16, **_tiny_configs(p)).eval()
     gpu.load_state_dict(cpu.state_dict())
     gpu.cuda()
     gen = torch.Generator().manual_seed(5)
@@ -432,19 +447,80 @@ def tiny_parity(torch):
     seg[:, 8:20, 4:28] = torch.tensor([0.0, 1.0])
     batch = {"segmentation": seg, "style_imgs": torch.rand(2, 1, p, p, 3, generator=gen) * 2 - 1}
     x_T = torch.randn(2, p // 4, p // 4, 3, generator=gen)
-    sched = DiffusionSchedule.create("linear", 1000, 0.0015, 0.0205)
+    return cpu, gpu, batch, x_T, DiffusionSchedule.create("linear", 1000, 0.0015, 0.0205)
+
+
+def sample_with_latent(sampler, model, batch, **kw):
+    """``sampler``'s images and the latent z_0 it handed the decoder: the
+    trajectory's own result, which a saturated or quantizing decode hides."""
+    seen, decode = [], model.decode_first_stage
+    model.decode_first_stage = lambda z, *a: (seen.append(z.clone()), decode(z, *a))[1]
+    try:
+        img = sampler(model, batch, **kw)
+    finally:
+        del model.decode_first_stage
+    return img, seen[0].float()
+
+
+def inside_clamp(img) -> float:
+    """The share of pixels strictly inside the decoder's [-1, 1] clamp."""
+    return float((img.abs() < 1.0).float().mean())
+
+
+def _tiny_close(torch, got, ref, what: str) -> None:
+    d = (got.float().cpu() - ref.float()).abs()
+    mean_err, max_err = float(d.mean()), float(d.max())
+    ok = bool(torch.isfinite(got).all()) and mean_err <= TINY_TOL[0] and max_err <= TINY_TOL[1]
+    log(f"  {what}: mean_abs_err={mean_err:.3e} max_abs_err={max_err:.3e} (tolerance mean "
+        f"{TINY_TOL[0]}, max {TINY_TOL[1]}) {'ok' if ok else 'FAILED'}")
+    require(ok, f"{what}: the card disagrees with the CPU reference")
+
+
+def tiny_parity(torch):
+    """A tiny STEDM, DDIM-4 with rescaled CFG, bf16: card (kernels) against
+    CPU (plain versions), same weights and x_T."""
+    from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
+
+    cpu, gpu, batch, x_T, sched = _tiny_sampling_models(torch)
     cfg = SamplerConfig(ddim_steps=4, eta=0.0, cfg_scale=1.5, rescale_phi=0.7,
                         batched_cfg=True, downsample=4)
     ref = make_sample_fn(cpu, sched, cfg, device="cpu")(cpu, batch, x_T=x_T)
-    got = make_sample_fn(gpu, sched, cfg, device="cuda")(gpu, batch, x_T=x_T).cpu()
-    d = (got.float() - ref.float()).abs()
-    mean_err, max_err = float(d.mean()), float(d.max())
-    # bf16 activations, other conv algorithms and summation orders on the two
-    # devices, through four U-Net passes and the decoder
-    ok = bool(torch.isfinite(got).all()) and mean_err <= 1e-2 and max_err <= 0.125
-    log(f"  tiny STEDM card vs CPU: mean_abs_err={mean_err:.3e} max_abs_err={max_err:.3e} "
-        f"(tolerance mean 1e-2, max 0.125) {'ok' if ok else 'FAILED'}")
-    require(ok, "tiny STEDM on the card disagrees with the CPU reference")
+    got = make_sample_fn(gpu, sched, cfg, device="cuda")(gpu, batch, x_T=x_T)
+    _tiny_close(torch, got, ref, "tiny STEDM card vs CPU")
+
+
+def tiny_serving_parity(torch):
+    """Phase 3d: the tiny STEDM in the composed serving mode (refreshes
+    (0, 3, 5) of 8 steps, window (0.25, 0.75) with its forced refresh, CFG
+    1.5, phi 0.7, bf16), eager and graph-replayed on the card against the
+    eager loop on the CPU, same weights and x_T; the latent z_0 of the graph
+    replay against the card's eager loop's bit for bit."""
+    from stedm_tpu_torch.train.host_sampler import make_host_sample_fn
+    from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
+
+    cpu, gpu, batch, x_T, sched = _tiny_sampling_models(torch)
+    cfg = SamplerConfig(ddim_steps=8, eta=0.0, cfg_scale=1.5, rescale_phi=0.7,
+                        batched_cfg=True, downsample=4, cache_schedule=(0, 3, 5),
+                        cfg_interval=(0.25, 0.75))
+    ref, z_ref = sample_with_latent(make_sample_fn(cpu, sched, cfg, device="cpu"), cpu, batch,
+                                    x_T=x_T)
+    exact = make_sample_fn(cpu, sched, SamplerConfig(
+        ddim_steps=8, cfg_scale=1.5, rescale_phi=0.7, downsample=4), device="cpu")(
+        cpu, batch, x_T=x_T)
+    eager, z_eager = sample_with_latent(make_sample_fn(gpu, sched, cfg), gpu, batch, x_T=x_T)
+    host = make_host_sample_fn(gpu, sched, cfg, unroll=3)
+    graph, z_graph = sample_with_latent(host, gpu, batch, x_T=x_T)
+    log(f"  blocks {host.block_sizes}; the serving image against the exact one on the CPU: "
+        f"max |diff| {float((ref - exact).abs().max()):.3e}; pixels inside the clamp "
+        f"{inside_clamp(ref):.4f}; latent z_0 card eager vs CPU: relative L2 "
+        f"{float((z_eager.cpu() - z_ref).norm() / z_ref.norm()):.3e} (logged)")
+    _tiny_close(torch, eager, ref, "tiny serving mode, card eager vs CPU")
+    _tiny_close(torch, graph, ref, "tiny serving mode, card graph replay vs CPU")
+    same = torch.equal(z_graph, z_eager)
+    log(f"  graph replay's latent z_0 equals the card's eager loop's bit for bit: {same} (max "
+        f"|diff| {float((z_graph - z_eager).abs().max()):.3e}); images equal: "
+        f"{torch.equal(graph, eager)}")
+    require(same, "the graph replay's latent differs from the eager loop's on the card")
 
 
 def _rms_bound(*pairs):
@@ -916,6 +992,196 @@ def tiny_codec_parity(torch):
     require(max(errs) <= 1e-3, "the discriminator on the card disagrees with the CPU")
 
 
+PROFILE_ATTEMPTS = 3
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2]) / 2
+
+
+def timed_runs(torch, run, n: int = 4) -> list:
+    """Host-clock seconds of ``n`` warm runs, each ending in a synchronise."""
+    times = []
+    for _ in range(n):
+        t1 = time.time()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.time() - t1)
+    return times
+
+
+def gn_modules(modules) -> int:
+    from stedm_tpu_torch.models.layers import GNSiLU
+
+    return sum(isinstance(m, GNSiLU) for mod in modules for m in mod.modules())
+
+
+def serving_flagship(torch, model, batch, schedule, exact_img, out_dir: Path,
+                     card: str) -> dict:
+    """Phase 4d: bench.py's headline serving mode on the flagship, eager, then
+    graph-replayed; the exact trajectory graph-replayed; the drift profile of
+    the port's flagship. Returns its numbers and the serving batch's launch
+    counts (zeroed just before the eager serving run, read just after)."""
+    import numpy as np
+
+    from stedm_tpu_torch.core.cache_schedule import positions_from_spec
+    from stedm_tpu_torch.core.ddim import guided_range
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.train.calibrate import measure_cache_drift
+    from stedm_tpu_torch.train.host_sampler import make_host_sample_fn
+    from stedm_tpu_torch.train.steps import (SamplerConfig, make_sample_fn, plan_sampler,
+                                             prepare_conditioning)
+
+    steps, b = 50, exact_img.shape[0]
+    drift_ref = np.load(REPO / "tools" / "bench_assets" / "drift_untrained_flagship.npy")
+    positions = positions_from_spec("auto:5", steps, drift_ref)
+    window = guided_range(steps, (0.35, 0.65))
+    log(f"  refresh positions auto:5 on the committed drift profile: {positions}; window "
+        f"(0.35, 0.65) -> {window}")
+    require(positions == (0, 3, 21, 33, 41), f"auto:5 gives {positions}")
+    require(window == (18, 32), f"the window resolves to {window}")
+    n_full = len(set(positions) | {window[0]})
+    base = dict(ddim_steps=steps, eta=0.0, cfg_scale=1.5, rescale_phi=0.7, batched_cfg=True,
+                downsample=4)
+    cfg = SamplerConfig(**base, cache_schedule=positions, cfg_interval=(0.35, 0.65))
+    unet = model.unet
+    n_shallow = unet.shallow_blocks(cfg.cache_levels)
+    gn_full = gn_modules([unet])
+    gn_shallow = gn_modules([*unet.input_blocks[:n_shallow], *unet.output_blocks[-n_shallow:],
+                             unet.out["0"]])
+    gn_decode = gn_modules([model.first_stage.decoder])
+    want_gn = n_full * gn_full + (steps - n_full) * gn_shallow
+    log(f"  {n_full} full passes and {steps - n_full} cached; GN modules: {gn_full} in a full "
+        f"pass, {gn_shallow} in a cached one, {gn_decode} in the codec")
+
+    gen = torch.Generator(device="cuda")
+    eager = make_sample_fn(model, schedule, cfg)
+    reset_launch_counts()
+    t1 = time.time()
+    img, z_s = sample_with_latent(eager, model, batch, generator=gen.manual_seed(0))
+    torch.cuda.synchronize()
+    cold_s = time.time() - t1
+    counts = dict(LAUNCHES)
+    log(f"  eager serving: cold run {cold_s:.2f} s; launches {counts}")
+    require(tuple(img.shape) == tuple(exact_img.shape), f"shape {tuple(img.shape)}")
+    require(bool(torch.isfinite(img).all()), "non-finite serving output")
+    require(float(img.min()) >= -1.0 and float(img.max()) <= 1.0, "serving output outside [-1, 1]")
+    require(float(img.float().std()) > 0.0, "flat serving output")
+    require(bool(torch.isfinite(z_s).all()) and float(z_s.std()) > 0.0,
+            "non-finite or flat serving latent")
+    require(counts["flash_attention"] == n_full + 1,
+            f"{counts['flash_attention']} flash launches, not {n_full} full passes + the decode")
+    require(counts["gn_silu"] == want_gn + gn_decode,
+            f"{counts['gn_silu']} GN launches, the schedule implies {want_gn + gn_decode}")
+    require(counts["nearest_code"] == 1, f"nearest-code launches {counts['nearest_code']}")
+    eager_times = timed_runs(torch, lambda: eager(model, batch, generator=gen.manual_seed(0)))
+
+    host = make_host_sample_fn(model, schedule, cfg, unroll=10)
+    t1 = time.time()
+    img_g, z_g = sample_with_latent(host, model, batch, generator=gen.manual_seed(0))
+    torch.cuda.synchronize()
+    capture_s = time.time() - t1
+    cap = host.capture_launches
+    log(f"  graph serving: blocks {host.block_sizes}; first call (warm-up, capture, replay) "
+        f"{capture_s:.2f} s; launches counted at capture {cap}")
+    require(cap["flash_attention"] == n_full and cap["gn_silu"] == want_gn,
+            f"the capture's launches {cap}: {n_full} flash, {want_gn} GN expected")
+    # the decoded images carry little of the trajectory here (random weights:
+    # the VQ decode quantizes z_0 to codes, then saturates into the clamp),
+    # so the latents are what is held equal; the images are logged
+    same = torch.equal(z_g, z_s)
+    log(f"  graph replay's latent z_0 equals the eager loop's bit for bit: {same} (max |diff| "
+        f"{float((z_g - z_s).abs().max()):.3e}); images equal {torch.equal(img_g, img)}, "
+        f"pixels inside the clamp {inside_clamp(img):.4f}")
+    require(same, "the graph-replayed serving latent differs from the eager loop's")
+    graph_times = timed_runs(torch, lambda: host(model, batch, generator=gen.manual_seed(0)))
+
+    _, z_e = sample_with_latent(make_sample_fn(model, schedule, SamplerConfig(**base)), model,
+                                batch, generator=gen.manual_seed(0))
+    host_exact = make_host_sample_fn(model, schedule, SamplerConfig(**base), unroll=10)
+    img_ge, z_ge = sample_with_latent(host_exact, model, batch, generator=gen.manual_seed(0))
+    torch.cuda.synchronize()
+    same_exact = torch.equal(z_ge, z_e)
+    log(f"  graph exact: blocks {host_exact.block_sizes}; launches counted at capture "
+        f"{host_exact.capture_launches}; latent z_0 equals the eager exact loop's bit for bit: "
+        f"{same_exact} (max |diff| {float((z_ge - z_e).abs().max()):.3e}); image equals phase "
+        f"4's eager batch {torch.equal(img_ge, exact_img)}, pixels inside the clamp "
+        f"{inside_clamp(exact_img):.4f}")
+    require(same_exact, "the graph-replayed exact latent differs from the eager loop's")
+    exact_times = timed_runs(torch, lambda: host_exact(model, batch,
+                                                       generator=gen.manual_seed(0)))
+    rates = {name: [b / t for t in ts] for name, ts in (
+        ("serving_eager", eager_times), ("serving_graph", graph_times),
+        ("exact_graph", exact_times))}
+    for name, r in rates.items():
+        log(f"  {name} img/s (4 warm runs, host clock): " + " ".join(f"{x:.4f}" for x in r)
+            + f"; median {_median(r):.4f} on {card}")
+    mse = float((img.float() - exact_img.float()).square().mean())
+    psnr = 10 * math.log10(4.0 / max(mse, 1e-12))
+    log(f"  cached-vs-exact PSNR of the port's flagship (random weights): {psnr:.2f} dB "
+        f"(MSE {mse:.3e}, floored at 1e-12)")
+
+    z_rel = float((z_s - z_e).norm() / z_e.norm())
+    require(z_rel > 0.0, "the serving latent equals the exact one: no pass was cached")
+    with torch.inference_mode():
+        codes = [model.first_stage.quantize(z / model.scale_factor) for z in (z_s, z_e)]
+        same_codes = float((codes[0] == codes[1]).all(-1).float().mean())
+        log(f"  cached-vs-exact latents z_0: relative L2 {z_rel:.3e}, max |diff| "
+            f"{float((z_s - z_e).abs().max()):.3e}; tokens quantized alike {same_codes:.4f}")
+        plan = plan_sampler(model, schedule, cfg)
+        prep_ms = _median(timed_runs(torch, lambda: prepare_conditioning(
+            model, batch, plan, next(model.parameters()).device))) * 1e3
+        dec_ms = _median(timed_runs(torch, lambda: model.decode_first_stage(z_s))) * 1e3
+    log(f"  outside the blocks, host clock (4 runs, median): conditioning (layout and two style "
+        f"encodes) {prep_ms:.2f} ms, VQ decode {dec_ms:.2f} ms")
+
+    t1 = time.time()
+    drift = measure_cache_drift(model, schedule, SamplerConfig(**base), batch,
+                                generator=gen.manual_seed(0))
+    drift_s = time.time() - t1
+    log(f"  measure_cache_drift on the port's flagship ({drift_s:.2f} s): length {len(drift)}, "
+        f"auto:5 on it {positions_from_spec('auto:5', steps, drift)}; correlation with the "
+        f"committed profile {float(np.corrcoef(drift, drift_ref)[0, 1]):.3f}")
+    log("    port    " + " ".join(f"{x:.3f}" for x in drift))
+    log("    profile " + " ".join(f"{x:.3f}" for x in drift_ref))
+    require(len(drift) == steps - 1 and bool(np.isfinite(drift).all()),
+            f"drift profile of length {len(drift)}, finite {bool(np.isfinite(drift).all())}")
+
+    log("== phase 5 (serving): where the device time goes")
+    profiles = {}
+    serving_gn, exact_gn = want_gn + gn_decode, steps * gn_full + gn_decode
+    for name, run, wall, want in (
+            ("serving_eager", lambda: eager(model, batch, generator=gen.manual_seed(0)),
+             _median(eager_times), serving_gn),
+            ("serving_graph", lambda: host(model, batch, generator=gen.manual_seed(0)),
+             _median(graph_times), serving_gn),
+            ("exact_graph", lambda: host_exact(model, batch, generator=gen.manual_seed(0)),
+             _median(exact_times), exact_gn)):
+        # the replays' kernels are counted here, by the profiler (CUPTI). A
+        # profile that lost records (seen once on an exact replay: ~5 % of
+        # every kernel's records gone, its device time short) is no
+        # measurement: it is taken again, at most PROFILE_ATTEMPTS times
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            log(f"  -- {name} (profile {attempt})")
+            kernels = profile_main_path(torch, run, wall * 1e3, out_dir, f"profile_{name}.txt")
+            busy = sum(ms for _, _, ms in kernels)
+            gn_k = sum(n for k, n, _ in kernels if "gn_silu_kernel" in k)
+            log(f"  {name}: GN device kernels seen {gn_k} (the schedule implies {want} with "
+                "the decode)")
+            if gn_k == want:
+                break
+        profiles[name] = dict(device_busy_ms=busy, idle_share=1 - busy / (wall * 1e3),
+                              gn_device_kernels=gn_k, profile_attempts=attempt)
+        require(busy > 0 and gn_k == want, f"{name}: {gn_k} GN device kernels, busy {busy}")
+    return dict(serving_counts=counts, serving_positions=list(positions),
+                serving_window=list(window), serving_img_per_s_runs=rates,
+                serving_img_per_s={k: _median(v) for k, v in rates.items()},
+                serving_psnr_db=psnr, serving_latent_rel_l2=z_rel, serving_prep_ms=prep_ms,
+                serving_decode_ms=dec_ms, serving_capture_s=capture_s,
+                serving_drift=[float(x) for x in drift], serving_profiles=profiles)
+
+
 def train_flagship(torch, out_dir: Path) -> dict:
     """Phase 4b: full-width training (the second main path); returns its numbers."""
     from stedm_tpu_torch.models.attention import AttentionBlock
@@ -1238,6 +1504,9 @@ def main() -> int:
     tiny_train_parity(torch)
     log("== phase 3c: a tiny codec fine-tuned on the card against the CPU (vq, then kl)")
     tiny_codec_parity(torch)
+    log("== phase 3d: the tiny STEDM in the composed serving mode, card (eager and graph "
+        "replay) against CPU")
+    tiny_serving_parity(torch)
 
     log("== phase 4: flagship main path (256^2, batch 8, DDIM-50, CFG 1.5, phi 0.7, "
         "shared-encoder batched CFG)")
@@ -1273,14 +1542,9 @@ def main() -> int:
         f"{float((img.float() - img2.float()).abs().max()):.3e}")
     ips = batch_size / warm_s
     log(f"  flagship img/s (warm run, {warm_s:.3f} s): {ips:.4f} on {card}")
-    more = []
-    for _ in range(3):   # the spread of the host clock, for the record
-        t1 = time.time()
-        sample(model, batch, generator=gen.manual_seed(0))
-        torch.cuda.synchronize()
-        more.append(time.time() - t1)
-    runs = sorted([warm_s] + more)
-    median_s = (runs[1] + runs[2]) / 2
+    # the spread of the host clock, for the record
+    more = timed_runs(torch, lambda: sample(model, batch, generator=gen.manual_seed(0)), 3)
+    median_s = _median([warm_s] + more)
     log("  warm runs img/s: " + " ".join(f"{batch_size / t:.4f}" for t in [warm_s] + more)
         + f"; median {batch_size / median_s:.4f}")
 
@@ -1297,6 +1561,10 @@ def main() -> int:
         f"{len(foreign)}")
     require(gn_kernels == LAUNCHES["gn_silu"], "GN device kernels and launches differ")
     require(not foreign, f"Triton kernels on the main path: {foreign[:3]}")
+    log("== phase 4d: the serving mode (bench.py's headline: cache_schedule auto:5, "
+        "cfg_interval (0.35, 0.65), cache levels 1), eager and graph-replayed; the exact "
+        "trajectory graph-replayed")
+    serving = serving_flagship(torch, model, batch, schedule, img, out_dir, card)
     del model, sample, img, img2
     torch.cuda.empty_cache()
 
@@ -1309,9 +1577,9 @@ def main() -> int:
         "LPIPS + PatchGAN)")
     codec = codec_finetune(torch, out_dir)
     # launches: each kernel's count on each main path it runs on, zeroed just
-    # before and read just after (the sampler's batch, one training
-    # micro-step, one codec step)
-    path_counts = {"sample_batch": counts,
+    # before and read just after (the sampler's batch, the serving batch, one
+    # training micro-step, one codec step)
+    path_counts = {"sample_batch": counts, "serving_batch": serving.pop("serving_counts"),
                    "train_micro_step": train["train_launches_per_micro_step"],
                    "codec_step": codec["codec_launches_per_step"]}
     for name, rec in recs.items():
@@ -1325,7 +1593,8 @@ def main() -> int:
     print(json.dumps({"flagship_img_per_s": ips,
                       "flagship_img_per_s_runs": [batch_size / t for t in [warm_s] + more],
                       "gn_bound_ms_sample_batch": gn_bound_ms, "gn_ms_sample_batch": gn_ms,
-                      "host_us_per_call": host_us, **train, **codec, "card": card}))
+                      "host_us_per_call": host_us, **serving, **train, **codec,
+                      "card": card}))
     print(json.dumps({"kernels": [r.entry for r in recs.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

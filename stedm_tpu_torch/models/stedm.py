@@ -72,6 +72,30 @@ class STEDM(nn.Module):
         out = self.unet(x.permute(0, 3, 1, 2), t, context=ctx)
         return out.permute(0, 2, 3, 1).float()
 
+    def _check_caching(self) -> None:
+        if self.conditioning_key not in ("hybrid", "concat"):
+            raise ValueError("deep-feature caching requires hybrid/concat conditioning")
+
+    def eps_full(self, z_noisy: torch.Tensor, t: torch.Tensor, seg_cond: torch.Tensor,
+                 style: torch.Tensor, cache_levels: int = 1):
+        """Full eps plus the deep-feature cache of the serving mode (stedm_tpu
+        stedm.py:137-151); the cache is NCHW channels_last."""
+        self._check_caching()
+        x = torch.cat([z_noisy.to(self.dtype), seg_cond.to(self.dtype)], dim=-1)
+        ctx = style if self.conditioning_key == "hybrid" else None
+        out, cache = self.unet(x.permute(0, 3, 1, 2), t, context=ctx, return_cache=True,
+                               cache_levels=cache_levels)
+        return out.permute(0, 2, 3, 1).float(), cache
+
+    def eps_cached(self, z_noisy: torch.Tensor, t: torch.Tensor, seg_cond: torch.Tensor,
+                   cache: torch.Tensor, cache_levels: int = 1) -> torch.Tensor:
+        """Shallow eps reusing a cache from ``eps_full`` (stedm_tpu
+        stedm.py:153-163); a CFG fan-out rides in through the cache's batch."""
+        self._check_caching()
+        x = torch.cat([z_noisy.to(self.dtype), seg_cond.to(self.dtype)], dim=-1)
+        out = self.unet(x.permute(0, 3, 1, 2), t, cache=cache, cache_levels=cache_levels)
+        return out.permute(0, 2, 3, 1).float()
+
 
 FLAGSHIP_PATCH = 256
 

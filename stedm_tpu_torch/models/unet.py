@@ -12,8 +12,11 @@ backward pass (``torch.utils.checkpoint``) instead of keeping their
 activations, as the JAX U-Net's ``nn.remat`` (unet.py:117-121, :145,
 :191-195); off by default, as there.
 
-The deep-feature cache in/out of the JAX U-Net (unet.py:154-175, :255-283)
-belongs to the serving slice and is not here.
+The deep-feature cache of the serving mode (stedm_tpu unet.py:150-175,
+:200-288): ``return_cache=True`` also returns the post-upsample state that
+enters decoder level ``cache_levels - 1``; ``cache=`` runs only the levels
+below ``cache_levels`` and splices that state in. The cache is NCHW in
+channels_last memory (NHWC in the JAX U-Net).
 """
 
 from __future__ import annotations
@@ -83,6 +86,7 @@ class UNet(nn.Module):
         mc = model_channels
         self.model_channels, self.context_dim, self.dtype = mc, context_dim, dtype
         self.use_checkpoint = use_checkpoint
+        self.num_res_blocks, self.n_levels = num_res_blocks, len(channel_mult)
         temb = 4 * mc
 
         def attn(ch):
@@ -140,38 +144,66 @@ class UNet(nn.Module):
             h = self._call(layer, h, emb) if isinstance(layer, ResBlock) else self._call(layer, h)
         return h
 
+    def shallow_blocks(self, cache_levels: int) -> int:
+        """How many of ``input_blocks`` (from the front), and as many of
+        ``output_blocks`` (from the back), a cached pass runs: the levels
+        below ``cache_levels``, without the downsample into level
+        ``cache_levels`` (stedm_tpu unet.py:213-235)."""
+        return cache_levels * (self.num_res_blocks + 1)
+
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor | None = None) -> torch.Tensor:
+                context: torch.Tensor | None = None, *, cache: torch.Tensor | None = None,
+                return_cache: bool = False, cache_levels: int = 1):
         """x ``[B, C, H, W]``; a context of batch ``k * B`` fans the bottleneck
         and decoder out ``k`` ways (shared-encoder CFG, stedm_tpu
-        unet.py:236-249)."""
+        unet.py:236-249). ``return_cache`` returns ``(out, cache)``; a
+        ``cache`` of batch ``k * B`` fans the shallow levels out ``k`` ways."""
+        shallow = cache is not None
+        if shallow or return_cache:
+            assert not (shallow and return_cache), "cache in and out are exclusive"
+            assert 1 <= cache_levels < self.n_levels, \
+                f"cache_levels must be in [1, {self.n_levels - 1}]"
         in_dtype = x.dtype
         x = channels_last(x.to(self.dtype))
         t_emb = timestep_embedding(timesteps, self.model_channels).to(self.dtype)
         emb = self.time_embed["2"](F.silu(self.time_embed["0"](t_emb)))
 
+        n_shallow = self.shallow_blocks(cache_levels)
         hs = []
         h = x
-        for block in self.input_blocks:
+        for block in self.input_blocks[:n_shallow] if shallow else self.input_blocks:
             h = self._run(block, h, emb)
             hs.append(h)
 
-        mid = self.middle_block
-        h = self._call(mid[0], h, emb)
-        if context is None:
-            context = torch.zeros((x.shape[0], self.context_dim), dtype=self.dtype,
-                                  device=x.device)
-        if context.shape[0] != h.shape[0]:
-            k = context.shape[0] // h.shape[0]
-            h = channels_last(torch.cat([h] * k))
-            emb = torch.cat([emb] * k)
-            hs = [channels_last(torch.cat([s] * k)) for s in hs]
-        h = self._call(mid[1], h, context.to(self.dtype))
-        h = self._call(mid[2], h)
-        h = self._call(mid[3], h, emb)
+        if shallow:
+            if cache.shape[0] != h.shape[0]:
+                k = cache.shape[0] // h.shape[0]
+                emb = torch.cat([emb] * k)
+                hs = [channels_last(torch.cat([s] * k)) for s in hs]
+            h = channels_last(cache.to(self.dtype))
+        else:
+            mid = self.middle_block
+            h = self._call(mid[0], h, emb)
+            if context is None:
+                context = torch.zeros((x.shape[0], self.context_dim), dtype=self.dtype,
+                                      device=x.device)
+            if context.shape[0] != h.shape[0]:
+                k = context.shape[0] // h.shape[0]
+                h = channels_last(torch.cat([h] * k))
+                emb = torch.cat([emb] * k)
+                hs = [channels_last(torch.cat([s] * k)) for s in hs]
+            h = self._call(mid[1], h, context.to(self.dtype))
+            h = self._call(mid[2], h)
+            h = self._call(mid[3], h, emb)
 
-        for block in self.output_blocks:
+        blocks = self.output_blocks[-n_shallow:] if shallow else self.output_blocks
+        deep = len(self.output_blocks) - n_shallow
+        cache_out = None
+        for i, block in enumerate(blocks):
             h = channels_last(torch.cat([h, hs.pop()], dim=1))
             h = self._run(block, h, emb)
+            if return_cache and i == deep - 1:
+                cache_out = h   # post-upsample state entering level cache_levels - 1
         h = self.out["2"](self.out["0"](h))
-        return h.to(in_dtype)
+        out = h.to(in_dtype)
+        return (out, cache_out) if return_cache else out

@@ -10,11 +10,14 @@ the model and in ``TrainState`` and is updated in place; the step returns
 
 ``make_sample_fn`` returns ``sample(model, batch, x_T=None, generator=None)``
 producing images in [-1, 1], NHWC ``[B, P, P, 3]`` (steps.py:146-167,
-:258-446), exact DDIM. The unconditional branch uses the same layout with
-dropped (constant -2) style images. Ported branches: no CFG; shared-encoder
-batched CFG (the style enters only at the bottleneck, so the encoder runs
-once at batch B and the bottleneck and decoder fan out over cond/uncond);
-batched CFG without sharing; two calls.
+:258-446) with DDIM. The unconditional branch uses the same layout with
+dropped (constant -2) style images. CFG modes: none; shared-encoder batched
+CFG (the style enters only at the bottleneck, so the encoder runs once at
+batch B and the bottleneck and decoder fan out over cond/uncond); batched
+CFG without sharing; two calls. The serving mode's knobs, alone or composed:
+deep-feature reuse every ``cache_interval`` steps or on the refresh
+positions ``cache_schedule``, at ``cache_levels``, and a guidance window
+``cfg_interval``. PLMS, DPM-Solver and tiled canvases are not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +28,14 @@ from typing import Callable
 import torch
 
 from stedm_tpu_torch._device import resolve_device
-from stedm_tpu_torch.core.ddim import DDIMParams, ddim_sample
+from stedm_tpu_torch.core.ddim import (
+    DDIMParams,
+    ddim_sample,
+    ddim_sample_guided,
+    ddim_sample_scheduled_guided,
+    guided_range,
+    serving_refresh,
+)
 from stedm_tpu_torch.core.diffusion import p_losses
 from stedm_tpu_torch.core.schedules import DiffusionSchedule
 from stedm_tpu_torch.train.ema import ema_update
@@ -153,79 +163,201 @@ class SamplerConfig:
     latent_channels: int = 3
     downsample: int = 4           # VQ-f4
     method: str = "ddim"          # ddim | plms | dpm
-    cache_interval: int = 1       # >1: deep-feature reuse (serving mode)
-    cache_schedule: tuple = None
-    cfg_interval: tuple = None    # (lo_frac, hi_frac) guidance window
+    cache_interval: int = 1       # >1: deep-feature reuse every N steps (serving mode)
+    cache_levels: int = 1         # U-Net levels the cached passes recompute
+    cache_schedule: tuple = None  # refresh positions (scan order, with 0); exclusive
+                                  # with cache_interval > 1 (core/cache_schedule.py)
+    cfg_interval: tuple = None    # (lo_frac, hi_frac): CFG only on scan positions
+                                  # [lo*S, hi*S); None = every step
 
 
-def _check_ported(cfg: SamplerConfig) -> None:
+@dataclasses.dataclass(frozen=True)
+class SamplerPlan:
+    """What a ``SamplerConfig`` resolves to for a model: the DDIM constants,
+    whether CFG is on, the guidance window as scan positions (None when it
+    covers every step, which is then the unrestricted sampler, stedm_tpu
+    steps.py:281-289), the positions that run a full pass (None when the
+    trunk cache is off; with the window's forced refresh) and whether the
+    CFG fan-out shares the encoder."""
+
+    cfg: SamplerConfig
+    ddim: DDIMParams
+    use_cfg: bool
+    cfg_interval: tuple | None
+    refresh: frozenset | None
+    shared_enc: bool
+
+    @property
+    def scale(self) -> float:
+        return self.cfg.cfg_scale if self.use_cfg else 1.0
+
+    @property
+    def caching(self) -> bool:
+        return self.refresh is not None
+
+    @property
+    def window(self) -> tuple[int, int]:
+        """The guided scan positions ``[lo, hi)``."""
+        return self.cfg_interval or (0, self.ddim.num_steps)
+
+
+def plan_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> SamplerPlan:
+    """Resolve ``cfg`` with stedm_tpu's refusals (steps.py:270-289, :348-358),
+    all raised here, before the first sample: eta > 0 or a guidance window
+    with a method other than DDIM; caching with another method, with
+    ``cache_interval > 1`` and ``cache_schedule`` together, or with CFG
+    without ``batched_cfg`` and bottleneck-only conditioning. Then PLMS and
+    DPM-Solver, which are not ported, raise ``NotImplementedError``."""
+    ddim = DDIMParams.create(schedule, cfg.ddim_steps, cfg.eta)
+    use_cfg = cfg.use_cfg and cfg.cfg_scale != 1.0
+    if cfg.eta > 0 and cfg.method != "ddim":
+        raise ValueError(f"eta={cfg.eta} requires method='ddim' (the reference's "
+                         f"PLMS asserts ddim_eta == 0 and DPM-Solver ignores eta)")
+    glo, ghi = guided_range(ddim.num_steps, cfg.cfg_interval)
+    cfg_interval = ((glo, ghi) if use_cfg and cfg.cfg_interval is not None
+                    and (glo > 0 or ghi < ddim.num_steps) else None)
+    if cfg_interval is not None and cfg.method != "ddim":
+        raise ValueError("cfg_interval is only supported for method='ddim'")
+    caching = cfg.cache_interval > 1 or cfg.cache_schedule is not None
+    shared_enc = use_cfg and cfg.batched_cfg and model.conditioning_key == "hybrid"
+    if caching:
+        if cfg.cache_interval > 1 and cfg.cache_schedule is not None:
+            raise ValueError("cache_interval > 1 and cache_schedule are mutually "
+                             "exclusive refresh placements")
+        if cfg.method != "ddim":
+            raise ValueError("deep-feature caching is only supported for DDIM")
+        if use_cfg and not shared_enc:
+            raise ValueError("deep-feature caching with CFG requires batched_cfg and "
+                             "bottleneck-only conditioning (shared-encoder fan-out)")
     if cfg.method != "ddim":
         raise NotImplementedError(f"method={cfg.method!r} (PLMS, DPM-Solver) comes "
                                   "with the samplers slice")
-    if cfg.cache_interval > 1 or cfg.cache_schedule is not None:
-        raise NotImplementedError("deep-feature caching comes with the serving slice")
-    if cfg.cfg_interval is not None:
-        raise NotImplementedError("the guidance window comes with the serving slice")
+    refresh = None
+    if caching:
+        positions = (cfg.cache_schedule if cfg.cache_schedule is not None
+                     else range(0, ddim.num_steps, cfg.cache_interval))
+        refresh = serving_refresh(positions, ddim.num_steps,
+                                  *(cfg_interval or (0, ddim.num_steps)))
+    return SamplerPlan(cfg, ddim, use_cfg, cfg_interval, refresh, shared_enc)
+
+
+def prepare_conditioning(model, batch: dict, plan: SamplerPlan, dev):
+    """The layout encoding ``[B, h, w, c]`` and the style context: ``[B, 512]``,
+    or under CFG the cond and the dropped (constant -2) style stacked
+    ``[2B, 512]``."""
+    seg = torch.as_tensor(batch["segmentation"], dtype=torch.float32, device=dev)
+    style_imgs = torch.as_tensor(batch["style_imgs"], dtype=torch.float32, device=dev)
+    if seg.shape[1] > model.patch_size:
+        raise NotImplementedError("tiled canvases come in a later slice")
+    seg_cond = model.cond_encode(seg)
+    ctx = model.style_encode(style_imgs)
+    if plan.use_cfg:
+        ctx = torch.cat([ctx, model.style_encode(torch.zeros_like(style_imgs) - 2.0)])
+    return seg_cond, ctx
+
+
+def check_model_device(model, dev: torch.device) -> None:
+    param_dev = next(model.parameters()).device
+    if param_dev.type != dev.type or (dev.index is not None and param_dev != dev):
+        raise ValueError(f"model lives on {param_dev}, the sampler on {dev}")
+
+
+def initial_latent(batch: dict, cfg: SamplerConfig, x_T, generator, dev) -> torch.Tensor:
+    """``x_T`` on the device, drawn from ``generator`` when not given."""
+    if x_T is None:
+        b, p = tuple(batch["segmentation"].shape[:2])
+        latent = (b, p // cfg.downsample, p // cfg.downsample, cfg.latent_channels)
+        x_T = torch.randn(latent, generator=generator, device=dev)
+    return torch.as_tensor(x_T, dtype=torch.float32, device=dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class EpsFns:
+    """The model evaluations of a sampler, each ``(x, t[, cache])``: ``pair``
+    is eps, or under CFG the ``(e_cond, e_uncond)`` pair by the config's CFG
+    mode; ``cond`` the conditional branch alone at batch B; ``full`` /
+    ``cached`` the serving mode's passes (under CFG on the shared-encoder
+    fan-out, the pair), ``full_cond`` / ``cached_cond`` their conditional
+    twins. A full pass also returns the cache."""
+
+    pair: Callable
+    cond: Callable
+    full: Callable
+    cached: Callable
+    full_cond: Callable
+    cached_cond: Callable
+
+
+def eps_functions(model, plan: SamplerPlan, seg_cond: torch.Tensor,
+                  ctx: torch.Tensor) -> EpsFns:
+    """The sampler's model evaluations on the conditioning that
+    ``prepare_conditioning`` made (stedm_tpu steps.py:318-393)."""
+    b, levels = seg_cond.shape[0], plan.cfg.cache_levels
+    style_c = ctx[:b]
+    split = lambda e: (e[:b], e[b:])
+
+    def cond(x, t):
+        return model.eps(x, t, seg_cond, style_c)
+
+    def full_cond(x, t):
+        return model.eps_full(x, t, seg_cond, style_c, levels)
+
+    def cached_cond(x, t, cache):
+        return model.eps_cached(x, t, seg_cond, cache, levels)
+
+    if not plan.use_cfg:
+        return EpsFns(cond, cond, full_cond, cached_cond, full_cond, cached_cond)
+    if plan.shared_enc:
+        def pair(x, t):
+            return split(model.eps(x, t, seg_cond, ctx))
+    elif plan.cfg.batched_cfg:
+        seg2 = torch.cat([seg_cond, seg_cond])
+
+        def pair(x, t):
+            return split(model.eps(torch.cat([x, x]), torch.cat([t, t]), seg2, ctx))
+    else:
+        def pair(x, t):
+            return cond(x, t), model.eps(x, t, seg_cond, ctx[b:])
+
+    def full(x, t):
+        e, cache = model.eps_full(x, t, seg_cond, ctx, levels)
+        return split(e), cache
+
+    def cached(x, t, cache):
+        return split(model.eps_cached(x, t, seg_cond, cache, levels))
+
+    return EpsFns(pair, cond, full, cached, full_cond, cached_cond)
 
 
 def make_sample_fn(model, schedule: DiffusionSchedule, cfg: SamplerConfig,
                    device=None) -> Callable:
     """Build the sampler; it runs on ``cuda`` unless ``device`` says otherwise,
     and the model must already live there."""
-    _check_ported(cfg)
+    plan = plan_sampler(model, schedule, cfg)
     dev = resolve_device(device)
-    ddim = DDIMParams.create(schedule, cfg.ddim_steps, cfg.eta)
-    use_cfg = cfg.use_cfg and cfg.cfg_scale != 1.0
-    bottleneck_only = model.conditioning_key == "hybrid"
+    ddim = plan.ddim
 
     @torch.inference_mode()
     def sample(model, batch: dict, x_T: torch.Tensor | None = None,
                generator: torch.Generator | None = None) -> torch.Tensor:
-        param_dev = next(model.parameters()).device
-        if param_dev.type != dev.type or (dev.index is not None and param_dev != dev):
-            raise ValueError(f"model lives on {param_dev}, the sampler on {dev}")
-        seg = torch.as_tensor(batch["segmentation"], dtype=torch.float32, device=dev)
-        style_imgs = torch.as_tensor(batch["style_imgs"], dtype=torch.float32,
-                                     device=dev)
-        b, p = seg.shape[0], seg.shape[1]
-        if p > model.patch_size:
-            raise NotImplementedError("tiled canvases come in a later slice")
-        seg_cond = model.cond_encode(seg)
-        style_c = model.style_encode(style_imgs)
-
+        check_model_device(model, dev)
+        seg_cond, ctx = prepare_conditioning(model, batch, plan, dev)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        if x_T is None:
-            latent = (b, p // cfg.downsample, p // cfg.downsample, cfg.latent_channels)
-            x_T = torch.randn(latent, generator=generator, device=dev)
-        x_T = torch.as_tensor(x_T, dtype=torch.float32, device=dev)
-
-        if not use_cfg:
-            def eps_fn(x, t):
-                return model.eps(x, t, seg_cond, style_c)
+        x_T = initial_latent(batch, cfg, x_T, generator, dev)
+        f = eps_functions(model, plan, seg_cond, ctx)
+        kw = dict(cfg_scale=plan.scale, rescale_phi=cfg.rescale_phi,
+                  generator=generator if cfg.eta > 0 else None)
+        glo, ghi = plan.window
+        if plan.caching:
+            z_0 = ddim_sample_scheduled_guided(
+                f.full, f.cached, f.full_cond, f.cached_cond, x_T, ddim,
+                refresh_positions=plan.refresh, guided_lo=glo, guided_hi=ghi, **kw)
+        elif plan.cfg_interval is not None:
+            z_0 = ddim_sample_guided(f.pair, f.cond, x_T, ddim, guided_lo=glo,
+                                     guided_hi=ghi, **kw)
         else:
-            style_u = model.style_encode(torch.zeros_like(style_imgs) - 2.0)
-            if cfg.batched_cfg and bottleneck_only:
-                ctx2 = torch.cat([style_c, style_u])
-
-                def eps_fn(x, t):
-                    e = model.eps(x, t, seg_cond, ctx2)
-                    return e[:b], e[b:]
-            elif cfg.batched_cfg:
-                seg2 = torch.cat([seg_cond, seg_cond])
-                ctx2 = torch.cat([style_c, style_u])
-
-                def eps_fn(x, t):
-                    e = model.eps(torch.cat([x, x]), torch.cat([t, t]), seg2, ctx2)
-                    return e[:b], e[b:]
-            else:
-                def eps_fn(x, t):
-                    return (model.eps(x, t, seg_cond, style_c),
-                            model.eps(x, t, seg_cond, style_u))
-
-        z_0 = ddim_sample(eps_fn, x_T, ddim, cfg_scale=cfg.cfg_scale if use_cfg else 1.0,
-                          rescale_phi=cfg.rescale_phi,
-                          generator=generator if cfg.eta > 0 else None)
+            z_0 = ddim_sample(f.pair, x_T, ddim, **kw)
         return torch.clamp(model.decode_first_stage(z_0), -1.0, 1.0)
 
     return sample

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX/Flax nor the JAX package,
-for sampling, for diffusion training and for codec fine-tuning."""
+for sampling (the serving mode too), for diffusion training and for codec
+fine-tuning."""
 
 import ast
 import subprocess
@@ -24,6 +25,14 @@ with torch.no_grad():
     img = vq.decode(torch.randn(1, 8, 8, 3))
     eps = unet(torch.randn(1, 6, 8, 8), torch.tensor([10]), torch.randn(1, 512))
 assert img.shape == (1, 16, 16, 3) and eps.shape == (1, 3, 8, 8)
+# the serving mode: the U-Net's cache out and in, and its sampler modules
+from stedm_tpu_torch.core import cache_schedule
+from stedm_tpu_torch.train import calibrate, host_sampler
+with torch.no_grad():
+    _, cache = unet(torch.randn(1, 6, 8, 8), torch.tensor([10]), torch.randn(2, 512),
+                    return_cache=True)
+    eps = unet(torch.randn(1, 6, 8, 8), torch.tensor([10]), cache=cache)
+assert cache.shape == (2, 64, 8, 8) and eps.shape == (2, 3, 8, 8)
 # the training slice: its modules import, and a backward runs through the
 # GroupNorm and flash-attention Functions (their plain versions on the CPU)
 from stedm_tpu_torch.core import diffusion

@@ -498,3 +498,80 @@ def test_gn_silu_function_backward(cuda, shape, mode):
     for gg, rr in zip(got, ref):
         # dx rounds to bf16; the fp32 sums run in other orders
         torch.testing.assert_close(gg, rr, rtol=2 ** -7, atol=1e-3 * float(rr.abs().max()))
+
+
+def _tiny_serving(seed: int, p: int = 32):
+    """A tiny bf16 STEDM on the card, a batch and the composed serving mode
+    (refreshes (0, 3, 5) of 8 steps, window (0.25, 0.75), CFG 1.5)."""
+    from stedm_tpu_torch.core.schedules import DiffusionSchedule
+    from stedm_tpu_torch.models.stedm import STEDM
+    from stedm_tpu_torch.train.steps import SamplerConfig
+
+    torch.manual_seed(seed)
+    model = STEDM(dtype=torch.bfloat16, unet_config=dict(
+        in_channels=6, out_channels=3, model_channels=32, num_res_blocks=1,
+        channel_mult=(1, 4, 8), num_heads=4, attention_resolutions=(32, 16, 8)),
+        first_stage_config=dict(embed_dim=3, n_embed=256, ddconfig=dict(
+            z_channels=3, resolution=p, in_channels=3, out_ch=3, ch=32, ch_mult=[1, 2, 2],
+            num_res_blocks=1, attn_resolutions=[])),
+        cond_stage_config=dict(n_stages=2, in_channels=2, out_channels=3),
+        style_agg="mean", style_sampling="nearby", patch_size=p).eval()
+    for layer in model.unet.zero_init_layers():
+        layer.reset_parameters()
+    model.cuda()
+    cfg = SamplerConfig(ddim_steps=8, eta=0.0, cfg_scale=1.5, rescale_phi=0.7, downsample=4,
+                        cache_schedule=(0, 3, 5), cfg_interval=(0.25, 0.75))
+    return model, DiffusionSchedule.create("linear", 1000, 0.0015, 0.0205), cfg
+
+
+def _tiny_batch(gen, p: int = 32):
+    seg = torch.zeros(2, p, p, 2, device="cuda")
+    seg[..., 0] = 1
+    seg[:, 8:20, 4:28] = torch.tensor([0.0, 1.0], device="cuda")
+    return {"segmentation": seg,
+            "style_imgs": torch.rand(2, 1, p, p, 3, generator=gen, device="cuda") * 2 - 1}
+
+
+def _with_latent(sampler, model, batch, x_T):
+    """``sampler``'s images and the latent z_0 it handed the decoder."""
+    seen, decode = [], model.decode_first_stage
+    model.decode_first_stage = lambda z, *a: (seen.append(z.clone()), decode(z, *a))[1]
+    try:
+        img = sampler(model, batch, x_T=x_T)
+    finally:
+        del model.decode_first_stage
+    return img, seen[0]
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["blocks", "carry"])
+def test_graph_replay_equals_eager_serving(cuda, carry):
+    """The block sampler's CUDA graphs give the eager loop's bits, latent
+    z_0 and images, on a tiny serving trajectory; a second call copies new
+    inputs into the captured buffers and replays them, and gives the eager
+    result on those."""
+    from stedm_tpu_torch.ops import LAUNCHES
+    from stedm_tpu_torch.train.host_sampler import make_host_sample_fn
+    from stedm_tpu_torch.train.steps import make_sample_fn
+
+    model, sched, cfg = _tiny_serving(21)
+    eager = make_sample_fn(model, sched, cfg)
+    graphs = make_host_sample_fn(model, sched, cfg, unroll=3, carry_cache=carry)
+    runs = []
+    for _ in range(2):
+        batch = _tiny_batch(cuda)
+        x_T = torch.randn(2, 8, 8, 3, generator=cuda, device="cuda")
+        want, z_want = _with_latent(eager, model, batch, x_T)
+        got, z_got = _with_latent(graphs, model, batch, x_T)
+        assert torch.equal(z_got, z_want), float((z_got - z_want).abs().max())
+        assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+        assert (got.abs() < 1.0).float().mean() > 0.5   # the images are not saturated
+        runs.append(z_got)
+    assert not torch.equal(runs[0], runs[1])
+    assert graphs.capture_launches["gn_silu"] > 0 and graphs.capture_launches[
+        "flash_attention"] == 4                  # the bottleneck of the 4 full passes
+    before = dict(LAUNCHES)
+    graphs(model, _tiny_batch(cuda), x_T=torch.randn(2, 8, 8, 3, generator=cuda, device="cuda"))
+    # a replay passes no wrapper: only the eager decode counts (its
+    # mid-block attention and one nearest code)
+    assert LAUNCHES["flash_attention"] - before["flash_attention"] == 1
+    assert LAUNCHES["nearest_code"] - before["nearest_code"] == 1

@@ -69,8 +69,16 @@ def test_sampled_images_match_jax(models, batched_cfg):
 
 
 def test_sampler_refuses_later_slices(models):
+    """PLMS, DPM-Solver and tiled canvases are not ported (the serving knobs
+    are: tests/test_torch_serving.py)."""
     pm = models[2]
     sched = DiffusionSchedule.create("linear", 1000, 0.0015, 0.0205)
-    for kw in (dict(method="plms"), dict(cache_interval=3), dict(cfg_interval=(0.2, 0.8))):
+    for kw in (dict(method="plms"), dict(method="dpm")):
         with pytest.raises(NotImplementedError):
             make_sample_fn(pm, sched, SamplerConfig(**kw), device="cpu")
+    seg = np.zeros((1, 2 * P, 2 * P, 2), np.float32)
+    seg[..., 0] = 1.0
+    canvas = {"segmentation": seg, "style_imgs": np.zeros((1, 1, P, P, 3), np.float32)}
+    sample = make_sample_fn(pm, sched, SamplerConfig(**SAMPLER), device="cpu")
+    with pytest.raises(NotImplementedError):
+        sample(pm, canvas)
