@@ -84,7 +84,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    just after), finite losses, moving parameters, perplexity, samples/s over
    five timed steps, peak memory and a profile of one step
    (``<out>/profile_codec.txt``);
-6. a ``kernels`` JSON line, the card line, and as the last line
+6. the train and predict entry points (``stedm_tpu_torch.train_diff.main``,
+   ``predict_diff.main``) at the shipped widths of configs/config_diff.yaml
+   and config_predict.yaml (landscape U-Net, VQ-f4, Swin-V2-T, 512^2, batch
+   2) on a synthetic Flowers-102 tree written under ``build/`` (102 classes,
+   three 500x667 images each): a training run of 8 micro-steps at
+   accumulation 4 (``data.samples=16``, one epoch, 20-step previews), a
+   resume into a second epoch, then README's predict of 8 pairs with the
+   run's EMA weights, exact (128 DDIM steps) and in the serving mode
+   (``auto:5``, window (0.35, 0.65), 50 steps), each through the CUDA-graph
+   block sampler; pair counts, PNG shapes and values, finite losses, the
+   moved EMA, the resumed step and the launches of every kernel inside these
+   calls checked; samples/s, pairs/s after the first batch, the share of
+   the host clock spent outside the sampler, the checkpoint's size and the
+   phase's seconds printed;
+7. a ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 fp32 matrix products and convolutions run without TF32 here (both backend
@@ -158,7 +172,8 @@ def time_ms(fn, iters: int, flush=None) -> float:
 class KernelRecord:
     """Per-kernel sums over the checked shapes plus each shape's numbers."""
 
-    PATHS = ("sample_batch", "serving_batch", "train_micro_step", "codec_step")
+    PATHS = ("sample_batch", "serving_batch", "train_micro_step", "codec_step", "entry_train",
+             "entry_predict_exact", "entry_predict_serving")
 
     def __init__(self, name, route, source, replaces, counter=None, paths=PATHS):
         # the launch counter the kernel's wrapper adds to, and the main paths
@@ -209,7 +224,12 @@ def check_gn(torch, rec, flush):
         # training at 512^2: U-Net level 0 and bottleneck, VQ encoder levels 0 and 2
         ((8, 128, 128, 128), "add", 1e-5), ((8, 32, 32, 1024), "add", 1e-5),
         ((8, 32, 32, 1024), "film", 1e-5), ((8, 512, 512, 128), "plain", 1e-6),
-        ((8, 128, 128, 512), "plain", 1e-6)]
+        ((8, 128, 128, 512), "plain", 1e-6),
+        # the entry points at 512^2, batch 2: U-Net level 0, the CFG fan-out's
+        # decoder concat and bottleneck FiLM (batch 4), VQ levels 0 and 2
+        ((2, 128, 128, 128), "add", 1e-5), ((4, 128, 128, 256), "add", 1e-5),
+        ((4, 32, 32, 1024), "film", 1e-5), ((2, 512, 512, 128), "plain", 1e-6),
+        ((2, 128, 128, 512), "plain", 1e-6)]
     for shape, mode, eps in cases:
         b, c = shape[0], shape[3]
         x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(torch.bfloat16)
@@ -259,8 +279,11 @@ def check_attention(torch, rec, flush):
     # U-Net bottleneck and VQ decoder at 256^2 (sampling); the U-Net bottleneck
     # and the VQ encoder at 512^2 (training: the first with the LSE, the second
     # the frozen encode, batch 8); a ragged T and the head dimension between
+    # and the entry points' bottleneck (predict's CFG fan-out, training) and
+    # VQ mid-block at 512^2, batch 2
     for shape in ((16, 8, 256, 128), (8, 1, 4096, 512), (8, 8, 1024, 128), (8, 1, 16384, 512),
-                  (2, 4, 200, 64), (2, 2, 520, 256)):
+                  (2, 4, 200, 64), (2, 2, 520, 256), (4, 8, 1024, 128), (2, 8, 1024, 128),
+                  (2, 1, 16384, 512)):
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         s = shape[-1] ** -0.5
@@ -308,10 +331,15 @@ def check_attention(torch, rec, flush):
 
 
 def check_nearest(torch, rec, flush):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n_embed = 8192
+    for n in (8 * 64 * 64, 2 * 128 * 128):     # the flagship batch; the entry points' 512^2
+        _check_nearest_at(torch, rec, flush, gen, n, n_embed)
+
+
+def _check_nearest_at(torch, rec, flush, gen, n: int, n_embed: int):
     from stedm_tpu_torch.ops import quantize as qz
 
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    n, n_embed = 8 * 64 * 64, 8192
     z = torch.randn(n, 3, generator=gen, device="cuda")
     cb = torch.randn(n_embed, 3, generator=gen, device="cuda")
     got = qz.nearest_code_cuda(z, cb)
@@ -1357,6 +1385,205 @@ def codec_finetune(torch, out_dir: Path) -> dict:
                 codec_device_busy_ms=busy, codec_flash_shares=shares)
 
 
+# Phase 6's synthetic Flowers-102: every class (both configured class lists
+# must cover all 102 bins), three images each (two in the train split, one in
+# val or test), at the published images' 500-pixel shorter side
+FLOWERS_CLASSES, FLOWERS_PER_CLASS, FLOWERS_HW = 102, 3, (500, 667)
+
+
+def write_flowers_tree(root: Path) -> int:
+    """imgs/image_*.jpg (smooth random colour fields), segs/segmim_*.jpg
+    (blue background around an ellipse), imagelabels.mat and setid.mat under
+    ``root/flowers``; returns the image count."""
+    import numpy as np
+    import scipy.io
+    from PIL import Image
+
+    base = root / "flowers"
+    (base / "imgs").mkdir(parents=True)
+    (base / "segs").mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    h, w = FLOWERS_HW
+    yy, xx = np.mgrid[0:h, 0:w]
+    labels, ids = [], ([], [], [])
+    n = FLOWERS_CLASSES * FLOWERS_PER_CLASS
+    for i in range(n):
+        labels.append(i % FLOWERS_CLASSES + 1)
+        low = rng.integers(0, 256, (12, 16, 3), dtype=np.uint8)
+        img = Image.fromarray(low).resize((w, h), Image.BILINEAR)
+        img.save(base / "imgs" / f"image_{i + 1:05d}.jpg", quality=90)
+        cy, cx = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w
+        ry, rx = rng.uniform(0.15, 0.3) * h, rng.uniform(0.15, 0.3) * w
+        fg = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+        seg = np.zeros((h, w, 3), np.uint8)
+        seg[..., 2] = 255
+        seg[fg] = rng.integers(40, 220, 3)
+        Image.fromarray(seg).save(base / "segs" / f"segmim_{i + 1:05d}.jpg", quality=90)
+        round_ = i // FLOWERS_CLASSES
+        ids[0 if round_ < 2 else 1 + (i % 2)].append(i + 1)
+    scipy.io.savemat(base / "imagelabels.mat", {"labels": np.array(labels)[None]})
+    scipy.io.savemat(base / "setid.mat", {"trnid": np.array(ids[0])[None],
+                                         "valid": np.array(ids[1])[None],
+                                         "tstid": np.array(ids[2])[None]})
+    return n
+
+
+def write_preview_fixture(root: Path, patch: int) -> None:
+    """test_img_diff/flowers: the preview layout and two augmented styles, as
+    tests/test_e2e_flowers.py:86-95 writes them, at the patch size."""
+    import numpy as np
+    from PIL import Image
+
+    folder = root / "test_img_diff" / "flowers"
+    (folder / "augmented").mkdir(parents=True)
+    cond = np.zeros((patch, patch), np.uint8)
+    cond[patch // 4:3 * patch // 4, patch // 4:3 * patch // 4] = 255
+    Image.fromarray(cond).save(folder / "test_c.png")
+    for i in range(2):
+        style = np.random.default_rng(i).integers(0, 255, (patch, patch, 3), np.uint8)
+        Image.fromarray(style).save(folder / "augmented" / f"{i}_img.png")
+
+
+def check_pairs(folder: Path, n: int, patch: int) -> None:
+    import numpy as np
+    from PIL import Image
+
+    imgs, segs = sorted(folder.glob("img_*.png")), sorted(folder.glob("seg_*.png"))
+    require(len(imgs) == len(segs) == n, f"{folder.name}: {len(imgs)} images and {len(segs)} "
+            f"segmentations, expected {n} pairs")
+    require([p.name[4:] for p in imgs] == [p.name[4:] for p in segs],
+            f"{folder.name}: unpaired files")
+    for pi, ps in zip(imgs, segs):
+        img, seg = np.array(Image.open(pi)), np.array(Image.open(ps))
+        require(img.shape == (patch, patch, 3) and img.dtype == np.uint8,
+                f"{pi.name}: {img.shape} {img.dtype}")
+        require(seg.shape == (patch, patch) and set(np.unique(seg).tolist()) <= {0, 1},
+                f"{ps.name}: shape {seg.shape}, values {np.unique(seg)[:5]}")
+
+
+def predict_rates(out: dict) -> dict:
+    """Pairs/s after the first batch, and the shares of that time spent
+    outside the sampler (host clock)."""
+    steady = out["steady_s"]
+    ph = out["steady_phase_s"]
+    rate = (out["pairs"] - out["first_batch_pairs"]) / steady
+    outside = (ph["data"] + ph["h2d"] + ph["png"]) / steady
+    log(f"    {out['pairs']} pairs; first batch ({out['first_batch_pairs']} pairs) "
+        f"{out['first_batch_s']:.3f} s after set-up ({out['setup_s']:.3f} s); then "
+        f"{rate:.4f} pairs/s over {steady:.3f} s, of which outside the sampler "
+        f"{outside:.4f} (data {ph['data']:.4f} s, H2D {ph['h2d']:.4f} s, PNG "
+        f"{ph['png']:.4f} s), issuing the sampler {ph['sample']:.4f} s, waiting for the "
+        f"card {ph['wait']:.4f} s")
+    return {"pairs_per_s": rate, "outside_sampler_share": outside, **out}
+
+
+def entry_points(torch) -> dict:
+    """Phase 6: the train and predict entry points at the shipped widths on a
+    synthetic Flowers tree: train, resume, predict exact, predict in the
+    serving mode. Returns its numbers and the launch counts of each call."""
+    import shutil
+
+    from stedm_tpu_torch import predict_diff, train_diff
+    from stedm_tpu_torch.config import compose
+    from stedm_tpu_torch.models.stedm import build_stedm
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.train import checkpoints
+
+    t0 = time.time()
+    root = REPO / "build" / "chip_smoke_entry"
+    shutil.rmtree(root, ignore_errors=True)
+    data, results, patch = root / "data", root / "results", 512
+    n_imgs = write_flowers_tree(data)
+    write_preview_fixture(data, patch)
+    log(f"  synthetic Flowers-102: {n_imgs} images {FLOWERS_HW[0]}x{FLOWERS_HW[1]} in "
+        f"{FLOWERS_CLASSES} classes, written in {time.time() - t0:.1f} s")
+    where = [f"location.data_dir={data}", f"location.result_dir={results}"]
+    train_args = ["data=flowers", "style_sampling=augmented", "style_agg=mean", *where,
+                  "+diffusion.scale_by_std=true",
+                  # the cuts: the epoch's sample budget, the epochs, the preview steps
+                  "data.samples=16", "num_epochs=1", "+preview_ddim_steps=20"]
+    counts = {}
+
+    log(f"  train_diff.main({train_args})")
+    reset_launch_counts()
+    first = train_diff.main(train_args)
+    torch.cuda.synchronize()
+    counts["entry_train"] = dict(LAUNCHES)
+    run = first["run_dir"]
+    ep = first["epochs"][0]
+    log(f"  trained: {ep['micro_steps']} micro-steps of {ep['samples'] // ep['micro_steps']}, "
+        f"step {first['step']}, loss {ep['loss']:.5f}, {ep['samples'] / ep['seconds']:.4f} "
+        f"samples/s over the epoch ({ep['seconds']:.2f} s, first micro-steps included); "
+        f"scale factor {first['scale_factor']:.6f}; launches {counts['entry_train']}")
+    require(first["step"] == 8 and ep["micro_steps"] == 8, f"steps {first['step']}")
+    ckpt_file = checkpoints.checkpoint_file(f"{run}/ckpt", Path(run).name + "_last")
+    saved = checkpoints.load(ckpt_file)
+    size_gib = ckpt_file.stat().st_size / 2 ** 30
+    log(f"  checkpoint {ckpt_file.name}: {size_gib:.3f} GiB, step {saved['step']}, "
+        f"{saved['opt']['gradient_step']} updates applied")
+    require(saved["step"] == 8 and saved["opt"]["gradient_step"] == 2,
+            "the checkpoint is not the state after 8 micro-steps and 2 updates")
+    for f in ("scale_factor.json", "events.jsonl"):
+        require((Path(run) / f).is_file(), f"{f} was not written")
+    previews = sorted(p.name for p in (Path(run) / "previews").glob("*.png"))
+    require(len(previews) == 6, f"previews: {previews}")
+    # the run's initial U-Net: the same build, on the card, from the same seed
+    init = build_stedm(compose("config_diff", train_args), seed=0).unet.state_dict()
+    moved = sum(not torch.equal(init[k].cpu(), v) for k, v in saved["ema"].items())
+    log(f"  the EMA shadow moved in {moved} of {len(init)} U-Net tensors")
+    require(moved > 0, "the EMA shadow did not move")
+    del init, saved
+
+    log("  resumed: +resume=true num_epochs=2")
+    reset_launch_counts()
+    resumed = train_diff.main(train_args + ["+resume=true", "num_epochs=2"])
+    torch.cuda.synchronize()
+    for k, v in LAUNCHES.items():
+        counts["entry_train"][k] += v
+    ep2 = resumed["epochs"][0]
+    log(f"  resumed at step {resumed['start_step']} (saved: {first['step']}), its first "
+        f"micro-step is step {resumed['start_step'] + 1}; epoch {ep2['epoch']}: "
+        f"{ep2['micro_steps']} micro-steps, loss {ep2['loss']:.5f}, "
+        f"{ep2['samples'] / ep2['seconds']:.4f} samples/s ({ep2['seconds']:.2f} s); step "
+        f"{resumed['step']}")
+    require(resumed["start_step"] == first["step"] and ep2["epoch"] == 1
+            and resumed["step"] == first["step"] + 8, "the resume did not continue the run")
+    for e in (ep, ep2):
+        require(math.isfinite(e["loss"]), f"epoch {e['epoch']}: loss {e['loss']}")
+    torch.cuda.empty_cache()
+
+    readme = ["data=flowers", "data/dataset=[flowers_anno,flowers_unanno]",
+              "data.ratios=[1.0,1.0]", "cfg_scale=1.5",
+              # the run's style settings, so that its checkpoint is found
+              "style_sampling=augmented", "style_agg=mean", *where,
+              "data.samples=4", "+use_ema=true"]
+    predicts = {}
+    for name, extra in (("exact", []), ("serving", [
+            "ddim_steps=50", "+cache_schedule=auto:5", "+cfg_interval=[0.35,0.65]"])):
+        args = readme + extra + [f"+predict_name={name}"]
+        log(f"  predict_diff.main({args})")
+        reset_launch_counts()
+        out = predict_diff.main(args)
+        torch.cuda.synchronize()
+        counts[f"entry_predict_{name}"] = dict(LAUNCHES)
+        log(f"    launches (warm-up and capture; replays uncounted) "
+            f"{counts[f'entry_predict_{name}']}")
+        check_pairs(Path(out["predict_dir"]), 8, patch)
+        predicts[name] = predict_rates(out)
+        torch.cuda.empty_cache()
+
+    total = {k: sum(c[k] for c in counts.values()) for k in LAUNCHES}
+    for k, v in total.items():
+        require(v > 0, f"no {k} launch inside the entry-point calls: {counts}")
+    seconds = time.time() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"  phase 6 took {seconds:.1f} s")
+    return dict(entry_counts=counts, entry_seconds=seconds, entry_checkpoint_gib=size_gib,
+                entry_train_samples_per_s=[e["samples"] / e["seconds"] for e in (ep, ep2)],
+                entry_predict={k: {kk: vv for kk, vv in v.items() if kk != "predict_dir"}
+                               for k, v in predicts.items()})
+
+
 # device-kernel name patterns, first match wins
 _CATEGORIES = (
     ("gn_silu (CUDA)", r"gn_silu_kernel"),
@@ -1471,7 +1698,8 @@ def main() -> int:
         "flash_attention_bwd": KernelRecord(
             "flash_attention_bwd", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
             f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
-            "(_flash_attention_bwd_dq)", paths=("sample_batch", "train_micro_step")),
+            "(_flash_attention_bwd_dq)", paths=("sample_batch", "train_micro_step",
+                                                "entry_train")),
         "flash_attention_bwd_dh512": KernelRecord(
             "flash_attention_bwd_dh512", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
             f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
@@ -1488,7 +1716,8 @@ def main() -> int:
         "version")
     # 512^2 training bottleneck, a shorter sequence, the tiny card model's Dh
     check_attention_backward(torch, recs["flash_attention_bwd"], flush,
-                             ((8, 8, 1024, 128), (4, 8, 256, 128), (2, 4, 64, 64)), 6)
+                             ((8, 8, 1024, 128), (4, 8, 256, 128), (2, 4, 64, 64),
+                              (2, 8, 1024, 128)), 6)
     log("  -- Dh 512 (the codec's AttnBlockVQ): 256^2, a ragged T, codec fine-tuning at 512^2")
     check_attention_backward(torch, recs["flash_attention_bwd_dh512"], flush,
                              ((2, 1, 4096, 512), (1, 1, 2500, 512), (2, 1, 16384, 512)), 16)
@@ -1576,12 +1805,16 @@ def main() -> int:
     log("== phase 4c: full-width codec fine-tuning (vq-f4, 512^2, batch 2, bf16, Adam, "
         "LPIPS + PatchGAN)")
     codec = codec_finetune(torch, out_dir)
+    torch.cuda.empty_cache()
+    log("== phase 6: the train and predict entry points at the shipped widths (landscape "
+        "U-Net, VQ-f4, Swin-V2-T, 512^2) on a synthetic Flowers-102")
+    entry = entry_points(torch)
     # launches: each kernel's count on each main path it runs on, zeroed just
     # before and read just after (the sampler's batch, the serving batch, one
     # training micro-step, one codec step)
     path_counts = {"sample_batch": counts, "serving_batch": serving.pop("serving_counts"),
                    "train_micro_step": train["train_launches_per_micro_step"],
-                   "codec_step": codec["codec_launches_per_step"]}
+                   "codec_step": codec["codec_launches_per_step"], **entry["entry_counts"]}
     for name, rec in recs.items():
         per_path = {f"launches_{p}": path_counts[p][rec.counter] if p in rec.paths else 0
                     for p in KernelRecord.PATHS}
@@ -1593,7 +1826,7 @@ def main() -> int:
     print(json.dumps({"flagship_img_per_s": ips,
                       "flagship_img_per_s_runs": [batch_size / t for t in [warm_s] + more],
                       "gn_bound_ms_sample_batch": gn_bound_ms, "gn_ms_sample_batch": gn_ms,
-                      "host_us_per_call": host_us, **serving, **train, **codec,
+                      "host_us_per_call": host_us, **serving, **train, **codec, **entry,
                       "card": card}))
     print(json.dumps({"kernels": [r.entry for r in recs.values()]}))
     print(card)

@@ -97,6 +97,40 @@ class STEDM(nn.Module):
         return out.permute(0, 2, 3, 1).float()
 
 
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def build_stedm(cfg, device=None, seed: int = 0) -> STEDM:
+    """The composite model of a composed config (stedm_tpu/models/stedm.py:181-213),
+    its weights initialised from ``seed``, in eval mode.
+
+    As the JAX function does, it ignores each sub-config's ``target`` and
+    ``unet_config.params.image_size``, maps ``diffusion.compute_dtype`` and
+    takes ``num_style_patches`` from ``style_sampling`` (``mp`` only). The
+    U-Net and the codec raise on a key they do not port; ``style_agg: svit``
+    raises (ROADMAP item 15). Runs on ``cuda`` unless ``device`` says
+    otherwise (``"meta"`` builds the structure only)."""
+    diff = cfg.diffusion
+    dtype = _COMPUTE_DTYPES[diff.get("compute_dtype", "float32")]
+    sampling = cfg.style_sampling
+    num_patches = sampling.get("num_patches", 1) if sampling.name == "mp" else 1
+    style_agg = cfg.style_agg.name if cfg.get("style_agg") else "linear"
+    if style_agg == "svit" and sampling.name != "none":
+        raise NotImplementedError("style_agg: svit is not ported (ROADMAP item 15)")
+    dev = resolve_device(device)
+    cuda_devs = [dev.index or 0] if dev.type == "cuda" else []
+    with torch.random.fork_rng(devices=cuda_devs), torch.device(dev):
+        torch.manual_seed(seed)
+        return STEDM(unet_config=dict(diff.unet_config.params),
+                     first_stage_config=dict(diff.first_stage_config.params),
+                     cond_stage_config=dict(diff.cond_stage_config.params),
+                     style_agg=style_agg, style_sampling=sampling.name,
+                     num_style_patches=num_patches, patch_size=cfg.data.patch_size,
+                     scale_factor=diff.get("scale_factor", 1.0),
+                     conditioning_key=diff.get("conditioning_key", "hybrid"),
+                     dtype=dtype).eval()
+
+
 FLAGSHIP_PATCH = 256
 
 

@@ -73,16 +73,37 @@ class ResBlockStyle(nn.Module):
         return self.block(x, context)
 
 
+# options of the JAX U-Net (stedm_tpu/models/unet.py:97-126) that the port
+# takes only at the value every shipped config gives them
+_SHIPPED = {"dropout": 0.0, "use_scale_shift_norm": False, "resblock_updown": False,
+            "use_spatial_transformer": False, "transformer_depth": 1,
+            "conv_resample": True, "num_head_channels": -1, "num_classes": None}
+ATTN_IMPLS = ("exact", "chunked", "flash", "auto")
+
+
 class UNet(nn.Module):
-    """Style- and layout-conditioned denoising U-Net on NCHW input."""
+    """Style- and layout-conditioned denoising U-Net on NCHW input.
+
+    Takes the JAX U-Net's keywords: ``image_size`` is ignored (shapes follow
+    the input, as there); the options in ``_SHIPPED`` are accepted at their
+    shipped value and raise ``NotImplementedError`` at any other."""
 
     def __init__(self, in_channels: int = 6, model_channels: int = 128,
                  out_channels: int = 3, num_res_blocks: int = 2,
                  attention_resolutions: Sequence[int] = (32, 16, 8),
                  channel_mult: Sequence[int] = (1, 4, 8), num_heads: int = 8,
                  context_dim: int = 512, attn_impl: str = "exact",
-                 use_checkpoint: bool = False, dtype: torch.dtype = torch.float32):
+                 use_checkpoint: bool = False, dtype: torch.dtype = torch.float32,
+                 image_size: int | None = None, **options):
         super().__init__()
+        for key, value in options.items():
+            if key not in _SHIPPED:
+                raise TypeError(f"UNet got an unexpected keyword argument {key!r}")
+            if value != _SHIPPED[key]:
+                raise NotImplementedError(f"U-Net {key}={value!r} is not ported (ROADMAP "
+                                          f"item 15); the port takes {_SHIPPED[key]!r}")
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
         mc = model_channels
         self.model_channels, self.context_dim, self.dtype = mc, context_dim, dtype
         self.use_checkpoint = use_checkpoint

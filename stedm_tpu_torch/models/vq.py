@@ -123,7 +123,7 @@ class _Mid(nn.Module):
 def _check_dropout(dropout: float) -> None:
     if dropout:
         raise NotImplementedError(f"dropout {dropout} in the codec's ResnetBlocks is not "
-                                  "ported (every shipped config sets 0.0)")
+                                  "ported (ROADMAP item 15; every shipped config sets 0.0)")
 
 
 class VQEncoder(nn.Module):
@@ -265,11 +265,17 @@ class VQModelInterface(nn.Module):
     """Pre-quant encode / quantize-then-decode (stedm_tpu vq.py:242-290).
     ``encode``, ``decode`` and ``training_recon`` take and return NHWC.
     ``ddconfig`` takes the shipped keys: ``double_z`` must be false and a
-    non-zero ``dropout`` raises (not ported)."""
+    non-zero ``dropout`` raises (not ported). ``monitor`` is ignored, as in
+    the JAX package; a ``ckpt_path`` other than None raises (a warm start
+    from a weight file, ROADMAP item 10)."""
 
     def __init__(self, embed_dim: int = 3, n_embed: int = 8192, ddconfig: dict | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, ckpt_path: str | None = None,
+                 monitor: str | None = None):
         super().__init__()
+        if ckpt_path is not None:
+            raise NotImplementedError(f"first stage ckpt_path={ckpt_path!r}: warm starts "
+                                      "from a weight file are not ported (ROADMAP item 10)")
         enc, dec = codec_args(ddconfig, double_z=False)
         dd = dict(ddconfig or {})
         self.dtype, self.n_embed = dtype, n_embed

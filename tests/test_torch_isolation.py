@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX/Flax nor the JAX package,
-for sampling (the serving mode too), for diffusion training and for codec
-fine-tuning."""
+for sampling (the serving mode too), for diffusion training, for codec
+fine-tuning and through the train and predict entry points (with every
+import of JAX blocked)."""
 
 import ast
 import subprocess
@@ -15,6 +16,17 @@ FORBIDDEN = ("jax", "flax", "stedm_tpu")
 _PROBE = """
 import sys, torch
 torch.set_num_threads(2)
+
+
+class _Blocked:
+    \"\"\"Refuse every import of JAX, Flax or the JAX package.\"\"\"
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "stedm_tpu"):
+            raise ImportError(f"blocked: {name}")
+
+
+sys.meta_path.insert(0, _Blocked())
 from stedm_tpu_torch.models.vq import VQModelInterface
 from stedm_tpu_torch.models.unet import UNet
 from stedm_tpu_torch.train import steps
@@ -57,14 +69,29 @@ state = ae_steps.create_ae_state(codec, vae_losses.build_discriminator(cfg),
 step = ae_steps.make_ae_train_step(codec, cfg, lpips=LPIPS(), variant=variant, device="cpu")
 state, log, rec = step(state, torch.rand(1, 16, 16, 3) * 2 - 1)
 assert rec.shape == (1, 16, 16, 3) and bool(torch.isfinite(log["train/total_loss"]))
+# the entry points: config composition, the Flowers data pipeline, the
+# train loop with its checkpoint and event log, predict writing PNG pairs
+from stedm_tpu_torch import predict_diff, train_diff
+from stedm_tpu_torch.config import compose
+from stedm_tpu_torch.data import dm, flowers, prefetch
+from stedm_tpu_torch.train import checkpoints
+from stedm_tpu_torch.utils import logging
+run = train_diff.main(OVERRIDES, device="cpu")
+assert run["step"] == 2 and checkpoints.load(run["run_dir"] + "/ckpt/" + RUN + "_last")
+out = predict_diff.main(OVERRIDES + ["data.samples=1", "ddim_steps=2"], device="cpu")
+assert out["pairs"] == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "stedm_tpu"))
 print("LOADED", bad)
 """
 
 
-def test_import_and_forward_load_no_jax():
-    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=PKG.parent,
+def test_import_and_forward_load_no_jax(tmp_path):
+    from _flowers_helpers import run_overrides, write_flowers_tree
+
+    overrides = run_overrides(write_flowers_tree(tmp_path / "data"), tmp_path / "results")
+    head = f"OVERRIDES = {overrides!r}\nRUN = 'diff_flowers_augmented_mean'\n"
+    out = subprocess.run([sys.executable, "-c", head + _PROBE], cwd=PKG.parent,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
