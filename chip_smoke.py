@@ -98,7 +98,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    calls checked; samples/s, pairs/s after the first batch, the share of
    the host clock spent outside the sampler, the checkpoint's size and the
    phase's seconds printed;
-7. a ``kernels`` JSON line, the card line, and as the last line
+7. downstream segmentation, on phase 6's tree: 7a. a tiny ``SegUNet`` (four
+   depth-1 stages, narrow decoder) trained two micro-steps at accumulation 2
+   and then evaluated, on the card and on the CPU in fp32 from the same
+   weights and batches: losses, train- and eval-mode logits, confusion
+   matrices (a flip allowed only where the CPU's two logits nearly tie),
+   running statistics and the update held to the ``SEG_*`` tolerances; the
+   same run with torch's BatchNorm momentum on the card must fail them;
+   7b. the shipped MiT-B2 U-Net (config_seg.yaml: 512^2, batch 2,
+   accumulation 4, bf16, AdamW at the scaled lr, weight decay 1e-4): launch
+   counts of one micro-step (zeroed just before, read just after), finite
+   losses, moving parameters and running statistics, samples/s over four
+   timed updates, the host's time to issue a micro-step, peak memory, eval
+   images/s and a profile of one micro-step (``<out>/profile_seg.txt``, its
+   host ops in ``profile_seg_host.txt``); 7c. ``stedm_tpu_torch.train_seg.main``
+   on phase 6's Flowers tree and its exact predict output as
+   ``flowers_syn`` (README's mix 0.2 / 0.8; the cuts printed): both
+   checkpoints, IoUs in [0, 1], every key the JAX entry point logs, the
+   launches inside the call and the phase's seconds;
+8. a ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 fp32 matrix products and convolutions run without TF32 here (both backend
@@ -114,6 +132,7 @@ import argparse
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -173,7 +192,7 @@ class KernelRecord:
     """Per-kernel sums over the checked shapes plus each shape's numbers."""
 
     PATHS = ("sample_batch", "serving_batch", "train_micro_step", "codec_step", "entry_train",
-             "entry_predict_exact", "entry_predict_serving")
+             "entry_predict_exact", "entry_predict_serving", "seg_train_step", "seg_entry")
 
     def __init__(self, name, route, source, replaces, counter=None, paths=PATHS):
         # the launch counter the kernel's wrapper adds to, and the main paths
@@ -1477,12 +1496,11 @@ def predict_rates(out: dict) -> dict:
     return {"pairs_per_s": rate, "outside_sampler_share": outside, **out}
 
 
-def entry_points(torch) -> dict:
+def entry_points(torch) -> tuple[Path, dict]:
     """Phase 6: the train and predict entry points at the shipped widths on a
     synthetic Flowers tree: train, resume, predict exact, predict in the
-    serving mode. Returns its numbers and the launch counts of each call."""
-    import shutil
-
+    serving mode. Returns the tree's root (phase 7 reads it, then removes
+    it) and its numbers with the launch counts of each call."""
     from stedm_tpu_torch import predict_diff, train_diff
     from stedm_tpu_torch.config import compose
     from stedm_tpu_torch.models.stedm import build_stedm
@@ -1576,12 +1594,321 @@ def entry_points(torch) -> dict:
     for k, v in total.items():
         require(v > 0, f"no {k} launch inside the entry-point calls: {counts}")
     seconds = time.time() - t0
-    shutil.rmtree(root, ignore_errors=True)
-    log(f"  phase 6 took {seconds:.1f} s")
-    return dict(entry_counts=counts, entry_seconds=seconds, entry_checkpoint_gib=size_gib,
+    log(f"  phase 6 took {seconds:.1f} s (its tree stays for phase 7)")
+    return root, dict(entry_counts=counts, entry_seconds=seconds, entry_checkpoint_gib=size_gib,
                 entry_train_samples_per_s=[e["samples"] / e["seconds"] for e in (ep, ep2)],
                 entry_predict={k: {kk: vv for kk, vv in v.items() if kk != "predict_dir"}
                                for k, v in predicts.items()})
+
+
+# phase 7a's tolerances, card (fp32, TF32 off) against CPU (fp32), same
+# weights and batches: the sums run in other orders (cuDNN's convolution
+# algorithms), which moves each value by about 1e-6 of its size; Adam's first
+# update is about lr * sign(g), so where a gradient is near zero its element
+# flips: the update is held in relative L2 norm, as in phases 3b and 3c
+SEG_LOSS_RTOL = 1e-4
+SEG_LOGIT_ATOL = 1e-3     # train- and eval-mode logits, |logit| ~ 1
+SEG_STATS_ATOL = 1e-5     # BatchNorm running statistics
+SEG_UPDATE_REL = 1e-2     # relative L2 error of the parameters' change
+SEG_TIE = 1e-3            # a pixel whose CPU logits differ by less may flip its argmax
+SEG_LR = 1e-4
+SEG_TINY = dict(classes=2, decoder_channels=(64, 32, 16, 16, 8), encoder_config=dict(
+    embed_dims=(32, 64, 80, 128), depths=(1, 1, 1, 1), num_heads=(1, 2, 5, 8),
+    sr_ratios=(8, 4, 2, 1)))
+# the keys the JAX entry point logs with a val and a test split
+# (train_seg.py:48-84, :185-240)
+SEG_EVENT_KEYS = ("Train Loss", "epoch", "epoch_time_s", "Train IoU Score",
+                  "Train Subtype Var", "Val Loss", "Val IoU Score", "Val Subtype Var",
+                  "Val Patient IoU Score", "Val Patient IoU Var") + tuple(
+    f"Test ({tag}) {k}" for tag in ("last", "best")
+    for k in ("IoU Score", "Subtype Var", "Patient IoU Score", "Patient IoU Var"))
+
+
+def _seg_run(torch, model, device: str, batches, eval_batch) -> dict:
+    """Two train micro-steps at accumulation 2 (one update), then an eval
+    step with cuts and instance ids: each step's loss, matrix and train-mode
+    logits (of a copy, so that the running statistics move once a step), the
+    eval outputs and eval-mode logits, and the state_dict."""
+    import copy
+
+    from stedm_tpu_torch.train.seg_steps import (
+        create_seg_state,
+        make_seg_eval_step,
+        make_seg_optimizer,
+        make_seg_train_step,
+    )
+
+    state = create_seg_state(model, make_seg_optimizer(SEG_LR, 2))
+    step = make_seg_train_step(model, num_classes=3, overlap=2, device=device)
+    out = {"loss": [], "cm": [], "logits": []}
+    for img, seg in batches:
+        img, seg = img.to(device), seg.to(device)
+        with torch.no_grad():
+            out["logits"].append(copy.deepcopy(model)(img, train=True).cpu())
+        state, m = step(state, img, seg)
+        out["loss"].append(float(m["loss"]))
+        out["cm"].append(m["cm"].cpu())
+    ev = make_seg_eval_step(model, num_classes=3, num_inst=4, overlap=2, device=device)(
+        *(t.to(device) for t in eval_batch))
+    out["eval"] = {k: v.cpu() for k, v in ev.items()}
+    with torch.no_grad():
+        out["eval_logits"] = model(eval_batch[0].to(device), train=False).cpu()
+    out["state"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    out["updates"] = state.opt_state.gradient_step
+    return out
+
+
+def _ties(logits) -> int:
+    """Pixels whose two class logits differ by less than ``SEG_TIE``."""
+    return int(((logits[..., 1] - logits[..., 0]).abs() < SEG_TIE).sum())
+
+
+def seg_mismatches(torch, got: dict, ref: dict, init: dict) -> list[str]:
+    """What of ``got`` (the card) falls outside the ``SEG_*`` tolerances
+    around ``ref`` (the CPU); ``init`` is the state both started from."""
+    bad = []
+    for i, (a, b) in enumerate(zip(got["loss"], ref["loss"])):
+        if abs(a - b) > SEG_LOSS_RTOL * abs(b):
+            bad.append(f"loss {i}: {a:.7f} vs {b:.7f}")
+    pairs = [(f"train logits {i}", a, b) for i, (a, b) in
+             enumerate(zip(got["logits"], ref["logits"]))]
+    for name, a, b in pairs + [("eval logits", got["eval_logits"], ref["eval_logits"])]:
+        err = float((a - b).abs().max())
+        if err > SEG_LOGIT_ATOL:
+            bad.append(f"{name}: max |diff| {err:.3e}")
+    # a flipped pixel moves two cells of a matrix by one each
+    cms = [(f"train cm {i}", a, b, _ties(lg)) for i, (a, b, lg) in
+           enumerate(zip(got["cm"], ref["cm"], ref["logits"]))]
+    ties = _ties(ref["eval_logits"])
+    cms += [("eval cm", got["eval"]["cm"], ref["eval"]["cm"], ties),
+            ("eval inst_cm", got["eval"]["inst_cm"], ref["eval"]["inst_cm"], ties)]
+    for name, a, b, n_ties in cms:
+        off = float((a - b).abs().sum())
+        if off > 2 * n_ties:
+            bad.append(f"{name}: {off:.0f} counts off, {n_ties} near-ties")
+    if abs(got["eval"]["loss"].item() - ref["eval"]["loss"].item()) > \
+            SEG_LOSS_RTOL * abs(ref["eval"]["loss"].item()):
+        bad.append("eval loss")
+    stats = [k for k in ref["state"] if "running" in k]
+    worst = max(float((got["state"][k] - ref["state"][k]).abs().max()) for k in stats)
+    if worst > SEG_STATS_ATOL:
+        bad.append(f"running statistics: max |diff| {worst:.3e}")
+    names = [k for k in ref["state"] if "running" not in k]
+    d_got = torch.cat([(got["state"][k] - init[k]).flatten() for k in names])
+    d_ref = torch.cat([(ref["state"][k] - init[k]).flatten() for k in names])
+    rel = float((d_got - d_ref).norm() / d_ref.norm())
+    if rel > SEG_UPDATE_REL or got["updates"] != ref["updates"]:
+        bad.append(f"update: relative L2 error {rel:.3e}, updates {got['updates']} vs "
+                   f"{ref['updates']}")
+    log(f"    losses {[round(x, 6) for x in got['loss']]} (CPU "
+        f"{[round(x, 6) for x in ref['loss']]}); running statistics max |diff| {worst:.3e}; "
+        f"update relative L2 error {rel:.3e}; eval matrix counts off "
+        f"{float((got['eval']['cm'] - ref['eval']['cm']).abs().sum()):.0f} ({ties} near-ties)")
+    return bad
+
+
+def tiny_seg_parity(torch) -> dict:
+    """Phase 7a: a tiny SegUNet on the card against the CPU, then the same
+    with torch's BatchNorm momentum on the card, which must fail."""
+    import numpy as np
+
+    from stedm_tpu_torch.models.segformer import BatchNorm, SegUNet
+
+    rng = np.random.default_rng(0)
+    p, b = 64, 2
+    batches = [(torch.from_numpy(rng.normal(size=(b, p, p, 3)).astype(np.float32)),
+                torch.from_numpy(rng.integers(0, 3, (b, p, p)))) for _ in range(2)]
+    eval_batch = (torch.from_numpy(rng.normal(size=(3, p, p, 3)).astype(np.float32)),
+                  torch.from_numpy(rng.integers(0, 3, (3, p, p))), torch.tensor([0, 2, 5]),
+                  torch.tensor([1, 0, 3]), torch.tensor([3, 1, 3]))
+    torch.manual_seed(0)
+    cpu_model = SegUNet(**SEG_TINY)
+    init = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    ref = _seg_run(torch, cpu_model, "cpu", batches, eval_batch)
+    result = {}
+    for variant, momentum in (("flax BatchNorm (the port)", None),
+                              ("torch's BatchNorm momentum 0.1 (wrong)", 0.9)):
+        model = SegUNet(**SEG_TINY).cuda()
+        model.load_state_dict(init)
+        if momentum is not None:
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.momentum = momentum
+        log(f"  {variant}:")
+        bad = seg_mismatches(torch, _seg_run(torch, model, "cuda", batches, eval_batch),
+                             ref, init)
+        log(f"    outside tolerance: {bad or 'nothing'}")
+        result["wrong" if momentum else "port"] = bad
+    require(not result["port"], f"the tiny SegUNet on the card disagrees with the CPU: "
+            f"{result['port']}")
+    require(any("running statistics" in x for x in result["wrong"]),
+            "the check accepted torch's BatchNorm momentum")
+    return {"seg_parity_wrong_variant_rejected_by": result["wrong"]}
+
+
+def seg_flagship(torch, out_dir: Path) -> dict:
+    """Phase 7b: the shipped MiT-B2 U-Net trained and evaluated at the
+    shapes of configs/config_seg.yaml; returns its numbers."""
+    from stedm_tpu_torch.config import compose
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.train.optim import scaled_lr
+    from stedm_tpu_torch.train.seg_steps import (
+        create_seg_state,
+        make_seg_eval_step,
+        make_seg_optimizer,
+        make_seg_train_step,
+    )
+    from stedm_tpu_torch.train_seg import build_seg_model
+
+    cfg = compose("config_seg", [])
+    batch, accum, p = cfg.data.batch_base * cfg.location.batch_mul, \
+        cfg.accumulate_grad_batches, cfg.data.patch_size
+    lr = scaled_lr(cfg.base_lr, cfg.data.batch_base, cfg.location.batch_mul, 1, cfg.lr)
+    model = build_seg_model(cfg, "cuda", seed=0)
+    n_params = sum(x.numel() for x in model.parameters())
+    tx = make_seg_optimizer(lr, accum)
+    state = create_seg_state(model, tx)
+    losses_kw = dict(ce_ratio=cfg.ce_ratio, dice_ratio=cfg.dice_ratio)
+    step = make_seg_train_step(model, num_classes=cfg.data.num_classes,
+                               overlap=cfg.data.overlap_train, **losses_kw)
+    log(f"  {n_params:,} parameters, {model.dtype}, {p}^2, batch {batch}, accumulation "
+        f"{accum}, lr {lr:.3e} (base_lr {cfg.base_lr} scaled), weight decay {tx.weight_decay}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    img = torch.rand((batch, p, p, 3), generator=gen, device="cuda") * 2 - 1
+    yy, xx = torch.meshgrid(torch.arange(p, device="cuda"), torch.arange(p, device="cuda"),
+                            indexing="ij")
+    centre = torch.rand((batch, 2), generator=gen, device="cuda") * p / 2 + p / 4
+    seg = ((((yy - centre[:, :1, None]) / (p / 5)) ** 2
+            + ((xx - centre[:, 1:, None]) / (p / 4)) ** 2) <= 1).long()
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    reset_launch_counts()
+    t1 = time.time()
+    state, m = step(state, img, seg)
+    torch.cuda.synchronize()
+    cold_s = time.time() - t1
+    counts = dict(LAUNCHES)
+    log(f"  first micro-step {cold_s:.2f} s, loss {float(m['loss']):.5f}; launches in one "
+        f"micro-step {counts} (no kernel of this package lies on this path)")
+    for _ in range(accum - 1):
+        state, m = step(state, img, seg)
+    torch.cuda.synchronize()
+    require(state.opt_state.gradient_step == 1, "the first update was not applied")
+    after = model.state_dict()
+    still = [k for k in before if "running" not in k and torch.equal(before[k], after[k])]
+    stats_still = [k for k in before if "running" in k and torch.equal(before[k], after[k])]
+    log(f"  after one applied update: {len(before) - 20 - len(still)} of {len(before) - 20} "
+        f"parameter tensors and {20 - len(stats_still)} of 20 running-statistic buffers "
+        f"moved; unmoved: {still}")
+    # a key bias adds the same q.b to every logit of a row, which the softmax
+    # cancels: its gradient is zero, and at lr 1e-6 its decay below rounding
+    require(all(k.endswith("attn.k.bias") for k in still), f"parameters did not move: {still}")
+    require(not stats_still, f"running statistics did not move: {stats_still}")
+    del before, after
+
+    torch.cuda.reset_peak_memory_stats()
+    times, issue, losses = [], [], []
+    for _ in range(4):                       # timed applied updates
+        t1 = time.time()
+        for _ in range(accum):
+            state, m = step(state, img, seg)
+            losses.append(m["loss"])
+        # the step never waits for the card, so this is the host's time to
+        # issue the update's work
+        issue.append(time.time() - t1)
+        torch.cuda.synchronize()
+        times.append(time.time() - t1)
+    require(bool(torch.isfinite(torch.stack(losses)).all()), "non-finite segmentation loss")
+    require(state.opt_state.gradient_step == 5, "updates were not applied")
+    median_s = _median(times)
+    sps = batch * accum / median_s
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    issue_ms = _median(issue) / accum * 1e3
+    log("  timed applied updates (4 micro-steps of 2 samples each): " + " ".join(
+        f"{batch * accum / t:.4f}" for t in times) + f" samples/s; median {sps:.4f}; "
+        f"peak memory {peak:.3f} GiB; losses {float(losses[0]):.5f} .. {float(losses[-1]):.5f}; "
+        f"the host issues a micro-step in {issue_ms:.2f} ms (median)")
+
+    evaluate = make_seg_eval_step(model, num_classes=cfg.data.num_classes,
+                                  num_inst=cfg.data.num_val_inst, overlap=cfg.data.overlap_val,
+                                  **losses_kw)
+    zeros = torch.zeros(batch, dtype=torch.long, device="cuda")
+    wsi = torch.arange(batch, device="cuda")
+    ev = evaluate(img, seg, zeros, zeros, wsi)
+    masked = batch * (p - 2 * cfg.data.overlap_val) ** 2
+    require(bool(torch.isfinite(ev["loss"])) and float(ev["cm"].sum()) == masked
+            and float(ev["inst_cm"].sum()) == masked, "eval step: loss or matrix counts")
+    n_eval = 10
+    eval_s = _median(timed_runs(torch, lambda: [evaluate(img, seg, zeros, zeros, wsi)
+                                                for _ in range(n_eval)], 3))
+    eval_ips = batch * n_eval / eval_s
+    log(f"  eval: {eval_ips:.4f} images/s (median of three runs of {n_eval} batches); "
+        f"loss {float(ev['loss']):.5f}")
+    micro_ms = median_s / accum * 1e3
+    kernels = profile_main_path(torch, lambda: step(state, img, seg), micro_ms, out_dir,
+                                "profile_seg.txt", host_top=10)
+    busy_ms = sum(ms for _, _, ms in kernels)
+    n_kernels = sum(n for _, n, _ in kernels)
+    log(f"  {n_kernels} device kernels a micro-step: {issue_ms / max(n_kernels, 1) * 1e3:.1f} "
+        f"us of host time each against {busy_ms / max(n_kernels, 1) * 1e3:.1f} us of device "
+        f"time")
+    return dict(seg_train_samples_per_s=sps,
+                seg_train_samples_per_s_runs=[batch * accum / t for t in times],
+                seg_peak_mem_gib=peak, seg_eval_img_per_s=eval_ips,
+                seg_micro_step_ms=micro_ms, seg_issue_ms=issue_ms, seg_profiled_busy_ms=busy_ms,
+                seg_idle_share=1 - busy_ms / micro_ms, seg_kernels_per_micro_step=n_kernels,
+                seg_launches_per_micro_step=counts, seg_params=n_params)
+
+
+def seg_entry_point(torch, root: Path) -> dict:
+    """Phase 7c: train_seg.main on phase 6's Flowers tree, with its exact
+    predict output as ``flowers_syn``; returns its numbers and launches."""
+    import json as json_
+
+    from stedm_tpu_torch import train_seg
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.train import checkpoints
+
+    t0 = time.time()
+    data, results = root / "data", root / "results_seg"
+    args = ["data/dataset=[flowers_anno,flowers_syn]", "data.ratios=[0.2,0.8]",
+            # phase 6's exact predict output (8 pairs at 512^2)
+            "data.dataset.flowers_syn.folder_name=exact",
+            f"location.data_dir={data}", f"location.result_dir={results}",
+            # the cuts: the epoch's sample budget (10000) and the epochs (75)
+            "data.samples=40", "num_epochs=2"]
+    log(f"  train_seg.main({args})")
+    reset_launch_counts()
+    out = train_seg.main(args)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    run = Path(out["run_dir"])
+    name = run.name
+    for tag in ("last", "best"):
+        f = checkpoints.checkpoint_file(run / "ckpt", f"{name}_{tag}")
+        require(f.is_file(), f"{f.name} was not written")
+        require(checkpoints.load(f)["format"] == "seg_state", f"{f.name} is no seg state")
+    events = [json_.loads(ln) for ln in (run / "events.jsonl").read_text().splitlines()]
+    logged = {k for e in events for k in e}
+    missing = [k for k in SEG_EVENT_KEYS if k not in logged]
+    require(not missing, f"keys the JAX entry point logs are missing: {missing}")
+    ious = {k: v for e in events for k, v in e.items() if "IoU" in k and "Var" not in k}
+    require(all(0.0 <= v <= 1.0 for v in ious.values()), f"IoUs outside [0, 1]: {ious}")
+    require(set(out["tests"]) == {"last", "best"}, f"tests run: {sorted(out['tests'])}")
+    losses = [e["loss"] for e in out["epochs"]] + [e["val"]["loss"] for e in out["epochs"]]
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    figures = sorted(q.name for q in run.glob("*_cm_*.png"))
+    seconds = time.time() - t0
+    ep = out["epochs"]
+    log(f"  {len(ep)} epochs of {[e['micro_steps'] for e in ep]} micro-steps, train loss "
+        f"{[round(e['loss'], 5) for e in ep]}, val loss {[round(e['val']['loss'], 5) for e in ep]}, "
+        f"train samples/s over each epoch (first micro-steps and host data included) "
+        f"{[round(e['samples'] / e['seconds'], 4) for e in ep]}; step {out['step']}")
+    log(f"  Test IoU last {out['tests']['last']['Test (last) IoU Score']:.5f}, best "
+        f"{out['tests']['best']['Test (best) IoU Score']:.5f}; CM figures {figures}; "
+        f"launches {counts}; phase 7c took {seconds:.1f} s")
+    return dict(seg_entry_counts=counts, seg_entry_seconds=seconds,
+                seg_entry_ious=ious, seg_entry_epochs=ep)
 
 
 # device-kernel name patterns, first match wins
@@ -1601,11 +1928,13 @@ _CATEGORIES = (
 
 
 def profile_main_path(torch, run, unprofiled_ms: float, out_dir: Path,
-                      table: str = "profile.txt") -> list:
+                      table: str = "profile.txt", host_top: int = 0) -> list:
     """Device time by kernel category over one warm main-path run
     (torch.profiler; CUDA kernel events only, so nothing counts twice). The
     idle share is also given against ``unprofiled_ms``, the wall time of the
-    same run without the profiler's host overhead."""
+    same run without the profiler's host overhead. ``host_top`` > 0 also
+    logs that many host-side ops by self CPU time (profiler on, so inflated
+    alike) and writes them all to ``<table stem>_host.txt``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1635,6 +1964,16 @@ def profile_main_path(torch, run, unprofiled_ms: float, out_dir: Path,
         f"{ms:10.3f} ms {n:6d}x {name}" for name, n, ms in top))
     for name, n, ms in top[:8]:
         log(f"    top: {ms:8.2f} ms {n:5d}x {name[:100]}")
+    if host_top:
+        host = sorted(((ev.key, ev.count, ev.self_cpu_time_total / 1e3)
+                       for ev in prof.key_averages() if ev.device_type == DeviceType.CPU),
+                      key=lambda k: -k[2])
+        (out_dir / table.replace(".txt", "_host.txt")).write_text("\n".join(
+            f"{ms:10.3f} ms {n:6d}x {name}" for name, n, ms in host))
+        log(f"    host ops (self CPU time, profiler on): {sum(ms for *_, ms in host):.1f} ms "
+            f"over {sum(n for _, n, _ in host)} calls")
+        for name, n, ms in host[:host_top]:
+            log(f"    host: {ms:8.2f} ms {n:5d}x {name[:100]}")
     return kernels
 
 
@@ -1808,13 +2147,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("== phase 6: the train and predict entry points at the shipped widths (landscape "
         "U-Net, VQ-f4, Swin-V2-T, 512^2) on a synthetic Flowers-102")
-    entry = entry_points(torch)
+    entry_root, entry = entry_points(torch)
+    torch.cuda.empty_cache()
+    t7 = time.time()
+    log("== phase 7a: a tiny SegUNet trained and evaluated on the card against the CPU "
+        "(fp32), then a wrong variant")
+    seg_parity = tiny_seg_parity(torch)
+    log("== phase 7b: the MiT-B2 U-Net at the shipped widths (512^2, batch 2, accumulation 4, "
+        "bf16, AdamW wd 1e-4)")
+    seg = seg_flagship(torch, out_dir)
+    torch.cuda.empty_cache()
+    log("== phase 7c: train_seg.main on phase 6's Flowers tree and its predicted pairs")
+    seg_entry = seg_entry_point(torch, entry_root)
+    shutil.rmtree(entry_root, ignore_errors=True)
+    seg_seconds = time.time() - t7
+    log(f"  phase 7 took {seg_seconds:.1f} s")
     # launches: each kernel's count on each main path it runs on, zeroed just
     # before and read just after (the sampler's batch, the serving batch, one
-    # training micro-step, one codec step)
+    # training micro-step, one codec step, the entry points, one segmentation
+    # micro-step, the segmentation entry point)
     path_counts = {"sample_batch": counts, "serving_batch": serving.pop("serving_counts"),
                    "train_micro_step": train["train_launches_per_micro_step"],
-                   "codec_step": codec["codec_launches_per_step"], **entry["entry_counts"]}
+                   "codec_step": codec["codec_launches_per_step"], **entry["entry_counts"],
+                   "seg_train_step": seg["seg_launches_per_micro_step"],
+                   "seg_entry": seg_entry["seg_entry_counts"]}
     for name, rec in recs.items():
         per_path = {f"launches_{p}": path_counts[p][rec.counter] if p in rec.paths else 0
                     for p in KernelRecord.PATHS}
@@ -1827,6 +2183,7 @@ def main() -> int:
                       "flagship_img_per_s_runs": [batch_size / t for t in [warm_s] + more],
                       "gn_bound_ms_sample_batch": gn_bound_ms, "gn_ms_sample_batch": gn_ms,
                       "host_us_per_call": host_us, **serving, **train, **codec, **entry,
+                      **seg_parity, **seg, **seg_entry, "seg_seconds": seg_seconds,
                       "card": card}))
     print(json.dumps({"kernels": [r.entry for r in recs.values()]}))
     print(card)

@@ -11,6 +11,10 @@ A checkpoint is one file, ``<ckpt_dir>/<name>.pt``, holding a dict:
   ``gradient_step``, and ``acc_grads``, the gradients summed since the last
   applied update (``optax.MultiSteps``' ``acc_grads``; empty right after an
   update);
+* a segmentation training state (``save`` of a ``SegTrainState``, saved by
+  train_seg under ``{run_name}_last`` and ``{run_name}_best``):
+  ``format`` is ``"seg_state"``; ``params`` the model's state_dict (the
+  BatchNorm running statistics included), ``step`` and ``opt`` as above;
 * parameters alone (``save`` of a state_dict): ``format`` is ``"params"``.
 
 ``partial_restore`` keeps the JAX function's matching rule
@@ -26,6 +30,8 @@ from typing import Mapping
 
 import torch
 
+from stedm_tpu_torch.train.optim import OptState
+from stedm_tpu_torch.train.seg_steps import SegTrainState
 from stedm_tpu_torch.train.steps import TrainState
 
 SUFFIX = ".pt"
@@ -39,8 +45,17 @@ def _cpu(tensors: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
-def _state_payload(state: TrainState) -> dict:
-    opt = state.opt_state
+def _opt_payload(opt: OptState) -> dict:
+    return {"adamw": opt.adamw.state_dict(), "mini_step": int(opt.mini_step),
+            "gradient_step": int(opt.gradient_step),
+            "acc_grads": [None if p.grad is None else p.grad.detach().cpu().clone()
+                          for p in opt.params]}
+
+
+def _state_payload(state: TrainState | SegTrainState) -> dict:
+    if isinstance(state, SegTrainState):
+        return {"format": "seg_state", "params": _cpu(state.model.state_dict()),
+                "step": int(state.step), "opt": _opt_payload(state.opt_state)}
     return {
         "format": "train_state",
         "params": _cpu(state.model.state_dict()),
@@ -48,19 +63,29 @@ def _state_payload(state: TrainState) -> dict:
         "ema": _cpu(state.ema_params),
         "ema_updates": int(state.ema_updates),
         "step": int(state.step),
-        "opt": {"adamw": opt.adamw.state_dict(), "mini_step": int(opt.mini_step),
-                "gradient_step": int(opt.gradient_step),
-                "acc_grads": [None if p.grad is None else p.grad.detach().cpu().clone()
-                              for p in opt.params]},
+        "opt": _opt_payload(state.opt_state),
     }
 
 
-def save(ckpt_dir: str | Path, state: TrainState | Mapping[str, torch.Tensor],
+@torch.no_grad()
+def _restore_opt(opt_state: OptState, opt: dict) -> None:
+    opt_state.adamw.load_state_dict(opt["adamw"])
+    if len(opt["acc_grads"]) != len(opt_state.params):
+        raise ValueError("the checkpoint's optimizer covers other parameters")
+    for p, g in zip(opt_state.params, opt["acc_grads"]):
+        p.grad = None if g is None else g.to(p.device)
+    opt_state.mini_step = opt["mini_step"]
+    opt_state.gradient_step = opt["gradient_step"]
+
+
+def save(ckpt_dir: str | Path,
+         state: TrainState | SegTrainState | Mapping[str, torch.Tensor],
          name: str = "last") -> str:
-    """Write a ``TrainState`` or a bare state_dict; returns the file's path.
+    """Write a ``TrainState``, a ``SegTrainState`` or a bare state_dict;
+    returns the file's path.
     The file is written beside its target and then renamed over it, so an
     interrupted save leaves the previous checkpoint whole."""
-    if isinstance(state, TrainState):
+    if isinstance(state, (TrainState, SegTrainState)):
         payload = _state_payload(state)
     else:
         payload = {"format": "params", "params": _cpu(state)}
@@ -86,17 +111,26 @@ def load(ckpt_path: str | Path) -> dict:
     if not path.is_file():
         raise FileNotFoundError(f"no checkpoint at {ckpt_path}")
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    if payload.get("format") not in ("train_state", "params"):
+    if payload.get("format") not in ("train_state", "seg_state", "params"):
         raise ValueError(f"{path} is not a checkpoint of this package")
     return payload
 
 
-def restore(ckpt_dir: str | Path, state: TrainState, name: str = "last") -> TrainState:
+def restore(ckpt_dir: str | Path, state: TrainState | SegTrainState,
+            name: str = "last") -> TrainState | SegTrainState:
     """Load a full-state checkpoint into ``state`` (built as the saved one
     was: same model, optimizer settings and ``logvar``), in place."""
     payload = load(checkpoint_file(ckpt_dir, name))
-    if payload["format"] != "train_state":
+    want = "seg_state" if isinstance(state, SegTrainState) else "train_state"
+    if payload["format"] == "params":
         raise ValueError(f"{ckpt_dir}/{name}: a params-only checkpoint has no train state")
+    if payload["format"] != want:
+        raise ValueError(f"{ckpt_dir}/{name}: a {payload['format']} checkpoint, not a {want}")
+    if want == "seg_state":
+        state.model.load_state_dict(payload["params"], strict=True)
+        _restore_opt(state.opt_state, payload["opt"])
+        state.step = payload["step"]
+        return state
     if (payload["logvar"] is None) != (state.logvar is None):
         raise ValueError("the checkpoint and the state disagree on learn_logvar")
     state.model.load_state_dict(payload["params"], strict=True)
@@ -107,14 +141,7 @@ def restore(ckpt_dir: str | Path, state: TrainState, name: str = "last") -> Trai
             raise ValueError("the checkpoint's EMA shadow covers other parameters")
         for k, v in payload["ema"].items():
             state.ema_params[k].copy_(v)
-        opt = payload["opt"]
-        state.opt_state.adamw.load_state_dict(opt["adamw"])
-        if len(opt["acc_grads"]) != len(state.opt_state.params):
-            raise ValueError("the checkpoint's optimizer covers other parameters")
-        for p, g in zip(state.opt_state.params, opt["acc_grads"]):
-            p.grad = None if g is None else g.to(p.device)
-    state.opt_state.mini_step = opt["mini_step"]
-    state.opt_state.gradient_step = opt["gradient_step"]
+    _restore_opt(state.opt_state, payload["opt"])
     state.ema_updates = payload["ema_updates"]
     state.step = payload["step"]
     return state

@@ -9,13 +9,16 @@ importer: HWIO conv kernels -> OIHW, Dense ``[in, out]`` -> Linear
 ``[out, in, 1]``, norm ``scale`` -> ``weight``. Codec fine-tuning's pieces
 have their own: ``codec_state_dict`` (VQ or KL codec),
 ``discriminator_state_dict`` (params and batch statistics) and
-``lpips_state_dict``. Nothing here imports the JAX package.
+``lpips_state_dict``; the segmentation net has ``seg_state_dict`` and the
+MiT-B2 importer ``load_seg_encoder`` (torch_import.py:445, :655-671).
+Nothing here imports the JAX package.
 """
 
 from __future__ import annotations
 
 import re
 from collections.abc import Mapping
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -202,3 +205,100 @@ def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
         if group in params:
             sd.update({f"{group}.{k}": v for k, v in fn(params[group]).items()})
     return sd
+
+
+def seg_state_dict(params: Mapping, batch_stats: Mapping | None = None
+                   ) -> dict[str, torch.Tensor]:
+    """``SegUNet``'s state_dict from the JAX ``params`` and ``batch_stats``:
+    the port's module names are the JAX tree's, so only the layouts change
+    (Dense ``[in, out]`` -> ``[out, in]``, HWIO -> OIHW, the depthwise
+    ``(3, 3, 1, C)`` -> ``(C, 1, 3, 3)``, ``scale`` -> ``weight``) and a
+    BatchNorm's ``mean`` / ``var`` become ``running_mean`` / ``running_var``."""
+    sd = _convert(params, lambda parts, _: parts)
+    for path, arr in _flatten(batch_stats or {}):
+        *parts, leaf = path
+        name = {"mean": "running_mean", "var": "running_var"}[leaf]
+        sd[".".join([*parts, name])] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    return sd
+
+
+def map_mit_b2(sd: Mapping[str, torch.Tensor], root: str = "") -> dict[str, torch.Tensor]:
+    """A Mix-Transformer (SegFormer MiT) encoder state_dict in the published
+    NVlabs layout (``patch_embed1.proj``, ``block1.0.attn.kv``, ``norm1``;
+    what segmentation_models_pytorch wraps for ``encoder_weights="imagenet"``)
+    -> ``MiTEncoder``'s state_dict (torch_import.py:445-492). ``root`` is
+    the prefix to strip (``"_model.encoder."`` for a Lightning checkpoint,
+    ``"encoder."`` for an smp.Unet state_dict). The fused ``attn.kv`` splits
+    into ``attn.k`` and ``attn.v``; the classification ``head.*`` is left out."""
+    if root:
+        sd = {k[len(root):]: v for k, v in sd.items() if k.startswith(root)}
+    out: dict[str, torch.Tensor] = {}
+
+    def put(dst: str, src: str) -> None:
+        out[f"{dst}.weight"], out[f"{dst}.bias"] = sd[f"{src}.weight"], sd[f"{src}.bias"]
+
+    for s in range(4):
+        t = s + 1
+        if f"patch_embed{t}.proj.weight" not in sd:
+            continue
+        put(f"patch_embed_{s}", f"patch_embed{t}.proj")
+        put(f"embed_norm_{s}", f"patch_embed{t}.norm")
+        put(f"stage_norm_{s}", f"norm{t}")
+        i = 0
+        while f"block{t}.{i}.norm1.weight" in sd:
+            bt, bj = f"block{t}.{i}.", f"stage{s}_block{i}."
+            for name in ("norm1", "norm2", "attn.q", "attn.proj", "mlp.fc1", "mlp.fc2"):
+                put(bj + name.replace("mlp.", "ffn."), bt + name)
+            kv_w, kv_b = sd[f"{bt}attn.kv.weight"], sd[f"{bt}attn.kv.bias"]
+            c = kv_w.shape[0] // 2
+            out[f"{bj}attn.k.weight"], out[f"{bj}attn.k.bias"] = kv_w[:c], kv_b[:c]
+            out[f"{bj}attn.v.weight"], out[f"{bj}attn.v.bias"] = kv_w[c:], kv_b[c:]
+            if f"{bt}attn.sr.weight" in sd:  # sr_ratio > 1 stages only
+                put(f"{bj}attn.sr", f"{bt}attn.sr")
+                put(f"{bj}attn.sr_norm", f"{bt}attn.norm")
+            put(f"{bj}ffn.dwconv", f"{bt}mlp.dwconv.dwconv")
+            i += 1
+    return out
+
+
+def load_torch_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
+    """The tensors of a torch checkpoint file (its ``state_dict`` entry when
+    it has one), as torch_import.py:load_torch_state_dict reads them. The
+    file comes from outside, so it is read with ``weights_only=True`` and
+    never fully unpickled (the JAX importer falls back to that); a file
+    holding other objects raises."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: torch.as_tensor(v) for k, v in sd.items() if hasattr(v, "shape")}
+
+
+def load_seg_encoder(model: torch.nn.Module, path: str | Path) -> tuple[int, int]:
+    """Load pretrained MiT-B2 weights into a ``SegUNet``'s encoder
+    (reference modules/segmentation.py:41 ``encoder_weights="imagenet"``),
+    the key root detected as torch_import.py:655-671 does (a bare NVlabs
+    file, an smp.Unet state_dict or a Lightning checkpoint). A parameter
+    takes the file's tensor where the name and shape match and keeps its
+    value otherwise; returns (loaded, left) counted over all the model's
+    parameters, printed as the JAX importer prints them. A directory (an
+    orbax checkpoint) is not read yet (ROADMAP item 10) and raises."""
+    p = Path(path)
+    if p.is_dir():
+        raise NotImplementedError(
+            f"{p} is a directory (an orbax checkpoint of the JAX package?): the reader "
+            "for those is still to come (ROADMAP item 10)")
+    sd = load_torch_state_dict(p)
+    root = next((cand for cand in ("_model.encoder.", "model.encoder.", "encoder.")
+                 if any(k.startswith(cand + "patch_embed1.") for k in sd)), "")
+    loaded = {f"encoder.{k}": v for k, v in map_mit_b2(sd, root=root).items()}
+    n_loaded = n_left = 0
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            got = loaded.get(name)
+            if got is not None and tuple(got.shape) == tuple(param.shape):
+                param.copy_(got.to(param.dtype))
+                n_loaded += 1
+            else:
+                n_left += 1
+    print(f"[torch_import] merged {n_loaded} tensors ({n_left} left at init)")
+    return n_loaded, n_left

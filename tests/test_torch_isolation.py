@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX/Flax nor the JAX package,
 for sampling (the serving mode too), for diffusion training, for codec
-fine-tuning and through the train and predict entry points (with every
-import of JAX blocked)."""
+fine-tuning, through the train and predict entry points and for downstream
+segmentation (with every import of JAX blocked)."""
 
 import ast
 import subprocess
@@ -80,6 +80,25 @@ run = train_diff.main(OVERRIDES, device="cpu")
 assert run["step"] == 2 and checkpoints.load(run["run_dir"] + "/ckpt/" + RUN + "_last")
 out = predict_diff.main(OVERRIDES + ["data.samples=1", "ddim_steps=2"], device="cpu")
 assert out["pairs"] == 2
+# downstream segmentation: the MiT-B2 U-Net, its bridge and importer, the
+# losses and confusion matrices, the steps and the entry point
+from stedm_tpu_torch import train_seg
+from stedm_tpu_torch.models.segformer import SegUNet
+from stedm_tpu_torch.train import seg_steps
+from stedm_tpu_torch.utils import metrics, weights
+seg = SegUNet(decoder_channels=(16, 8, 8, 8, 8), encoder_config=dict(
+    embed_dims=(8, 16, 24, 32), depths=(1, 1, 1, 1), num_heads=(1, 2, 3, 4)))
+seg_state = seg_steps.create_seg_state(seg, seg_steps.make_seg_optimizer(1e-4))
+seg_state, seg_out = seg_steps.make_seg_train_step(seg, num_classes=2, overlap=1,
+                                                   device="cpu")(
+    seg_state, torch.randn(2, 32, 32, 3), torch.randint(0, 2, (2, 32, 32)))
+seg_eval = seg_steps.make_seg_eval_step(seg, num_classes=2, num_inst=3, overlap=1,
+                                        device="cpu")(
+    torch.randn(2, 32, 32, 3), torch.randint(0, 2, (2, 32, 32)), torch.zeros(2),
+    torch.zeros(2), torch.tensor([0, 2]))
+assert float(seg_out["cm"].sum()) == 2 * 30 * 30 and float(seg_eval["inst_cm"].sum()) == 1800
+run = train_seg.main(SEG_OVERRIDES, device="cpu")
+assert run["step"] == 2 and set(run["tests"]) == {"last", "best"}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "stedm_tpu"))
 print("LOADED", bad)
@@ -90,7 +109,14 @@ def test_import_and_forward_load_no_jax(tmp_path):
     from _flowers_helpers import run_overrides, write_flowers_tree
 
     overrides = run_overrides(write_flowers_tree(tmp_path / "data"), tmp_path / "results")
-    head = f"OVERRIDES = {overrides!r}\nRUN = 'diff_flowers_augmented_mean'\n"
+    unanno = str(list(range(3, 102))).replace(" ", "")
+    seg_overrides = overrides[-2:] + [
+        "data.patch_size=32", "data.samples=4", "data.batch_size=2",
+        "data.class_train_samples=2", "num_epochs=1", "location=pc",
+        "compute_dtype=float32", "data.dataset.flowers_anno.train_classes=[0,1,2]",
+        f"data.dataset.flowers_anno.unanno_classes={unanno}"]
+    head = (f"OVERRIDES = {overrides!r}\nRUN = 'diff_flowers_augmented_mean'\n"
+            f"SEG_OVERRIDES = {seg_overrides!r}\n")
     out = subprocess.run([sys.executable, "-c", head + _PROBE], cwd=PKG.parent,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
