@@ -116,14 +116,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``flowers_syn`` (README's mix 0.2 / 0.8; the cuts printed): both
    checkpoints, IoUs in [0, 1], every key the JAX entry point logs, the
    launches inside the call and the phase's seconds;
-8. a ``kernels`` JSON line, the card line, and as the last line
+8. histopathology at the shipped widths of her2.yaml / catch.yaml, on
+   synthetic slides written under ``build/`` (removed at the end): 8a. a HER2
+   tree (three 8192^2 annotated slides with one 4000^2 ROI each, rasterised
+   by the port's ``prep.rasterize_rois``, two scoring slides and their score
+   list) and the host's rates on it (slide open, patch reads, a training
+   item's reads, PNG decode and augmentations); 8b. ``train_ae.main
+   data=her2`` (vq-f4, 512^2, batch 2, ``disc_start`` 0, no LPIPS weights):
+   8 steps, finite logs, moving codec, both checkpoints; 8c.
+   ``train_diff.main data=her2 style_sampling=nearby``: 8 micro-steps at
+   accumulation 4 and a resume, the layout mapper [2 -> 3], samples/s and
+   the data and h2d laps; 8d. ``predict_diff.main`` pairing her2_anno
+   layouts with her2_unanno styles, 8 pairs exact and 8 in the serving mode
+   through the CUDA-graph sampler; 8e. ``train_seg.main`` on 8d's pairs
+   (her2_anno 0.2, her2_syn 0.8), two epochs, the patient IoU keys and a val
+   tile with a cut margin; 8f. CATCH (when h5py imports; else one line says
+   so): ``train_diff.main data=catch`` for one update and ``train_seg.main
+   data=catch`` for one epoch with the subtype IoU; the launches of every
+   kernel inside each call;
+9. a ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 fp32 matrix products and convolutions run without TF32 here (both backend
 flags are set False) so the fp32 plain versions are exact references.
 
 ``--out DIR`` (default ``build/chip_smoke``, git-ignored) receives the nvcc
-log and the profile table.
+log, the profile tables and the whole standard output (``chip_smoke.log``).
 """
 
 from __future__ import annotations
@@ -146,8 +164,14 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
 
+LOG_FILE: Path | None = None     # set by main(): <out>/chip_smoke.log
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if LOG_FILE is not None:
+        with LOG_FILE.open("a") as f:
+            f.write(msg + "\n")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -192,7 +216,9 @@ class KernelRecord:
     """Per-kernel sums over the checked shapes plus each shape's numbers."""
 
     PATHS = ("sample_batch", "serving_batch", "train_micro_step", "codec_step", "entry_train",
-             "entry_predict_exact", "entry_predict_serving", "seg_train_step", "seg_entry")
+             "entry_predict_exact", "entry_predict_serving", "seg_train_step", "seg_entry",
+             "her2_ae", "her2_train", "her2_predict_exact", "her2_predict_serving", "her2_seg",
+             "catch_train", "catch_seg")
 
     def __init__(self, name, route, source, replaces, counter=None, paths=PATHS):
         # the launch counter the kernel's wrapper adds to, and the main paths
@@ -1911,6 +1937,441 @@ def seg_entry_point(torch, root: Path) -> dict:
                 seg_entry_ious=ious, seg_entry_epochs=ep)
 
 
+# Phase 8's synthetic histopathology: slides at a size the published HER2
+# slides' 10^5-pixel sides are cut to (an ArraySlide holds a slide and its
+# pyramid in host memory), one ROI of about 4096^2 per annotated slide (not a
+# multiple of the 512-pixel tile, so val tiles have cut margins), the shipped
+# her2.yaml / her2_anno.yaml values otherwise
+HER2_SLIDE, HER2_ROI, HER2_ROI_AT = 8192, 4000, 2048
+HER2_IDS = {101: "train", 102: "val", 103: "test"}     # folds [[102]]
+HER2_SCORING = ("5001", "5002")
+HER2_LABELS = ("HER2 0", "HER2 1+", "HER2 2+", "HER2 3+", "DCIS")   # classes 1-5
+# CATCH: slides named by subtype (catch_anno.yaml's label_dict value of each)
+CATCH_SLIDES = (("Melanoma_01", 0, "train", 3), ("Trichoblastoma_02", 1, "train", 1),
+                ("Melanoma_03", 2, "val", 3), ("SCC_04", 3, "test", 6))
+
+
+def tissue_slide(rng, side: int):
+    """An RGB slide: white background, tissue (a union of ellipses covering
+    the centre) of a smooth random stain field."""
+    import cv2
+    import numpy as np
+    from PIL import Image
+
+    low = 512
+    mask = np.zeros((low, low), np.uint8)
+    cv2.ellipse(mask, (low // 2, low // 2), (low * 3 // 8, low * 3 // 8), 0, 0, 360, 1, -1)
+    for _ in range(6):
+        c = rng.integers(low // 8, low * 7 // 8, 2)
+        r = rng.integers(low // 16, low // 6, 2)
+        cv2.ellipse(mask, (int(c[0]), int(c[1])), (int(r[0]), int(r[1])),
+                    float(rng.uniform(0, 180)), 0, 360, 1, -1)
+    field = rng.integers(90, 230, (64, 64, 3), dtype=np.uint8)
+    stain = np.asarray(Image.fromarray(field).resize((side, side), Image.BILINEAR))
+    tissue = np.asarray(Image.fromarray(mask * 255).resize((side, side), Image.NEAREST)) > 0
+    return np.where(tissue[..., None], stain, np.uint8(255))
+
+
+def _blobs(rng, lo: int, hi: int, n: int, labels):
+    """``n`` polygons (ellipses) with centres in [lo, hi)^2, cycling ``labels``."""
+    import cv2
+    import numpy as np
+
+    out = []
+    for i in range(n):
+        c = rng.integers(lo + 300, hi - 300, 2)
+        r = rng.integers(150, min(900, (hi - lo) // 4), 2)
+        poly = cv2.ellipse2Poly((int(c[0]), int(c[1])), (int(r[0]), int(r[1])),
+                                int(rng.integers(0, 180)), 0, 360, 15)
+        out.append((poly.astype(np.float64), labels[i % len(labels)]))
+    return out
+
+
+def write_her2_tree(root: Path) -> list:
+    """The HER2 tree under ``root``: her2_anno_her2_anno/{wsi, train_val.pkl,
+    test.pkl} rasterised with the port's ``prep.rasterize_rois``, and the
+    scoring slides (``<id>_HER2_IHC.svs``, JPEG content) with
+    ``all_wsi_scores.csv`` (empty USE cells, one excluded row). Returns the
+    overrides that point the shipped config at it."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    from stedm_tpu_torch.config import compose
+    from stedm_tpu_torch.data.prep import rasterize_rois
+
+    cfg = compose("config_diff", ["data=her2"])
+    label_dict = dict(cfg.data.dataset.her2_anno.label_dict)
+    base = root / "her2_anno_her2_anno"
+    (base / "wsi").mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    lists = {"train_val": [], "test": []}
+    lo, hi = HER2_ROI_AT, HER2_ROI_AT + HER2_ROI
+    for num, split in HER2_IDS.items():
+        name = f"slide_{num}.jpg"
+        Image.fromarray(tissue_slide(rng, HER2_SLIDE)).save(base / "wsi" / name, quality=90)
+        roi = dict(x1=lo, y1=lo, x2=hi, y2=hi)
+        rois = rasterize_rois([roi], _blobs(rng, lo, hi, 8, HER2_LABELS), label_dict,
+                              cfg.data.lookup_f, name)
+        lists["test" if split == "test" else "train_val"] += rois
+    for split, lst in lists.items():
+        with open(base / f"{split}.pkl", "wb") as f:
+            pickle.dump(lst, f)
+    scoring = root / "scoring_wsi"
+    scoring.mkdir()
+    for sid in HER2_SCORING:
+        Image.fromarray(tissue_slide(rng, HER2_SLIDE)).save(scoring / f"{sid}_HER2_IHC.svs",
+                                                            format="JPEG", quality=90)
+    (root / "all_wsi_scores.csv").write_text(
+        "Tumorblock_ID;HERIHCScore;USE\n5001;2+;\n5002;3;\n5003;1;excluded\n")
+    return ["data=her2", f"location.data_dir={root}",
+            "data.dataset.her2_anno.score_dict={101: 0, 102: 0, 103: 1}",
+            "data.dataset.her2_anno.folds=[[102]]"]
+
+
+def write_catch_tree(root: Path) -> list:
+    """The CATCH tree under ``root``: catch_catch_anno/{wsi, anno.hdf5,
+    train.pkl, val.pkl, test.pkl}, each slide's tissue (value 0) and tumour
+    (its subtype's class) polygons rasterised with the port's
+    ``catch.rasterize_wsi_chunked`` (chunks of 8192). Returns the overrides."""
+    import pickle
+
+    import h5py
+    import numpy as np
+    from PIL import Image
+
+    from stedm_tpu_torch.data.catch import rasterize_wsi_chunked
+
+    base = root / "catch_catch_anno"
+    (base / "wsi").mkdir(parents=True)
+    rng = np.random.default_rng(1)
+    lists = {"train": [], "val": [], "test": []}
+    with h5py.File(base / "anno.hdf5", "w") as f:
+        for name, num, split, cls in CATCH_SLIDES:
+            Image.fromarray(tissue_slide(rng, HER2_SLIDE)).save(base / "wsi" / f"{name}.jpg",
+                                                                quality=90)
+            c = HER2_SLIDE // 2
+            tissue = np.array([[c - 3000, c - 3000], [c + 3000, c - 3000],
+                               [c + 3000, c + 3000], [c - 3000, c + 3000]], np.float64)
+            conts = [(tissue, 0)] + [(p, cls) for p, _ in
+                                     _blobs(rng, c - 2800, c + 2800, 5, (cls,))]
+            offset, samp = rasterize_wsi_chunked(conts, f, str(num), 128, chunk_size=8192)
+            lists[split].append((f"{name}.jpg", offset, samp, num))
+    for split, lst in lists.items():
+        with open(base / f"{split}.pkl", "wb") as fh:
+            pickle.dump(lst, fh)
+    return ["data=catch", f"location.data_dir={root}"]
+
+
+def wsi_read_rates(args: list) -> dict:
+    """Host throughput of the HER2 data path on this machine's CPU, one thread
+    unless stated: opening a slide (JPEG decode and pyramid), patch reads
+    (``wsi_sample``, and ``wsi_sample_batch`` on the pool), and a training
+    item split into its reads, its ROI segmentation's PNG decode and its
+    augmentations."""
+    import cv2
+    import numpy as np
+
+    from stedm_tpu_torch.config import compose
+    from stedm_tpu_torch.data import augment
+    from stedm_tpu_torch.data.dm import DataModule
+    from stedm_tpu_torch.data.wsi import open_slide, wsi_sample, wsi_sample_batch
+
+    cfg = compose("config_diff", args)
+    p, b = cfg.data.patch_size, cfg.data.base_scale
+    dm = DataModule(cfg)
+    dm.setup()
+    ds = dm.data_modules["her2_anno"].train_dataset()
+    roi = ds._img_l[0]
+    t = time.perf_counter()
+    slide = open_slide(roi[0])
+    open_s = time.perf_counter() - t
+    rng = np.random.default_rng(0)
+    pos = rng.integers(p * b, HER2_SLIDE - p * b, (64, 2))
+    t = time.perf_counter()
+    for yx in pos:
+        wsi_sample(slide, (0, 0), p, b, yx)
+    single = len(pos) / (time.perf_counter() - t)
+    t = time.perf_counter()
+    wsi_sample_batch(slide, (0, 0), p, b, pos)
+    pooled = len(pos) / (time.perf_counter() - t)
+    n = 16
+    t = time.perf_counter()
+    for _ in range(n):
+        cv2.imdecode(roi[2], cv2.IMREAD_ANYDEPTH)
+    decode_s = (time.perf_counter() - t) / n
+    trans, crop = augment.base_transforms(p), wsi_sample(slide, (0, 0), p, b, pos[0])
+    seg = np.zeros((p * b, p * b), np.uint8)
+    t = time.perf_counter()
+    for i in range(n):
+        trans(np.random.default_rng(i), crop, seg)
+    augment_s = (time.perf_counter() - t) / n
+    ds[0]   # this thread's slide handle
+    t = time.perf_counter()
+    for i in range(n):
+        ds.__getitem__(i, rng=np.random.default_rng(i))
+    item_s = (time.perf_counter() - t) / n
+    out = dict(slide_open_s=open_s, patches_per_s_one_thread=single,
+               patches_per_s_pool=pooled, roi_png_decode_ms=decode_s * 1e3,
+               augment_ms=augment_s * 1e3, item_ms=item_s * 1e3,
+               reads_ms_per_item=2e3 / single)
+    log(f"  host, one thread: a slide opens in {open_s:.3f} s ({HER2_SLIDE}^2 JPEG and its "
+        f"pyramid); wsi_sample {single:.1f} patches/s ({p}^2 at base scale {b}), "
+        f"wsi_sample_batch on the pool {pooled:.1f} patches/s; a training item "
+        f"{item_s * 1e3:.2f} ms: its two reads ~{2e3 / single:.2f} ms, the ROI PNG decode "
+        f"{decode_s * 1e3:.2f} ms, the augmentations {augment_s * 1e3:.2f} ms")
+    return out
+
+
+def _launch_check(counts: dict, names, what: str) -> None:
+    for k in names:
+        require(counts.get(k, 0) > 0, f"no {k} launch inside {what}: {counts}")
+
+
+def style_white_share(args: list, n: int = 16) -> dict:
+    """The white share (every channel >= 253, ``tissue_mask``'s threshold) of
+    the style patches that the scoring slides give predict, read as the
+    sampler reads them (augmentations off; ``nearby`` moves a patch up to
+    its own extent off the mask cell): ``n`` items of the port's
+    ``HER2_DS_UnAnno``; and of reads centred on ``n`` mask cells, at the
+    port's scale and at the JAX package's, ``kernel_size``, which lands 4x
+    out on an ``ArraySlide``."""
+    import numpy as np
+
+    from stedm_tpu_torch.config import compose
+    from stedm_tpu_torch.data import augment
+    from stedm_tpu_torch.data.dm import DataModule
+    from stedm_tpu_torch.data.wsi import wsi_sample
+
+    cfg = compose("config_predict", args)
+    p, b = cfg.data.patch_size, cfg.data.base_scale
+    dm = DataModule(cfg)
+    dm.setup()
+    ds = dm.data_modules["her2_unanno"].predict_dataset()
+    ds._transforms = ds._style_sampler._transforms = augment.eval_transforms(p)
+
+    def white(patch) -> float:
+        return float((np.asarray(patch).min(-1) >= 253).mean())
+
+    port = []
+    for i in range(n):
+        style = ds.__getitem__(i, rng=np.random.default_rng(i))[3][0]
+        port.append(white(np.rint((style + 1) / 2 * 255)))
+    rng, centre, ref = np.random.default_rng(0), [], []
+    for coords, step, (path, *_, key) in zip(ds._sample_list, ds._mask_steps, ds._ds_list):
+        slide = ds._slides.get(key, path)
+        for c in coords[rng.integers(0, len(coords), n // len(ds._sample_list))]:
+            centre.append(white(wsi_sample(slide, (0, 0), p, b, (c[:2] + 0.5) * step)))
+            ref.append(white(wsi_sample(slide, (0, 0), p, b, (c[:2] + 0.5) * ds.kernel_size)))
+    out = dict(port_white_share=port, port_mostly_white=sum(w > 0.5 for w in port),
+               centre_white_share=centre, centre_mostly_white=sum(w > 0.5 for w in centre),
+               reference_white_share=ref, reference_mostly_white=sum(w > 0.5 for w in ref),
+               mask_steps=ds._mask_steps, kernel_size=ds.kernel_size)
+    log(f"  style patches from the scoring slides: mean white share {np.mean(port):.4f}, "
+        f"{out['port_mostly_white']} of {n} mostly white; reads centred on mask cells: at the "
+        f"port's scale (mask step {ds._mask_steps}) {np.mean(centre):.4f}, "
+        f"{out['centre_mostly_white']} of {len(centre)} mostly white; at the JAX package's "
+        f"(kernel_size {ds.kernel_size}) {np.mean(ref):.4f}, {out['reference_mostly_white']} "
+        f"of {len(ref)} mostly white")
+    require(out["port_mostly_white"] < n / 2,
+            f"{out['port_mostly_white']} of {n} style patches are mostly white: {port}")
+    return out
+
+
+def histopathology(torch) -> dict:
+    """Phase 8: the WSI reader chain and the entry points over HER2 (8a-8e)
+    and CATCH (8f) at the shipped widths; returns its numbers and the
+    launches of each call."""
+    import importlib.util
+
+    import numpy as np
+
+    from stedm_tpu_torch import predict_diff, train_ae, train_diff, train_seg
+    from stedm_tpu_torch.config import compose
+    from stedm_tpu_torch.data.dm import DataModule
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.train import checkpoints
+
+    t0 = time.time()
+    root = REPO / "build" / "chip_smoke_her2"
+    shutil.rmtree(root, ignore_errors=True)
+    data, results = root / "data", root / "results"
+    log("== phase 8a: the synthetic HER2 tree")
+    her2 = write_her2_tree(data) + [f"location.result_dir={results}"]
+    log(f"  {len(HER2_IDS)} annotated slides of {HER2_SLIDE}^2 (train 101, val 102 by the "
+        f"fold, test 103), one {HER2_ROI}^2 ROI each with classes 1-5, and "
+        f"{len(HER2_SCORING)} scoring slides, written in {time.time() - t0:.1f} s; cut: "
+        f"real HER2 slides are ~10^5 pixels a side and hold several ROIs, data.samples "
+        f"10000 -> 16, num_epochs 10 (ae) / 25 (diff) / 75 (seg) -> 1, a resume, 2; the "
+        f"shipped her2.yaml otherwise (patch 512, base scale 2, lookup_f 32, overlaps "
+        f"64 / 128, 6 classes, batch 2)")
+    rates = wsi_read_rates(her2)
+    counts, out = {}, {"her2_wsi": rates}
+
+    def run(name: str, main, args: list):
+        log(f"  {main.__module__}.main({args})")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        res = main(args)
+        torch.cuda.synchronize()
+        counts[name] = dict(LAUNCHES)
+        log(f"    launches {counts[name]}")
+        torch.cuda.empty_cache()
+        return res
+
+    log("== phase 8b: train_ae.main data=her2 (vq-f4 at 512^2, batch 2, bf16, disc_start 0, "
+        "no LPIPS weights: the perceptual term off, as in the JAX entry point)")
+    ae_args = her2 + ["data.samples=16", "num_epochs=1", "loss.disc_start=0"]
+    ae = run("her2_ae", train_ae.main, ae_args)
+    ep = ae["epochs"][0]
+    require(ae["step"] == 8 and ep["steps"] == 8, f"codec steps {ae['step']}")
+    require(all(np.isfinite(v) for v in {**ep["train"], **ep["val"]}.values()),
+            f"non-finite codec logs {ep}")
+    run_dir = Path(ae["run_dir"])
+    for tag in ("last", "best"):
+        f = checkpoints.checkpoint_file(run_dir / "ckpt", f"{run_dir.name}_{tag}")
+        require(f.is_file() and checkpoints.load(f)["format"] == "ae_state",
+                f"{f.name} was not written")
+    saved = checkpoints.load(checkpoints.checkpoint_file(run_dir / "ckpt",
+                                                         f"{run_dir.name}_last"))
+    cfg = compose("config_ae", ae_args)
+    fs = dict(cfg.diffusion.first_stage_config)
+    with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+        torch.manual_seed(0)
+        init = train_ae.build_codec(fs, dtype=torch.bfloat16)[0].state_dict()
+    moved = sum(not torch.equal(init[k].cpu(), v) for k, v in saved["params"].items())
+    require(moved > 0, "the codec did not move")
+    log(f"  {ep['steps']} steps, {ep['steps'] * 2 / ep['seconds']:.4f} samples/s over the "
+        f"epoch ({ep['seconds']:.2f} s, first steps included; data lap {ep['data_s']:.3f} s, "
+        f"h2d {ep['h2d_s']:.3f} s); train nll_loss {ep['train']['train/nll_loss']:.5f}, "
+        f"val rec_loss {ep['val']['val/rec_loss']:.5f}, perplexity "
+        f"{ep['train']['train/perplexity']:.2f}; {moved} of {len(init)} codec tensors moved; "
+        "_last and _best written")
+    _launch_check(counts["her2_ae"], ("gn_silu", "flash_attention", "flash_attention_bwd",
+                                      "nearest_code"), "train_ae.main")
+    out["her2_ae"] = dict(samples_per_s=ep["steps"] * 2 / ep["seconds"], data_s=ep["data_s"],
+                          h2d_s=ep["h2d_s"], seconds=ep["seconds"])
+    del saved, init
+
+    log("== phase 8c: train_diff.main data=her2 style_sampling=nearby (the landscape U-Net, "
+        "VQ-f4, Swin-V2-T at 512^2, batch 2, accumulation 4), then a resume")
+    diff_args = her2 + ["style_sampling=nearby", "data.samples=16", "num_epochs=1"]
+    first = run("her2_train", train_diff.main, diff_args)
+    resumed = train_diff.main(diff_args + ["+resume=true", "num_epochs=2"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    eps = first["epochs"] + resumed["epochs"]
+    require(first["step"] == 8 and resumed["start_step"] == 8 and resumed["step"] == 16,
+            f"steps {first['step']} / {resumed['start_step']} / {resumed['step']}")
+    require(all(math.isfinite(e["loss"]) for e in eps), f"losses {[e['loss'] for e in eps]}")
+    run_dir = Path(first["run_dir"])
+    saved = checkpoints.load(checkpoints.checkpoint_file(run_dir / "ckpt",
+                                                         f"{run_dir.name}_last"))
+    mapper = tuple(saved["params"]["cond_stage.channel_mapper.weight"].shape)
+    require(mapper == (3, 2, 1, 1), f"layout mapper {mapper}")
+    del saved
+    for e in eps:
+        log(f"  epoch {e['epoch']}: {e['micro_steps']} micro-steps, loss {e['loss']:.5f}, "
+            f"{e['samples'] / e['seconds']:.4f} samples/s ({e['seconds']:.2f} s; data lap "
+            f"{e['data_s']:.3f} s, h2d {e['h2d_s']:.3f} s)")
+    log(f"  the layout mapper is [2 -> 3] (weight {list(mapper)}): the one-hot of 6 classes "
+        "collapsed to background / tumour, as the JAX entry point feeds and initialises it")
+    _launch_check(counts["her2_train"], ("gn_silu", "flash_attention", "flash_attention_bwd"),
+                  "train_diff.main")
+    out["her2_train"] = [dict(samples_per_s=e["samples"] / e["seconds"], data_s=e["data_s"],
+                              h2d_s=e["h2d_s"], seconds=e["seconds"]) for e in eps]
+
+    log("== phase 8d: predict_diff.main data=her2 data/dataset=[her2_anno,her2_unanno] (layouts "
+        "of the annotated slides, styles from the scoring slides), the run's EMA weights")
+    readme = her2 + ["data/dataset=[her2_anno,her2_unanno]", "data.ratios=[1.0,1.0]",
+                     "cfg_scale=1.5", "style_sampling=nearby", "data.samples=4", "+use_ema=true"]
+    out["her2_style_white"] = style_white_share(readme)
+    out["her2_predict"] = {}
+    for name, extra in (("exact", []), ("serving", [
+            "ddim_steps=50", "+cache_schedule=auto:5", "+cfg_interval=[0.35,0.65]"])):
+        res = run(f"her2_predict_{name}", predict_diff.main,
+                  readme + extra + [f"+predict_name={name}"])
+        check_pairs(Path(res["predict_dir"]), 8, 512)
+        out["her2_predict"][name] = {k: v for k, v in predict_rates(res).items()
+                                     if k != "predict_dir"}
+        _launch_check(counts[f"her2_predict_{name}"],
+                      ("gn_silu", "flash_attention", "nearest_code"), "predict_diff.main")
+
+    log("== phase 8e: train_seg.main data=her2 data/dataset=[her2_anno,her2_syn] "
+        "data.ratios=[0.2,0.8] on 8d's exact pairs")
+    t1 = time.time()
+    seg_args = her2 + ["data/dataset=[her2_anno,her2_syn]", "data.ratios=[0.2,0.8]",
+                       "data.dataset.her2_syn.folder_name=exact", "data.samples=20",
+                       "num_epochs=2"]
+    seg = run("her2_seg", train_seg.main, seg_args)
+    out["her2_seg"] = check_seg_run(Path(seg["run_dir"]), seg, ("Val Patient IoU Score",
+                                                                 "Val Patient IoU Var"))
+    dm = DataModule(compose("config_seg", seg_args))
+    dm.setup()
+    val = dm.data_modules["her2_anno"].val_dataset()
+    x_tiles = val._patcher._x_p
+    cuts = val[x_tiles - 1][3]
+    require(cuts[1] > 0, f"the last tile of the ROI's first row has cut margins {cuts}")
+    log(f"  {len(val)} val tiles of 512^2 over the {HER2_ROI}^2 ROI; the last of its first row "
+        f"cut by {cuts} (y, x) pixels; phase 8e took {time.time() - t1:.1f} s")
+
+    out["catch"], not_run = None, []
+    if importlib.util.find_spec("h5py") is None:
+        log("8f not run: h5py is not installed")
+        not_run = ["catch_train", "catch_seg"]
+    else:
+        log("== phase 8f: CATCH (base scale 8, lookup_f 128, 8 classes): train_diff.main for "
+            "one update, train_seg.main for one epoch with the subtype IoU")
+        t1 = time.time()
+        catch_root = root / "catch"
+        catch = write_catch_tree(catch_root) + [f"location.result_dir={results}"]
+        log(f"  {len(CATCH_SLIDES)} slides of {HER2_SLIDE}^2 by subtype, segmentations in "
+            f"anno.hdf5, written in {time.time() - t1:.1f} s; cut: data.samples 10000 -> 8, "
+            "one epoch")
+        c_train = run("catch_train", train_diff.main,
+                      catch + ["style_sampling=nearby", "data.samples=8", "num_epochs=1"])
+        require(c_train["step"] == 4 and math.isfinite(c_train["epochs"][0]["loss"]),
+                f"CATCH training {c_train['step']} steps, loss {c_train['epochs'][0]['loss']}")
+        c_seg = run("catch_seg", train_seg.main, catch + ["data.samples=8", "num_epochs=1"])
+        metrics = check_seg_run(Path(c_seg["run_dir"]), c_seg, ("Val Subtype IoU Score",
+                                                                "Val Subtype IoU Var"))
+        out["catch"] = dict(seconds=time.time() - t1, seg=metrics,
+                            train_epoch_s=c_train["epochs"][0]["seconds"])
+        log(f"  phase 8f took {time.time() - t1:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.time() - t0
+    log(f"  phase 8 took {out['seconds']:.1f} s")
+    return {"her2_counts": counts, "paths_not_run": not_run, "histopathology": out}
+
+
+def check_seg_run(run: Path, res: dict, extra_keys) -> dict:
+    """A train_seg.main run: both checkpoints, every key the JAX entry point
+    logs and ``extra_keys``, IoUs in [0, 1], finite losses."""
+    import json as json_
+
+    from stedm_tpu_torch.train import checkpoints
+
+    for tag in ("last", "best"):
+        f = checkpoints.checkpoint_file(run / "ckpt", f"{run.name}_{tag}")
+        require(f.is_file() and checkpoints.load(f)["format"] == "seg_state",
+                f"{f.name} was not written")
+    events = [json_.loads(ln) for ln in (run / "events.jsonl").read_text().splitlines()]
+    logged = {k for e in events for k in e}
+    missing = [k for k in SEG_EVENT_KEYS + tuple(extra_keys) if k not in logged]
+    require(not missing, f"{run.name}: keys missing from the event log: {missing}")
+    ious = {k: v for e in events for k, v in e.items() if "IoU" in k and "Var" not in k}
+    require(all(0.0 <= v <= 1.0 for v in ious.values()), f"IoUs outside [0, 1]: {ious}")
+    losses = [e["loss"] for e in res["epochs"]] + [e["val"]["loss"] for e in res["epochs"]]
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    ep = res["epochs"]
+    log(f"  {run.name}: {len(ep)} epochs of {[e['micro_steps'] for e in ep]} micro-steps, "
+        f"train loss {[round(e['loss'], 5) for e in ep]}, val loss "
+        f"{[round(e['val']['loss'], 5) for e in ep]}, samples/s "
+        f"{[round(e['samples'] / e['seconds'], 4) for e in ep]}; IoUs {ious}")
+    return dict(ious=ious, samples_per_s=[e["samples"] / e["seconds"] for e in ep])
+
+
 # device-kernel name patterns, first match wins
 _CATEGORIES = (
     ("gn_silu (CUDA)", r"gn_silu_kernel"),
@@ -1978,6 +2439,7 @@ def profile_main_path(torch, run, unprofiled_ms: float, out_dir: Path,
 
 
 def main() -> int:
+    global LOG_FILE
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=REPO / "build" / "chip_smoke",
                     help="directory for the nvcc log and the profile table")
@@ -2005,11 +2467,13 @@ def main() -> int:
 
     stock_flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     t0 = time.time()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    LOG_FILE = out_dir / "chip_smoke.log"
+    LOG_FILE.write_text("")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"== phase 1: header\n  card: {card}\n  torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; TF32 off for fp32 matmul and cuDNN")
-    out_dir.mkdir(parents=True, exist_ok=True)
     builds = build_all(["gn_silu", "flash_attention", "flash_attention_bwd", "nearest_code"])
     (out_dir / "nvcc.log").write_text("\n".join(f"== {k}\n{v}" for k, v in builds.items()))
     for stem, text in builds.items():
@@ -2038,12 +2502,12 @@ def main() -> int:
             "flash_attention_bwd", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
             f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
             "(_flash_attention_bwd_dq)", paths=("sample_batch", "train_micro_step",
-                                                "entry_train")),
+                                                "entry_train", "her2_train", "catch_train")),
         "flash_attention_bwd_dh512": KernelRecord(
             "flash_attention_bwd_dh512", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
             f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
             "(_flash_attention_bwd_dq), reached through stedm_tpu/models/vq.py:89",
-            counter="flash_attention_bwd", paths=("codec_step",)),
+            counter="flash_attention_bwd", paths=("codec_step", "her2_ae")),
         "nearest_code": KernelRecord("nearest_code", "cuda",
                                      "stedm_tpu_torch/csrc/nearest_code.cu",
                                      "stedm_tpu/ops/quantize.py:62"),
@@ -2162,6 +2626,7 @@ def main() -> int:
     shutil.rmtree(entry_root, ignore_errors=True)
     seg_seconds = time.time() - t7
     log(f"  phase 7 took {seg_seconds:.1f} s")
+    her2 = histopathology(torch)
     # launches: each kernel's count on each main path it runs on, zeroed just
     # before and read just after (the sampler's batch, the serving batch, one
     # training micro-step, one codec step, the entry points, one segmentation
@@ -2170,9 +2635,15 @@ def main() -> int:
                    "train_micro_step": train["train_launches_per_micro_step"],
                    "codec_step": codec["codec_launches_per_step"], **entry["entry_counts"],
                    "seg_train_step": seg["seg_launches_per_micro_step"],
-                   "seg_entry": seg_entry["seg_entry_counts"]}
+                   "seg_entry": seg_entry["seg_entry_counts"], **her2.pop("her2_counts")}
+    not_run = her2.pop("paths_not_run")
+    if not_run:
+        log(f"  launches on {', '.join(not_run)}: null, those paths did not run")
     for name, rec in recs.items():
-        per_path = {f"launches_{p}": path_counts[p][rec.counter] if p in rec.paths else 0
+        # null on a path that did not run; 0 on one where the kernel's counter
+        # counts the other instance of its kernel (the backward's Dh)
+        per_path = {f"launches_{p}": None if p in not_run else
+                    path_counts[p][rec.counter] if p in rec.paths else 0
                     for p in KernelRecord.PATHS}
         rec.entry["launches"] = next((n for n in per_path.values() if n), 0)
         rec.entry.update(per_path)
@@ -2184,7 +2655,7 @@ def main() -> int:
                       "gn_bound_ms_sample_batch": gn_bound_ms, "gn_ms_sample_batch": gn_ms,
                       "host_us_per_call": host_us, **serving, **train, **codec, **entry,
                       **seg_parity, **seg, **seg_entry, "seg_seconds": seg_seconds,
-                      "card": card}))
+                      **her2, "card": card}))
     print(json.dumps({"kernels": [r.entry for r in recs.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

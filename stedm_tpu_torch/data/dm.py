@@ -9,9 +9,9 @@ this is how unseen styles pair with known layouts at generation time
 
 A copy of stedm_tpu/data/dm.py (the port imports nothing of the JAX package)
 with one change: a shipped classpath ``stedm_tpu.data.<mod>.<Cls>`` resolves
-to ``stedm_tpu_torch.data.<mod>.<Cls>``. The Flowers modules are ported; the
-HER2 and CATCH modules and the grain loader are not (ROADMAP item 12) and
-raise ``NotImplementedError``.
+to ``stedm_tpu_torch.data.<mod>.<Cls>``. The Flowers, HER2 and CATCH modules
+are ported; the grain loader is not (ROADMAP item 12) and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import importlib
 from stedm_tpu_torch.data.loader import ConcatDataset, Loader
 
 _JAX_DATA = "stedm_tpu.data."
-_PORTED = ("flowers",)
+_PORTED = ("flowers", "her2", "catch")
 
 
 def get_obj_from_str(path: str):

@@ -9,11 +9,16 @@ over, and each tensor is marked as used on that stream, so the caching
 allocator keeps its memory until the consumer's work on it is done. Pinning
 that fails raises: there is no synchronous fallback. On a CPU device (the
 tests) the batch is handed over as CPU tensors, without copies.
+
+``laps``, a dict, gathers the host clock the consumer's thread spends on
+batches: waiting for the host pipeline and transforming (``data``), pinning
+and issuing the copies (``h2d``).
 """
 
 from __future__ import annotations
 
 import collections
+import time
 from typing import Callable, Iterable, Iterator
 
 import numpy as np
@@ -29,26 +34,35 @@ def pinned(x) -> torch.Tensor:
 
 def prefetch_to_device(iterator: Iterable, *, size: int = 2,
                        transform: Callable | None = None,
-                       device=None) -> Iterator[dict]:
+                       device=None, laps: dict | None = None) -> Iterator[dict]:
     """Yield dicts of device tensors ``size`` batches ahead of consumption;
     runs on ``cuda`` unless ``device`` says otherwise."""
     dev = resolve_device(device)
     queue: collections.deque = collections.deque()
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    laps = {} if laps is None else laps
+    it = iter(iterator)
+
+    def pull():
+        t = time.perf_counter()
+        batch = next(it, None)
+        if batch is not None and transform is not None:
+            batch = transform(batch)
+        laps["data"] = laps.get("data", 0.0) + time.perf_counter() - t
+        return batch
 
     def put(batch) -> None:
-        if transform is not None:
-            batch = transform(batch)
+        t = time.perf_counter()
         if side is None:
-            queue.append(({k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()},
-                          None))
-            return
-        host = {k: pinned(v) for k, v in batch.items()}
-        with torch.cuda.stream(side):
-            out = {k: v.to(dev, non_blocking=True) for k, v in host.items()}
-            ready = torch.cuda.Event()
-            ready.record(side)
+            out, ready = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}, None
+        else:
+            host = {k: pinned(v) for k, v in batch.items()}
+            with torch.cuda.stream(side):
+                out = {k: v.to(dev, non_blocking=True) for k, v in host.items()}
+                ready = torch.cuda.Event()
+                ready.record(side)
         queue.append((out, ready))
+        laps["h2d"] = laps.get("h2d", 0.0) + time.perf_counter() - t
 
     def take() -> dict:
         out, ready = queue.popleft()
@@ -59,14 +73,11 @@ def prefetch_to_device(iterator: Iterable, *, size: int = 2,
                 t.record_stream(consumer)
         return out
 
-    it = iter(iterator)
-    for batch in it:
+    while len(queue) < size and (batch := pull()) is not None:
         put(batch)
-        if len(queue) >= size:
-            break
     while queue:
         out = take()
-        nxt = next(it, None)
+        nxt = pull()
         if nxt is not None:
             put(nxt)
         yield out

@@ -13,7 +13,12 @@ class SpatialRescaler(nn.Module):
     """``n_stages`` of bilinear 0.5x downsampling, then an optional bias-free
     1x1 channel mapper. Torch's bilinear 0.5x (align_corners=False, no
     antialias) samples exactly between pixel pairs, i.e. 2x2 average pooling,
-    in fp32. Takes and returns NHWC."""
+    in fp32. Takes and returns NHWC.
+
+    ``in_channels`` is the width of the one-hot layout it is fed: flax's
+    ``nn.Conv`` takes the mapper's width from the layout it is initialised
+    on (stedm_tpu/models/cond.py:45-47) and never reads the config's
+    ``in_channels``; torch has to be told it."""
 
     def __init__(self, n_stages: int = 2, method: str = "bilinear",
                  multiplier: float = 0.5, in_channels: int = 2,

@@ -107,6 +107,9 @@ def build_stedm(cfg, device=None, seed: int = 0) -> STEDM:
     As the JAX function does, it ignores each sub-config's ``target`` and
     ``unet_config.params.image_size``, maps ``diffusion.compute_dtype`` and
     takes ``num_style_patches`` from ``style_sampling`` (``mp`` only). The
+    layout mapper is two channels wide, the width of the one-hot the entry
+    points feed, as flax takes it from the init batch; the config's
+    ``cond_stage_config.params.in_channels`` is not read, as there. The
     U-Net and the codec raise on a key they do not port; ``style_agg: svit``
     raises (ROADMAP item 15). Runs on ``cuda`` unless ``device`` says
     otherwise (``"meta"`` builds the structure only)."""
@@ -119,11 +122,16 @@ def build_stedm(cfg, device=None, seed: int = 0) -> STEDM:
         raise NotImplementedError("style_agg: svit is not ported (ROADMAP item 15)")
     dev = resolve_device(device)
     cuda_devs = [dev.index or 0] if dev.type == "cuda" else []
+    # the layout's width on the entry points: the one-hot collapsed to
+    # background vs any foreground (train_diff.batch_to_ldm, predict's
+    # two-class layouts), the width the JAX entry points initialise the model
+    # on (train_diff.py:87-91)
+    cond_stage_config = {**diff.cond_stage_config.params, "in_channels": 2}
     with torch.random.fork_rng(devices=cuda_devs), torch.device(dev):
         torch.manual_seed(seed)
         return STEDM(unet_config=dict(diff.unet_config.params),
                      first_stage_config=dict(diff.first_stage_config.params),
-                     cond_stage_config=dict(diff.cond_stage_config.params),
+                     cond_stage_config=cond_stage_config,
                      style_agg=style_agg, style_sampling=sampling.name,
                      num_style_patches=num_patches, patch_size=cfg.data.patch_size,
                      scale_factor=diff.get("scale_factor", 1.0),

@@ -20,14 +20,22 @@ read back (quantised to uint8 on the card, copied into pinned memory with
 ``non_blocking``) and written as PNGs. ``+compact_transfer=true`` uploads the
 conditioning as uint8 layout indices + float16 style images.
 
+Predict pairs the first dataset's layouts with the second's styles
+(``data/dm.py:PredictDataset``): on HER2, ``her2_anno`` layouts with style
+patches from the unannotated scoring slides of ``her2_unanno``, the paper's
+zero-shot style transfer.
+
 Usage, from the repository root, on a machine with one CUDA card::
 
     python -m stedm_tpu_torch.predict_diff data/dataset=[flowers_anno,flowers_unanno] \\
         data.ratios=[1.0,1.0] style_sampling=augmented style_agg=mean cfg_scale=1.5
+    python -m stedm_tpu_torch.predict_diff data=her2 \\
+        data/dataset=[her2_anno,her2_unanno] data.ratios=[1.0,1.0]
 
 ``main(argv, device=None, x_T_fn=None)`` runs on ``cuda``; tests pass
 ``device="cpu"``. Refused: ``canvas_size`` above the patch and ``sampler:
-plms|dpm`` (ROADMAP item 15), a mesh of more than one device (item 12).
+plms|dpm`` (ROADMAP item 15), a mesh of more than one device and a HER2 or
+CATCH tree that is not staged (item 12).
 """
 
 from __future__ import annotations

@@ -15,6 +15,12 @@ A checkpoint is one file, ``<ckpt_dir>/<name>.pt``, holding a dict:
   train_seg under ``{run_name}_last`` and ``{run_name}_best``):
   ``format`` is ``"seg_state"``; ``params`` the model's state_dict (the
   BatchNorm running statistics included), ``step`` and ``opt`` as above;
+* a codec fine-tuning state (``save`` of an ``AEState``, saved by train_ae
+  under ``{run_name}_last`` and ``{run_name}_best``): ``format`` is
+  ``"ae_state"``; ``params`` the codec's state_dict, ``disc`` the
+  discriminator's (its running statistics included), ``logvar`` the KL
+  variant's output log-variance or None, ``step``, and ``opt`` both Adam
+  state_dicts (``gen``, ``disc``);
 * parameters alone (``save`` of a state_dict): ``format`` is ``"params"``.
 
 ``partial_restore`` keeps the JAX function's matching rule
@@ -30,6 +36,7 @@ from typing import Mapping
 
 import torch
 
+from stedm_tpu_torch.train.ae_steps import AEState
 from stedm_tpu_torch.train.optim import OptState
 from stedm_tpu_torch.train.seg_steps import SegTrainState
 from stedm_tpu_torch.train.steps import TrainState
@@ -52,7 +59,13 @@ def _opt_payload(opt: OptState) -> dict:
                           for p in opt.params]}
 
 
-def _state_payload(state: TrainState | SegTrainState) -> dict:
+def _state_payload(state: TrainState | SegTrainState | AEState) -> dict:
+    if isinstance(state, AEState):
+        return {"format": "ae_state", "params": _cpu(state.model.state_dict()),
+                "disc": _cpu(state.disc.state_dict()),
+                "logvar": None if state.logvar is None else state.logvar.detach().cpu().clone(),
+                "step": int(state.step),
+                "opt": {"gen": state.gen_opt.state_dict(), "disc": state.disc_opt.state_dict()}}
     if isinstance(state, SegTrainState):
         return {"format": "seg_state", "params": _cpu(state.model.state_dict()),
                 "step": int(state.step), "opt": _opt_payload(state.opt_state)}
@@ -79,13 +92,13 @@ def _restore_opt(opt_state: OptState, opt: dict) -> None:
 
 
 def save(ckpt_dir: str | Path,
-         state: TrainState | SegTrainState | Mapping[str, torch.Tensor],
+         state: TrainState | SegTrainState | AEState | Mapping[str, torch.Tensor],
          name: str = "last") -> str:
-    """Write a ``TrainState``, a ``SegTrainState`` or a bare state_dict;
-    returns the file's path.
+    """Write a ``TrainState``, a ``SegTrainState``, an ``AEState`` or a bare
+    state_dict; returns the file's path.
     The file is written beside its target and then renamed over it, so an
     interrupted save leaves the previous checkpoint whole."""
-    if isinstance(state, (TrainState, SegTrainState)):
+    if isinstance(state, (TrainState, SegTrainState, AEState)):
         payload = _state_payload(state)
     else:
         payload = {"format": "params", "params": _cpu(state)}
@@ -111,7 +124,7 @@ def load(ckpt_path: str | Path) -> dict:
     if not path.is_file():
         raise FileNotFoundError(f"no checkpoint at {ckpt_path}")
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    if payload.get("format") not in ("train_state", "seg_state", "params"):
+    if payload.get("format") not in ("train_state", "seg_state", "ae_state", "params"):
         raise ValueError(f"{path} is not a checkpoint of this package")
     return payload
 
@@ -148,9 +161,10 @@ def restore(ckpt_dir: str | Path, state: TrainState | SegTrainState,
 
 
 def restore_params(ckpt_path: str | Path) -> dict[str, torch.Tensor]:
-    """The state_dict of a params-only checkpoint."""
+    """The state_dict of a params-only checkpoint, or the codec's of a codec
+    fine-tuning state (a warm start of train_ae)."""
     payload = load(ckpt_path)
-    if payload["format"] != "params":
+    if payload["format"] not in ("params", "ae_state"):
         raise ValueError(f"{ckpt_path} holds a full train state, not bare params")
     return payload["params"]
 

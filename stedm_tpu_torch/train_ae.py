@@ -1,17 +1,32 @@
-"""Codec fine-tuning (the counterpart of train_ae.py): the codec named by a
-``first_stage_config``, the loss settings of ``configs/config_ae.yaml``, the
-lr rule, and ``fit``, which runs the combined generator + discriminator step
-(``train/ae_steps.py``) over any iterable of NHWC image batches in [-1, 1],
-with the eval step and the best validation reconstruction kept in memory.
+"""Codec fine-tuning on one card (the counterpart of train_ae.py): ``main``
+composes ``config_ae``, reads the data module's images and runs the
+combined generator + discriminator step (``train/ae_steps.py``) with the
+taming lr rule, validating every epoch and writing ``<run>_last`` and, on a
+new lowest ``val/rec_loss``, ``<run>_best`` (``<result_dir>/<run>/ckpt/``).
+``build_codec`` instantiates the codec named by a ``first_stage_config``.
+
+Usage, from the repository root, on a machine with one CUDA card::
+
+    python -m stedm_tpu_torch.train_ae data=her2 location.data_dir=/data \\
+        location.result_dir=/results +lpips_ckpt=/weights/vgg.pth,/weights/vgg16.pth
+
+``main(argv, device=None)`` runs on ``cuda``; tests pass ``device="cpu"``.
+Without ``lpips_ckpt`` the perceptual term is off, as in the JAX entry
+point (random VGG features are no perceptual metric); with it, a
+comma-separated list of torch state_dict files (taming's ``vgg.pth`` heads,
+a torchvision VGG16, a full taming LPIPS) is loaded. A warm start
+(``diffusion.first_stage_config.params.ckpt_path``, under ``result_dir``)
+reads the port's own checkpoint file: a ``_best`` or ``_last`` of this
+entry point or a params file. Refused: a JAX orbax directory and a CompVis
+``.ckpt`` (ROADMAP item 10), a mesh of more than one device and a HER2 or
+CATCH tree that is not staged (item 12).
 
 The repository's configs are yaml; this package keeps Python copies of the
-pieces it needs (``AE_LOSS``: config_ae.yaml's ``loss`` block and its
-``base_lr``; ``VQ_F4`` and ``KL_F4``: the first-stage configs), which a test
-holds equal to the files. Left for the entry points still to be ported: the
-data module, config composition, the device mesh, checkpoints, logging and a
-warm start from a checkpoint.
+pieces its tests and chip_smoke.py build codecs from (``AE_LOSS``:
+config_ae.yaml's ``loss`` block and its ``base_lr``; ``VQ_F4`` and
+``KL_F4``: the first-stage configs), which a test holds equal to the files.
 
-Typical use, on the card::
+Typical use of the pieces, on the card::
 
     model, variant = build_codec(VQ_F4, dtype=torch.bfloat16)
     cfg = VAELossConfig(**AE_LOSS)
@@ -19,20 +34,37 @@ Typical use, on the card::
     gen_tx, disc_tx = ae_optimizers(scaled_lr(BASE_LR, 1, batch))
     state = create_ae_state(model.cuda(), disc, gen_tx, disc_tx)
     step = make_ae_train_step(model, cfg, lpips=None, variant=variant)
-    state, history = fit(state, step, make_ae_eval_step(model, cfg, variant=variant),
-                         train_batches, val_batches, num_epochs=1)
+    for img in batches:                 # NHWC images in [-1, 1] on the card
+        state, log, rec = step(state, img)
 """
 
 from __future__ import annotations
 
-import copy
+import sys
 import time
-from typing import Callable, Iterable
+from pathlib import Path
 
 import torch
 
+from stedm_tpu_torch._device import resolve_device
+from stedm_tpu_torch.config import compose
+from stedm_tpu_torch.data.dm import DataModule
+from stedm_tpu_torch.data.prefetch import prefetch_to_device
 from stedm_tpu_torch.models.autoencoder_kl import AutoencoderKL
+from stedm_tpu_torch.models.lpips import LPIPS
 from stedm_tpu_torch.models.vq import VQModelInterface
+from stedm_tpu_torch.train import checkpoints
+from stedm_tpu_torch.train.ae_steps import (
+    ae_optimizers,
+    create_ae_state,
+    init_lossvar,
+    make_ae_eval_step,
+    make_ae_train_step,
+)
+from stedm_tpu_torch.train.vae_losses import VAELossConfig, build_discriminator
+from stedm_tpu_torch.train_diff import single_device
+from stedm_tpu_torch.utils.logging import EventLogger
+from stedm_tpu_torch.utils.weights import load_torch_state_dict
 
 # configs/config_ae.yaml
 BASE_LR = 4.5e-6
@@ -74,32 +106,162 @@ def build_codec(first_stage_config: dict, dtype: torch.dtype = torch.float32):
     return VQModelInterface(dtype=dtype, **params), "vq"
 
 
+# torchvision VGG16 ``features`` indices where each LPIPS slice ends
+# (torch_import.py:_VGG_SLICE_BOUNDS)
+_VGG_SLICE_BOUNDS = (4, 9, 16, 23, 30)
+
+
+def lpips_keys(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A torch LPIPS source under the port's ``LPIPS`` names, as
+    torch_import.py:map_lpips reads it: taming's ``vgg.pth`` heads
+    (``lin{k}.model.1.weight``), a taming ``LPIPS`` state_dict
+    (``net.slice{s}.{i}.*``) or a torchvision VGG16 (``features.{i}.*``,
+    sliced at the max-pools), under any of the roots ``""``,
+    ``perceptual_loss.``, ``loss.perceptual_loss.``."""
+    out = {}
+    for key, v in sd.items():
+        k = key
+        for root in ("loss.perceptual_loss.", "perceptual_loss."):
+            if k.startswith(root):
+                k = k[len(root):]
+        parts = k.split(".")
+        if parts[0].startswith("lin") and parts[1:] == ["model", "1", "weight"]:
+            out[k] = v
+        elif parts[0] == "net" and parts[-1] in ("weight", "bias"):
+            out[k] = v
+        elif parts[0] == "features" and parts[-1] in ("weight", "bias"):
+            idx = int(parts[1])
+            s = next(i for i, end in enumerate(_VGG_SLICE_BOUNDS) if idx < end) + 1
+            out[f"net.slice{s}.{idx}.{parts[-1]}"] = v
+    return out
+
+
+def maybe_load_lpips(cfg, device) -> LPIPS | None:
+    """The LPIPS module for the perceptual term, or None when no
+    ``lpips_ckpt`` is staged (the term is then off: random VGG features are
+    no perceptual metric), as train_ae.py:71-96. ``lpips_ckpt`` is a
+    comma-separated list of torch state_dict files, merged in order."""
+    path = cfg.get("lpips_ckpt")
+    if not path or float(cfg.loss.perceptual_weight) <= 0:
+        if float(cfg.loss.perceptual_weight) > 0:
+            print("lpips_ckpt not set: disabling the perceptual term "
+                  "(stage taming vgg_lpips weights to enable)")
+        return None
+    lpips = LPIPS()
+    sd = lpips.state_dict()
+    for part in str(path).split(","):
+        for k, v in lpips_keys(load_torch_state_dict(part)).items():
+            if k not in sd or tuple(sd[k].shape) != tuple(v.shape):
+                raise ValueError(f"{part}: {k} {tuple(v.shape)} does not fit LPIPS")
+            sd[k] = v.float()
+    lpips.load_state_dict(sd, strict=True)
+    return lpips.to(device).eval()
+
+
+def warm_start(model, cfg, fs_ckpt: str) -> None:
+    """Load the codec's weights from the port's checkpoint file
+    ``<result_dir>/<fs_ckpt>`` (train_ae.py:145-167). A JAX orbax directory
+    (``checkpoints.load`` refuses it) and a CompVis ``.ckpt`` are not read
+    (ROADMAP item 10)."""
+    path = Path(f"{cfg.location.result_dir}/{fs_ckpt}")
+    if path.suffix == ".ckpt":
+        raise NotImplementedError(f"{path}: warm starts from a CompVis .ckpt are not "
+                                  "ported (ROADMAP item 10)")
+    model.load_state_dict(checkpoints.restore_params(path), strict=True)
+
+
 def _mean(logs: list[dict]) -> dict[str, float]:
-    return {k: float(torch.stack([torch.as_tensor(log[k]).float().cpu() for log in logs]).mean())
-            for k in logs[0]}
+    return {k: float(torch.stack([torch.as_tensor(log[k]).double().cpu() for log in logs]
+                                 ).mean()) for k in logs[0]}
 
 
-def fit(state, train_step: Callable, eval_step: Callable | None,
-        train_batches: Iterable, val_batches: Iterable = (), num_epochs: int = 1):
-    """Run ``num_epochs`` passes of ``train_step`` over ``train_batches`` (NHWC
-    image tensors), then ``eval_step`` over ``val_batches``; returns the state
-    and a history: per epoch the mean train log, the mean validation metrics
-    and the epoch's seconds, and ``best`` (the codec's state_dict, on the
-    CPU, at the lowest ``val/rec_loss``, and that loss)."""
-    history = {"epochs": [], "best": None}
-    best = float("inf")
-    for epoch in range(num_epochs):
+def main(argv: list[str], device=None) -> dict:
+    """Fine-tune the codec as configured (train_ae.py:99-233); returns the
+    run's numbers: per epoch the mean train log, the mean val metrics, the
+    seconds, the steps and the host clock spent getting batches (``data_s``)
+    and issuing their copies (``h2d_s``); the last step and the run
+    directory."""
+    cfg = compose("config_ae", argv)
+    dev = resolve_device(device)
+    if cfg.data.batch_size is None:
+        cfg.data.batch_size = cfg.data.batch_base * cfg.location.batch_mul
+    n_devices = single_device(cfg, dev)
+    global_batch = cfg.data.batch_size * n_devices
+    accum = int(cfg.get("accumulate_grad_batches", 1))
+    lr = scaled_lr(cfg.base_lr, accum, global_batch, cfg.get("lr"))
+    seed = cfg.get("seed", 0)
+
+    run_name = cfg.get("run_name") or f"ae_{cfg.data.name}"
+    dm = DataModule(cfg)
+    dm.prepare_data()  # before anything is written: an unstaged tree refuses
+    result_dir = f"{cfg.location.result_dir}/{run_name}"
+    logger = EventLogger(result_dir, run_name, use_wandb=cfg.location.get("wandb", False),
+                         config=dict(cfg))
+    print(f"devices={n_devices} global_batch={global_batch} lr={lr:.3e}")
+    dm.setup()
+
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
+        cfg.diffusion.get("compute_dtype", "float32")]
+    fs = dict(cfg.diffusion.first_stage_config)
+    fs_ckpt = fs["params"].get("ckpt_path")
+    fs["params"] = {k: v for k, v in dict(fs["params"]).items() if k != "ckpt_path"}
+    loss_cfg = VAELossConfig(**dict(cfg.loss))
+    lpips = maybe_load_lpips(cfg, dev)
+    if lpips is None:
+        loss_cfg = VAELossConfig(**{**dict(cfg.loss), "perceptual_weight": 0.0})
+    cuda_devs = [dev.index or 0] if dev.type == "cuda" else []
+    with torch.random.fork_rng(devices=cuda_devs), torch.device(dev):
+        torch.manual_seed(seed)
+        model, variant = build_codec(fs, dtype=dtype)
+        disc = build_discriminator(loss_cfg)
+    if fs_ckpt:
+        warm_start(model, cfg, fs_ckpt)
+    logvar = init_lossvar(loss_cfg.logvar_init, device=dev) if variant == "kl" else None
+    gen_tx, disc_tx = ae_optimizers(lr)
+    state = create_ae_state(model, disc, gen_tx, disc_tx, logvar)
+    train_step = make_ae_train_step(model, loss_cfg, lpips=lpips, variant=variant,
+                                    seed=seed, device=dev)
+    eval_step = make_ae_eval_step(model, loss_cfg, lpips=lpips, variant=variant,
+                                  device=dev)
+
+    loader = dm.train_loader(seed=seed)
+    loader.batch_size = global_batch
+    val_loader = dm.val_loader()
+    val_loader.batch_size = global_batch
+    prefetch = cfg.location.get("prefetch", 2)
+    images = lambda b: {"img": b[0]}  # noqa: E731
+    ckpt_dir = result_dir + "/ckpt"
+
+    best_val, epochs = float("inf"), []
+    for epoch in range(cfg.num_epochs):
         t0 = time.time()
-        logs = [train_step(state, img)[1] for img in train_batches]
-        entry = {"epoch": epoch, "step": state.step,
-                 "train": _mean(logs) if logs else {}}
-        vals = [eval_step(img)[0] for img in val_batches] if eval_step else []
-        entry["val"] = _mean(vals) if vals else {}
-        entry["seconds"] = time.time() - t0
-        history["epochs"].append(entry)
-        if vals and entry["val"]["val/rec_loss"] < best:
-            best = entry["val"]["val/rec_loss"]
-            history["best"] = {"val/rec_loss": best, "epoch": epoch,
-                               "state_dict": copy.deepcopy({k: v.detach().cpu() for k, v in
-                                                            state.model.state_dict().items()})}
-    return state, history
+        logs, laps = [], {}
+        for batch in prefetch_to_device(loader, size=prefetch, transform=images, device=dev,
+                                        laps=laps):
+            state, log, _rec = train_step(state, batch["img"])
+            logs.append(log)
+        train = _mean(logs) if logs else {}     # read back: the card is done
+        record = {"epoch": epoch, "steps": len(logs), "seconds": time.time() - t0,
+                  "data_s": laps.get("data", 0.0), "h2d_s": laps.get("h2d", 0.0),
+                  "train": train, "val": {}}
+        if logs:
+            logger.log({**train, "epoch": epoch, "epoch_time_s": record["seconds"]},
+                       step=state.step)
+        vals = [eval_step(batch["img"])[0] for batch in
+                prefetch_to_device(val_loader, size=prefetch, transform=images, device=dev)]
+        if vals:
+            record["val"] = _mean(vals)
+            logger.log(record["val"], step=state.step)
+            checkpoints.save(ckpt_dir, state, name=f"{run_name}_last")
+            if record["val"]["val/rec_loss"] < best_val:
+                best_val = record["val"]["val/rec_loss"]
+                checkpoints.save(ckpt_dir, state, name=f"{run_name}_best")
+        epochs.append(record)
+
+    logger.close()
+    return {"epochs": epochs, "step": state.step, "run_dir": result_dir, "lr": lr,
+            "variant": variant}
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

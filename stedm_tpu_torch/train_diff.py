@@ -9,13 +9,20 @@
   train/checkpoints.py), ``+resume=true`` continues from it,
 * epoch-end preview sampling from the fixed test folder when present.
 
+The layout is the data's one-hot collapsed to background vs any foreground
+(``batch_to_ldm``), so the model's layout mapper is two channels wide on
+every dataset: Flowers, HER2 (6 classes) and CATCH (8).
+
 Usage, from the repository root, on a machine with one CUDA card::
 
     python -m stedm_tpu_torch.train_diff data=flowers style_sampling=augmented \\
         style_agg=mean location.data_dir=/data location.result_dir=/results
+    python -m stedm_tpu_torch.train_diff data=her2 style_sampling=nearby \\
+        location.data_dir=/data location.result_dir=/results
 
 ``main(argv, device=None)`` runs on ``cuda``; tests pass ``device="cpu"``.
-Not ported, and refused: a mesh of more than one device (ROADMAP item 12),
+Not ported, and refused: a mesh of more than one device and a HER2 or
+CATCH tree that is not staged (its pull from an EXACT server; ROADMAP item 12),
 warm starts from a weight file (``diffusion.ckpt_path``,
 ``first_stage_config.params.ckpt_path``; item 10) and ``+adamw_m_bf16``.
 """
@@ -104,8 +111,10 @@ def step_seed(seed: int, step: int) -> int:
 
 def main(argv: list[str], device=None) -> dict:
     """Train as configured; returns the run's numbers: per epoch the mean
-    loss, seconds, micro-steps and samples; the step it started from (the
-    restored one on a resume) and the last; the scale factor."""
+    loss, seconds, micro-steps and samples, and the host clock the loop
+    spent getting batches (``data_s``) and issuing their copies (``h2d_s``);
+    the step it started from (the restored one on a resume) and the last;
+    the scale factor."""
     cfg = compose("config_diff", argv)
     dev = resolve_device(device)
     refuse_warm_starts(cfg)
@@ -191,9 +200,9 @@ def main(argv: list[str], device=None) -> dict:
     start_step, epochs = state.step, []
     for epoch in range(start_epoch, cfg.num_epochs):
         t0 = time.time()
-        losses = []
+        losses, laps = [], {}
         batches = prefetch_to_device(loader, size=cfg.location.get("prefetch", 2),
-                                     transform=batch_to_ldm, device=dev)
+                                     transform=batch_to_ldm, device=dev, laps=laps)
         for batch in batches:
             gen.manual_seed(step_seed(seed, state.step))
             state, metrics = train_step(state, batch, gen)
@@ -204,7 +213,8 @@ def main(argv: list[str], device=None) -> dict:
                    step=state.step)
         checkpoints.save(ckpt_dir, state, name=ckpt_name)
         epochs.append({"epoch": epoch, "loss": train_loss, "seconds": seconds,
-                       "micro_steps": len(losses), "samples": len(losses) * global_batch})
+                       "micro_steps": len(losses), "samples": len(losses) * global_batch,
+                       "data_s": laps.get("data", 0.0), "h2d_s": laps.get("h2d", 0.0)})
         preview_previews(cfg, model, schedule, state, logger, epoch, dev)
 
     logger.close()

@@ -12,21 +12,32 @@ card (the counterpart of train_seg.py:87-240).
   epoch, test on the last weights and on the best (reference
   train_seg.py:74-93);
 * tumor IoU, subtype variance, patient IoU mean and variance per epoch
-  from the confusion matrices, and the normalised matrix as a PNG drawn
+  from the confusion matrices (a patient is a slide: HER2 and CATCH val and
+  test patches carry their slide's index and the ROI's cut margins), with
+  ``data.eval_subtypes`` (CATCH) the IoU of each subtype's patients, the
+  subtype named in the slide's file name (``data.classes``, ``name_idx``;
+  reference segmentation.py:292-334), and the normalised matrix as a PNG drawn
   with PIL (the JAX entry point draws it with matplotlib, which the H100
   machine lacks; reference segmentation.py:135-334);
 * ``+encoder_ckpt=<file>`` loads a published MiT-B2 state_dict into the
   encoder (utils/weights.py:load_seg_encoder).
 
 Usage, from the repository root, on a machine with one CUDA card
-(README's mix)::
+(README's mixes)::
 
     python -m stedm_tpu_torch.train_seg data/dataset=[flowers_anno,flowers_syn] \\
         data.ratios=[0.2,0.8] location.data_dir=/data location.result_dir=/results
+    python -m stedm_tpu_torch.train_seg data=her2 data/dataset=[her2_anno,her2_syn] \\
+        data.ratios=[0.2,0.8] location.data_dir=/data location.result_dir=/results
 
 ``main(argv, device=None)`` runs on ``cuda``; tests pass ``device="cpu"``.
-Not ported, and refused: a mesh of more than one device, the HER2 and
-CATCH data and the grain loader (ROADMAP item 12).
+Not ported, and refused: a mesh of more than one device, the grain loader
+and a HER2 or CATCH tree that is not staged (its pull from an EXACT
+server; ROADMAP item 12).
+
+The JAX entry point never hands ``_epoch_metrics`` the subtype names, so
+it logs no subtype IoU whatever ``eval_subtypes`` says; this one does when
+it is set (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -101,6 +112,26 @@ def _epoch_metrics(prefix: str, cm: np.ndarray, inst_cms: np.ndarray | None,
     return out
 
 
+def subtype_args(cfg, dm) -> dict:
+    """``_epoch_metrics``' subtype keywords for the val and the test split:
+    with ``data.eval_subtypes``, the subtype names (``data.classes``) and one
+    image tuple per patient of the ``eval_key`` data module's split, in the
+    order of the patient index the ordered datasets give (the sorted slide
+    numbers); otherwise none."""
+    out = {"val": {}, "test": {}}
+    module = dm.data_modules.get(cfg.data.get("eval_key"))
+    if not cfg.data.get("eval_subtypes") or module is None:
+        return out
+    for split in out:
+        firsts = {}
+        for tup in getattr(module, f"_list_{split}"):
+            firsts.setdefault(tup[-1], tup)
+        out[split] = dict(subtype_names=list(cfg.data.classes),
+                          image_list=[firsts[n] for n in sorted(firsts)],
+                          name_idx=cfg.data.get("name_idx", 0))
+    return out
+
+
 def _train_batch(np_batch: tuple) -> dict:
     return {"img": np_batch[0], "seg": np_batch[2]}
 
@@ -131,15 +162,16 @@ def main(argv: list[str], device=None) -> dict:
     if run_name is None:
         syn = [n for n in cfg.data.dataset if n.endswith("_syn")]
         run_name = f"seg_{syn[0] if syn else cfg.data.name}"
-    # first, so that the data modules still to port (HER2, CATCH) and the
-    # grain loader refuse before anything is written (ROADMAP item 12)
+    # first, so that the grain loader and a HER2 or CATCH tree that would
+    # need the EXACT pull refuse before anything is written (ROADMAP item 12)
     dm = DataModule(cfg)
+    dm.prepare_data()
     result_dir = f"{cfg.location.result_dir}/{run_name}"
     logger = EventLogger(result_dir, run_name, use_wandb=cfg.location.get("wandb", False),
                          config=dict(cfg))
     print(f"devices={n_devices} global_batch={global_batch} lr={lr:.3e}")
-    dm.prepare_data()
     dm.setup()
+    subtypes = subtype_args(cfg, dm)
 
     num_classes = cfg.data.num_classes
     model = build_seg_model(cfg, dev, seed=seed)
@@ -206,7 +238,7 @@ def main(argv: list[str], device=None) -> dict:
             logger.log({"Val Loss": val_loss}, step=state.step)
             record["val"] = {"loss": val_loss, **_epoch_metrics(
                 "Val", cm_val, inst_val, logger, state.step,
-                class_names=list(cfg.data.classes))}
+                class_names=list(cfg.data.classes), **subtypes["val"])}
             checkpoints.save(ckpt_dir, state, name=f"{run_name}_last")
             if val_loss < best_val:
                 best_val = val_loss
@@ -227,7 +259,7 @@ def main(argv: list[str], device=None) -> dict:
             state = checkpoints.restore(ckpt_dir, state, name=name)
             _loss, cm_test, inst_test = run_eval(test_loader, "test")
             tests[tag] = _epoch_metrics(f"Test ({tag})", cm_test, inst_test, logger,
-                                        state.step)
+                                        state.step, **subtypes["test"])
 
     logger.close()
     return {"epochs": epochs, "tests": tests, "step": final_step, "run_dir": result_dir,

@@ -1,7 +1,8 @@
 """The port's copy of the data pipeline (stedm_tpu_torch/data/) against the
 JAX package's on a tiny generated Flowers tree: the batches of every loader,
 bit for bit in every field, and batch_to_ldm; the repaired generator
-hand-over of ConcatDataset; the data modules that are not ported raise."""
+hand-over of ConcatDataset; the grain loader and an unstaged HER2 or CATCH
+tree raise."""
 
 import numpy as np
 import pytest
@@ -96,10 +97,13 @@ def test_batch_to_ldm_and_the_cpu_prefetch(modules):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (["data=her2"], "item 12"),
-    (["data=catch"], "item 12"),
+    (["data=her2"], "EXACT server.*item 12"),
+    (["data=catch"], "EXACT server.*item 12"),
     (["location.loader=grain"], "item 12"),
 ], ids=["her2", "catch", "grain"])
-def test_unported_data_modules_raise(overrides, match):
+def test_unported_data_modules_raise(overrides, match, tmp_path):
+    """The grain loader refuses at once; HER2 and CATCH, ported, refuse the
+    pull from an EXACT server when no tree or zip is staged."""
     with pytest.raises(NotImplementedError, match=match):
-        DataModule(compose("config_diff", overrides))
+        DataModule(compose("config_diff", overrides + [f"location.data_dir={tmp_path}"])
+                   ).prepare_data()

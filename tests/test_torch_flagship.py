@@ -5,7 +5,7 @@ import pytest
 import torch
 import _port_helpers  # noqa: F401  (caps torch threads)
 
-from stedm_tpu_torch import predict_diff, resolve_device, train_diff
+from stedm_tpu_torch import predict_diff, resolve_device, train_ae, train_diff
 from stedm_tpu_torch.core.ddim import DDIMParams
 from stedm_tpu_torch.models.stedm import build_flagship
 from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
@@ -48,8 +48,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     model, _, schedule = build_flagship(batch=1, device="meta")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_sample_fn(model, schedule, SamplerConfig(ddim_steps=50))
-    # the train and predict entry points: no CPU path unless asked for
-    for main in (train_diff.main, predict_diff.main):
+    # the train, predict and codec fine-tuning entry points: no CPU path
+    # unless asked for
+    for main in (train_diff.main, predict_diff.main, train_ae.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main([])
 

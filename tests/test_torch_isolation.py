@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX/Flax nor the JAX package,
 for sampling (the serving mode too), for diffusion training, for codec
-fine-tuning, through the train and predict entry points and for downstream
-segmentation (with every import of JAX blocked)."""
+fine-tuning, through the train and predict entry points, for downstream
+segmentation, and on the histopathology data path (the host library, the
+WSI reader chain, the HER2 data module) and ``train_ae.main`` (with every
+import of JAX blocked)."""
 
 import ast
 import subprocess
@@ -99,6 +101,21 @@ seg_eval = seg_steps.make_seg_eval_step(seg, num_classes=2, num_inst=3, overlap=
 assert float(seg_out["cm"].sum()) == 2 * 30 * 30 and float(seg_eval["inst_cm"].sum()) == 1800
 run = train_seg.main(SEG_OVERRIDES, device="cpu")
 assert run["step"] == 2 and set(run["tests"]) == {"last", "best"}
+# histopathology: the host library (built with g++), the WSI reader chain,
+# the HER2 data module with its batches, and codec fine-tuning's entry point
+import numpy as np
+from stedm_tpu_torch import native
+from stedm_tpu_torch.data import catch, her2, native_pipeline, prep, wsi
+from stedm_tpu_torch.utils import patch_handler
+value, strength = prep.consensus_stack(np.zeros((3, 8, 8), np.uint8))
+assert value.shape == strength.shape == (8, 8)
+her2_dm = dm.DataModule(compose("config_diff", HER2_OVERRIDES))
+her2_dm.prepare_data()
+her2_dm.setup()
+img, one_hot, seg, style = next(iter(her2_dm.train_loader()))[:4]
+assert img.shape == (2, 32, 32, 3) and one_hot.shape == (2, 32, 32, 6)
+run = train_ae.main(AE_OVERRIDES, device="cpu")
+assert run["step"] == 2 and run["epochs"][0]["val"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "stedm_tpu"))
 print("LOADED", bad)
@@ -107,6 +124,7 @@ print("LOADED", bad)
 
 def test_import_and_forward_load_no_jax(tmp_path):
     from _flowers_helpers import run_overrides, write_flowers_tree
+    from _her2_helpers import HER2_OVERRIDES, write_her2_tree
 
     overrides = run_overrides(write_flowers_tree(tmp_path / "data"), tmp_path / "results")
     unanno = str(list(range(3, 102))).replace(" ", "")
@@ -115,8 +133,19 @@ def test_import_and_forward_load_no_jax(tmp_path):
         "data.class_train_samples=2", "num_epochs=1", "location=pc",
         "compute_dtype=float32", "data.dataset.flowers_anno.train_classes=[0,1,2]",
         f"data.dataset.flowers_anno.unanno_classes={unanno}"]
+    her2_tree = write_her2_tree(tmp_path / "her2")
+    her2_overrides = HER2_OVERRIDES + ["style_sampling=nearby", f"location.data_dir={her2_tree}",
+                                       f"location.result_dir={tmp_path / 'results'}"]
+    ae_overrides = her2_overrides + [
+        "data.samples=4", "num_epochs=1", "diffusion.compute_dtype=float32",
+        "diffusion.first_stage_config.params.ddconfig.ch=32",
+        "diffusion.first_stage_config.params.ddconfig.ch_mult=[1,2]",
+        "diffusion.first_stage_config.params.ddconfig.num_res_blocks=1",
+        "diffusion.first_stage_config.params.n_embed=64", "loss.disc_ndf=8",
+        "loss.disc_num_layers=1"]
     head = (f"OVERRIDES = {overrides!r}\nRUN = 'diff_flowers_augmented_mean'\n"
-            f"SEG_OVERRIDES = {seg_overrides!r}\n")
+            f"SEG_OVERRIDES = {seg_overrides!r}\nHER2_OVERRIDES = {her2_overrides!r}\n"
+            f"AE_OVERRIDES = {ae_overrides!r}\n")
     out = subprocess.run([sys.executable, "-c", head + _PROBE], cwd=PKG.parent,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -188,8 +188,9 @@ def test_train_seg_main_loads_a_mit_encoder(data, tmp_path, monkeypatch, capsys)
 
 @pytest.mark.parametrize("args,error,match", [
     ([], RuntimeError, "no CUDA device"),
-    (["data=her2"], NotImplementedError, "item 12"),
-    (["data=catch"], NotImplementedError, "item 12"),
+    # HER2 and CATCH are ported; a tree that is not staged refuses the EXACT pull
+    (["data=her2"], NotImplementedError, "EXACT server.*item 12"),
+    (["data=catch"], NotImplementedError, "EXACT server.*item 12"),
     (["+location.loader=grain"], NotImplementedError, "item 12"),
     (["location.mesh.data=2"], NotImplementedError, "item 12"),
 ], ids=["no_card", "her2", "catch", "grain", "mesh"])
@@ -198,7 +199,8 @@ def test_refusals(args, error, match, tmp_path):
     if torch.cuda.is_available() and device is None:
         pytest.skip("a card is present")
     with pytest.raises(error, match=match):
-        train_seg.main([f"location.result_dir={tmp_path}"] + args, device=device)
+        train_seg.main([f"location.result_dir={tmp_path}",
+                        f"location.data_dir={tmp_path / 'data'}"] + args, device=device)
     assert not any(tmp_path.iterdir())
 
 
