@@ -134,7 +134,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    so): ``train_diff.main data=catch`` for one update and ``train_seg.main
    data=catch`` for one epoch with the subtype IoU; the launches of every
    kernel inside each call;
-9. a ``kernels`` JSON line, the card line, and as the last line
+9. the rest of the generation workflow at the shipped widths: 9a.
+   PLMS-50 and DPM-Solver++(2M)-50 on phase 4's flagship and batch, eager
+   (launches zeroed just before and read just after; 51 and 50 U-Net
+   evaluations) and as graph-replayed host blocks (the latent z_0 equal to
+   the eager one's bit for bit), img/s of three warm runs each and the
+   device time of a profiled graph run; the tiny STEDM with PLMS and
+   DPM-Solver, and a tiny 2x-patch canvas, card (eager and graph) against
+   the CPU at phase 3's tolerance; 9b. ``predict_diff.main
+   +canvas_size=1024`` on phase 6's tree (2 x 2 layouts a canvas, batches
+   of 8 layouts, so two canvases a batch and every tile at phase 2's
+   batch-2 shapes; three batches, exact DDIM-50 through the graph-replayed
+   blocks, tiled eps and decode): PNG pairs at the canvas size, pairs/s
+   after the first batch and tiles a step; 9c.
+   ``train_diff.main style_agg=svit`` (the shipped set-ViT, dropout 0.1
+   from the step's generator) for 8 micro-steps, each an update, at lr
+   1e-4: finite losses, sViT parameters moved by at least half the lr, peak
+   memory, the encoder's device ms; then
+   ``predict_diff.main`` on its checkpoint; 9d. the codec hand-off:
+   ``train_ae.main`` writes ``<run>_best.pt``, ``train_diff.main`` takes it
+   as its first stage and a random-weight CompVis U-Net ``.ckpt`` the
+   script writes (the printed counts checked), the codec equal to the AE
+   checkpoint bit for bit after the steps, then ``predict_diff.main`` on
+   that run; the launches of every kernel inside each call; phase 6's tree
+   is removed at the end;
+10. a ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 fp32 matrix products and convolutions run without TF32 here (both backend
@@ -218,7 +242,8 @@ class KernelRecord:
     PATHS = ("sample_batch", "serving_batch", "train_micro_step", "codec_step", "entry_train",
              "entry_predict_exact", "entry_predict_serving", "seg_train_step", "seg_entry",
              "her2_ae", "her2_train", "her2_predict_exact", "her2_predict_serving", "her2_seg",
-             "catch_train", "catch_seg")
+             "catch_train", "catch_seg", "plms_batch", "dpm_batch", "canvas_predict",
+             "svit_train", "svit_predict", "handoff_ae", "handoff_train", "handoff_predict")
 
     def __init__(self, name, route, source, replaces, counter=None, paths=PATHS):
         # the launch counter the kernel's wrapper adds to, and the main paths
@@ -1620,7 +1645,7 @@ def entry_points(torch) -> tuple[Path, dict]:
     for k, v in total.items():
         require(v > 0, f"no {k} launch inside the entry-point calls: {counts}")
     seconds = time.time() - t0
-    log(f"  phase 6 took {seconds:.1f} s (its tree stays for phase 7)")
+    log(f"  phase 6 took {seconds:.1f} s (its tree stays for phases 7 and 9)")
     return root, dict(entry_counts=counts, entry_seconds=seconds, entry_checkpoint_gib=size_gib,
                 entry_train_samples_per_s=[e["samples"] / e["seconds"] for e in (ep, ep2)],
                 entry_predict={k: {kk: vv for kk, vv in v.items() if kk != "predict_dir"}
@@ -2372,6 +2397,271 @@ def check_seg_run(run: Path, res: dict, extra_keys) -> dict:
     return dict(ious=ious, samples_per_s=[e["samples"] / e["seconds"] for e in ep])
 
 
+# Phase 9's tolerance for the tiny card-against-CPU checks is phase 3's
+# (TINY_TOL); its cuts: the canvas and the set-ViT's predict at 50 and 20
+# DDIM steps (config_predict.yaml: 128), 8 micro-steps for the sViT run and 4
+# for the hand-off's.
+# The entry points' patch (configs/data/flowers.yaml)
+ENTRY_PATCH = 512
+
+
+def _sampler_runs(torch, model, batch, schedule, cfg, name: str, out_dir: Path,
+                  card: str) -> dict:
+    """Phase 9a for one method on the flagship: the eager loop (launches
+    zeroed just before, read just after), the graph-replayed blocks (their
+    latent equal to the eager one's bit for bit), warm img/s of both and the
+    device time of a graph run."""
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.train.host_sampler import make_host_sample_fn
+    from stedm_tpu_torch.train.steps import make_sample_fn
+
+    b = batch["segmentation"].shape[0]
+    gen = torch.Generator(device="cuda")
+    eager = make_sample_fn(model, schedule, cfg)
+    reset_launch_counts()
+    t1 = time.time()
+    img, z_e = sample_with_latent(eager, model, batch, generator=gen.manual_seed(0))
+    torch.cuda.synchronize()
+    cold_s = time.time() - t1
+    counts = dict(LAUNCHES)
+    evals = counts["flash_attention"] - 1      # one bottleneck attention an eval, + the decode
+    log(f"  {name} eager: cold run {cold_s:.2f} s; launches {counts}; U-Net evaluations {evals}")
+    require(bool(torch.isfinite(img).all()) and float(img.float().std()) > 0,
+            f"{name}: non-finite or flat images")
+    require(bool(torch.isfinite(z_e).all()) and float(z_e.std()) > 0,
+            f"{name}: non-finite or flat latent")
+    want = cfg.ddim_steps + (cfg.method == "plms")
+    require(evals == want, f"{name}: {evals} U-Net evaluations, not {want}")
+    require(counts["nearest_code"] == 1, f"{name}: nearest-code launches {counts}")
+    eager_t = timed_runs(torch, lambda: eager(model, batch, generator=gen.manual_seed(0)), 3)
+    host = make_host_sample_fn(model, schedule, cfg)
+    t1 = time.time()
+    _, z_g = sample_with_latent(host, model, batch, generator=gen.manual_seed(0))
+    torch.cuda.synchronize()
+    capture_s = time.time() - t1
+    same = torch.equal(z_g, z_e)
+    log(f"  {name} graph: blocks {host.block_sizes}; first call (warm-up, capture, replay) "
+        f"{capture_s:.2f} s; launches at capture {host.capture_launches}; latent z_0 equals the "
+        f"eager loop's bit for bit: {same} (max |diff| {float((z_g - z_e).abs().max()):.3e})")
+    require(same, f"{name}: the graph-replayed latent differs from the eager loop's")
+    graph_t = timed_runs(torch, lambda: host(model, batch, generator=gen.manual_seed(0)), 3)
+    rates = {"eager": [b / t for t in eager_t], "graph": [b / t for t in graph_t]}
+    for mode, r in rates.items():
+        log(f"  {name} {mode} img/s (3 warm runs, host clock): "
+            + " ".join(f"{x:.4f}" for x in r) + f"; median {_median(r):.4f} on {card}")
+    kernels = profile_main_path(torch, lambda: host(model, batch, generator=gen.manual_seed(0)),
+                                _median(graph_t) * 1e3, out_dir, f"profile_{name}_graph.txt")
+    busy = sum(ms for _, _, ms in kernels)
+    require(busy > 0, f"{name}: the profiler saw no device time")
+    return dict(counts=counts, numbers=dict(
+        evaluations=evals, img_per_s={k: _median(v) for k, v in rates.items()},
+        img_per_s_runs=rates, graph_device_ms=busy, capture_s=capture_s,
+        graph_idle_share=1 - busy / (_median(graph_t) * 1e3)))
+
+
+def tiny_alt_parity(torch):
+    """Phase 9a's and 9b's tiny checks: PLMS and DPM-Solver on the tiny STEDM,
+    and a 2x-patch canvas (exact DDIM), card eager and graph against the CPU
+    at phase 3's tolerance; each graph's latent equal to the card's eager
+    latent bit for bit."""
+    from stedm_tpu_torch.train.host_sampler import make_host_sample_fn
+    from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
+
+    cpu, gpu, batch, x_T, sched = _tiny_sampling_models(torch)
+    p = batch["segmentation"].shape[1]
+    seg = torch.zeros(2, 2 * p, 2 * p, 2)
+    seg[..., 0] = 1
+    seg[:, 10:44, 20:60] = torch.tensor([0.0, 1.0])
+    canvas = {"segmentation": seg, "style_imgs": batch["style_imgs"]}
+    x_c = torch.randn(2, p // 2, p // 2, 3, generator=torch.Generator().manual_seed(6))
+    base = dict(eta=0.0, cfg_scale=1.5, rescale_phi=0.7, batched_cfg=True, downsample=4)
+    for what, kw, b, x in (("PLMS-6", dict(method="plms", ddim_steps=6), batch, x_T),
+                           ("DPM-Solver++(2M)-6", dict(method="dpm", ddim_steps=6), batch, x_T),
+                           ("2x-patch canvas, DDIM-4", dict(ddim_steps=4), canvas, x_c)):
+        cfg = SamplerConfig(**base, **kw)
+        ref = make_sample_fn(cpu, sched, cfg, device="cpu")(cpu, b, x_T=x)
+        eager, z_e = sample_with_latent(make_sample_fn(gpu, sched, cfg), gpu, b, x_T=x)
+        graph, z_g = sample_with_latent(make_host_sample_fn(gpu, sched, cfg, unroll=3), gpu, b,
+                                        x_T=x)
+        _tiny_close(torch, eager, ref, f"tiny {what}, card eager vs CPU")
+        _tiny_close(torch, graph, ref, f"tiny {what}, card graph replay vs CPU")
+        require(torch.equal(z_g, z_e), f"tiny {what}: the graph's latent differs from eager")
+
+
+def generation_workflow(torch, entry_root: Path, out_dir: Path, card: str) -> tuple:
+    """Phase 9: the rest of the generation workflow at the shipped widths:
+    9a PLMS-50 and DPM-Solver++(2M)-50 on the flagship, eager and as graphs;
+    9b a 2x-patch canvas through predict_diff.main on phase 6's tree; 9c
+    train_diff.main and predict_diff.main with style_agg=svit; 9d the codec
+    hand-off train_ae -> train_diff (+ a CompVis U-Net .ckpt) -> predict.
+    Returns its numbers and the launches of each path."""
+    from stedm_tpu_torch import predict_diff, train_ae, train_diff
+    from stedm_tpu_torch.config import compose
+    from stedm_tpu_torch.models.stedm import build_flagship, build_stedm
+    from stedm_tpu_torch.models.svit import SViT
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.ops.tiled import tile_grid
+    from stedm_tpu_torch.train import checkpoints
+    from stedm_tpu_torch.train.optim import scaled_lr
+    from stedm_tpu_torch.train.steps import SamplerConfig
+
+    t0 = time.time()
+    counts, out = {}, {}
+
+    def run(name: str, main, args: list):
+        log(f"  {main.__module__}.main({args})")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        res = main(args)
+        torch.cuda.synchronize()
+        counts[name] = dict(LAUNCHES)
+        log(f"    launches {counts[name]}")
+        torch.cuda.empty_cache()
+        return res
+
+    log("== phase 9a: PLMS-50 and DPM-Solver++(2M)-50 on the flagship (256^2, batch 8, CFG "
+        "1.5, phi 0.7, bf16), eager and as graphed host blocks; the tiny model and a tiny "
+        "canvas, card against CPU")
+    tiny_alt_parity(torch)
+    model, batch, schedule = build_flagship(batch=8)
+    base = dict(ddim_steps=50, eta=0.0, cfg_scale=1.5, rescale_phi=0.7, batched_cfg=True,
+                downsample=4)
+    for method, path in (("plms", "plms_batch"), ("dpm", "dpm_batch")):
+        res = _sampler_runs(torch, model, batch, schedule, SamplerConfig(**base, method=method),
+                            method, out_dir, card)
+        counts[path] = res["counts"]
+        out[f"sampler_{method}"] = res["numbers"]
+    del model, batch
+    torch.cuda.empty_cache()
+
+    data, patch = entry_root / "data", ENTRY_PATCH
+    where = [f"location.data_dir={data}", f"location.result_dir={entry_root / 'results'}"]
+    readme = ["data=flowers", "data/dataset=[flowers_anno,flowers_unanno]",
+              "data.ratios=[1.0,1.0]", "cfg_scale=1.5", "style_sampling=augmented",
+              "style_agg=mean", *where, "+use_ema=true"]
+    log(f"== phase 9b: predict_diff.main +canvas_size={2 * patch} (2 x 2 layouts of phase 6's "
+        "tree a canvas, two canvases a batch, three batches, exact DDIM-50, the "
+        "graph-replayed blocks)")
+    t1 = time.time()
+    # batches of 8 layouts make two canvases, so each tile's U-Net and decode
+    # run at batch 2: the entry points' shapes that phase 2 holds the kernels
+    # at (GN [2, 128^2, 128], FiLM [4, 32^2, 1024], flash [2, 1, 16384, 512]
+    # and [4, 8, 1024, 128], nearest code at N 32768); three batches, since
+    # predict writes the first batch's PNGs after it has issued the second
+    res = run("canvas_predict", predict_diff.main, readme + [
+        f"+canvas_size={2 * patch}", "data.samples=12", "data.batch_size=8", "ddim_steps=50",
+        "+predict_name=canvas"])
+    check_pairs(Path(res["predict_dir"]), 6, 2 * patch)
+    lat = patch // 4
+    tiles = len(tile_grid(2 * lat, 2 * lat, lat, int(lat * 0.75)))
+    out["canvas"] = dict(predict_rates(res), tiles_per_step=tiles, seconds=time.time() - t1)
+    log(f"  {tiles} latent tiles of {lat}^2 a step on a {2 * lat}^2 latent canvas; phase 9b "
+        f"took {out['canvas']['seconds']:.1f} s")
+    require(counts["canvas_predict"]["nearest_code"] >= tiles,
+            f"the canvas decode launched nearest code {counts['canvas_predict']}")
+
+    log("== phase 9c: train_diff.main style_agg=svit (the shipped sViT: patch 8, dim 256, "
+        "depth 6, 12 heads, dropout 0.1: 4098 tokens at 512^2) for 8 updates at lr 1e-4, then "
+        "predict_diff.main on its checkpoint")
+    t1 = time.time()
+    # the U-Net's zero-initialised output convs pass the style no gradient
+    # until two updates have moved the final conv and then the bottleneck
+    # ResBlockStyle's, and the style's gradient grows with both; at the
+    # config's lr (base_lr 1e-7 x batch 2) and accumulation 4 it stays below
+    # AdamW's eps and the sViT moves by its weight decay alone (lr * 0.01 *
+    # |p|). So the run takes lr 1e-4 and an update every micro-step
+    # (overrides): 8 updates
+    svit_args = ["data=flowers", "style_sampling=augmented", "style_agg=svit", *where,
+                 "data.samples=16", "num_epochs=1", "+preview_ddim_steps=4", "lr=1e-4",
+                 "accumulate_grad_batches=1"]
+    torch.cuda.reset_peak_memory_stats()
+    res = run("svit_train", train_diff.main, svit_args)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ep = res["epochs"][0]
+    require(res["step"] == 8 and math.isfinite(ep["loss"]), f"sViT run: {res}")
+    saved = checkpoints.load(f"{res['run_dir']}/ckpt/{Path(res['run_dir']).name}_last")
+    cfg = compose("config_diff", svit_args)
+    init = build_stedm(cfg, seed=0).agg.state_dict()
+    lr = scaled_lr(cfg.base_lr, cfg.data.batch_base, cfg.location.batch_mul, 1, cfg.lr)
+    step = {k: float((init[k].cpu() - saved["params"][f"agg.{k}"]).abs().max()) for k in init}
+    moved = sum(d >= 0.5 * lr for d in step.values())
+    require(moved > 0 and saved["opt"]["gradient_step"] == 8,
+            f"{moved} sViT tensors moved by half the lr {lr:.3e} or more after "
+            f"{saved['opt']['gradient_step']} updates")
+    enc = SViT(image_size=patch, num_classes=512, dtype=torch.bfloat16,
+               **{k: v for k, v in dict(cfg.style_agg).items() if k != "name"}).cuda()
+    x = torch.rand(2, 1, patch, patch, 3, device="cuda") * 2 - 1
+    g = torch.Generator(device="cuda").manual_seed(0)
+    fwd_ms = time_ms(lambda: enc(x, train=True, generator=g), 5)
+    fb_ms = time_ms(lambda: enc(x, train=True, generator=g).float().square().mean().backward(), 5)
+    del enc, x, init, saved
+    log(f"  sViT: {ep['micro_steps']} micro-steps, loss {ep['loss']:.5f}, "
+        f"{ep['samples'] / ep['seconds']:.4f} samples/s over the epoch; {moved} of {len(step)} "
+        f"sViT tensors moved by at least half the lr ({lr:.3e}; largest step "
+        f"{max(step.values()):.3e}); peak memory {peak:.3f} GiB; the encoder alone at batch 2 "
+        f"(train mode, CUDA events): forward {fwd_ms:.3f} ms, forward + backward {fb_ms:.3f} ms")
+    pred = run("svit_predict", predict_diff.main, [
+        "data=flowers", "data/dataset=[flowers_anno,flowers_unanno]", "data.ratios=[1.0,1.0]",
+        "cfg_scale=1.5", "style_sampling=augmented", "style_agg=svit", *where,
+        "data.samples=2", "ddim_steps=20", "+predict_name=svit"])
+    check_pairs(Path(pred["predict_dir"]), 4, patch)
+    out["svit"] = dict(peak_gib=peak, encoder_fwd_ms=fwd_ms, encoder_fwd_bwd_ms=fb_ms,
+                       samples_per_s=ep["samples"] / ep["seconds"], moved=moved,
+                       predict=predict_rates(pred), seconds=time.time() - t1)
+    log(f"  phase 9c took {out['svit']['seconds']:.1f} s")
+
+    log("== phase 9d: the codec hand-off: train_ae.main (vq-f4 at 512^2, batch 2, disc_start "
+        "0) -> train_diff.main with its _best.pt as the first stage and a CompVis U-Net .ckpt "
+        "(random weights) -> predict_diff.main")
+    t1 = time.time()
+    hand = entry_root / "handoff"
+    hwhere = [f"location.data_dir={data}", f"location.result_dir={hand}"]
+    ae = run("handoff_ae", train_ae.main, ["data=flowers", "style_sampling=augmented", *hwhere,
+                                           "data.samples=8", "num_epochs=1",
+                                           "loss.disc_start=0"])
+    best = checkpoints.load(f"{ae['run_dir']}/ckpt/{Path(ae['run_dir']).name}_best")
+    unet_sd = build_stedm(compose("config_diff", ["data=flowers", *hwhere]), seed=7,
+                          device="cpu").unet.state_dict()
+    hand.mkdir(parents=True, exist_ok=True)
+    torch.save({"state_dict": {f"model.diffusion_model.{k}": v for k, v in unet_sd.items()}},
+               hand / "unet.ckpt")
+    fs = f"diffusion.first_stage_config.params.ckpt_path={Path(ae['run_dir']).name}/ckpt/" \
+         f"{Path(ae['run_dir']).name}_best.pt"
+    h_args = ["data=flowers", "style_sampling=augmented", "style_agg=mean", *hwhere, fs,
+              "diffusion.ckpt_path=unet.ckpt", "data.samples=8", "num_epochs=1",
+              "+preview_ddim_steps=4"]
+    tr = run("handoff_train", train_diff.main, h_args)
+    n_codec, n_unet = len(best["params"]), len(unet_sd)
+    log(f"  warm starts: {tr['warm_start']} (codec tensors {n_codec}, U-Net tensors {n_unet})")
+    require(tr["warm_start"] == {"first_stage": (n_codec, 0), "diffusion": (n_unet, 0)},
+            f"warm-start counts {tr['warm_start']}")
+    saved = checkpoints.load(f"{tr['run_dir']}/ckpt/{Path(tr['run_dir']).name}_last")
+    frozen = all(torch.equal(saved["params"][f"first_stage.{k}"], v)
+                 for k, v in best["params"].items())
+    moved = sum(not torch.equal(saved["params"][f"unet.{k}"], v) for k, v in unet_sd.items())
+    log(f"  the codec after {tr['step']} micro-steps equals train_ae's _best bit for bit: "
+        f"{frozen}; the U-Net moved from the .ckpt in {moved} of {n_unet} tensors")
+    require(frozen, "the hand-off's codec differs from the train_ae checkpoint")
+    require(moved > 0 and all(math.isfinite(e["loss"]) for e in tr["epochs"]),
+            "the hand-off's U-Net did not train")
+    del best, saved, unet_sd
+    pred = run("handoff_predict", predict_diff.main, [
+        "data=flowers", "data/dataset=[flowers_anno,flowers_unanno]", "data.ratios=[1.0,1.0]",
+        "cfg_scale=1.5", "style_sampling=augmented", "style_agg=mean", *hwhere,
+        "data.samples=2", "ddim_steps=20", "+predict_name=handoff"])
+    check_pairs(Path(pred["predict_dir"]), 4, patch)
+    out["handoff"] = dict(predict=predict_rates(pred), seconds=time.time() - t1,
+                          ae_samples_per_s=ae["epochs"][0]["steps"] * 2
+                          / ae["epochs"][0]["seconds"])
+    out["seconds"] = time.time() - t0
+    log(f"  phase 9d took {out['handoff']['seconds']:.1f} s; phase 9 took {out['seconds']:.1f} s")
+    for name, c in counts.items():
+        _launch_check(c, ("gn_silu", "flash_attention", "nearest_code")
+                      + (("flash_attention_bwd",) if "train" in name or name == "handoff_ae"
+                         else ()), name)
+    return {f"phase9_{k}": v for k, v in out.items()}, counts
+
+
 # device-kernel name patterns, first match wins
 _CATEGORIES = (
     ("gn_silu (CUDA)", r"gn_silu_kernel"),
@@ -2502,12 +2792,13 @@ def main() -> int:
             "flash_attention_bwd", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
             f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
             "(_flash_attention_bwd_dq)", paths=("sample_batch", "train_micro_step",
-                                                "entry_train", "her2_train", "catch_train")),
+                                                "entry_train", "her2_train", "catch_train",
+                                                "svit_train", "handoff_train")),
         "flash_attention_bwd_dh512": KernelRecord(
             "flash_attention_bwd_dh512", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
             f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
             "(_flash_attention_bwd_dq), reached through stedm_tpu/models/vq.py:89",
-            counter="flash_attention_bwd", paths=("codec_step", "her2_ae")),
+            counter="flash_attention_bwd", paths=("codec_step", "her2_ae", "handoff_ae")),
         "nearest_code": KernelRecord("nearest_code", "cuda",
                                      "stedm_tpu_torch/csrc/nearest_code.cu",
                                      "stedm_tpu/ops/quantize.py:62"),
@@ -2623,10 +2914,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("== phase 7c: train_seg.main on phase 6's Flowers tree and its predicted pairs")
     seg_entry = seg_entry_point(torch, entry_root)
-    shutil.rmtree(entry_root, ignore_errors=True)
     seg_seconds = time.time() - t7
     log(f"  phase 7 took {seg_seconds:.1f} s")
     her2 = histopathology(torch)
+    workflow, workflow_counts = generation_workflow(torch, entry_root, out_dir, card)
+    shutil.rmtree(entry_root, ignore_errors=True)
     # launches: each kernel's count on each main path it runs on, zeroed just
     # before and read just after (the sampler's batch, the serving batch, one
     # training micro-step, one codec step, the entry points, one segmentation
@@ -2635,7 +2927,8 @@ def main() -> int:
                    "train_micro_step": train["train_launches_per_micro_step"],
                    "codec_step": codec["codec_launches_per_step"], **entry["entry_counts"],
                    "seg_train_step": seg["seg_launches_per_micro_step"],
-                   "seg_entry": seg_entry["seg_entry_counts"], **her2.pop("her2_counts")}
+                   "seg_entry": seg_entry["seg_entry_counts"], **her2.pop("her2_counts"),
+                   **workflow_counts}
     not_run = her2.pop("paths_not_run")
     if not_run:
         log(f"  launches on {', '.join(not_run)}: null, those paths did not run")
@@ -2655,7 +2948,7 @@ def main() -> int:
                       "gn_bound_ms_sample_batch": gn_bound_ms, "gn_ms_sample_batch": gn_ms,
                       "host_us_per_call": host_us, **serving, **train, **codec, **entry,
                       **seg_parity, **seg, **seg_entry, "seg_seconds": seg_seconds,
-                      **her2, "card": card}))
+                      **her2, **workflow, "card": card}))
     print(json.dumps({"kernels": [r.entry for r in recs.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

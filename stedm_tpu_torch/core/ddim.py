@@ -71,6 +71,20 @@ def rescaled_cfg(e_t: torch.Tensor, e_t_uncond: torch.Tensor, scale: float,
     return rescaled * rescale_phi + (1.0 - rescale_phi) * e_t
 
 
+def guided_eps(eps_fn: Callable, cfg_scale: float, rescale_phi: float) -> Callable:
+    """``eval(x, ts) -> eps``: the CFG pair resolved by ``rescaled_cfg``
+    when ``cfg_scale != 1``."""
+    use_cfg = cfg_scale != 1.0
+
+    def evaluate(x, ts):
+        out = eps_fn(x, ts)
+        if use_cfg:
+            return rescaled_cfg(out[0], out[1], cfg_scale, rescale_phi)
+        return out[0] if isinstance(out, tuple) else out
+
+    return evaluate
+
+
 def ddim_step(x, e_t, a_t, a_prev, sigma_t, sqrt_one_minus_at, noise=None):
     """One DDIM update x_t -> x_{t-1} (reference ddim.py:200-210); the scalar
     constants are float32 values."""

@@ -15,7 +15,7 @@ with three changes: slides are read through the port's host library
 coordinate scales by the mask's own step, as in data/her2.py; and
 ``CATCH_DM_Anno.prepare_data`` keeps the staged-zip and
 staged-directory branches and refuses the pull from an EXACT server (ROADMAP
-item 12), the one place the JAX package reads the ``split_file`` (with
+§1: the pull from an EXACT server), the one place the JAX package reads the ``split_file`` (with
 pandas).
 
 WSI tuple format: ``(file_path, (min_y, min_x), sampling_png, wsi_num)``; the
@@ -373,7 +373,7 @@ class CATCH_DM_Anno:
     def prepare_data(self):
         """Zip a staged tree (catch_dm.py:53-121). Pulling the slides and
         polygons from an EXACT server when neither the zip nor the tree is
-        staged is not ported (ROADMAP item 12)."""
+        staged is not ported (ROADMAP §1: the pull from an EXACT server)."""
         base_dir = f"{self._data_dir}/{self._zip_name}"
         zip_file = f"{base_dir}.zip"
         if not self._cfg.data.reload_data and os.path.isfile(zip_file):
@@ -383,7 +383,7 @@ class CATCH_DM_Anno:
             return
         raise NotImplementedError(
             f"{base_dir}: no staged tree or zip, and the pull from an EXACT server "
-            "(utils/exact.py) is not ported (ROADMAP item 12)")
+            "(utils/exact.py) is not ported (ROADMAP §1: the pull from an EXACT server)")
 
     def _load_lists(self, base_dir):
         out = []

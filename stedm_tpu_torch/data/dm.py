@@ -10,7 +10,8 @@ this is how unseen styles pair with known layouts at generation time
 A copy of stedm_tpu/data/dm.py (the port imports nothing of the JAX package)
 with one change: a shipped classpath ``stedm_tpu.data.<mod>.<Cls>`` resolves
 to ``stedm_tpu_torch.data.<mod>.<Cls>``. The Flowers, HER2 and CATCH modules
-are ported; the grain loader is not (ROADMAP item 12) and raises
+are ported; the grain loader is not (ROADMAP §1: a multiprocess loader)
+and raises
 ``NotImplementedError``.
 """
 
@@ -31,7 +32,7 @@ def get_obj_from_str(path: str):
         mod = path[len(_JAX_DATA):].partition(".")[0]
         if mod not in _PORTED:
             raise NotImplementedError(f"{path}: the {mod} data module is not ported "
-                                      "(ROADMAP item 12)")
+                                      "(ROADMAP §1)")
         path = "stedm_tpu_torch.data." + path[len(_JAX_DATA):]
     module, _, name = path.rpartition(".")
     return getattr(importlib.import_module(module), name)
@@ -65,7 +66,7 @@ class DataModule:
     def __init__(self, cfg):
         if cfg.location.get("loader") == "grain":
             raise NotImplementedError("location.loader=grain (the multiprocess loader) "
-                                      "is not ported (ROADMAP item 12)")
+                                      "is not ported (ROADMAP §1: a multiprocess loader)")
         self._cfg = cfg
         self._batch_size = cfg.data.batch_size
         self._n_workers = cfg.location.n_workers

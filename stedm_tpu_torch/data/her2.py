@@ -22,7 +22,8 @@ JAX package opens one per thread; a tissue-mask coordinate scales to the
 slide by the mask's own step (``wsi.tissue_mask_step``), not by
 ``kernel_size``, which lands 4x out on an ``ArraySlide`` (ROADMAP §3);
 ``HER2_DM_Anno.prepare_data`` keeps the staged-zip and staged-directory
-branches and refuses the pull from an EXACT server (ROADMAP item 12);
+branches and refuses the pull from an EXACT server (ROADMAP §1: the pull
+from an EXACT server);
 ``HER2_DM_UnAnno.setup`` reads the scoring list with the ``csv`` module,
 selecting the rows pandas' ``read_csv`` gives the JAX package
 (``read_score_list``).
@@ -384,7 +385,7 @@ class HER2_DM_Anno:
     def prepare_data(self):
         """Zip a staged tree (her2_dm.py:49-81). Pulling the slides and
         polygons from an EXACT server when neither the zip nor the tree is
-        staged is not ported (ROADMAP item 12)."""
+        staged is not ported (ROADMAP §1: the pull from an EXACT server)."""
         base_dir = f"{self._data_dir}/{self._zip_name}"
         zip_file = f"{base_dir}.zip"
         if not self._cfg.data.reload_data and os.path.isfile(zip_file):
@@ -394,7 +395,7 @@ class HER2_DM_Anno:
             return
         raise NotImplementedError(
             f"{base_dir}: no staged tree or zip, and the pull from an EXACT server "
-            "(utils/exact.py) is not ported (ROADMAP item 12)")
+            "(utils/exact.py) is not ported (ROADMAP §1: the pull from an EXACT server)")
 
     def setup(self, stage=None):
         base_dir = _stage_dir(self._data_dir, self._zip_name)

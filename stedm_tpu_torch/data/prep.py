@@ -11,7 +11,7 @@ A copy of stedm_tpu/data/prep.py (the port imports nothing of the JAX package)
 whose consensus runs in the port's host library (stedm_tpu_torch/native.py)
 and raises when it cannot be built; ``consensus_stack_numpy`` stays as the
 plain version the tests hold it against. Pulling the annotations from an
-EXACT server is not ported (ROADMAP item 12).
+EXACT server is not ported (ROADMAP §1: the pull from an EXACT server).
 
 HER2 class code convention (configs/data/dataset/her2_anno.yaml label_dict):
 0 BG, 1-4 HER2 grades, 5 DCIS/LCIS, 6 hard negative.

@@ -6,7 +6,8 @@ PIL by its content, whatever its name) or a numpy array, exposing the
 openslide subset the datasets use: ``read_region(location, level, size)``
 (RGBA, location in level-0 coords), ``level_downsamples``,
 ``level_dimensions``, ``dimensions``, ``close()``. Reading ``.svs`` pyramids
-through libopenslide is not ported (ROADMAP item 12); the JAX package takes
+through libopenslide is not ported (ROADMAP §1, not queued: OpenSlide); the
+JAX package takes
 that path only where openslide-python imports.
 
 Every patch read runs in the port's host library (stedm_tpu_torch/native.py):

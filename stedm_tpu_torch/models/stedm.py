@@ -2,7 +2,8 @@
 
 Sub-modules mirror the JAX parameter tree's top level: ``unet``,
 ``first_stage`` (the frozen VQ-f4 codec), ``cond_stage`` (SpatialRescaler)
-and ``agg`` (Swin-V2-T + aggregation). All methods take and return NHWC.
+and ``agg`` (Swin-V2-T + aggregation, or the set-ViT). All methods take and
+return NHWC.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from stedm_tpu_torch._device import resolve_device
 from stedm_tpu_torch.core.schedules import DiffusionSchedule
 from stedm_tpu_torch.models.agg import AggLinear, AggMax, AggMean, AggNone
 from stedm_tpu_torch.models.cond import SpatialRescaler
+from stedm_tpu_torch.models.svit import SViT
 from stedm_tpu_torch.models.swin import swin_v2_tiny
 from stedm_tpu_torch.models.unet import UNet
 from stedm_tpu_torch.models.vq import VQModelInterface
@@ -24,8 +26,9 @@ class STEDM(nn.Module):
     def __init__(self, unet_config: dict, first_stage_config: dict,
                  cond_stage_config: dict, style_agg: str = "linear",
                  style_sampling: str = "nearby", num_style_patches: int = 1,
-                 patch_size: int = 512, scale_factor: float = 1.0,
-                 conditioning_key: str = "hybrid", dtype: torch.dtype = torch.float32):
+                 patch_size: int = 512, svit_config: dict | None = None,
+                 scale_factor: float = 1.0, conditioning_key: str = "hybrid",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if conditioning_key not in ("hybrid", "concat"):
             raise NotImplementedError(f"conditioning_key={conditioning_key!r} comes "
@@ -37,6 +40,10 @@ class STEDM(nn.Module):
         self.cond_stage = SpatialRescaler(dtype=dtype, **cond_stage_config)
         if style_sampling == "none":
             self.agg = AggNone()
+        elif style_agg == "svit":   # stedm_tpu stedm.py:75-80
+            svit_args = {k: v for k, v in dict(svit_config or {}).items() if k != "name"}
+            self.agg = SViT(image_size=patch_size, num_classes=512, ns=num_style_patches,
+                            dtype=dtype, **svit_args)
         else:
             emb = swin_v2_tiny(512, dtype=dtype)
             blocks = {"linear": lambda: AggLinear(emb, num_style_patches),
@@ -60,7 +67,12 @@ class STEDM(nn.Module):
     def cond_encode(self, seg_onehot: torch.Tensor) -> torch.Tensor:
         return self.cond_stage(seg_onehot)
 
-    def style_encode(self, style_imgs: torch.Tensor) -> torch.Tensor:
+    def style_encode(self, style_imgs: torch.Tensor, train: bool = False,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+        """Style set ``[B, N, P, P, 3]`` -> the 512-d style vector; ``train``
+        turns on the set-ViT's dropout, drawn from ``generator``."""
+        if isinstance(self.agg, SViT):
+            return self.agg(style_imgs, train=train, generator=generator)
         return self.agg(style_imgs)
 
     def eps(self, z_noisy: torch.Tensor, t: torch.Tensor, seg_cond: torch.Tensor,
@@ -106,20 +118,24 @@ def build_stedm(cfg, device=None, seed: int = 0) -> STEDM:
 
     As the JAX function does, it ignores each sub-config's ``target`` and
     ``unet_config.params.image_size``, maps ``diffusion.compute_dtype`` and
-    takes ``num_style_patches`` from ``style_sampling`` (``mp`` only). The
-    layout mapper is two channels wide, the width of the one-hot the entry
-    points feed, as flax takes it from the init batch; the config's
-    ``cond_stage_config.params.in_channels`` is not read, as there. The
-    U-Net and the codec raise on a key they do not port; ``style_agg: svit``
-    raises (ROADMAP item 15). Runs on ``cuda`` unless ``device`` says
-    otherwise (``"meta"`` builds the structure only)."""
+    takes ``num_style_patches`` from ``style_sampling`` (``mp`` only) and,
+    for ``style_agg: svit``, the set-ViT's keys from ``style_agg`` (all but
+    ``name``). The first stage's ``ckpt_path`` is dropped, as there: the
+    entry points load it. The layout mapper is two channels wide, the width
+    of the one-hot the entry points feed, as flax takes it from the init
+    batch; the config's ``cond_stage_config.params.in_channels`` is not
+    read, as there. The U-Net and the codec raise on a key they do not
+    port. Runs on ``cuda`` unless ``device`` says otherwise (``"meta"``
+    builds the structure only)."""
     diff = cfg.diffusion
     dtype = _COMPUTE_DTYPES[diff.get("compute_dtype", "float32")]
     sampling = cfg.style_sampling
     num_patches = sampling.get("num_patches", 1) if sampling.name == "mp" else 1
     style_agg = cfg.style_agg.name if cfg.get("style_agg") else "linear"
-    if style_agg == "svit" and sampling.name != "none":
-        raise NotImplementedError("style_agg: svit is not ported (ROADMAP item 15)")
+    svit_cfg = ({k: v for k, v in dict(cfg.style_agg).items() if k != "name"}
+                if style_agg == "svit" else None)
+    fs_params = {k: v for k, v in dict(diff.first_stage_config.params).items()
+                 if k != "ckpt_path"}
     dev = resolve_device(device)
     cuda_devs = [dev.index or 0] if dev.type == "cuda" else []
     # the layout's width on the entry points: the one-hot collapsed to
@@ -130,10 +146,11 @@ def build_stedm(cfg, device=None, seed: int = 0) -> STEDM:
     with torch.random.fork_rng(devices=cuda_devs), torch.device(dev):
         torch.manual_seed(seed)
         return STEDM(unet_config=dict(diff.unet_config.params),
-                     first_stage_config=dict(diff.first_stage_config.params),
+                     first_stage_config=fs_params,
                      cond_stage_config=cond_stage_config,
                      style_agg=style_agg, style_sampling=sampling.name,
                      num_style_patches=num_patches, patch_size=cfg.data.patch_size,
+                     svit_config=svit_cfg,
                      scale_factor=diff.get("scale_factor", 1.0),
                      conditioning_key=diff.get("conditioning_key", "hybrid"),
                      dtype=dtype).eval()

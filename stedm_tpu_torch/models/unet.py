@@ -101,7 +101,7 @@ class UNet(nn.Module):
                 raise TypeError(f"UNet got an unexpected keyword argument {key!r}")
             if value != _SHIPPED[key]:
                 raise NotImplementedError(f"U-Net {key}={value!r} is not ported (ROADMAP "
-                                          f"item 15); the port takes {_SHIPPED[key]!r}")
+                                          f"§1: the rest); the port takes {_SHIPPED[key]!r}")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         mc = model_channels

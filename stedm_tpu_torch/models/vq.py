@@ -123,7 +123,7 @@ class _Mid(nn.Module):
 def _check_dropout(dropout: float) -> None:
     if dropout:
         raise NotImplementedError(f"dropout {dropout} in the codec's ResnetBlocks is not "
-                                  "ported (ROADMAP item 15; every shipped config sets 0.0)")
+                                  "ported (ROADMAP §1: the rest; every shipped config sets 0.0)")
 
 
 class VQEncoder(nn.Module):
@@ -266,16 +266,14 @@ class VQModelInterface(nn.Module):
     ``encode``, ``decode`` and ``training_recon`` take and return NHWC.
     ``ddconfig`` takes the shipped keys: ``double_z`` must be false and a
     non-zero ``dropout`` raises (not ported). ``monitor`` is ignored, as in
-    the JAX package; a ``ckpt_path`` other than None raises (a warm start
-    from a weight file, ROADMAP item 10)."""
+    the JAX package. A ``ckpt_path`` is loaded at construction by
+    ``utils.weights.load_first_stage``: a torch state dict through
+    ``map_vq``, or this package's ``ae_state`` / ``params`` file."""
 
     def __init__(self, embed_dim: int = 3, n_embed: int = 8192, ddconfig: dict | None = None,
                  dtype: torch.dtype = torch.float32, ckpt_path: str | None = None,
                  monitor: str | None = None):
         super().__init__()
-        if ckpt_path is not None:
-            raise NotImplementedError(f"first stage ckpt_path={ckpt_path!r}: warm starts "
-                                      "from a weight file are not ported (ROADMAP item 10)")
         enc, dec = codec_args(ddconfig, double_z=False)
         dd = dict(ddconfig or {})
         self.dtype, self.n_embed = dtype, n_embed
@@ -285,6 +283,9 @@ class VQModelInterface(nn.Module):
         self.quant_conv = conv1x1(z_ch, embed_dim)
         self.post_quant_conv = conv1x1(embed_dim, z_ch)
         self.quantize = VectorQuantizer(n_embed, embed_dim)
+        if ckpt_path is not None:
+            from stedm_tpu_torch.utils.weights import load_first_stage
+            load_first_stage(self, ckpt_path)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         h = channels_last(x.permute(0, 3, 1, 2).to(self.dtype))

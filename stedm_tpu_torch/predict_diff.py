@@ -1,5 +1,6 @@
-"""Generate synthetic (image, segmentation) pairs with DDIM + rescaled CFG on one
-card (the counterpart of predict_diff.py:50-325).
+"""Generate synthetic (image, segmentation) pairs with DDIM, PLMS or
+DPM-Solver++(2M) and rescaled CFG on one card (the counterpart of
+predict_diff.py:50-325).
 
 * loads a trained checkpoint (train/checkpoints.py: a full train state, from
   which ``+use_ema=true`` samples with the EMA shadow of the U-Net, or bare
@@ -7,12 +8,19 @@ card (the counterpart of predict_diff.py:50-325).
 * writes ``img_NNNNN.png`` / ``seg_NNNNN.png`` pairs under
   ``data_dir/syn_data/<predict_name>`` (reference predict_diff.py:51-57),
 * doubles ``cfg.data.samples`` (reference :62),
+* ``sampler: ddim | plms | dpm``,
 * the serving mode's knobs: ``+cache_interval``, ``+cache_levels``,
   ``+cache_schedule`` (``auto:R`` calibrates on the first batch),
   ``+cfg_interval=[lo,hi]``,
+* ``+canvas_size=<k * patch>``: k x k layouts of a batch are mosaicked into
+  one canvas with the first one's style, and sampled through tiled eps and
+  decode (exact DDIM; predict_diff.py:172-200, :301),
 * on the card, the block sampler replayed as CUDA graphs
   (train/host_sampler.py) serves by default; ``+host_loop=false`` gives the
   eager sampler, ``+block_carry`` and ``+unroll`` shape the blocks.
+
+As JAX's predict, it reads neither ``diffusion.ckpt_path`` nor the first
+stage's ``ckpt_path``: the run's checkpoint holds the codec.
 
 The loop is pipelined one batch deep: batch k+1's upload (pinned host memory,
 ``non_blocking``) and sampler launches are issued before batch k's images are
@@ -33,9 +41,9 @@ Usage, from the repository root, on a machine with one CUDA card::
         data/dataset=[her2_anno,her2_unanno] data.ratios=[1.0,1.0]
 
 ``main(argv, device=None, x_T_fn=None)`` runs on ``cuda``; tests pass
-``device="cpu"``. Refused: ``canvas_size`` above the patch and ``sampler:
-plms|dpm`` (ROADMAP item 15), a mesh of more than one device and a HER2 or
-CATCH tree that is not staged (item 12).
+``device="cpu"``. Refused: a mesh of more than one device (ROADMAP §1:
+torch.distributed) and a HER2 or CATCH tree that is not staged (ROADMAP
+§1: the pull from an EXACT server).
 """
 
 from __future__ import annotations
@@ -63,7 +71,7 @@ from stedm_tpu_torch.train import checkpoints
 from stedm_tpu_torch.train.calibrate import measure_cache_drift
 from stedm_tpu_torch.train.host_sampler import make_host_sample_fn
 from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
-from stedm_tpu_torch.train_diff import batch_to_ldm, refuse_warm_starts, single_device
+from stedm_tpu_torch.train_diff import batch_to_ldm, single_device
 
 
 def load_sampling_weights(model, ckpt_path: str, use_ema: bool) -> str:
@@ -108,6 +116,23 @@ def default_x_T(seed: int, dev: torch.device) -> Callable:
     return x_T_fn
 
 
+def mosaic(ldm_batch: dict, indices: np.ndarray, grid: int) -> tuple[dict, np.ndarray]:
+    """``grid`` x ``grid`` consecutive layouts of the batch as one canvas,
+    row-major, with the style and index of the first (predict_diff.py:
+    283-301); a remainder of fewer than ``grid**2`` layouts is dropped."""
+    g = grid * grid
+    n = ldm_batch["segmentation"].shape[0] // g
+
+    def tile(x):   # [n*g, p, p, C] -> [n, grid*p, grid*p, C]
+        p, c = x.shape[1], x.shape[-1]
+        x = x[:n * g].reshape(n, grid, grid, p, p, c)
+        return x.transpose(0, 1, 3, 2, 4, 5).reshape(n, grid * p, grid * p, c)
+
+    return ({"image": ldm_batch["image"][:n * g:g],
+             "segmentation": tile(ldm_batch["segmentation"]),
+             "style_imgs": ldm_batch["style_imgs"][:n * g:g]}, indices[:n * g:g])
+
+
 class _Laps:
     """Host-clock laps of the generation loop: (phase, seconds, end time)."""
 
@@ -141,7 +166,6 @@ def main(argv: list[str], device=None, x_T_fn: Callable | None = None) -> dict:
     t_start = time.perf_counter()
     cfg = compose("config_predict", argv)
     dev = resolve_device(device)
-    refuse_warm_starts(cfg)
 
     if cfg.data.batch_size is None:
         cfg.data.batch_size = cfg.data.batch_base * cfg.location.batch_mul
@@ -149,12 +173,13 @@ def main(argv: list[str], device=None, x_T_fn: Callable | None = None) -> dict:
     global_batch = cfg.data.batch_size * n_devices
     p = cfg.data.patch_size
     canvas = int(cfg.get("canvas_size", 0) or 0)
+    grid = 1
     if canvas > p:
-        raise NotImplementedError(f"canvas_size {canvas} above the patch {p}: tiled "
-                                  "canvases are not ported (ROADMAP item 15)")
+        if canvas % p:
+            raise SystemExit(f"canvas_size {canvas} must be a multiple of the "
+                             f"training patch {p}")
+        grid = canvas // p
     method = cfg.get("sampler", "ddim")
-    if method != "ddim":
-        raise NotImplementedError(f"sampler: {method} is not ported (ROADMAP item 15)")
 
     # double the sample budget (reference predict_diff.py:62)
     cfg.data.samples = cfg.data.samples * 2
@@ -199,6 +224,9 @@ def main(argv: list[str], device=None, x_T_fn: Callable | None = None) -> dict:
     loader_stream = iter(loader)
     spec = cfg.get("cache_schedule", None)
     if spec is not None:
+        if grid > 1:
+            raise SystemExit("deep-feature caching (+cache_schedule=) is not "
+                             "supported on tiled canvases (+canvas_size=)")
         n_steps = DDIMParams.create(schedule, cfg.ddim_steps, cfg.eta).num_steps
         spec = str(spec) if isinstance(spec, str) else list(spec)
         drift = None
@@ -265,10 +293,15 @@ def main(argv: list[str], device=None, x_T_fn: Callable | None = None) -> dict:
         laps.lap("data")
         ldm_batch = batch_to_ldm(np_batch)
         indices = np.asarray(np_batch[4])
-        b = ldm_batch["segmentation"].shape[0]
+        if grid > 1:
+            ldm_batch, indices = mosaic(ldm_batch, indices, grid)
+            if indices.size == 0:
+                print(f"batch {batch_idx}: fewer than {grid * grid} layouts, skipping")
+                continue
+        b, side = ldm_batch["segmentation"].shape[:2]
         batch = upload(ldm_batch)
         laps.lap("h2d")
-        x_T = x_T_fn(batch_idx, (b, p // 4, p // 4, 3))
+        x_T = x_T_fn(batch_idx, (b, side // 4, side // 4, 3))
         imgs = sample(model, batch, x_T=x_T,
                       generator=eta_gen.manual_seed((int(seed) << 32) + batch_idx))
         # the PNG quantisation ((x+1)*127.5, truncated) on the device

@@ -25,7 +25,8 @@ A checkpoint is one file, ``<ckpt_dir>/<name>.pt``, holding a dict:
 
 ``partial_restore`` keeps the JAX function's matching rule
 (checkpoints.py:43-66) on the port's dotted state_dict names. The JAX
-package's orbax directories are not read yet (ROADMAP item 10): given a
+package's orbax directories are not read yet (ROADMAP §1: reading a JAX
+orbax directory): given a
 directory, ``load`` raises and says so.
 """
 
@@ -117,7 +118,8 @@ def load(ckpt_path: str | Path) -> dict:
     if path.is_dir():
         raise NotImplementedError(
             f"{path} is a directory (an orbax checkpoint of the JAX package?): the "
-            "reader for those is still to come (ROADMAP item 10); the port reads "
+            "reader for those is still to come (ROADMAP §1: reading a JAX orbax "
+            "directory); the port reads "
             f"its own <name>{SUFFIX} files")
     if not path.is_file() and path.suffix != SUFFIX:
         path = path.with_name(path.name + SUFFIX)
@@ -158,15 +160,6 @@ def restore(ckpt_dir: str | Path, state: TrainState | SegTrainState,
     state.ema_updates = payload["ema_updates"]
     state.step = payload["step"]
     return state
-
-
-def restore_params(ckpt_path: str | Path) -> dict[str, torch.Tensor]:
-    """The state_dict of a params-only checkpoint, or the codec's of a codec
-    fine-tuning state (a warm start of train_ae)."""
-    payload = load(ckpt_path)
-    if payload["format"] not in ("params", "ae_state"):
-        raise ValueError(f"{ckpt_path} holds a full train state, not bare params")
-    return payload["params"]
 
 
 def partial_restore(params: Mapping[str, torch.Tensor], loaded: Mapping[str, torch.Tensor], *,

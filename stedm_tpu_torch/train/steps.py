@@ -9,15 +9,19 @@ the model and in ``TrainState`` and is updated in place; the step returns
 ``(state, metrics)`` as the JAX step does.
 
 ``make_sample_fn`` returns ``sample(model, batch, x_T=None, generator=None)``
-producing images in [-1, 1], NHWC ``[B, P, P, 3]`` (steps.py:146-167,
-:258-446) with DDIM. The unconditional branch uses the same layout with
-dropped (constant -2) style images. CFG modes: none; shared-encoder batched
-CFG (the style enters only at the bottleneck, so the encoder runs once at
-batch B and the bottleneck and decoder fan out over cond/uncond); batched
-CFG without sharing; two calls. The serving mode's knobs, alone or composed:
-deep-feature reuse every ``cache_interval`` steps or on the refresh
-positions ``cache_schedule``, at ``cache_levels``, and a guidance window
-``cfg_interval``. PLMS, DPM-Solver and tiled canvases are not ported.
+producing images in [-1, 1], NHWC ``[B, P, P, 3]`` (steps.py:146-446) with
+DDIM, PLMS or DPM-Solver++(2M). The unconditional branch uses the same
+layout with dropped (constant -2) style images. CFG modes: none;
+shared-encoder batched CFG (the style enters only at the bottleneck, so the
+encoder runs once at batch B and the bottleneck and decoder fan out over
+cond/uncond); batched CFG without sharing; two calls. The serving mode's
+knobs, alone or composed: deep-feature reuse every ``cache_interval`` steps
+or on the refresh positions ``cache_schedule``, at ``cache_levels``, and a
+guidance window ``cfg_interval``. A layout larger than the model's patch is
+a canvas (exact DDIM only, steps.py:170-255): every eps evaluation and the
+decode run over overlapping latent tiles stitched with a triangle window
+(``ops/tiled.py``), the CFG pair packed in the channel axis under the
+shared-encoder fan-out.
 """
 
 from __future__ import annotations
@@ -37,7 +41,10 @@ from stedm_tpu_torch.core.ddim import (
     serving_refresh,
 )
 from stedm_tpu_torch.core.diffusion import p_losses
+from stedm_tpu_torch.core.dpm_solver import dpm_solver_pp_sample
+from stedm_tpu_torch.core.plms import plms_sample
 from stedm_tpu_torch.core.schedules import DiffusionSchedule
+from stedm_tpu_torch.ops.tiled import tiled_apply
 from stedm_tpu_torch.train.ema import ema_update
 from stedm_tpu_torch.train.optim import Optimizer, OptState
 
@@ -101,8 +108,10 @@ def make_train_step(model: torch.nn.Module, schedule: DiffusionSchedule, tx: Opt
     ``batch``: ``image`` [B,P,P,3], ``segmentation`` [B,P,P,2] one-hot,
     ``style_imgs`` [B,N,P,P,3] (style drop already applied). t and the noise
     are drawn from ``generator`` (t first), unless ``t`` and ``noise`` are
-    given. ``learn_logvar``: the state's ``logvar`` receives gradients;
-    otherwise a static buffer of ``logvar_init`` (None when 0)."""
+    given; then the set-ViT's dropout (``style_agg: svit``), which the JAX
+    step cannot draw (ROADMAP §3). ``learn_logvar``: the state's ``logvar``
+    receives gradients; otherwise a static buffer of ``logvar_init`` (None
+    when 0)."""
     dev = resolve_device(device)
     n_t = schedule.num_timesteps
     static_logvar = (torch.full((n_t,), float(logvar_init), dtype=torch.float32, device=dev)
@@ -118,18 +127,19 @@ def make_train_step(model: torch.nn.Module, schedule: DiffusionSchedule, tx: Opt
         image, seg, style_imgs = (torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
                                   for k in ("image", "segmentation", "style_imgs"))
         z = model.encode_first_stage(image)
+        if t is None:
+            t = torch.randint(0, n_t, (z.shape[0],), generator=generator, device=dev)
+        if noise is None:
+            noise = torch.randn(z.shape, generator=generator, device=dev)
         seg_cond = model.cond_encode(seg)
-        style = model.style_encode(style_imgs)
+        # the set-ViT's dropout draws from the generator after t and noise
+        style = model.style_encode(style_imgs, train=True, generator=generator)
         # constant style sets (the style-drop fill) make every LayerNorm of
         # the style encoder see zero variance, and its backward overflows;
         # their style vector passes through without a gradient (steps.py:104-113)
         s = style_imgs.reshape(style.shape[0], -1)
         constant = (s.amax(dim=1) - s.amin(dim=1)) < 1e-6
         style = torch.where(constant[:, None], style.detach(), style)
-        if t is None:
-            t = torch.randint(0, n_t, (z.shape[0],), generator=generator, device=dev)
-        if noise is None:
-            noise = torch.randn(z.shape, generator=generator, device=dev)
         t = torch.as_tensor(t, dtype=torch.long, device=dev)
         noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
 
@@ -169,6 +179,8 @@ class SamplerConfig:
                                   # with cache_interval > 1 (core/cache_schedule.py)
     cfg_interval: tuple = None    # (lo_frac, hi_frac): CFG only on scan positions
                                   # [lo*S, hi*S); None = every step
+    tile_stride_frac: float = 0.75  # latent tile stride on a canvas (fraction of
+                                    # the latent patch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,8 +218,8 @@ def plan_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> Samp
     all raised here, before the first sample: eta > 0 or a guidance window
     with a method other than DDIM; caching with another method, with
     ``cache_interval > 1`` and ``cache_schedule`` together, or with CFG
-    without ``batched_cfg`` and bottleneck-only conditioning. Then PLMS and
-    DPM-Solver, which are not ported, raise ``NotImplementedError``."""
+    without ``batched_cfg`` and bottleneck-only conditioning. A method other
+    than ddim, plms and dpm raises ``NotImplementedError``."""
     ddim = DDIMParams.create(schedule, cfg.ddim_steps, cfg.eta)
     use_cfg = cfg.use_cfg and cfg.cfg_scale != 1.0
     if cfg.eta > 0 and cfg.method != "ddim":
@@ -229,9 +241,8 @@ def plan_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> Samp
         if use_cfg and not shared_enc:
             raise ValueError("deep-feature caching with CFG requires batched_cfg and "
                              "bottleneck-only conditioning (shared-encoder fan-out)")
-    if cfg.method != "ddim":
-        raise NotImplementedError(f"method={cfg.method!r} (PLMS, DPM-Solver) comes "
-                                  "with the samplers slice")
+    if cfg.method not in ("ddim", "plms", "dpm"):
+        raise NotImplementedError(f"unknown sampler method {cfg.method!r}")
     refresh = None
     if caching:
         positions = (cfg.cache_schedule if cfg.cache_schedule is not None
@@ -247,8 +258,6 @@ def prepare_conditioning(model, batch: dict, plan: SamplerPlan, dev):
     ``[2B, 512]``."""
     seg = torch.as_tensor(batch["segmentation"], dtype=torch.float32, device=dev)
     style_imgs = torch.as_tensor(batch["style_imgs"], dtype=torch.float32, device=dev)
-    if seg.shape[1] > model.patch_size:
-        raise NotImplementedError("tiled canvases come in a later slice")
     seg_cond = model.cond_encode(seg)
     ctx = model.style_encode(style_imgs)
     if plan.use_cfg:
@@ -271,6 +280,68 @@ def initial_latent(batch: dict, cfg: SamplerConfig, x_T, generator, dev) -> torc
     return torch.as_tensor(x_T, dtype=torch.float32, device=dev)
 
 
+def is_canvas(model, batch: dict) -> bool:
+    """A layout larger than the model's patch: a canvas."""
+    return tuple(batch["segmentation"].shape)[1] > model.patch_size
+
+
+def check_tiled_supported(plan: SamplerPlan) -> None:
+    """The canvas path's refusals (stedm_tpu steps.py:170-182, :300-303): a
+    guidance window, caching or CFG without the shared-encoder fan-out
+    (ValueError); a method other than DDIM (NotImplementedError)."""
+    if plan.cfg_interval is not None:
+        raise ValueError("cfg_interval is not supported on the tiled canvas path")
+    if plan.cfg.method != "ddim":
+        raise NotImplementedError("tiled canvases support DDIM only "
+                                  f"(got method={plan.cfg.method!r})")
+    if plan.caching:
+        raise ValueError("deep-feature caching is not supported on the tiled canvas path")
+    if plan.use_cfg and not plan.shared_enc:
+        raise ValueError("tiled canvases with CFG require batched_cfg and bottleneck-only "
+                         "conditioning (shared-encoder fan-out)")
+
+
+def _tiles(model, cfg: SamplerConfig) -> tuple[int, int]:
+    """The latent tile and its stride."""
+    lat = model.patch_size // cfg.downsample
+    return lat, max(1, int(lat * cfg.tile_stride_frac))
+
+
+def make_tiled_eps(model, plan: SamplerPlan, seg_cond: torch.Tensor,
+                   ctx: torch.Tensor) -> Callable:
+    """Canvas eps (stedm_tpu steps.py:185-226): every evaluation runs over
+    overlapping latent tiles stitched with the window. Under CFG ``ctx`` is
+    the ``[2B]`` cond/uncond style (shared-encoder fan-out) and the pair is
+    packed in the tile's channel axis, so both branches stitch in one pass;
+    returns eps, or the pair under CFG."""
+    lat, stride = _tiles(model, plan.cfg)
+    c_lat, b, pair = plan.cfg.latent_channels, seg_cond.shape[0], plan.use_cfg
+
+    def eps_fn(x, t):
+        canvas = torch.cat([x, seg_cond.to(x.dtype)], dim=-1)
+
+        def tile_fn(tile):
+            e = model.eps(tile[..., :c_lat], t, tile[..., c_lat:], ctx)
+            return torch.cat([e[:b], e[b:]], dim=-1) if pair else e
+
+        out = tiled_apply(tile_fn, canvas, lat, stride, out_channels=(1 + pair) * c_lat)
+        return (out[..., :c_lat], out[..., c_lat:]) if pair else out
+
+    return eps_fn
+
+
+def decode_latent(model, cfg: SamplerConfig, z: torch.Tensor) -> torch.Tensor:
+    """Latent -> images in [-1, 1]; a canvas latent decodes tile by tile
+    (stedm_tpu steps.py:229-237)."""
+    lat, stride = _tiles(model, cfg)
+    if z.shape[1] > lat:
+        img = tiled_apply(model.decode_first_stage, z, lat, stride, out_channels=3,
+                          scale=cfg.downsample)
+    else:
+        img = model.decode_first_stage(z)
+    return torch.clamp(img, -1.0, 1.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class EpsFns:
     """The model evaluations of a sampler, each ``(x, t[, cache])``: ``pair``
@@ -291,7 +362,11 @@ class EpsFns:
 def eps_functions(model, plan: SamplerPlan, seg_cond: torch.Tensor,
                   ctx: torch.Tensor) -> EpsFns:
     """The sampler's model evaluations on the conditioning that
-    ``prepare_conditioning`` made (stedm_tpu steps.py:318-393)."""
+    ``prepare_conditioning`` made (stedm_tpu steps.py:318-393); on a canvas
+    the tiled eps (``make_tiled_eps``) and nothing else."""
+    if seg_cond.shape[1] > model.patch_size // plan.cfg.downsample:
+        tiled = make_tiled_eps(model, plan, seg_cond, ctx)
+        return EpsFns(tiled, tiled, None, None, None, None)
     b, levels = seg_cond.shape[0], plan.cfg.cache_levels
     style_c = ctx[:b]
     split = lambda e: (e[:b], e[b:])
@@ -341,6 +416,8 @@ def make_sample_fn(model, schedule: DiffusionSchedule, cfg: SamplerConfig,
     def sample(model, batch: dict, x_T: torch.Tensor | None = None,
                generator: torch.Generator | None = None) -> torch.Tensor:
         check_model_device(model, dev)
+        if is_canvas(model, batch):
+            check_tiled_supported(plan)
         seg_cond, ctx = prepare_conditioning(model, batch, plan, dev)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -349,7 +426,13 @@ def make_sample_fn(model, schedule: DiffusionSchedule, cfg: SamplerConfig,
         kw = dict(cfg_scale=plan.scale, rescale_phi=cfg.rescale_phi,
                   generator=generator if cfg.eta > 0 else None)
         glo, ghi = plan.window
-        if plan.caching:
+        if cfg.method == "plms":
+            z_0 = plms_sample(f.pair, x_T, ddim, cfg_scale=plan.scale,
+                              rescale_phi=cfg.rescale_phi)
+        elif cfg.method == "dpm":
+            z_0 = dpm_solver_pp_sample(f.pair, x_T, schedule, cfg.ddim_steps,
+                                       cfg_scale=plan.scale, rescale_phi=cfg.rescale_phi)
+        elif plan.caching:
             z_0 = ddim_sample_scheduled_guided(
                 f.full, f.cached, f.full_cond, f.cached_cond, x_T, ddim,
                 refresh_positions=plan.refresh, guided_lo=glo, guided_hi=ghi, **kw)
@@ -358,6 +441,6 @@ def make_sample_fn(model, schedule: DiffusionSchedule, cfg: SamplerConfig,
                                      guided_hi=ghi, **kw)
         else:
             z_0 = ddim_sample(f.pair, x_T, ddim, **kw)
-        return torch.clamp(model.decode_first_stage(z_0), -1.0, 1.0)
+        return decode_latent(model, cfg, z_0)
 
     return sample

@@ -16,10 +16,12 @@ point (random VGG features are no perceptual metric); with it, a
 comma-separated list of torch state_dict files (taming's ``vgg.pth`` heads,
 a torchvision VGG16, a full taming LPIPS) is loaded. A warm start
 (``diffusion.first_stage_config.params.ckpt_path``, under ``result_dir``)
-reads the port's own checkpoint file: a ``_best`` or ``_last`` of this
-entry point or a params file. Refused: a JAX orbax directory and a CompVis
-``.ckpt`` (ROADMAP item 10), a mesh of more than one device and a HER2 or
-CATCH tree that is not staged (item 12).
+reads a torch state dict through ``map_vq`` (a CompVis ``vq-f4.ckpt``,
+bare or under ``first_stage_model.``), or the port's own checkpoint file: a
+``_best`` or ``_last`` of this entry point or a params file. Refused: a JAX
+orbax directory (ROADMAP §1: reading a JAX orbax directory), a mesh of more
+than one device (ROADMAP §1: torch.distributed) and a HER2 or CATCH tree
+that is not staged (ROADMAP §1: the pull from an EXACT server).
 
 The repository's configs are yaml; this package keeps Python copies of the
 pieces its tests and chip_smoke.py build codecs from (``AE_LOSS``:
@@ -42,7 +44,6 @@ from __future__ import annotations
 
 import sys
 import time
-from pathlib import Path
 
 import torch
 
@@ -64,7 +65,7 @@ from stedm_tpu_torch.train.ae_steps import (
 from stedm_tpu_torch.train.vae_losses import VAELossConfig, build_discriminator
 from stedm_tpu_torch.train_diff import single_device
 from stedm_tpu_torch.utils.logging import EventLogger
-from stedm_tpu_torch.utils.weights import load_torch_state_dict
+from stedm_tpu_torch.utils.weights import load_first_stage, load_torch_state_dict
 
 # configs/config_ae.yaml
 BASE_LR = 4.5e-6
@@ -93,17 +94,21 @@ def scaled_lr(base_lr: float, accumulate: int, global_batch: int,
 def build_codec(first_stage_config: dict, dtype: torch.dtype = torch.float32):
     """``(model, variant)`` for a first-stage config (``target`` and
     ``params``): ``AutoencoderKL`` -> ``"kl"``, anything else the VQ codec ->
-    ``"vq"``. A ``ckpt_path`` is refused: loading it is not ported."""
+    ``"vq"``. A ``ckpt_path`` is loaded into it as given
+    (``utils.weights.load_first_stage``)."""
     params = dict(first_stage_config["params"])
-    if params.pop("ckpt_path", None):
-        raise NotImplementedError("a codec checkpoint (ckpt_path) cannot be loaded yet")
+    ckpt_path = params.pop("ckpt_path", None)
     params.pop("monitor", None)
     params.pop("lossconfig", None)
     params["ddconfig"] = dict(params["ddconfig"])
     if str(first_stage_config["target"]).rsplit(".", 1)[-1] == "AutoencoderKL":
         params.pop("n_embed", None)
-        return AutoencoderKL(dtype=dtype, **params), "kl"
-    return VQModelInterface(dtype=dtype, **params), "vq"
+        model, variant = AutoencoderKL(dtype=dtype, **params), "kl"
+    else:
+        model, variant = VQModelInterface(dtype=dtype, **params), "vq"
+    if ckpt_path:
+        load_first_stage(model, ckpt_path)
+    return model, variant
 
 
 # torchvision VGG16 ``features`` indices where each LPIPS slice ends
@@ -158,16 +163,12 @@ def maybe_load_lpips(cfg, device) -> LPIPS | None:
     return lpips.to(device).eval()
 
 
-def warm_start(model, cfg, fs_ckpt: str) -> None:
-    """Load the codec's weights from the port's checkpoint file
-    ``<result_dir>/<fs_ckpt>`` (train_ae.py:145-167). A JAX orbax directory
-    (``checkpoints.load`` refuses it) and a CompVis ``.ckpt`` are not read
-    (ROADMAP item 10)."""
-    path = Path(f"{cfg.location.result_dir}/{fs_ckpt}")
-    if path.suffix == ".ckpt":
-        raise NotImplementedError(f"{path}: warm starts from a CompVis .ckpt are not "
-                                  "ported (ROADMAP item 10)")
-    model.load_state_dict(checkpoints.restore_params(path), strict=True)
+def warm_start(model, cfg, fs_ckpt: str) -> tuple[int, int]:
+    """Load the codec's weights from ``<result_dir>/<fs_ckpt>``
+    (train_ae.py:144-162): a torch state dict through ``map_vq``, or this
+    package's own checkpoint file. A JAX orbax directory raises (ROADMAP
+    §1: reading a JAX orbax directory)."""
+    return load_first_stage(model, f"{cfg.location.result_dir}/{fs_ckpt}")
 
 
 def _mean(logs: list[dict]) -> dict[str, float]:

@@ -20,11 +20,18 @@ Usage, from the repository root, on a machine with one CUDA card::
     python -m stedm_tpu_torch.train_diff data=her2 style_sampling=nearby \\
         location.data_dir=/data location.result_dir=/results
 
+Warm starts (train_diff.py:97-111), both paths under ``location.result_dir``:
+``diffusion.first_stage_config.params.ckpt_path`` loads the codec, from a
+``train_ae`` output (``<run>/ckpt/<run>_best.pt``, the documented hand-off)
+or a torch state dict through ``map_vq``; ``diffusion.ckpt_path`` loads a
+CompVis ``.ckpt`` into the U-Net (``load_only_unet``, default true) or the
+whole model, with ``ignore_keys`` (utils/weights.py).
+
 ``main(argv, device=None)`` runs on ``cuda``; tests pass ``device="cpu"``.
-Not ported, and refused: a mesh of more than one device and a HER2 or
-CATCH tree that is not staged (its pull from an EXACT server; ROADMAP item 12),
-warm starts from a weight file (``diffusion.ckpt_path``,
-``first_stage_config.params.ckpt_path``; item 10) and ``+adamw_m_bf16``.
+Not ported, and refused: a mesh of more than one device (ROADMAP §1:
+torch.distributed), a HER2 or CATCH tree that is not staged (ROADMAP §1:
+the pull from an EXACT server), a JAX orbax directory as a warm start
+(ROADMAP §1: reading a JAX orbax directory) and ``+adamw_m_bf16``.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from stedm_tpu_torch.train.steps import (
     make_train_step,
 )
 from stedm_tpu_torch.utils.logging import EventLogger
+from stedm_tpu_torch.utils.weights import load_first_stage, load_into_model
 
 
 def batch_to_ldm(np_batch: tuple) -> dict:
@@ -70,7 +78,7 @@ def batch_to_ldm(np_batch: tuple) -> dict:
 def single_device(cfg, dev: torch.device) -> int:
     """The device count that ``location.mesh`` resolves to (``-1``: every
     visible card), which must be one: a mesh of several devices, or several
-    processes, is not ported (ROADMAP item 12)."""
+    processes, is not ported (ROADMAP §1: torch.distributed)."""
     visible = torch.cuda.device_count() if dev.type == "cuda" else 1
     mesh = dict(cfg.location.mesh)
     n = math.prod(visible if int(v) == -1 else int(v) for v in mesh.values())
@@ -78,17 +86,28 @@ def single_device(cfg, dev: torch.device) -> int:
     if n != 1 or procs != 1:
         raise NotImplementedError(
             f"location.mesh {mesh} resolves to {n} devices in {procs} processes: the port "
-            "runs on one device (multi-GPU is ROADMAP item 12)")
+            "runs on one device (multi-GPU is ROADMAP §1: torch.distributed)")
     return n
 
 
-def refuse_warm_starts(cfg) -> None:
-    """Warm starts from a weight file wait for such files in the repository
-    (ROADMAP item 10)."""
-    for key in ("diffusion.first_stage_config.params.ckpt_path", "diffusion.ckpt_path"):
-        if cfg.get_path(key):
-            raise NotImplementedError(f"{key}={cfg.get_path(key)!r}: warm starts from a "
-                                      "weight file are not ported (ROADMAP item 10)")
+def warm_start(cfg, model) -> dict:
+    """The two optional loads of train_diff.py:97-111, paths under
+    ``location.result_dir``: the first stage into the codec
+    (``load_first_stage``), then ``diffusion.ckpt_path`` into the U-Net or,
+    with ``load_only_unet: false``, the whole model, skipping
+    ``ignore_keys``. Returns the (loaded, left at init) counts by key."""
+    counts = {}
+    fs_ckpt = cfg.diffusion.first_stage_config.params.get("ckpt_path")
+    if fs_ckpt:
+        counts["first_stage"] = load_first_stage(
+            model.first_stage, f"{cfg.location.result_dir}/{fs_ckpt}")
+    unet_ckpt = cfg.diffusion.get("ckpt_path")
+    if unet_ckpt:
+        counts["diffusion"] = load_into_model(
+            model, f"{cfg.location.result_dir}/{unet_ckpt}",
+            subtree="unet" if cfg.diffusion.get("load_only_unet", True) else None,
+            ignore_keys=list(cfg.diffusion.get("ignore_keys", None) or []))
+    return counts
 
 
 def count_params(model: torch.nn.Module, name: str = "model") -> int:
@@ -114,10 +133,9 @@ def main(argv: list[str], device=None) -> dict:
     loss, seconds, micro-steps and samples, and the host clock the loop
     spent getting batches (``data_s``) and issuing their copies (``h2d_s``);
     the step it started from (the restored one on a resume) and the last;
-    the scale factor."""
+    the scale factor; the warm starts' (loaded, left at init) counts."""
     cfg = compose("config_diff", argv)
     dev = resolve_device(device)
-    refuse_warm_starts(cfg)
     if cfg.get("adamw_m_bf16"):
         raise NotImplementedError("+adamw_m_bf16 (a bf16 first moment) has no counterpart "
                                   "in torch.optim.AdamW")
@@ -142,6 +160,7 @@ def main(argv: list[str], device=None) -> dict:
 
     model = build_stedm(cfg, dev, seed=seed)
     count_params(model, name="STEDM")  # reference prints this at init (ddpm.py:90)
+    loaded = warm_start(cfg, model)
 
     schedule = DiffusionSchedule.create(
         cfg.diffusion.beta_schedule, cfg.diffusion.timesteps,
@@ -219,7 +238,8 @@ def main(argv: list[str], device=None) -> dict:
 
     logger.close()
     return {"epochs": epochs, "start_step": start_step, "step": state.step,
-            "scale_factor": float(model.scale_factor), "run_dir": result_dir}
+            "scale_factor": float(model.scale_factor), "run_dir": result_dir,
+            "warm_start": loaded}
 
 
 def _load_preview_styles(cfg, folder: str) -> list[np.ndarray]:

@@ -31,9 +31,10 @@ Usage, from the repository root, on a machine with one CUDA card
         data.ratios=[0.2,0.8] location.data_dir=/data location.result_dir=/results
 
 ``main(argv, device=None)`` runs on ``cuda``; tests pass ``device="cpu"``.
-Not ported, and refused: a mesh of more than one device, the grain loader
-and a HER2 or CATCH tree that is not staged (its pull from an EXACT
-server; ROADMAP item 12).
+Not ported, and refused: a mesh of more than one device (ROADMAP §1:
+torch.distributed), the grain loader (ROADMAP §1: a multiprocess loader)
+and a HER2 or CATCH tree that is not staged (ROADMAP §1: the pull from an
+EXACT server).
 
 The JAX entry point never hands ``_epoch_metrics`` the subtype names, so
 it logs no subtype IoU whatever ``eval_subtypes`` says; this one does when
@@ -163,7 +164,7 @@ def main(argv: list[str], device=None) -> dict:
         syn = [n for n in cfg.data.dataset if n.endswith("_syn")]
         run_name = f"seg_{syn[0] if syn else cfg.data.name}"
     # first, so that the grain loader and a HER2 or CATCH tree that would
-    # need the EXACT pull refuse before anything is written (ROADMAP item 12)
+    # need the EXACT pull refuse before anything is written (ROADMAP §1: the pull from an EXACT server)
     dm = DataModule(cfg)
     dm.prepare_data()
     result_dir = f"{cfg.location.result_dir}/{run_name}"

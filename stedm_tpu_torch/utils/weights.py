@@ -11,6 +11,15 @@ have their own: ``codec_state_dict`` (VQ or KL codec),
 ``discriminator_state_dict`` (params and batch statistics) and
 ``lpips_state_dict``; the segmentation net has ``seg_state_dict`` and the
 MiT-B2 importer ``load_seg_encoder`` (torch_import.py:445, :655-671).
+
+The CompVis readers (torch_import.py:101-442, :674-732) load a torch
+checkpoint into the port's models with the JAX importer's rule: a tensor
+that the importer maps (``map_unet``, ``map_vq``, ``map_full_ldm``) is
+loaded where its name and shape match, everything else keeps its init. The
+importer names what it maps by flax paths, and ``ignore_keys`` are matched
+as substrings of those; so every port parameter carries its flax path
+(``flax_paths``, the inverse of the name maps above) and the readers match
+on it, skipping exactly what the JAX importer skips.
 Nothing here imports the JAX package.
 """
 
@@ -267,10 +276,13 @@ def load_torch_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
     file comes from outside, so it is read with ``weights_only=True`` and
     never fully unpickled (the JAX importer falls back to that); a file
     holding other objects raises."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if "state_dict" in sd:
-        sd = sd["state_dict"]
-    return {k: torch.as_tensor(v) for k, v in sd.items() if hasattr(v, "shape")}
+    return _tensors(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def _tensors(payload: Mapping) -> dict[str, torch.Tensor]:
+    if "state_dict" in payload:
+        payload = payload["state_dict"]
+    return {k: torch.as_tensor(v) for k, v in payload.items() if hasattr(v, "shape")}
 
 
 def load_seg_encoder(model: torch.nn.Module, path: str | Path) -> tuple[int, int]:
@@ -281,12 +293,13 @@ def load_seg_encoder(model: torch.nn.Module, path: str | Path) -> tuple[int, int
     takes the file's tensor where the name and shape match and keeps its
     value otherwise; returns (loaded, left) counted over all the model's
     parameters, printed as the JAX importer prints them. A directory (an
-    orbax checkpoint) is not read yet (ROADMAP item 10) and raises."""
+    orbax checkpoint) is not read yet (ROADMAP §1: reading a JAX orbax
+    directory) and raises."""
     p = Path(path)
     if p.is_dir():
         raise NotImplementedError(
             f"{p} is a directory (an orbax checkpoint of the JAX package?): the reader "
-            "for those is still to come (ROADMAP item 10)")
+            "for those is still to come (ROADMAP §1: reading a JAX orbax directory)")
     sd = load_torch_state_dict(p)
     root = next((cand for cand in ("_model.encoder.", "model.encoder.", "encoder.")
                  if any(k.startswith(cand + "patch_embed1.") for k in sd)), "")
@@ -302,3 +315,314 @@ def load_seg_encoder(model: torch.nn.Module, path: str | Path) -> tuple[int, int
                 n_left += 1
     print(f"[torch_import] merged {n_loaded} tensors ({n_left} left at init)")
     return n_loaded, n_left
+
+
+# ---- the CompVis readers ---------------------------------------------------
+
+_RES_FLAX = {v: k for k, v in _RES.items()}
+
+
+def _unet_flax(path: str, model: torch.nn.Module) -> str:
+    """A U-Net module path -> its flax path (the inverse of ``_unet_parts``)."""
+    if m := re.fullmatch(r"time_embed\.(\d+)", path):
+        return f"time_embed_{m[1]}"
+    if path in ("out.0", "out.2"):
+        return "out_norm" if path == "out.0" else "out_conv"
+    if m := re.fullmatch(r"middle_block\.1\.block(\..+)?", path):
+        head, rest = "middle_block_1", m[1] or ""
+    elif m := re.fullmatch(r"middle_block\.(\d)(\..+)?", path):
+        head, rest = f"middle_block_{m[1]}", m[2] or ""
+    elif m := re.fullmatch(r"(input|output)_blocks\.(\d+)\.(\d+)(\..+)?", path):
+        kind, i, j, rest = m[1], m[2], m[3], m[4] or ""
+        block = model.get_submodule(f"{kind}_blocks.{i}.{j}")
+        up = type(block).__name__ == "Upsample"
+        head = f"{kind}_blocks_{i}_{'up' if up else j}"
+    else:
+        raise KeyError(f"unknown U-Net module {path!r}")
+    parts = rest.lstrip(".").split(".") if rest else []
+    for k in range(len(parts) - 1, -1, -1):     # two-part ResBlock names first
+        pair = ".".join(parts[k:k + 2])
+        if pair in _RES_FLAX:
+            parts[k:k + 2] = [_RES_FLAX[pair]]
+    return "/".join([head] + [_RES_FLAX.get(p, p) for p in parts])
+
+
+def _vq_flax(path: str, model) -> str:
+    path = re.sub(r"(down|up)\.(\d+)\.(block|attn)\.(\d+)", r"\1_\2_\3_\4", path)
+    path = re.sub(r"(down|up)\.(\d+)\.(downsample|upsample)", r"\1_\2_\3", path)
+    return re.sub(r"mid\.(block_1|block_2|attn_1)", r"mid_\1", path).replace(".", "/")
+
+
+_SWIN_FLAX = {v: k for k, v in _SWIN.items()}
+
+
+def _swin_flax(path: str) -> str:
+    for port, flax in _SWIN_FLAX.items():
+        if path == port or path.startswith(port + "."):
+            return flax + path[len(port):].replace(".", "/")
+    out, parts = [], path.split(".")
+    while parts:
+        if len(parts) >= 3 and parts[0] == "features" and int(parts[1]) % 2:
+            out.append(f"stage{(int(parts[1]) - 1) // 2}_block{parts[2]}")
+            parts = parts[3:]
+        elif len(parts) >= 2 and parts[0] == "features":
+            out.append(f"merge{int(parts[1]) // 2 - 1}")
+            parts = parts[2:]
+        elif ".".join(parts[:2]) in _SWIN_FLAX:
+            out.append(_SWIN_FLAX[".".join(parts[:2])])
+            parts = parts[2:]
+        else:
+            out.append(parts.pop(0))
+    return "/".join(out)
+
+
+def _agg_flax(path: str, model) -> str:
+    if path == "embedder" or path.startswith("embedder."):
+        rest = path[len("embedder."):]
+        return "embedder" + ("/" + _swin_flax(rest) if rest else "")
+    return path.replace(".", "/")
+
+
+_FLAX_GROUPS = {"unet": _unet_flax, "first_stage": _vq_flax, "agg": _agg_flax,
+                "cond_stage": lambda path, _: path.replace(".", "/")}
+
+
+def _flax_leaf(module: torch.nn.Module, leaf: str) -> str:
+    """A parameter's flax leaf name by the kind of its module."""
+    kind = type(module).__name__
+    if "GNSiLU" in kind or isinstance(module, torch.nn.GroupNorm):
+        return {"weight": "norm/scale", "bias": "norm/bias"}[leaf]
+    if isinstance(module, torch.nn.LayerNorm):
+        return {"weight": "scale", "bias": "bias"}[leaf]
+    if isinstance(module, (torch.nn.Linear, torch.nn.Conv1d, torch.nn.Conv2d)):
+        return {"weight": "kernel", "bias": "bias"}[leaf]
+    return leaf
+
+
+def flax_paths(module: torch.nn.Module, group: str | None = None) -> dict[str, str]:
+    """Each parameter of ``module`` -> its path in the JAX tree ('/'-joined):
+    of a whole STEDM when ``group`` is None, else of that group's module
+    (``unet``, ``first_stage``, ``cond_stage``, ``agg``), relative to it."""
+    if group is None:
+        out = {}
+        for name, child in module.named_children():
+            out.update({f"{name}.{k}": f"{name}/{v}" for k, v in flax_paths(child, name).items()})
+        return out
+    out = {}
+    for mod_path, mod in module.named_modules():
+        for leaf, _ in mod.named_parameters(recurse=False):
+            key = f"{mod_path}.{leaf}" if mod_path else leaf
+            if isinstance(mod, torch.nn.Embedding):   # the codebook: X/embedding
+                out[key] = _FLAX_GROUPS[group](mod_path, module)
+            elif mod_path:
+                out[key] = f"{_FLAX_GROUPS[group](mod_path, module)}/{_flax_leaf(mod, leaf)}"
+            else:
+                out[key] = leaf
+    return out
+
+
+def _resblock(prefix: str, flax: str, sd: Mapping, out: dict) -> None:
+    for fname, tname in _RES.items():
+        for leaf in ("weight", "bias"):
+            if f"{prefix}{tname}.{leaf}" in sd:
+                flax_leaf = ("norm/scale" if leaf == "weight" else "norm/bias") \
+                    if "norm" in fname else ("kernel" if leaf == "weight" else "bias")
+                out[f"{flax}/{fname}/{flax_leaf}"] = sd[f"{prefix}{tname}.{leaf}"]
+
+
+def _conv(prefix: str, flax: str, sd: Mapping, out: dict) -> None:
+    """A conv or dense: its weight and its bias, when the weight is there."""
+    if f"{prefix}weight" in sd:
+        out[f"{flax}/kernel"] = sd[f"{prefix}weight"]
+        out[f"{flax}/bias"] = sd[f"{prefix}bias"]
+
+
+def _norm(prefix: str, flax: str, sd: Mapping, out: dict) -> None:
+    if f"{prefix}weight" in sd:
+        out[f"{flax}/norm/scale"] = sd[f"{prefix}weight"]
+        out[f"{flax}/norm/bias"] = sd[f"{prefix}bias"]
+
+
+def map_unet(sd: Mapping[str, torch.Tensor], root: str = "model.diffusion_model."
+             ) -> dict[str, torch.Tensor]:
+    """The torch U-Net tensors that torch_import.py:map_unet maps, by flax
+    path (relative to ``unet``), in torch layout: the port's own."""
+    sd = {k[len(root):]: v for k, v in sd.items() if k.startswith(root)}
+    out: dict = {}
+    for i in (0, 2):
+        if f"time_embed.{i}.weight" in sd:
+            _conv(f"time_embed.{i}.", f"time_embed_{i}", sd, out)
+    _conv("input_blocks.0.0.", "input_blocks_0_0", sd, out)
+    idx = 1
+    while any(k.startswith(f"input_blocks.{idx}.") for k in sd):
+        if f"input_blocks.{idx}.0.op.weight" in sd:   # Downsample
+            _conv(f"input_blocks.{idx}.0.op.", f"input_blocks_{idx}_0/op", sd, out)
+        else:
+            _resblock(f"input_blocks.{idx}.0.", f"input_blocks_{idx}_0", sd, out)
+        idx += 1
+    _resblock("middle_block.0.", "middle_block_0", sd, out)
+    _resblock("middle_block.1.block.", "middle_block_1", sd, out)
+    _norm("middle_block.2.norm.", "middle_block_2/norm", sd, out)
+    for name in ("qkv", "proj_out"):
+        _conv(f"middle_block.2.{name}.", f"middle_block_2/{name}", sd, out)
+    _resblock("middle_block.3.", "middle_block_3", sd, out)
+    idx = 0
+    while any(k.startswith(f"output_blocks.{idx}.") for k in sd):
+        _resblock(f"output_blocks.{idx}.0.", f"output_blocks_{idx}_0", sd, out)
+        _conv(f"output_blocks.{idx}.1.conv.", f"output_blocks_{idx}_up/conv", sd, out)
+        idx += 1
+    if "out.0.weight" in sd:
+        _norm("out.0.", "out_norm", sd, out)
+        _conv("out.2.", "out_conv", sd, out)
+    return out
+
+
+def _vq_resnet(prefix: str, flax: str, sd: Mapping, out: dict) -> None:
+    for name in ("norm1", "norm2"):
+        for leaf, fl in (("weight", "scale"), ("bias", "bias")):
+            if f"{prefix}{name}.{leaf}" in sd:
+                out[f"{flax}/{name}/norm/{fl}"] = sd[f"{prefix}{name}.{leaf}"]
+    for name in ("conv1", "conv2", "nin_shortcut"):
+        for leaf, fl in (("weight", "kernel"), ("bias", "bias")):
+            if f"{prefix}{name}.{leaf}" in sd:
+                out[f"{flax}/{name}/{fl}"] = sd[f"{prefix}{name}.{leaf}"]
+
+
+def map_vq(sd: Mapping[str, torch.Tensor], root: str = "") -> dict[str, torch.Tensor]:
+    """The codec tensors that torch_import.py:map_vq maps (bare vq-f4.ckpt
+    keys, or under ``root``), by flax path relative to the codec."""
+    if root:
+        sd = {k[len(root):]: v for k, v in sd.items() if k.startswith(root)}
+    out: dict = {}
+    for side in ("encoder", "decoder"):
+        if f"{side}.conv_in.weight" in sd:
+            _conv(f"{side}.conv_in.", f"{side}/conv_in", sd, out)
+            _norm(f"{side}.norm_out.", f"{side}/norm_out", sd, out)
+            _conv(f"{side}.conv_out.", f"{side}/conv_out", sd, out)
+            for mid in ("block_1", "block_2"):
+                _vq_resnet(f"{side}.mid.{mid}.", f"{side}/mid_{mid}", sd, out)
+            for name in ("q", "k", "v", "proj_out"):
+                _conv(f"{side}.mid.attn_1.{name}.", f"{side}/mid_attn_1/{name}", sd, out)
+            _norm(f"{side}.mid.attn_1.norm.", f"{side}/mid_attn_1/norm", sd, out)
+    for lvl in range(16):
+        for blk in range(8):
+            _vq_resnet(f"encoder.down.{lvl}.block.{blk}.", f"encoder/down_{lvl}_block_{blk}",
+                       sd, out)
+            _vq_resnet(f"decoder.up.{lvl}.block.{blk}.", f"decoder/up_{lvl}_block_{blk}",
+                       sd, out)
+        _conv(f"encoder.down.{lvl}.downsample.conv.", f"encoder/down_{lvl}_downsample/conv",
+              sd, out)
+        _conv(f"decoder.up.{lvl}.upsample.conv.", f"decoder/up_{lvl}_upsample/conv", sd, out)
+    if "quantize.embedding.weight" in sd:
+        out["quantize/embedding"] = sd["quantize.embedding.weight"]
+    for qc in ("quant_conv", "post_quant_conv"):
+        _conv(f"{qc}.", qc, sd, out)
+    return out
+
+
+def map_full_ldm(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A whole CompVis LDM (or an entry-point ``model.``-prefixed)
+    checkpoint by flax path of the STEDM tree: ``unet``, ``first_stage``
+    and ``cond_stage`` (torch_import.py:428-442); the style branch is not
+    mapped."""
+    if any(k.startswith("model.model.diffusion_model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+    out = {f"unet/{k}": v for k, v in map_unet(sd).items()}
+    out.update({f"first_stage/{k}": v
+                for k, v in map_vq(sd, root="first_stage_model.").items()})
+    if "cond_stage_model.channel_mapper.weight" in sd:
+        out["cond_stage/channel_mapper/kernel"] = sd["cond_stage_model.channel_mapper.weight"]
+    return out
+
+
+@torch.no_grad()
+def merge_loaded(model: torch.nn.Module, loaded: Mapping[str, torch.Tensor],
+                 paths: Mapping[str, str], *, subtree: str | None = None,
+                 ignore_keys=()) -> tuple[int, int]:
+    """Copy ``loaded`` (flax path -> tensor) into ``model`` where path and
+    shape match (torch_import.py:674-705): ``paths`` gives each parameter's
+    flax path (``flax_paths``); with ``subtree`` only the parameters under
+    it count and ``loaded`` is relative to it; a parameter whose path holds
+    an ``ignore_keys`` entry is skipped and not counted. Returns and prints
+    (loaded, left at init)."""
+    n_loaded = n_left = 0
+    for key, param in model.named_parameters():
+        name = paths[key]
+        if subtree is not None:
+            if not name.startswith(subtree + "/"):
+                continue
+            name_in = name[len(subtree) + 1:]
+        else:
+            name_in = name
+        if any(ik and ik in name for ik in ignore_keys):
+            continue
+        got = loaded.get(name_in)
+        if got is not None and tuple(got.shape) == tuple(param.shape):
+            param.copy_(got.to(param.dtype))
+            n_loaded += 1
+        else:
+            n_left += 1
+    print(f"[torch_import] merged {n_loaded} tensors ({n_left} left at init)")
+    return n_loaded, n_left
+
+
+def read_weight_file(path: str | Path) -> tuple[str, dict[str, torch.Tensor]]:
+    """``("port", state_dict)`` for a ``params`` or ``ae_state`` checkpoint
+    of this package (train/checkpoints.py; the ``.pt`` may be left off),
+    else ``("torch", tensors)`` as ``load_torch_state_dict`` reads them. A
+    full train state raises, as does a directory (an orbax checkpoint of the
+    JAX package, not read yet: ROADMAP §1: reading a JAX orbax directory)."""
+    p = Path(path)
+    if p.is_dir():
+        raise NotImplementedError(
+            f"{p} is a directory (an orbax checkpoint of the JAX package?): the reader "
+            "for those is still to come (ROADMAP §1: reading a JAX orbax directory)")
+    if not p.is_file() and p.with_name(p.name + ".pt").is_file():
+        p = p.with_name(p.name + ".pt")
+    payload = torch.load(p, map_location="cpu", weights_only=True)
+    if isinstance(payload, Mapping) and "format" in payload:
+        if payload["format"] not in ("params", "ae_state"):
+            raise ValueError(f"{p} holds a full train state, not bare params")
+        return "port", dict(payload["params"])
+    return "torch", _tensors(payload)
+
+
+def load_first_stage(codec: torch.nn.Module, path: str | Path) -> tuple[int, int]:
+    """A first-stage checkpoint into ``codec`` (a VQ or KL codec), in JAX's
+    two forms (train_diff.py:98-103, train_ae.py:144-162): a torch state
+    dict through ``map_vq`` (``first_stage_model.`` stripped when present),
+    non-strict; or this package's own ``ae_state`` / ``params`` file (a
+    train_ae output, or a STEDM's params whose ``first_stage.`` part is
+    taken), loaded strictly. Returns and prints (loaded, left at init)."""
+    kind, sd = read_weight_file(path)
+    if kind == "port":
+        if any(k.startswith("first_stage.") for k in sd):
+            sd = {k[len("first_stage."):]: v for k, v in sd.items()
+                  if k.startswith("first_stage.")}
+        codec.load_state_dict(sd, strict=True)
+        n = sum(1 for _ in codec.parameters())
+        print(f"[torch_import] merged {n} tensors (0 left at init)")
+        return n, 0
+    root = "first_stage_model." if any(k.startswith("first_stage_model.") for k in sd) else ""
+    return merge_loaded(codec, map_vq(sd, root=root), flax_paths(codec, "first_stage"))
+
+
+def load_into_model(model: torch.nn.Module, path: str | Path, *, subtree: str | None = None,
+                    ignore_keys=()) -> tuple[int, int]:
+    """A torch checkpoint into a STEDM (torch_import.py:708-732): with
+    ``subtree="unet"`` through ``map_unet`` (root ``model.diffusion_model.``
+    or ``model.model.diffusion_model.``), else the whole model through
+    ``map_full_ldm``; then ``merge_loaded`` with ``ignore_keys``. The first
+    stage loads through ``load_first_stage``."""
+    kind, sd = read_weight_file(path)
+    if kind == "port":
+        raise ValueError(f"{path} is a checkpoint of this package, not a torch state dict")
+    if subtree == "unet":
+        root = ("model.diffusion_model." if any(k.startswith("model.diffusion_model.")
+                                                for k in sd)
+                else "model.model.diffusion_model.")
+        loaded = map_unet(sd, root=root)
+    else:
+        loaded = map_full_ldm(sd)
+    return merge_loaded(model, loaded, flax_paths(model), subtree=subtree,
+                        ignore_keys=ignore_keys)

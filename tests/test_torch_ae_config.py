@@ -2,6 +2,7 @@
 configs, the codec it builds from a first-stage config, the lr rule and
 the epochs of ``main`` on a tiny codec (CPU)."""
 
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -39,9 +40,15 @@ def test_build_codec_from_the_shipped_configs():
     assert sum(p.numel() for p in vq.parameters()) == 55_322_782
     kl, variant = train_ae.build_codec(train_ae.KL_F4, dtype=torch.bfloat16)
     assert variant == "kl" and isinstance(kl, AutoencoderKL) and kl.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ckpt_path"):
-        train_ae.build_codec({**train_ae.VQ_F4, "params": {**train_ae.VQ_F4["params"],
-                                                            "ckpt_path": "x.ckpt"}})
+    # a ckpt_path is loaded into the codec (once refused): a torch state
+    # dict in vq-f4.ckpt's bare key names, through map_vq
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/vq-f4.ckpt"
+        torch.save({"state_dict": {k: torch.full_like(v, 0.5) for k, v in vq.state_dict().items()}},
+                   path)
+        loaded, _ = train_ae.build_codec({**train_ae.VQ_F4, "params": {
+            **train_ae.VQ_F4["params"], "ckpt_path": path}})
+    assert all(bool((p == 0.5).all()) for p in loaded.parameters())
 
 
 def test_lr_rule_is_train_ae_py_s():

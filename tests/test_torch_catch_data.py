@@ -148,6 +148,6 @@ def test_rasterize_wsi_chunked_equals_jax(tmp_path):
 
 def test_a_tree_that_is_not_staged_refuses_the_exact_pull(tmp_path):
     dm = DataModule(compose("config_diff", ["data=catch", f"location.data_dir={tmp_path}"]))
-    with pytest.raises(NotImplementedError, match="EXACT server.*item 12"):
+    with pytest.raises(NotImplementedError, match="EXACT server.*ROADMAP §1: the pull from an EXACT server"):
         dm.prepare_data()
     assert not any(tmp_path.iterdir())

@@ -21,6 +21,7 @@ from stedm_tpu_torch.models.stedm import build_stedm
 from stedm_tpu_torch.train import checkpoints
 from stedm_tpu_torch.train.optim import make_optimizer
 from stedm_tpu_torch.train.steps import create_train_state, init_logvar, make_train_step
+from stedm_tpu_torch.utils import weights
 
 OVERRIDES = TINY_OVERRIDES + CLASS_OVERRIDES + ["diffusion.compute_dtype=float32"]
 P = 32
@@ -84,16 +85,17 @@ def test_params_only_files_and_refusals(tmp_path):
     state, _ = _state(0)
     sd = state.model.state_dict()
     path = checkpoints.save(tmp_path, sd, name="params")
-    back = checkpoints.restore_params(tmp_path / "params")
-    assert back.keys() == sd.keys() and all(torch.equal(back[k], sd[k]) for k in sd)
+    kind, back = weights.read_weight_file(tmp_path / "params")
+    assert kind == "port" and back.keys() == sd.keys()
+    assert all(torch.equal(back[k], sd[k]) for k in sd)
     assert checkpoints.load(path)["format"] == "params"
     with pytest.raises(ValueError, match="params-only"):
         checkpoints.restore(tmp_path, state, name="params")
     checkpoints.save(tmp_path, state, name="full")
     with pytest.raises(ValueError, match="full train state"):
-        checkpoints.restore_params(tmp_path / "full.pt")
+        weights.read_weight_file(tmp_path / "full.pt")
     (tmp_path / "orbax_dir").mkdir()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="reading a JAX orbax directory"):
         checkpoints.load(tmp_path / "orbax_dir")
     with pytest.raises(FileNotFoundError):
         checkpoints.load(tmp_path / "missing")

@@ -109,6 +109,24 @@ def test_build_stedm_shipped_widths_by_shape(monkeypatch):
     assert sum(int(np.prod(s)) for s in want.values()) == 317_934_225
 
 
+def test_build_stedm_svit_shipped_widths_by_shape(monkeypatch):
+    """``style_agg: svit`` at configs/style_agg/svit.yaml's widths (patch 8,
+    dim 256, depth 6: 4098 position embeddings at 512²): the JAX parameters
+    by ``eval_shape`` through the bridge against a meta port model."""
+    overrides = ["data=flowers", "style_sampling=augmented", "style_agg=svit"]
+    jmodel = jbuild_stedm(jcompose("config_diff", overrides))
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), *_jax_init_args(512))
+    tree = jax.tree_util.tree_map(lambda s: np.broadcast_to(np.float32(0), s.shape),
+                                  shapes["params"])
+    monkeypatch.setattr(weights.np, "ascontiguousarray", lambda a: a)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # from_numpy of read-only views
+        want = {k: tuple(v.shape) for k, v in weights.state_dict_from_jax(tree).items()}
+    model = build_stedm(compose("config_diff", overrides), device="meta")
+    assert type(model.agg).__name__ == "SViT" and want["agg.pos_embedding"] == (1, 4098, 256)
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == want
+
+
 UNET = "diffusion.unet_config.params."
 VQ = "diffusion.first_stage_config.params."
 NON_SHIPPED = {
@@ -123,8 +141,10 @@ NON_SHIPPED = {
     "unknown_unet_key": ("+" + UNET + "legacy=false", TypeError),
     "double_z": (VQ + "ddconfig.double_z=true", ValueError),
     "vq_dropout": (VQ + "ddconfig.dropout=0.1", NotImplementedError),
-    "vq_ckpt_path": (VQ + "ckpt_path=vq-f4.ckpt", NotImplementedError),
-    "svit": ("style_agg=svit", NotImplementedError),
+    # once refused, now built: build_stedm drops the first stage's ckpt_path
+    # as JAX's does (train_diff loads it), and builds the set-ViT
+    "vq_ckpt_path": (VQ + "ckpt_path=vq-f4.ckpt", None),
+    "svit": ("style_agg=svit", None),
 }
 
 
@@ -132,6 +152,10 @@ NON_SHIPPED = {
 def test_non_shipped_values_raise(case):
     override, exc = NON_SHIPPED[case]
     cfg = compose("config_diff", TINY_OVERRIDES + CLASS_OVERRIDES + [override])
+    if exc is None:
+        model = build_stedm(cfg, device="meta")
+        assert type(model.agg).__name__ == ("SViT" if case == "svit" else "AggMean")
+        return
     with pytest.raises(exc):
         build_stedm(cfg, device="meta")
 

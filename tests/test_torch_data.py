@@ -97,9 +97,9 @@ def test_batch_to_ldm_and_the_cpu_prefetch(modules):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (["data=her2"], "EXACT server.*item 12"),
-    (["data=catch"], "EXACT server.*item 12"),
-    (["location.loader=grain"], "item 12"),
+    (["data=her2"], "EXACT server.*ROADMAP §1: the pull from an EXACT server"),
+    (["data=catch"], "EXACT server.*ROADMAP §1: the pull from an EXACT server"),
+    (["location.loader=grain"], "a multiprocess loader"),
 ], ids=["her2", "catch", "grain"])
 def test_unported_data_modules_raise(overrides, match, tmp_path):
     """The grain loader refuses at once; HER2 and CATCH, ported, refuse the

@@ -29,6 +29,7 @@ from stedm_tpu.models.stedm import build_stedm as jbuild_stedm
 from stedm_tpu.train import checkpoints as jcheckpoints
 from stedm_tpu.train.steps import compute_scale_by_std as jcompute_scale_by_std
 from stedm_tpu_torch import predict_diff, train_diff
+from stedm_tpu_torch.config import compose
 from stedm_tpu_torch.train import checkpoints
 from stedm_tpu_torch.utils.weights import state_dict_from_jax
 
@@ -169,26 +170,42 @@ def test_predict_serving_knobs(tree, weights, extra):
         assert seg.shape == (32, 32) and set(np.unique(seg)) <= {0, 1}
 
 
+# the cases a slice of the port once refused and that now run (exc None):
+# the pairs they write; canvas: four layouts mosaicked into one 64^2 canvas
 _PREDICT_REFUSALS = {
-    "canvas": (["+canvas_size=64"], NotImplementedError, "item 15"),
-    "plms": (["sampler=plms"], NotImplementedError, "item 15"),
-    "dpm": (["sampler=dpm"], NotImplementedError, "item 15"),
-    "mesh": (["location.mesh.data=2"], NotImplementedError, "item 12"),
+    "canvas": (["+canvas_size=64", "data.samples=2", "data.batch_size=4"], None, (1, 64)),
+    "plms": (["sampler=plms"], None, (2, 32)),
+    "dpm": (["sampler=dpm"], None, (2, 32)),
+    "mesh": (["location.mesh.data=2"], NotImplementedError, "torch.distributed"),
     "bare_cfg_interval": (["+cfg_interval=0.3"], SystemExit, "lo,hi"),
-    "orbax_dir": (None, NotImplementedError, "item 10"),
+    "orbax_dir": (None, NotImplementedError, "reading a JAX orbax directory"),
     "ema_of_params": (["+use_ema=true"], ValueError, "full-state"),
-    "warm_start": (["diffusion.ckpt_path=x.ckpt"], NotImplementedError, "item 10"),
+    # JAX's predict reads no warm start: the run's checkpoint holds the codec
+    "warm_start": (["diffusion.ckpt_path=x.ckpt",
+                    "diffusion.first_stage_config.params.ckpt_path=vq.ckpt"], None, (2, 32)),
+    "canvas_not_a_multiple": (["+canvas_size=48"], SystemExit, "multiple of the training"),
+    "canvas_plms": (["+canvas_size=64", "data.samples=2", "data.batch_size=4",
+                     "sampler=plms"], NotImplementedError, "DDIM only"),
 }
 
 
 @pytest.mark.parametrize("case", list(_PREDICT_REFUSALS))
 def test_predict_refusals(tree, weights, case):
+    data, _ = tree
     overrides, jpath, ppath = weights
     extra, exc, match = _PREDICT_REFUSALS[case]
     extra = extra or [f"+ckpt_path={jpath}"]
-    args = overrides + PREDICT + [f"+ckpt_path={ppath}"] + extra
-    with pytest.raises(exc, match=match):
-        predict_diff.main(args, device="cpu")
+    args = overrides + PREDICT + [f"+ckpt_path={ppath}", f"+predict_name=case_{case}"] + extra
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            predict_diff.main(args, device="cpu")
+        return
+    n, side = match
+    out = predict_diff.main(args, device="cpu")
+    imgs, segs = _pairs(data / "syn_data" / f"case_{case}")
+    assert out["pairs"] == len(imgs) == n
+    for img, seg in zip(imgs, segs):
+        assert img.shape == (side, side, 3) and seg.shape == (side, side) and img.std() > 0
 
 
 def test_predict_resolves_an_open_mesh_to_one_device(tree, weights):
@@ -202,16 +219,41 @@ def test_predict_resolves_an_open_mesh_to_one_device(tree, weights):
     assert out["pairs"] == 2
 
 
+def _write_compvis(path, groups):
+    """A random-weight torch checkpoint in CompVis key names (the port's
+    keys under each group's CompVis root) for a tiny model."""
+    data = path.parent
+    model = train_diff.build_stedm(compose("config_diff", run_overrides(data, data)),
+                                   device="cpu", seed=4)
+    sd = {root + k[len(g) + 1:]: v for g, root in groups.items()
+          for k, v in model.state_dict().items() if k.startswith(g + ".")}
+    torch.save({"state_dict": sd}, path)
+
+
+# the cases a slice of the port once refused and that now run (match None)
 @pytest.mark.parametrize("extra,match", [
-    (["diffusion.ckpt_path=unet.ckpt"], "item 10"),
-    (["diffusion.first_stage_config.params.ckpt_path=vq.ckpt"], "item 10"),
+    (["diffusion.ckpt_path=unet.ckpt"], None),
+    (["diffusion.first_stage_config.params.ckpt_path=vq.ckpt"], None),
     (["+adamw_m_bf16=true"], "AdamW"),
-    (["location.mesh.data=4"], "item 12"),
-    (["location.loader=grain"], "item 12"),
-    (["style_agg=svit"], "item 15"),
+    (["location.mesh.data=4"], "torch.distributed"),
+    (["location.loader=grain"], "a multiprocess loader"),
+    (["style_agg=svit"], None),
 ], ids=["unet_warm_start", "codec_warm_start", "adamw_m_bf16", "mesh", "grain", "svit"])
 def test_train_refusals(tree, extra, match):
     data, results = tree
-    with pytest.raises(NotImplementedError, match=match):
-        train_diff.main(run_overrides(data, results / "refused") + extra, device="cpu")
+    args = run_overrides(data, results / "refused") + extra
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            train_diff.main(args, device="cpu")
+        return
+    (results / "refused").mkdir(exist_ok=True)
+    if "unet.ckpt" in extra[0]:
+        _write_compvis(results / "refused" / "unet.ckpt", {"unet": "model.diffusion_model."})
+    elif "vq.ckpt" in extra[0]:
+        _write_compvis(results / "refused" / "vq.ckpt", {"first_stage": "first_stage_model."})
+    out = train_diff.main(args, device="cpu")
+    assert out["step"] == 2 and np.isfinite(out["epochs"][0]["loss"])
+    if "ckpt" in extra[0]:
+        (n_loaded, n_left), = out["warm_start"].values()
+        assert n_loaded > 0
 

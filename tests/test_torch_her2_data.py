@@ -236,7 +236,7 @@ def test_score_list_rows_equal_pandas(tree, tmp_path, text):
 
 def test_a_tree_that_is_not_staged_refuses_the_exact_pull(tmp_path):
     dm = DataModule(compose("config_diff", ["data=her2", f"location.data_dir={tmp_path}"]))
-    with pytest.raises(NotImplementedError, match="EXACT server.*item 12"):
+    with pytest.raises(NotImplementedError, match="EXACT server.*ROADMAP §1: the pull from an EXACT server"):
         dm.prepare_data()
     assert not any(tmp_path.iterdir())
 

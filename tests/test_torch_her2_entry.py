@@ -219,20 +219,41 @@ def test_train_ae_her2_matches_jax(tree, tmp_path, monkeypatch):
     assert warm["step"] == 0
 
 
+# compvis_ckpt, once refused, now warm-starts (match None): a vq-f4 .ckpt
+# under first_stage_model. goes through map_vq, every codec tensor loaded
 @pytest.mark.parametrize("extra,match", [
-    (["diffusion.first_stage_config.params.ckpt_path=vq-f4.ckpt"], "CompVis"),
-    (["diffusion.first_stage_config.params.ckpt_path=orbax_dir"], "item 10"),
-    (["location.mesh.data=2"], "item 12"),
-    (["location.loader=grain"], "item 12"),
+    (["diffusion.first_stage_config.params.ckpt_path=vq-f4.ckpt"], None),
+    (["diffusion.first_stage_config.params.ckpt_path=orbax_dir"], "reading a JAX orbax directory"),
+    (["location.mesh.data=2"], "torch.distributed"),
+    (["location.loader=grain"], "a multiprocess loader"),
 ], ids=["compvis_ckpt", "orbax_dir", "mesh", "grain"])
-def test_train_ae_refusals(tree, tmp_path, extra, match):
+def test_train_ae_refusals(tree, tmp_path, capsys, extra, match):
     (tmp_path / "orbax_dir").mkdir()
-    with pytest.raises(NotImplementedError, match=match):
-        train_ae.main(AE + _where(tree, tmp_path) + extra, device="cpu")
+    args = AE + _where(tree, tmp_path) + extra
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            train_ae.main(args, device="cpu")
+        return
+    from stedm_tpu_torch.config import compose
+
+    codec, _ = train_ae.build_codec(_first_stage(compose("config_ae", args)))
+    torch.save({"state_dict": {f"first_stage_model.{k}": v for k, v in
+                               codec.state_dict().items()}}, tmp_path / "vq-f4.ckpt")
+    capsys.readouterr()
+    out = train_ae.main(args + ["num_epochs=0"], device="cpu")
+    n = len(list(codec.parameters()))
+    assert out["step"] == 0
+    assert f"[torch_import] merged {n} tensors (0 left at init)" in capsys.readouterr().out
+
+
+def _first_stage(cfg) -> dict:
+    fs = dict(cfg.diffusion.first_stage_config)
+    fs["params"] = {k: v for k, v in dict(fs["params"]).items() if k != "ckpt_path"}
+    return fs
 
 
 def test_train_ae_refuses_an_unstaged_tree_before_writing(tmp_path):
-    with pytest.raises(NotImplementedError, match="EXACT server.*item 12"):
+    with pytest.raises(NotImplementedError, match="EXACT server.*ROADMAP §1: the pull from an EXACT server"):
         train_ae.main(["data=her2", f"location.data_dir={tmp_path / 'data'}",
                        f"location.result_dir={tmp_path / 'results'}"], device="cpu")
     assert not any(tmp_path.iterdir())

@@ -75,9 +75,13 @@ def test_block_sampler_equals_make_sample_fn(models, carry, eta):  # noqa: F811
 def test_block_sampler_refusals(models):  # noqa: F811
     pm = models[2]
     sched = _schedules()[1]
-    for kw in (dict(method="plms"), dict(method="dpm"), dict(method="bogus")):
-        with pytest.raises(NotImplementedError):
-            make_host_sample_fn(pm, sched, SamplerConfig(**kw), device="cpu")
+    # PLMS and DPM-Solver have blocks of their own now
+    # (tests/test_torch_alt_samplers.py): they build; an unknown method raises
+    for kw in (dict(method="plms"), dict(method="dpm")):
+        assert make_host_sample_fn(pm, sched, SamplerConfig(**{**BASE, **kw}),
+                                   device="cpu").block_sizes
+    with pytest.raises(NotImplementedError):
+        make_host_sample_fn(pm, sched, SamplerConfig(method="bogus"), device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
         make_host_sample_fn(pm, sched, SamplerConfig(cache_interval=2, cache_schedule=(0, 3)),
                             device="cpu")

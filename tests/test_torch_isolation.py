@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX/Flax nor the JAX package,
 for sampling (the serving mode too), for diffusion training, for codec
-fine-tuning, through the train and predict entry points, for downstream
+fine-tuning, through the train and predict entry points (PLMS, DPM-Solver,
+a tiled canvas, the set-ViT and a warm start included), for downstream
 segmentation, and on the histopathology data path (the host library, the
 WSI reader chain, the HER2 data module) and ``train_ae.main`` (with every
 import of JAX blocked)."""
@@ -82,6 +83,23 @@ run = train_diff.main(OVERRIDES, device="cpu")
 assert run["step"] == 2 and checkpoints.load(run["run_dir"] + "/ckpt/" + RUN + "_last")
 out = predict_diff.main(OVERRIDES + ["data.samples=1", "ddim_steps=2"], device="cpu")
 assert out["pairs"] == 2
+# the rest of the generation workflow: PLMS, DPM-Solver, a tiled canvas,
+# the set-ViT style encoder and a first-stage warm start
+from stedm_tpu_torch.core import dpm_solver, plms
+from stedm_tpu_torch.models import svit
+from stedm_tpu_torch.ops import tiled
+for extra in (["sampler=plms"], ["sampler=dpm"],
+              ["+canvas_size=64", "data.samples=2", "data.batch_size=4"]):
+    out = predict_diff.main(OVERRIDES + ["data.samples=1", "ddim_steps=4"] + extra,
+                            device="cpu")
+    assert out["pairs"] >= 1
+results = run["run_dir"].rsplit("/", 1)[0]
+checkpoints.save(results + "/fs", checkpoints.load(run["run_dir"] + "/ckpt/" + RUN + "_last")[
+    "params"], name="params")
+run = train_diff.main(OVERRIDES + ["style_agg=svit",
+                                   "diffusion.first_stage_config.params.ckpt_path=fs/params.pt"],
+                      device="cpu")
+assert run["step"] == 2 and run["warm_start"]["first_stage"][1] == 0
 # downstream segmentation: the MiT-B2 U-Net, its bridge and importer, the
 # losses and confusion matrices, the steps and the entry point
 from stedm_tpu_torch import train_seg

@@ -69,16 +69,24 @@ def test_sampled_images_match_jax(models, batched_cfg):
 
 
 def test_sampler_refuses_later_slices(models):
-    """PLMS, DPM-Solver and tiled canvases are not ported (the serving knobs
-    are: tests/test_torch_serving.py)."""
-    pm = models[2]
+    """PLMS, DPM-Solver and tiled canvases, which later slices of the port
+    brought (tests/test_torch_alt_samplers.py, tests/test_torch_tiled.py),
+    now sample; an unknown method and PLMS on a canvas still raise."""
+    pm, batch = models[2], models[3]
     sched = DiffusionSchedule.create("linear", 1000, 0.0015, 0.0205)
+    x_T = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(B, P // 4, P // 4, 3)).astype(np.float32))
     for kw in (dict(method="plms"), dict(method="dpm")):
-        with pytest.raises(NotImplementedError):
-            make_sample_fn(pm, sched, SamplerConfig(**kw), device="cpu")
+        got = make_sample_fn(pm, sched, SamplerConfig(**{**SAMPLER, **kw}), device="cpu")(
+            pm, batch, x_T=x_T)
+        assert got.shape == (B, P, P, 3) and torch.isfinite(got).all()
+    with pytest.raises(NotImplementedError):
+        make_sample_fn(pm, sched, SamplerConfig(method="bogus"), device="cpu")
     seg = np.zeros((1, 2 * P, 2 * P, 2), np.float32)
     seg[..., 0] = 1.0
     canvas = {"segmentation": seg, "style_imgs": np.zeros((1, 1, P, P, 3), np.float32)}
-    sample = make_sample_fn(pm, sched, SamplerConfig(**SAMPLER), device="cpu")
-    with pytest.raises(NotImplementedError):
-        sample(pm, canvas)
+    got = make_sample_fn(pm, sched, SamplerConfig(**SAMPLER), device="cpu")(pm, canvas)
+    assert got.shape == (1, 2 * P, 2 * P, 3) and torch.isfinite(got).all()
+    with pytest.raises(NotImplementedError, match="DDIM only"):
+        make_sample_fn(pm, sched, SamplerConfig(**{**SAMPLER, "method": "plms"}),
+                       device="cpu")(pm, canvas)

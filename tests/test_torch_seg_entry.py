@@ -189,10 +189,10 @@ def test_train_seg_main_loads_a_mit_encoder(data, tmp_path, monkeypatch, capsys)
 @pytest.mark.parametrize("args,error,match", [
     ([], RuntimeError, "no CUDA device"),
     # HER2 and CATCH are ported; a tree that is not staged refuses the EXACT pull
-    (["data=her2"], NotImplementedError, "EXACT server.*item 12"),
-    (["data=catch"], NotImplementedError, "EXACT server.*item 12"),
-    (["+location.loader=grain"], NotImplementedError, "item 12"),
-    (["location.mesh.data=2"], NotImplementedError, "item 12"),
+    (["data=her2"], NotImplementedError, "EXACT server.*ROADMAP §1: the pull from an EXACT server"),
+    (["data=catch"], NotImplementedError, "EXACT server.*ROADMAP §1: the pull from an EXACT server"),
+    (["+location.loader=grain"], NotImplementedError, "a multiprocess loader"),
+    (["location.mesh.data=2"], NotImplementedError, "torch.distributed"),
 ], ids=["no_card", "her2", "catch", "grain", "mesh"])
 def test_refusals(args, error, match, tmp_path):
     device = None if error is RuntimeError else "cpu"
@@ -206,5 +206,5 @@ def test_refusals(args, error, match, tmp_path):
 
 def test_refuses_several_processes(tmp_path, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="torch.distributed"):
         train_seg.main([f"location.result_dir={tmp_path}"], device="cpu")

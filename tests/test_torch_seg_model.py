@@ -295,5 +295,5 @@ def test_mit_importer_gives_the_jax_importers_forward(root, tmp_path, capsys):
 
 def test_mit_importer_refuses_a_directory(tmp_path):
     port = P.SegUNet(classes=2, decoder_channels=DEC, encoder_config=ENC)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="reading a JAX orbax directory"):
         load_seg_encoder(port, tmp_path)

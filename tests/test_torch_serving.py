@@ -231,10 +231,9 @@ def test_refusals_match_jax(models, mode):
 
 def test_sampler_config_fields_match_jax():
     """The port's SamplerConfig carries the JAX one's fields and defaults,
-    but for the tiled canvases' stride, which is not ported."""
+    the tiled canvases' stride included."""
     port = {f.name: f.default for f in dataclasses.fields(SamplerConfig)}
     ref = {f.name: f.default for f in dataclasses.fields(JSamplerConfig)}
-    ref.pop("tile_stride_frac")
     assert port == ref
 
 
