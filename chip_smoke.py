@@ -157,15 +157,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    script writes (the printed counts checked), the codec equal to the AE
    checkpoint bit for bit after the steps, then ``predict_diff.main`` on
    that run; the launches of every kernel inside each call; phase 6's tree
-   is removed at the end;
-10. a ``kernels`` JSON line, the card line, and as the last line
+   is removed at the end of phase 10;
+10. the fp32 compute path and the wide codebooks, on phase 6's tree: 10a.
+   the fp32 flash forward (``csrc/flash_attention_f32.cu``) at the sampling,
+   training and codec shapes, a ragged T and the AttentionBlock's strided
+   views (bit for bit against contiguous copies), within 2^-16 (P|V| +
+   |ref|) of ``attention_reference``; the fp32 backward
+   (``csrc/flash_attention_bwd_f32.cu``) directly and through
+   ``FlashAttentionFunction`` on strided views, two launches bit for bit,
+   each gradient within 2^-16 (sqrt(sum terms^2) + |ref|) of
+   ``attention_backward_reference``'s steps in float64 (the fp32 plain
+   version's own reading logged beside it: cuBLAS sums 16k keys in one
+   sequence); at every shape the plain version with TF32 products must
+   fail the same tolerance; GN+SiLU at fp32; nearest code at N 32768 and
+   131072, widths 3-16 and codebooks to 16384 codes (the resident and the
+   streaming kernel), duplicated codes keeping the lowest index; all timed
+   beside their plain versions, SDPA at fp32 (its backend named) and their
+   bounds (3xTF32 products over the TF32 peak); 10b. the tiny STEDM at fp32
+   sampled and trained on the card against the CPU (``F32_TINY_TOL``);
+   10c. at fp32 the flagship sampler (eager and as graphs, the latents bit
+   for bit, a profile), a 512^2 training micro-step and a vq-f4 codec step;
+   10d. ``train_ae``, ``train_diff`` and ``predict_diff`` at
+   ``diffusion.compute_dtype=float32``, and ``train_ae`` with vq-f8's and
+   vq-f16's codebooks (4 / 4 / 16384, 8 / 8 / 16384); in 10c and 10d the
+   launches of every kernel inside each call, and no CUDA tensor reaching
+   a plain version (``PlainOnCard``);
+11. a ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 fp32 matrix products and convolutions run without TF32 here (both backend
 flags are set False) so the fp32 plain versions are exact references.
 
 ``--out DIR`` (default ``build/chip_smoke``, git-ignored) receives the nvcc
-log, the profile tables and the whole standard output (``chip_smoke.log``).
+log, the profile tables, the whole standard output (``chip_smoke.log``) and
+each kernel's record with its shapes and its launches on every path
+(``kernels.json``; the kernels line holds the summary).
 """
 
 from __future__ import annotations
@@ -236,16 +262,32 @@ def time_ms(fn, iters: int, flush=None) -> float:
     return total / iters
 
 
+# phase 10's paths, each a call whose launches are zeroed just before and
+# read just after: the fp32 ones, and the wide-codebook codec runs (bf16, as
+# config_ae.yaml computes)
+PATHS_F32 = ("f32_sample_batch", "f32_train_micro_step", "f32_codec_step", "f32_entry_ae",
+             "f32_entry_train", "f32_entry_predict")
+PATHS_WIDE = ("wide4_entry_ae", "wide8_entry_ae")
+
+
+# the keys of each kernel on the kernels line
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms")
+
+
 class KernelRecord:
     """Per-kernel sums over the checked shapes plus each shape's numbers."""
 
-    PATHS = ("sample_batch", "serving_batch", "train_micro_step", "codec_step", "entry_train",
-             "entry_predict_exact", "entry_predict_serving", "seg_train_step", "seg_entry",
-             "her2_ae", "her2_train", "her2_predict_exact", "her2_predict_serving", "her2_seg",
-             "catch_train", "catch_seg", "plms_batch", "dpm_batch", "canvas_predict",
-             "svit_train", "svit_predict", "handoff_ae", "handoff_train", "handoff_predict")
+    # the bf16 paths of phases 4-9, then phase 10's
+    PATHS_BF16 = ("sample_batch", "serving_batch", "train_micro_step", "codec_step",
+                  "entry_train", "entry_predict_exact", "entry_predict_serving",
+                  "seg_train_step", "seg_entry", "her2_ae", "her2_train", "her2_predict_exact",
+                  "her2_predict_serving", "her2_seg", "catch_train", "catch_seg", "plms_batch",
+                  "dpm_batch", "canvas_predict", "svit_train", "svit_predict", "handoff_ae",
+                  "handoff_train", "handoff_predict")
+    PATHS = PATHS_BF16 + PATHS_F32 + PATHS_WIDE
 
-    def __init__(self, name, route, source, replaces, counter=None, paths=PATHS):
+    def __init__(self, name, route, source, replaces, counter=None, paths=PATHS_BF16):
         # the launch counter the kernel's wrapper adds to, and the main paths
         # on which that counter counts this kernel alone
         self.counter, self.paths = counter or name, paths
@@ -274,6 +316,54 @@ class KernelRecord:
             f"{'ok' if tol_ok else 'OUT OF TOLERANCE'}  kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bound:.4f} ({by})")
         require(tol_ok, f"{e['name']} disagrees with its plain version at {list(shape)}")
+
+
+def kernel_records() -> dict:
+    """A record for every kernel of the kernels line, with the paths on
+    which its counter counts it alone."""
+    stock_flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    bf16, f32, wide = KernelRecord.PATHS_BF16, PATHS_F32, PATHS_WIDE
+    return {
+        "gn_silu": KernelRecord("gn_silu", "cuda", "stedm_tpu_torch/csrc/gn_silu.cu",
+                                "stedm_tpu/ops/gn_silu.py:125", paths=bf16 + wide),
+        "flash_attention": KernelRecord(
+            "flash_attention", "cuda", "stedm_tpu_torch/csrc/flash_attention.cu",
+            "stedm_tpu/ops/blocked_attention.py:99", paths=bf16 + wide),
+        # the backward's two instances share one counter: every backward of
+        # diffusion training is at Dh 64/128 and every one of codec
+        # fine-tuning at Dh 512 (a cluster of four blocks a key tile)
+        "flash_attention_bwd": KernelRecord(
+            "flash_attention_bwd", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
+            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
+            "(_flash_attention_bwd_dq)", paths=("sample_batch", "train_micro_step",
+                                                "entry_train", "her2_train", "catch_train",
+                                                "svit_train", "handoff_train")),
+        "flash_attention_bwd_dh512": KernelRecord(
+            "flash_attention_bwd_dh512", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
+            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
+            "(_flash_attention_bwd_dq), reached through stedm_tpu/models/vq.py:89",
+            counter="flash_attention_bwd", paths=("codec_step", "her2_ae", "handoff_ae") + wide),
+        "nearest_code": KernelRecord("nearest_code", "cuda",
+                                     "stedm_tpu_torch/csrc/nearest_code.cu",
+                                     "stedm_tpu/ops/quantize.py:62", paths=bf16 + f32),
+        # phase 10's kernels: the fp32 flash forward and backward, GN+SiLU at
+        # fp32 (the same kernel and counter, its fp32 shapes), and the
+        # streaming nearest code of any width and codebook size
+        "flash_attention_f32": KernelRecord(
+            "flash_attention_f32", "cuda", "stedm_tpu_torch/csrc/flash_attention_f32.cu",
+            f"{stock_flash}:589 (_flash_attention_impl), reached through "
+            "stedm_tpu/ops/blocked_attention.py:99 and stedm_tpu/models/vq.py:89", paths=f32),
+        "flash_attention_bwd_f32": KernelRecord(
+            "flash_attention_bwd_f32", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
+            "(_flash_attention_bwd_dq)", paths=("f32_train_micro_step", "f32_codec_step",
+                                                "f32_entry_ae", "f32_entry_train")),
+        "gn_silu_f32": KernelRecord("gn_silu_f32", "cuda", "stedm_tpu_torch/csrc/gn_silu.cu",
+                                    "stedm_tpu/ops/gn_silu.py:125", counter="gn_silu", paths=f32),
+        "nearest_code_stream": KernelRecord(
+            "nearest_code_stream", "cuda", "stedm_tpu_torch/csrc/nearest_code.cu",
+            "stedm_tpu/ops/quantize.py:62", paths=wide),
+    }
 
 
 def bf16_close(got, ref, rel: float, abs_: float):
@@ -523,20 +613,21 @@ class GNCallLog:
 TINY_TOL = (1e-2, 0.125)
 
 
-def _tiny_sampling_models(torch):
-    """Phase 3's tiny STEDM on the CPU and a copy on the card, its batch, x_T
-    and the schedule."""
+def _tiny_sampling_models(torch, dtype=None):
+    """Phase 3's tiny STEDM on the CPU and a copy on the card (computing in
+    ``dtype``, bf16 unless given), its batch, x_T and the schedule."""
     from stedm_tpu_torch.core.schedules import DiffusionSchedule
     from stedm_tpu_torch.models.stedm import STEDM
 
     p = 32
+    dtype = dtype or torch.bfloat16
     torch.manual_seed(4)
-    cpu = STEDM(dtype=torch.bfloat16, **_tiny_configs(p)).eval()
+    cpu = STEDM(dtype=dtype, **_tiny_configs(p)).eval()
     with torch.no_grad():
         for prm in cpu.parameters():
             if prm.dim() == 4:
                 prm.add_(0.005)
-    gpu = STEDM(dtype=torch.bfloat16, **_tiny_configs(p)).eval()
+    gpu = STEDM(dtype=dtype, **_tiny_configs(p)).eval()
     gpu.load_state_dict(cpu.state_dict())
     gpu.cuda()
     gen = torch.Generator().manual_seed(5)
@@ -829,10 +920,12 @@ def _tiny_configs(p: int) -> dict:
         style_agg="mean", style_sampling="nearby", patch_size=p)
 
 
-def tiny_train_parity(torch):
-    """Phase 3b: the tiny STEDM (Dh 64 at the bottleneck, non-zero proj_out)
-    trained for three micro-steps at accumulation 2 in bf16, on the card
-    (kernels) and on the CPU (plain versions), same weights, t and noise."""
+def _tiny_train_runs(torch, dtype) -> dict:
+    """The tiny STEDM (Dh 64 at the bottleneck, non-zero proj_out) trained
+    for three micro-steps at accumulation 2, computing in ``dtype``, on the
+    CPU and on the card, same weights, t and noise: for each device the
+    losses, the first micro-step's gradients, the parameters' change and the
+    launch counts."""
     from stedm_tpu_torch.core.schedules import DiffusionSchedule
     from stedm_tpu_torch.models.stedm import STEDM
     from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
@@ -841,10 +934,10 @@ def tiny_train_parity(torch):
 
     p = 32
     torch.manual_seed(8)
-    cpu = STEDM(dtype=torch.bfloat16, **_tiny_configs(p))
+    cpu = STEDM(dtype=dtype, **_tiny_configs(p))
     for layer in cpu.unet.zero_init_layers():
         layer.reset_parameters()
-    gpu = STEDM(dtype=torch.bfloat16, **_tiny_configs(p))
+    gpu = STEDM(dtype=dtype, **_tiny_configs(p))
     gpu.load_state_dict(cpu.state_dict())
     gpu.cuda()
     gen = torch.Generator().manual_seed(9)
@@ -875,6 +968,14 @@ def tiny_train_parity(torch):
         counts = dict(LAUNCHES)
         after = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
         runs[dev] = (losses, grads, {k: after[k] - before[k] for k in before}, counts)
+    return runs
+
+
+def tiny_train_parity(torch):
+    """Phase 3b: the tiny STEDM trained for three micro-steps at
+    accumulation 2 in bf16, on the card (kernels) and on the CPU (plain
+    versions), same weights, t and noise."""
+    runs = _tiny_train_runs(torch, torch.bfloat16)
     (lc, gc, dc, _), (lg, gg, dg, counts) = runs["cpu"], runs["cuda"]
     require(counts["flash_attention_bwd"] >= 3,
             f"the card's tiny training did not launch the backward kernel: {counts}")
@@ -1641,7 +1742,9 @@ def entry_points(torch) -> tuple[Path, dict]:
         predicts[name] = predict_rates(out)
         torch.cuda.empty_cache()
 
-    total = {k: sum(c[k] for c in counts.values()) for k in LAUNCHES}
+    # the kernels of this bf16 path (phase 10 runs the fp32 and streaming ones)
+    total = {k: sum(c[k] for c in counts.values())
+             for k in ("gn_silu", "flash_attention", "flash_attention_bwd", "nearest_code")}
     for k, v in total.items():
         require(v > 0, f"no {k} launch inside the entry-point calls: {counts}")
     seconds = time.time() - t0
@@ -2662,6 +2765,636 @@ def generation_workflow(torch, entry_root: Path, out_dir: Path, card: str) -> tu
     return {f"phase9_{k}": v for k, v in out.items()}, counts
 
 
+# Phase 10: the fp32 compute path (diffusion.compute_dtype=float32) and the
+# wide-codebook path (CompVis vq-f8's 4 x 16384 and vq-f16's 8 x 16384
+# codebooks on vq-f4's layout), on their own kernels: the fp32 flash forward
+# and backward (3xTF32 mma.sync), GN+SiLU at fp32, and nearest code at any
+# width and codebook size (the streaming kernel).
+
+# NVIDIA H100 SXM data sheet (dense): the TF32 tensor-core peak; the fp32
+# flash kernels run every product as three TF32 products
+TF32_FLOPS = 494.7e12
+# phase 10a's tolerances: phase 2's and 2b's bf16 forms, 2^-7 (P|V| + |ref|)
+# and 2^-7 (sqrt(sum terms^2) + |ref|), with 2^-7 replaced by 2^-16; a kernel
+# that rounds its products to TF32 alone (2^-11) fails them, as the TF32
+# control (the plain version with TF32 on) must show at every shape
+F32_REL = 2 ** -16
+# phase 10b's tolerance, card (kernels, fp32, TF32 off) against CPU (plain
+# versions, fp32), relative (L2 norm for tensors): phase 3's bf16 tolerance
+# tightened to what fp32 permits (other convolution algorithms and
+# summation orders move each value by about 1e-6 of its size)
+F32_TINY_TOL = 1e-4
+# the update of 10b's tiny training, relative L2: Adam's first update is
+# lr g / (|g| + 1e-8) an element, so where |g| lies near eps the gradients'
+# relative differences of about 1e-5 become differences of the update's own
+# size (at bf16, phase 3b allows 1.0)
+F32_TINY_UPDATE_TOL = 1e-2
+_LOG2E = 1.4426950408889634
+
+
+def _ratio(torch, got, ref, tol) -> float:
+    return float(((got.double() - ref.double()).abs() / tol).max())
+
+
+def f32_forward_checks(torch, rec, flush):
+    """10a: the fp32 forward against attention_reference (fp32, TF32 off),
+    a sample at a time, within 2^-16 (P|V| + |ref|); the LSE against
+    torch.logsumexp; the TF32 control; times beside the plain version and
+    SDPA at fp32; the AttentionBlock's strided views bit for bit against
+    contiguous copies."""
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    # the U-Net bottleneck sampling at 256^2 (CFG batch 16) and training at
+    # 512^2; the VQ decoder at 256^2 and the encoder at 512^2 (batch 8), the
+    # codec at 512^2 and batch 2 (its encode); a ragged T
+    for shape in ((16, 8, 256, 128), (8, 1, 4096, 512), (8, 8, 1024, 128), (8, 1, 16384, 512),
+                  (2, 1, 16384, 512), (1, 1, 2500, 512)):
+        b, h, t, d = shape
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+        s = d ** -0.5
+        got, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+        torch.cuda.synchronize()
+        worst, ctrl, lse_ok, err = 0.0, 0.0, True, 0.0
+        for i in range(b):
+            sl = slice(i, i + 1)
+            ref, lref = a.attention_reference(q[sl], k[sl], v[sl], s, return_lse=True)
+            p = torch.softmax((q[sl] @ k[sl].transpose(-1, -2)) * s, -1)
+            tol = F32_REL * (p @ v[sl].abs() + ref.abs())
+            del p
+            worst = max(worst, _ratio(torch, got[sl], ref, tol))
+            err = max(err, float((got[sl] - ref).abs().max()))
+            lse_ok &= bool(((lse[sl] - lref).abs() <= 1e-5 * lref.abs() + 1e-5).all())
+            if i == 0:
+                torch.backends.cuda.matmul.allow_tf32 = True
+                bad = a.attention_reference(q[sl], k[sl], v[sl], s)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                ctrl = _ratio(torch, bad, ref, tol)
+                del bad
+            del ref, tol
+        again = a.flash_attention_cuda(q, k, v, s)
+        same = torch.equal(again, got)
+        log(f"  flash_attention_f32 {list(shape)}: {worst:.3f} of the tolerance 2^-16 (P|V| + "
+            f"|ref|); the plain version with TF32 products {ctrl:.1f} of it (must exceed 1); "
+            f"LSE within 1e-5 rel + 1e-5: {lse_ok}; two launches equal: {same}")
+        require(ctrl > 1, f"the TF32 control passes the fp32 tolerance at {list(shape)}")
+        require(lse_ok and same, f"the fp32 forward's LSE or run-to-run bits at {list(shape)}")
+        iters = 10 if t <= 1024 else 3
+        ms = time_ms(lambda: a.flash_attention_cuda(q, k, v, s), iters, flush)
+        pms = time_ms(lambda: a.attention_reference(q, k, v, s), 2, flush)
+        backend = sdpa_backend(torch, q, k, v, s)
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=s),
+                      iters, flush)
+        log(f"  flash_attention_f32 {list(shape)}: SDPA at fp32 runs {backend}")
+        bh = b * h
+        rec.add(shape, err, worst <= 1, ms, pms, lib, 4 * bh * t * d * 4,
+                3 * 4 * bh * t * t * d, TF32_FLOPS)
+        del q, k, v, got, lse, again
+        torch.cuda.empty_cache()
+    # the AttentionBlock's views of its packed fp32 projection, O token-major
+    proj = torch.randn((16, 256, 8, 3, 128), generator=gen, device="cuda")
+    q, k, v = proj.permute(0, 2, 3, 1, 4).unbind(2)
+    s = 128 ** -0.5
+    out = torch.empty((16, 256, 8, 128), device="cuda").permute(0, 2, 1, 3)
+    got = a.flash_attention_cuda(q, k, v, s, out=out)
+    same = torch.equal(got, a.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                                   v.contiguous(), s))
+    via = a.flash_attention(q, k, v, s)
+    merged = via.transpose(1, 2).reshape(16, 256, 8 * 128)
+    is_view = merged.data_ptr() == via.data_ptr()
+    log(f"  flash_attention_f32 strided [16, 8, 256, 128] (views of a [16, 256, 8, 3, 128] fp32 "
+        f"projection, O laid out [16, 256, 8, 128]): equal to the contiguous launch bit for "
+        f"bit: {same}; flash_attention's output too: {torch.equal(via, got)}; the heads merge "
+        f"as a view: {is_view}")
+    require(same and torch.equal(via, got) and is_view,
+            "the fp32 strided launch differs from the contiguous one")
+
+
+def _f64_backward(torch, q, k, v, o, lse, do, s):
+    """attention_backward_reference's steps in float64 (P from the LSE in the
+    log2 domain, Di = rowsum(dO o O), dS = P o (dP - Di) * s) and each
+    gradient's sqrt(sum terms^2)."""
+    Q, K, V, O, DO = (x.double() for x in (q, k, v, o, do))
+    P = torch.exp2((Q @ K.transpose(-1, -2)) * (s * _LOG2E) - lse.double()[..., None] * _LOG2E)
+    dS = P * (DO @ V.transpose(-1, -2) - (DO * O).sum(-1, keepdim=True)) * s
+    ref = (dS @ K, dS.transpose(-1, -2) @ Q, P.transpose(-1, -2) @ DO)
+    bounds = ((dS.square() @ K.square()).sqrt(), (dS.transpose(-1, -2).square() @ Q.square()).sqrt(),
+              (P.transpose(-1, -2).square() @ DO.square()).sqrt())
+    return ref, bounds
+
+
+def f32_backward_checks(torch, rec, flush):
+    """10a: the fp32 backward (Di pass, dK/dV and dQ kernels) on the
+    AttentionBlock's strided views and directly, two launches bit for bit,
+    each gradient within 2^-16 (sqrt(sum terms^2) + |ref|) of the plain
+    version's steps evaluated in float64; the fp32 plain version's own
+    reading and the TF32 control logged beside it; times beside the plain
+    version and SDPA's backward at fp32."""
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for shape in ((8, 8, 1024, 128), (2, 8, 1024, 128), (2, 1, 4096, 512), (2, 1, 16384, 512)):
+        b, h, t, dh = shape
+        proj = torch.randn((b, t, h, 3, dh), generator=gen, device="cuda")
+        qv, kv, vv = proj.permute(0, 2, 3, 1, 4).unbind(2)
+        q, k, v = qv.contiguous(), kv.contiguous(), vv.contiguous()
+        do_tm = torch.randn((b, t, h, dh), generator=gen, device="cuda")
+        do = do_tm.permute(0, 2, 1, 3).contiguous()
+        s = dh ** -0.5
+        o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+        got = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+        again = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+        leaves = proj.detach().clone().requires_grad_()
+        lq, lk, lv = leaves.permute(0, 2, 3, 1, 4).unbind(2)
+        out_fn = a.flash_attention(lq, lk, lv, s)
+        out_fn.transpose(1, 2).backward(do_tm)
+        via = leaves.grad.permute(0, 2, 3, 1, 4).unbind(2)
+        torch.cuda.synchronize()
+        det = all(torch.equal(x, y) for x, y in zip(got, again))
+        same = torch.equal(out_fn.detach(), o) and all(torch.equal(x, y) for x, y in zip(via, got))
+        del again, leaves, out_fn, via
+        worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+        plain32, vs32, ctrl, err = dict(worst), dict(worst), dict(worst), 0.0
+        for i in range(b):
+            sl = slice(i, i + 1)
+            args = (q[sl], k[sl], v[sl], o[sl], lse[sl], do[sl], s)
+            ref64, bounds = _f64_backward(torch, *args)
+            r32 = a.attention_backward_reference(*args)
+            if i == 0:
+                torch.backends.cuda.matmul.allow_tf32 = True
+                bad = a.attention_backward_reference(*args)
+                torch.backends.cuda.matmul.allow_tf32 = False
+            for j, name in enumerate(("dq", "dk", "dv")):
+                tol = F32_REL * (bounds[j] + ref64[j].abs())
+                worst[name] = max(worst[name], _ratio(torch, got[j][sl], ref64[j], tol))
+                plain32[name] = max(plain32[name], _ratio(torch, r32[j], ref64[j], tol))
+                vs32[name] = max(vs32[name], _ratio(torch, got[j][sl], r32[j],
+                                                    F32_REL * (bounds[j] + r32[j].abs())))
+                err = max(err, float((got[j][sl].double() - ref64[j]).abs().max()))
+                if i == 0:
+                    ctrl[name] = _ratio(torch, bad[j], ref64[j], tol)
+                del tol
+            del ref64, bounds, r32
+            if i == 0:
+                del bad
+            torch.cuda.empty_cache()
+        fmt = lambda d_: ", ".join(f"{n} {x:.3f}" for n, x in d_.items())
+        log(f"  flash_attention_bwd_f32 {list(shape)}: against the plain version's steps in "
+            f"float64, of the tolerance 2^-16 (sqrt(sum terms^2) + |ref|): kernel {fmt(worst)}; "
+            f"the fp32 plain version (cuBLAS, TF32 off) {fmt(plain32)}; the kernel against the "
+            f"fp32 plain version {fmt(vs32)}; the TF32 control {fmt(ctrl)} (must exceed 1)")
+        log(f"  two launches equal bit for bit: {det}; FlashAttentionFunction on the strided "
+            f"views equals the direct launch: {same}")
+        require(det and same, f"fp32 backward launches differ at {list(shape)}")
+        require(all(x > 1 for x in ctrl.values()),
+                f"the TF32 control passes the fp32 tolerance at {list(shape)}")
+        iters = 5 if t <= 1024 else 2
+        ms = time_ms(lambda: a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s), iters, flush)
+        pms = time_ms(lambda: a.attention_backward_reference(q, k, v, o, lse, do, s), 2, flush)
+        backend = sdpa_backend(torch, q, k, v, s)
+        lv = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(*lv, scale=s)
+        lib = time_ms(lambda: torch.autograd.grad(out, lv, do, retain_graph=True), iters, flush)
+        log(f"  flash_attention_bwd_f32 {list(shape)}: SDPA's backward at fp32 runs {backend}")
+        del out, lv
+        n = b * h * t * dh
+        rec.add(shape, err, all(x <= 1 for x in worst.values()), ms, pms, lib,
+                8 * n * 4 + b * h * t * 4, 3 * 10 * b * h * t * t * dh, TF32_FLOPS)
+        del q, k, v, o, lse, do, got, proj
+        torch.cuda.empty_cache()
+
+
+def f32_gn_checks(torch, rec, flush):
+    """10a: GN+SiLU at fp32 at the fp32 path's shapes against
+    gn_silu_reference."""
+    from stedm_tpu_torch.ops import gn_silu as g
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    for shape, mode, eps in (((8, 64, 64, 128), "add", 1e-5), ((16, 64, 64, 640), "add", 1e-5),
+                             ((16, 8, 8, 1024), "film", 1e-5), ((8, 256, 256, 256), "plain", 1e-6),
+                             ((8, 128, 128, 128), "add", 1e-5), ((8, 32, 32, 1024), "film", 1e-5),
+                             ((8, 512, 512, 128), "plain", 1e-6),
+                             ((2, 512, 512, 128), "plain", 1e-6)):
+        b, c = shape[0], shape[3]
+        x = torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
+        gamma = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        kw = dict(eps=eps)
+        if mode == "add":
+            kw["add"] = 0.5 * torch.randn(b, c, generator=gen, device="cuda")
+        elif mode == "film":
+            kw["film_scale"] = 0.5 * torch.randn(b, c, generator=gen, device="cuda")
+            kw["film_shift"] = 0.5 * torch.randn(b, c, generator=gen, device="cuda")
+        got = g.gn_silu_cuda(x, gamma, beta, **kw)
+        ref = g.gn_silu_reference(x, gamma, beta, **kw)
+        torch.cuda.synchronize()
+        # fp32 statistics summed in another order
+        err, ok = bf16_close(got, ref, rel=1e-5, abs_=1e-5)
+        ms = time_ms(lambda: g.gn_silu_cuda(x, gamma, beta, **kw), 10, flush)
+        pms = time_ms(lambda: g.gn_silu_reference(x, gamma, beta, **kw), 3, flush)
+        xc = x.permute(0, 3, 1, 2)
+        lib = time_ms(lambda: torch.nn.functional.silu(
+            torch.nn.functional.group_norm(xc, 32, gamma, beta, eps)), 10, flush)
+        nbytes = 2 * x.numel() * 4 + 4 * 2 * c + 4 * b * c * (len(kw) - 1)
+        rec.add(shape, err, ok, ms, pms, lib, nbytes, 10 * x.numel(), FP32_FLOPS)
+        del x, got, ref
+    log("  (gn_silu_f32 tolerance: 1e-5 |ref| + 1e-5, fp32 statistics in another order)")
+
+
+def wide_nearest_checks(torch, rec_res, rec_stream, flush):
+    """10a: nearest code at N 32768 and 131072 for widths 3, 4, 8 and 16 and
+    codebooks up to 16384 codes, and two duplicated-code cases (exact ties
+    must go to the lowest index); indices equal to the plain version's but at
+    fp32 near-ties, as tests/test_torch_ops.py:_assert_codes_agree checks
+    them. Each timing goes to the record of the kernel that ran."""
+    from stedm_tpu_torch.ops import quantize as qz
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    cases = [(n, w, ne, False) for n in (32768, 131072)
+             for w, ne in ((3, 8192), (3, 16384), (4, 16384), (8, 16384), (16, 4096))]
+    cases += [(32768, 4, 16384, True), (131072, 3, 16384, True)]
+    for n, width, n_embed, dup in cases:
+        cb = torch.randn(n_embed, width, generator=gen, device="cuda")
+        if dup:                      # the second half repeats the first, neighbours too
+            half = (n_embed + 1) // 2
+            cb = torch.cat([cb[:half], cb[:half]])[:n_embed].contiguous()
+            cb[1::7] = cb[0::7][:cb[1::7].shape[0]]
+            z = cb[torch.randint(0, n_embed, (n,), generator=gen, device="cuda")].clone()
+            z[::3] += 0.01 * torch.randn(z[::3].shape, generator=gen, device="cuda")
+        else:
+            z = torch.randn(n, width, generator=gen, device="cuda")
+        plan = qz._launch_plan(n, n_embed, width, qz._device_active(0))
+        got = qz.nearest_code_cuda(z, cb)
+        ref = qz.nearest_code_reference(z, cb)
+        torch.cuda.synchronize()
+        diff = (got != ref).nonzero().flatten()
+        z64, cb64 = z.double(), cb.double()
+        d_got = ((z64[diff] - cb64[got[diff].long()]) ** 2).sum(1)
+        d_ref = ((z64[diff] - cb64[ref[diff].long()]) ** 2).sum(1)
+        tol = 1e-5 * (1 + (z64[diff] ** 2).sum(1))
+        err = float((d_got - d_ref).abs().max()) if diff.numel() else 0.0
+        ok = bool(((d_got - d_ref).abs() <= tol).all()) and diff.numel() <= max(1, n // 1000)
+        ties = ""
+        if dup:
+            rows = [tuple(r) for r in cb.tolist()]
+            first = {}
+            for i, row in enumerate(rows):
+                first.setdefault(row, i)
+            lowest = all(first[rows[i]] == i for i in got.tolist())
+            ok &= lowest
+            ties = f"; every exact tie to its lowest index: {lowest}"
+        same = torch.equal(got, qz.nearest_code_cuda(z, cb))
+        ok &= same
+        log(f"  nearest code N {n} x ({width}, {n_embed}){' duplicated codes' if dup else ''}: "
+            f"the {plan['kernel']} kernel, split {plan['split']}; {diff.numel()} of {n} indices "
+            f"differ (fp32 near-ties){ties}; two launches equal: {same}")
+        ms = time_ms(lambda: qz.nearest_code_cuda(z, cb), 10, flush)
+        pms = time_ms(lambda: qz.nearest_code_reference(z, cb), 3, flush)
+        lib = time_ms(lambda: torch.cdist(z, cb).argmin(dim=1), 3, flush)
+        rec = rec_res if plan["kernel"] == "resident" else rec_stream
+        rec.add((n, width, n_embed) + (("duplicated",) if dup else ()), err, ok, ms, pms, lib,
+                4 * width * (n + n_embed) + 4 * n, (2 * width + 1) * n * n_embed, FP32_FLOPS)
+
+
+class PlainOnCard:
+    """Counts calls of the plain attention and nearest-code versions that
+    get a CUDA tensor (the wrappers send only CPU tensors there)."""
+
+    NAMES = (("blocked_attention", "attention_reference"),
+             ("blocked_attention", "attention_backward_reference"),
+             ("quantize", "nearest_code_reference"))
+
+    def __enter__(self):
+        from stedm_tpu_torch.ops import blocked_attention, quantize
+
+        self.mods = {"blocked_attention": blocked_attention, "quantize": quantize}
+        self.saved, self.calls = {}, 0
+        for mod, name in self.NAMES:
+            fn = getattr(self.mods[mod], name)
+            self.saved[(mod, name)] = fn
+
+            def counted(*args, _fn=fn, **kw):
+                if any(getattr(x, "is_cuda", False) for x in args):
+                    self.calls += 1
+                return _fn(*args, **kw)
+
+            setattr(self.mods[mod], name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.saved.items():
+            setattr(self.mods[mod], name, fn)
+
+
+def _tiny_rel(torch, got, ref) -> float:
+    return float((got.float().cpu() - ref.float()).norm() / ref.float().norm())
+
+
+def f32_tiny_parity(torch):
+    """10b: the tiny STEDM at fp32, DDIM-4 with rescaled CFG, then three
+    micro-steps at accumulation 2, card (kernels) against CPU (plain
+    versions), same weights, x_T, t and noise."""
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
+
+    log(f"  tolerance {F32_TINY_TOL} relative (L2 norm for tensors): phase 3's bf16 tolerance "
+        "tightened to what fp32 permits")
+    cpu, gpu, batch, x_T, sched = _tiny_sampling_models(torch, torch.float32)
+    cfg = SamplerConfig(ddim_steps=4, eta=0.0, cfg_scale=1.5, rescale_phi=0.7,
+                        batched_cfg=True, downsample=4)
+    ref = make_sample_fn(cpu, sched, cfg, device="cpu")(cpu, batch, x_T=x_T)
+    reset_launch_counts()
+    got = make_sample_fn(gpu, sched, cfg, device="cuda")(gpu, batch, x_T=x_T)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    rel = _tiny_rel(torch, got, ref)
+    log(f"  tiny STEDM sampling at fp32, card vs CPU: relative L2 {rel:.3e}, max |diff| "
+        f"{float((got.cpu() - ref).abs().max()):.3e}; launches {counts}")
+    require(counts["flash_attention_f32"] > 0 and counts["flash_attention"] == 0,
+            f"the fp32 sampler did not run the fp32 forward: {counts}")
+    require(rel <= F32_TINY_TOL, "tiny fp32 sampling: the card disagrees with the CPU")
+    runs = _tiny_train_runs(torch, torch.float32)
+    (lc, gc, dc, _), (lg, gg, dg, counts) = runs["cpu"], runs["cuda"]
+    require(counts["flash_attention_bwd_f32"] >= 3 and counts["flash_attention_bwd"] == 0,
+            f"the fp32 training did not run the fp32 backward: {counts}")
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(lg, lc))
+    log(f"  losses card {['%.7f' % x for x in lg]} cpu {['%.7f' % x for x in lc]}: max rel err "
+        f"{loss_err:.3e}")
+    ok = loss_err <= F32_TINY_TOL
+    for group in ("unet", "cond_stage", "agg"):
+        g_c, g_g = (torch.cat([g[k].flatten() for k in gc if k.startswith(group + ".")])
+                    for g in (gc, gg))
+        d_c, d_g = (torch.cat([d[k].flatten() for k in dc if k.startswith(group + ".")])
+                    for d in (dc, dg))
+        g_err, d_err = _tiny_rel(torch, g_g, g_c), _tiny_rel(torch, d_g, d_c)
+        log(f"  {group}: gradient rel err {g_err:.3e}, update rel err {d_err:.3e} (tolerance "
+            f"{F32_TINY_UPDATE_TOL}: Adam's g / (|g| + eps))")
+        ok &= g_err <= F32_TINY_TOL and d_err <= F32_TINY_UPDATE_TOL
+    log(f"  launches on the card {counts}")
+    require(ok, "tiny fp32 training on the card disagrees with the CPU")
+
+
+def f32_full_width(torch, out_dir: Path, card: str) -> tuple:
+    """10c: the flagship at fp32: sampling eager and as graphs, a 512^2
+    training micro-step, a vq-f4 codec step; the launches and plain calls of
+    each, no CUDA tensor reaching a plain version."""
+    from stedm_tpu_torch import train_ae
+    from stedm_tpu_torch.models.lpips import LPIPS
+    from stedm_tpu_torch.models.stedm import build_flagship
+    from stedm_tpu_torch.ops import LAUNCHES, PLAIN_CALLS, reset_launch_counts
+    from stedm_tpu_torch.train.ae_steps import ae_optimizers, create_ae_state, make_ae_train_step
+    from stedm_tpu_torch.train.host_sampler import make_host_sample_fn
+    from stedm_tpu_torch.train.optim import make_optimizer
+    from stedm_tpu_torch.train.steps import (SamplerConfig, create_train_state, make_sample_fn,
+                                             make_train_step)
+    from stedm_tpu_torch.train.vae_losses import VAELossConfig, build_discriminator
+
+    counts, out = {}, {}
+    t0 = time.time()
+
+    def counted(name, fn):
+        reset_launch_counts()
+        with PlainOnCard() as guard:
+            res = fn()
+            torch.cuda.synchronize()
+        counts[name] = {**LAUNCHES, **{f"plain_{k}": v for k, v in PLAIN_CALLS.items()}}
+        log(f"    launches {counts[name]}; plain versions given a CUDA tensor: {guard.calls}")
+        require(guard.calls == 0, f"{name}: a plain version ran on the card")
+        return res
+
+    log("== phase 10c: the flagship at fp32 (256^2, batch 8, DDIM-50, CFG 1.5, phi 0.7), "
+        "eager and as graphs")
+    model, batch, schedule = build_flagship(batch=8, dtype=torch.float32)
+    cfg = SamplerConfig(ddim_steps=50, eta=0.0, cfg_scale=1.5, rescale_phi=0.7,
+                        batched_cfg=True, downsample=4)
+    sample = make_sample_fn(model, schedule, cfg)
+    gen = torch.Generator(device="cuda")
+    img, z_e = counted("f32_sample_batch", lambda: sample_with_latent(
+        sample, model, batch, generator=gen.manual_seed(0)))
+    c = counts["f32_sample_batch"]
+    require(tuple(img.shape) == (8, 256, 256, 3) and bool(torch.isfinite(img).all())
+            and float(img.float().std()) > 0, "the fp32 flagship's images")
+    require(c["flash_attention_f32"] >= 51 and c["flash_attention"] == 0
+            and c["nearest_code"] == 1 and c["gn_silu"] > 0, f"fp32 sampling launches {c}")
+    # a batch takes seconds at fp32 (cuDNN's fp32 convolutions, TF32 off):
+    # one warm run each, eager and as graphs, and the profiled graph run
+    eager = timed_runs(torch, lambda: sample(model, batch, generator=gen.manual_seed(0)), 1)
+    host = make_host_sample_fn(model, schedule, cfg, unroll=10)
+    _, z_g = sample_with_latent(host, model, batch, generator=gen.manual_seed(0))
+    torch.cuda.synchronize()
+    same = torch.equal(z_g, z_e)
+    log(f"  graph exact at fp32: blocks {host.block_sizes}; launches at capture "
+        f"{host.capture_launches}; latent z_0 equals the eager loop's bit for bit: {same} (max "
+        f"|diff| {float((z_g - z_e).abs().max()):.3e})")
+    require(same, "the fp32 graph latent differs from the eager loop's")
+    graph = timed_runs(torch, lambda: host(model, batch, generator=gen.manual_seed(0)), 1)
+    kernels = profile_main_path(torch, lambda: host(model, batch, generator=gen.manual_seed(0)),
+                                graph[0] * 1e3, out_dir, "profile_f32_graph.txt")
+    busy = sum(ms for _, _, ms in kernels)
+    out["sample"] = dict(eager_img_per_s=8 / eager[0], graph_img_per_s=8 / graph[0],
+                         graph_device_busy_ms=busy)
+    log(f"  fp32 flagship img/s (host clock), eager {8 / eager[0]:.4f}, as graphs "
+        f"{8 / graph[0]:.4f}; device busy {busy:.1f} ms a graphed batch on {card}; "
+        f"10c's sampling took {time.time() - t0:.1f} s")
+    del model, batch, sample, host, img, z_e, z_g
+    torch.cuda.empty_cache()
+
+    log("== phase 10c: a 512^2 training micro-step at fp32 (batch 8, AdamW, accumulation 4)")
+    model, batch, schedule = build_flagship(batch=8, patch=512, nonzero_init=True,
+                                            dtype=torch.float32)
+    tx = make_optimizer(1e-4, accumulate_grad_batches=4, weight_decay=0.01)
+    state = create_train_state(model, tx)
+    step = make_train_step(model, schedule, tx)
+    before = [p.detach().clone() for p in model.unet.parameters()]
+    state, m = counted("f32_train_micro_step", lambda: step(state, batch, gen))
+    c = counts["f32_train_micro_step"]
+    require(bool(torch.isfinite(m["loss"])), "non-finite fp32 training loss")
+    require(c["flash_attention_bwd_f32"] > 0 and c["flash_attention_f32"] > 0
+            and c["flash_attention_bwd"] == 0, f"fp32 training launches {c}")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.time()
+    for _ in range(4):
+        state, m = step(state, batch, gen)
+        require(bool(torch.isfinite(m["loss"])), "non-finite fp32 training loss")
+    torch.cuda.synchronize()
+    sec = time.time() - t1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = sum(not torch.equal(b_, p) for b_, p in zip(before, model.unet.parameters()))
+    require(state.opt_state.gradient_step >= 1 and moved > 0, "the fp32 U-Net did not move")
+    out["train"] = dict(samples_per_s=32 / sec, peak_mem_gib=peak)
+    log(f"  4 micro-steps of 8 (an applied update) in {sec:.2f} s: {32 / sec:.4f} samples/s; "
+        f"peak memory {peak:.2f} GiB; loss {float(m['loss']):.5f}; {moved} U-Net tensors moved; "
+        f"10c at {time.time() - t0:.1f} s")
+    del model, batch, state, step, before, tx
+    torch.cuda.empty_cache()
+
+    log("== phase 10c: a vq-f4 codec fine-tuning step at fp32 (512^2, batch 2)")
+    torch.manual_seed(0)
+    codec, variant = train_ae.build_codec(train_ae.VQ_F4, dtype=torch.float32)
+    codec.cuda()
+    lcfg = VAELossConfig(**{**train_ae.AE_LOSS, "disc_start": 0})
+    disc, lpips = build_discriminator(lcfg).cuda(), LPIPS().cuda()
+    st = create_ae_state(codec, disc, *ae_optimizers(train_ae.scaled_lr(train_ae.BASE_LR, 1, 2)))
+    astep = make_ae_train_step(codec, lcfg, lpips=lpips, variant=variant)
+    img = torch.rand((2, 512, 512, 3), generator=gen.manual_seed(1), device="cuda") * 2 - 1
+    before = [p.detach().clone() for p in codec.parameters()]
+    st, lg, _ = counted("f32_codec_step", lambda: astep(st, img))
+    c = counts["f32_codec_step"]
+    require(c["flash_attention_bwd_f32"] == 2 and c["flash_attention_f32"] == 4
+            and c["nearest_code"] >= 1, f"fp32 codec step launches {c}")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.time()
+    st, lg, _ = astep(st, img)
+    torch.cuda.synchronize()
+    sec = time.time() - t1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vals = {k: float(v) for k, v in lg.items()}
+    require(all(math.isfinite(x) for x in vals.values()), f"non-finite fp32 codec logs {vals}")
+    moved = sum(not torch.equal(b_, p) for b_, p in zip(before, codec.parameters()))
+    require(moved > 0, "the fp32 codec did not move")
+    out["codec"] = dict(samples_per_s=2 / sec, peak_mem_gib=peak)
+    log(f"  a step in {sec:.3f} s: {2 / sec:.4f} samples/s; peak memory {peak:.2f} GiB; "
+        f"total_loss {vals['train/total_loss']:.4f}, perplexity {vals['train/perplexity']:.1f}; "
+        f"{moved} codec tensors moved; 10c took {time.time() - t0:.1f} s")
+    del codec, disc, lpips, st, astep, img, before
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def f32_entry_points(torch, entry_root: Path) -> tuple:
+    """10d: train_ae, train_diff and predict_diff at
+    diffusion.compute_dtype=float32, then train_ae with CompVis vq-f8's and
+    vq-f16's codebooks (embed_dim / z_channels / n_embed 4 / 4 / 16384 and
+    8 / 8 / 16384) on vq-f4's layout, on phase 6's Flowers tree. The cuts:
+    4 codec steps and 4 micro-steps (one update) a run, 4-step previews,
+    and the 8 exact pairs at 10 DDIM steps (config_predict.yaml: 128; an
+    fp32 step at 512^2 takes about 250 ms with cuDNN's fp32 convolutions)."""
+    from stedm_tpu_torch import predict_diff, train_ae, train_diff
+    from stedm_tpu_torch.config import compose
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.train import checkpoints
+
+    counts, out = {}, {}
+    data, results = entry_root / "data", entry_root / "phase10"
+    where = [f"location.data_dir={data}", f"location.result_dir={results}"]
+    fp32 = ["diffusion.compute_dtype=float32"]
+
+    def run(name: str, main, args: list):
+        log(f"  {main.__module__}.main({args})")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        with PlainOnCard() as guard:
+            res = main(args)
+            torch.cuda.synchronize()
+        counts[name] = dict(LAUNCHES)
+        log(f"    {time.time() - t1:.1f} s; launches {counts[name]}; plain versions given a CUDA "
+            f"tensor: {guard.calls}")
+        require(guard.calls == 0, f"{name}: a plain version ran on the card")
+        torch.cuda.empty_cache()
+        return res
+
+    def codec_run(name: str, extra: list, dtype, want: tuple):
+        args = ["data=flowers", "style_sampling=augmented", *where, "data.samples=8",
+                "num_epochs=1", "loss.disc_start=0", f"run_name={name}", *extra]
+        ae = run(name, train_ae.main, args)
+        ep = ae["epochs"][0]
+        require(ae["step"] == 4 and ep["steps"] == 4, f"{name}: codec steps {ae['step']}")
+        require(all(math.isfinite(v) for v in {**ep["train"], **ep["val"]}.values()),
+                f"{name}: non-finite codec logs {ep}")
+        run_dir = Path(ae["run_dir"])
+        files = sorted(p.name for p in (run_dir / "ckpt").iterdir())
+        for tag in ("last", "best"):
+            f = checkpoints.checkpoint_file(run_dir / "ckpt", f"{name}_{tag}")
+            require(f.is_file(), f"{name}: {f.name} was not written")
+        require((run_dir / "events.jsonl").is_file(), f"{name}: no events.jsonl")
+        saved = checkpoints.load(checkpoints.checkpoint_file(run_dir / "ckpt", f"{name}_last"))
+        fs = dict(compose("config_ae", args).diffusion.first_stage_config)
+        with torch.random.fork_rng(devices=[0]), torch.device("cuda"):
+            torch.manual_seed(0)
+            init = train_ae.build_codec(fs, dtype=dtype)[0].state_dict()
+        moved = sum(not torch.equal(init[k].cpu(), v) for k, v in saved["params"].items())
+        require(moved > 0, f"{name}: the codec did not move")
+        cb = saved["params"]["quantize.embedding.weight"]
+        require(tuple(cb.shape) == want, f"{name}: codebook {tuple(cb.shape)}")
+        used = ep["train"]["train/cluster_usage"], ep["val"]["val/cluster_usage"]
+        log(f"  {name}: codebook {tuple(cb.shape)}; {ep['steps']} steps, "
+            f"{ep['steps'] * 2 / ep['seconds']:.4f} samples/s over the epoch; train total_loss "
+            f"{ep['train']['train/total_loss']:.5f}, val rec_loss "
+            f"{ep['val']['val/rec_loss']:.5f}; distinct codes a step {used[0]:.1f} (train), "
+            f"{used[1]:.1f} (val); {moved} of {len(init)} codec tensors moved; written {files}")
+        out[name] = dict(samples_per_s=ep["steps"] * 2 / ep["seconds"], codes_used=used,
+                         seconds=ep["seconds"])
+        return ae
+
+    log("== phase 10d: the entry points at diffusion.compute_dtype=float32 on phase 6's tree")
+    codec_run("f32_entry_ae", fp32, torch.float32, (8192, 3))
+    tr = run("f32_entry_train", train_diff.main,
+             ["data=flowers", "style_sampling=augmented", "style_agg=mean", *where, *fp32,
+              "data.samples=8", "num_epochs=1", "+preview_ddim_steps=4"])
+    ep = tr["epochs"][0]
+    require(tr["step"] == 4 and math.isfinite(ep["loss"]), f"fp32 train_diff: {tr['step']}")
+    run_dir = Path(tr["run_dir"])
+    saved = checkpoints.load(checkpoints.checkpoint_file(run_dir / "ckpt", run_dir.name + "_last"))
+    require(saved["opt"]["gradient_step"] == 1, "fp32 train_diff applied no update")
+    files = sorted(p.name for p in run_dir.iterdir())
+    log(f"  fp32 train_diff: {ep['micro_steps']} micro-steps, loss {ep['loss']:.5f}, "
+        f"{ep['samples'] / ep['seconds']:.4f} samples/s; an update applied; written {files}")
+    out["f32_entry_train"] = dict(samples_per_s=ep["samples"] / ep["seconds"])
+    del saved
+    pred = run("f32_entry_predict", predict_diff.main,
+               ["data=flowers", "data/dataset=[flowers_anno,flowers_unanno]",
+                "data.ratios=[1.0,1.0]", "cfg_scale=1.5", "style_sampling=augmented",
+                "style_agg=mean", *where, *fp32, "data.samples=4", "ddim_steps=10",
+                "+predict_name=f32"])
+    check_pairs(Path(pred["predict_dir"]), 8, ENTRY_PATCH)
+    out["f32_entry_predict"] = {k: v for k, v in predict_rates(pred).items()
+                                if k != "predict_dir"}
+    log("== phase 10d: train_ae.main with vq-f8's and vq-f16's codebooks on vq-f4's layout")
+    p = "diffusion.first_stage_config.params"
+    for name, e in (("wide4_entry_ae", 4), ("wide8_entry_ae", 8)):
+        codec_run(name, [f"{p}.embed_dim={e}", f"{p}.ddconfig.z_channels={e}",
+                         f"{p}.n_embed=16384"], torch.bfloat16, (16384, e))
+    for name, c in counts.items():
+        names = (("gn_silu", "flash_attention_f32", "nearest_code") if name.startswith("f32")
+                 else ("gn_silu", "flash_attention", "flash_attention_bwd", "nearest_code_stream"))
+        if name in ("f32_entry_ae", "f32_entry_train"):
+            names += ("flash_attention_bwd_f32",)
+        _launch_check(c, names, name)
+        if name.startswith("f32"):
+            require(c["flash_attention"] == 0 and c["flash_attention_bwd"] == 0,
+                    f"{name}: a bf16 flash kernel ran on the fp32 path: {c}")
+    return out, counts
+
+
+def fp32_and_wide(torch, entry_root: Path, out_dir: Path, card: str, recs: dict) -> tuple:
+    """Phase 10, on phase 6's tree; returns its numbers and the launches of
+    each path."""
+    t0 = time.time()
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB: the L2 flush
+    flush = scratch.zero_
+    log("== phase 10a: the fp32 kernels and nearest code at every width, against their plain "
+        "versions (TF32 off)")
+    f32_forward_checks(torch, recs["flash_attention_f32"], flush)
+    f32_backward_checks(torch, recs["flash_attention_bwd_f32"], flush)
+    f32_gn_checks(torch, recs["gn_silu_f32"], flush)
+    wide_nearest_checks(torch, recs["nearest_code"], recs["nearest_code_stream"], flush)
+    del scratch, flush
+    torch.cuda.empty_cache()
+    t_a = time.time() - t0
+    log(f"  phase 10a took {t_a:.1f} s")
+    log("== phase 10b: the tiny STEDM at fp32, card against CPU")
+    t_b = time.time()
+    f32_tiny_parity(torch)
+    log(f"  phase 10b took {time.time() - t_b:.1f} s")
+    full, counts = f32_full_width(torch, out_dir, card)
+    entry, entry_counts = f32_entry_points(torch, entry_root)
+    seconds = time.time() - t0
+    log(f"  phase 10 took {seconds:.1f} s (10a {t_a:.1f} s)")
+    return ({"phase10_full": full, "phase10_entry": entry, "phase10_seconds": seconds},
+            {**counts, **entry_counts})
+
+
 # device-kernel name patterns, first match wins
 _CATEGORIES = (
     ("gn_silu (CUDA)", r"gn_silu_kernel"),
@@ -2755,7 +3488,6 @@ def main() -> int:
     from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
 
-    stock_flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     t0 = time.time()
     out_dir.mkdir(parents=True, exist_ok=True)
     LOG_FILE = out_dir / "chip_smoke.log"
@@ -2764,7 +3496,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"== phase 1: header\n  card: {card}\n  torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; TF32 off for fp32 matmul and cuDNN")
-    builds = build_all(["gn_silu", "flash_attention", "flash_attention_bwd", "nearest_code"])
+    builds = build_all(["gn_silu", "flash_attention", "flash_attention_bwd", "nearest_code",
+                        "flash_attention_f32", "flash_attention_bwd_f32"])
     (out_dir / "nvcc.log").write_text("\n".join(f"== {k}\n{v}" for k, v in builds.items()))
     for stem, text in builds.items():
         regs = [ln.strip() for ln in text.splitlines() if "Used" in ln and "registers" in ln]
@@ -2779,30 +3512,7 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions (bf16 unless stated)")
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB
     flush = scratch.zero_
-    recs = {
-        "gn_silu": KernelRecord("gn_silu", "cuda", "stedm_tpu_torch/csrc/gn_silu.cu",
-                                "stedm_tpu/ops/gn_silu.py:125"),
-        "flash_attention": KernelRecord(
-            "flash_attention", "cuda", "stedm_tpu_torch/csrc/flash_attention.cu",
-            "stedm_tpu/ops/blocked_attention.py:99"),
-        # the backward's two instances share one counter: every backward of
-        # diffusion training is at Dh 64/128 and every one of codec
-        # fine-tuning at Dh 512 (a cluster of four blocks a key tile)
-        "flash_attention_bwd": KernelRecord(
-            "flash_attention_bwd", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
-            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
-            "(_flash_attention_bwd_dq)", paths=("sample_batch", "train_micro_step",
-                                                "entry_train", "her2_train", "catch_train",
-                                                "svit_train", "handoff_train")),
-        "flash_attention_bwd_dh512": KernelRecord(
-            "flash_attention_bwd_dh512", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
-            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
-            "(_flash_attention_bwd_dq), reached through stedm_tpu/models/vq.py:89",
-            counter="flash_attention_bwd", paths=("codec_step", "her2_ae", "handoff_ae")),
-        "nearest_code": KernelRecord("nearest_code", "cuda",
-                                     "stedm_tpu_torch/csrc/nearest_code.cu",
-                                     "stedm_tpu/ops/quantize.py:62"),
-    }
+    recs = kernel_records()
     check_gn(torch, recs["gn_silu"], flush)
     check_attention(torch, recs["flash_attention"], flush)
     check_nearest(torch, recs["nearest_code"], flush)
@@ -2918,6 +3628,7 @@ def main() -> int:
     log(f"  phase 7 took {seg_seconds:.1f} s")
     her2 = histopathology(torch)
     workflow, workflow_counts = generation_workflow(torch, entry_root, out_dir, card)
+    phase10, phase10_counts = fp32_and_wide(torch, entry_root, out_dir, card, recs)
     shutil.rmtree(entry_root, ignore_errors=True)
     # launches: each kernel's count on each main path it runs on, zeroed just
     # before and read just after (the sampler's batch, the serving batch, one
@@ -2928,7 +3639,7 @@ def main() -> int:
                    "codec_step": codec["codec_launches_per_step"], **entry["entry_counts"],
                    "seg_train_step": seg["seg_launches_per_micro_step"],
                    "seg_entry": seg_entry["seg_entry_counts"], **her2.pop("her2_counts"),
-                   **workflow_counts}
+                   **workflow_counts, **phase10_counts}
     not_run = her2.pop("paths_not_run")
     if not_run:
         log(f"  launches on {', '.join(not_run)}: null, those paths did not run")
@@ -2948,8 +3659,11 @@ def main() -> int:
                       "gn_bound_ms_sample_batch": gn_bound_ms, "gn_ms_sample_batch": gn_ms,
                       "host_us_per_call": host_us, **serving, **train, **codec, **entry,
                       **seg_parity, **seg, **seg_entry, "seg_seconds": seg_seconds,
-                      **her2, **workflow, "card": card}))
-    print(json.dumps({"kernels": [r.entry for r in recs.values()]}))
+                      **her2, **workflow, **phase10, "card": card}))
+    # the line holds each kernel's summary; its shapes and its launches on
+    # every path (tens of kB) go to <out>/kernels.json
+    (out_dir / "kernels.json").write_text(json.dumps([r.entry for r in recs.values()], indent=1))
+    print(json.dumps({"kernels": [{k: r.entry[k] for k in KERNEL_KEYS} for r in recs.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -3,8 +3,12 @@
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched the kernel on
 the card (calls that took the plain version on a CPU tensor do not count), so
 a run can show that its main path went through the kernels. The flash
-backward's Di pass and fused kernel are launched together and count once,
-under ``flash_attention_bwd``.
+kernels count by dtype: ``flash_attention`` and ``flash_attention_bwd`` the
+bf16 kernels, ``flash_attention_f32`` and ``flash_attention_bwd_f32`` the fp32
+ones; a backward call's launches (the Di pass and its kernels) count once.
+``nearest_code`` counts the width-3 kernel with the codebook slice resident,
+``nearest_code_stream`` the kernel that streams a packed codebook of any
+width and size (its packing launch and search count once).
 
 ``PLAIN_CALLS`` counts the passes that run plain PyTorch on the card where a
 kernel's gradient is needed but the TPU side had no kernel either (the
@@ -12,7 +16,8 @@ GroupNorm backward, a jnp function in the JAX package); they are not kernel
 launches and stay out of ``LAUNCHES``.
 """
 
-LAUNCHES = {"gn_silu": 0, "flash_attention": 0, "flash_attention_bwd": 0, "nearest_code": 0}
+LAUNCHES = {"gn_silu": 0, "flash_attention": 0, "flash_attention_bwd": 0, "nearest_code": 0,
+            "flash_attention_f32": 0, "flash_attention_bwd_f32": 0, "nearest_code_stream": 0}
 PLAIN_CALLS = {"gn_silu_bwd": 0}
 
 

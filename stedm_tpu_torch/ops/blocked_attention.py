@@ -6,7 +6,11 @@ forward that stedm_tpu/ops/blocked_attention.py:flash_sdpa and
 models/vq.py:AttnBlockVQ call) on CUDA tensors, and ``attention_reference``
 on CPU tensors. The forward reads q, k and v through their strides (any
 16-byte-aligned batch, head and token pitch, last dimension contiguous) and
-writes O in any such layout. When a gradient is wanted it goes through
+writes O in any such layout. bf16 tensors take the bf16 kernels; fp32
+tensors (``diffusion.compute_dtype=float32``) take
+``csrc/flash_attention_f32.cu`` and ``csrc/flash_attention_bwd_f32.cu``,
+which keep fp32 accuracy (3xTF32 products) at every head dimension the
+forward takes (``KERNELS``). When a gradient is wanted it goes through
 ``FlashAttentionFunction``, whose backward launches
 ``csrc/flash_attention_bwd.cu`` (a Di pass and one fused kernel for dQ, dK
 and dV: the port of the stock kernel's ``dkv`` and ``dq`` Pallas kernels,
@@ -35,8 +39,12 @@ from stedm_tpu_torch._device import check_cuda_tensor, load_library
 from stedm_tpu_torch.ops import LAUNCHES
 
 MAX_HEAD_DIM = 512
-BWD_HEAD_DIMS = (64, 128, 256, 512)
+BWD_HEAD_DIMS = (64, 128, 256, 512)      # the bf16 backward's; the fp32 one takes the forward's
 _LOG2E = 1.0 / math.log(2.0)
+# the kernels of each dtype: (forward, backward) sources under csrc/, each
+# also the name of its LAUNCHES count
+KERNELS = {torch.bfloat16: ("flash_attention", "flash_attention_bwd"),
+           torch.float32: ("flash_attention_f32", "flash_attention_bwd_f32")}
 
 
 def _largest_divisor_at_most(n: int, cap: int) -> int:
@@ -109,52 +117,68 @@ def _kernel_fn(stem: str, name: str, argtypes, restype=ctypes.c_int):
     return fn
 
 
-def _fwd_lib():
-    return _kernel_fn("flash_attention", "flash_attention_fwd",
-                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+def _fwd_lib(dtype):
+    stem = KERNELS[dtype][0]
+    return _kernel_fn(stem, f"{stem}_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                       + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
 
 
-def _bwd_lib():
-    return _kernel_fn("flash_attention_bwd", "flash_attention_bwd",
-                      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+def _bwd_lib(dtype):
+    stem = KERNELS[dtype][1]
+    return _kernel_fn(stem, stem, [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                       + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
 
 
-def bwd_workspace_bytes(bh: int, t: int, d: int) -> int:
-    """Device bytes the backward needs: the Di pass's output, the dQ turn
-    counters and, with more than one 128-key tile, the fp32 sums of dQ."""
-    return _kernel_fn("flash_attention_bwd", "flash_attention_bwd_workspace", [ctypes.c_int] * 3,
-                      ctypes.c_size_t)(bh, t, d)
+def bwd_workspace_bytes(bh: int, t: int, d: int, dtype=torch.bfloat16) -> int:
+    """Device bytes the backward of ``dtype`` needs: bf16, the Di pass's
+    output, the dQ turn counters and, with more than one 128-key tile, the
+    fp32 sums of dQ; fp32, the Di pass's output."""
+    stem = KERNELS[dtype][1]
+    return _kernel_fn(stem, f"{stem}_workspace", [ctypes.c_int] * 3, ctypes.c_size_t)(bh, t, d)
 
 
 def check_strided(t: torch.Tensor, name: str) -> tuple[int, int, int]:
     """What the flash kernels take of a ``[B, H, T, Dh]`` tensor's layout:
-    the last dimension contiguous, every row on a 16-byte boundary (the base
-    and the batch, head and token pitches; a TMA tensor map carries any such
-    strides). Returns the element strides ``(batch, head, token)``; a
-    dimension of size 1 is never stepped over, so it reports the row length."""
+    bf16 or fp32, the last dimension contiguous, every row on a 16-byte
+    boundary (the base and the batch, head and token pitches; a TMA tensor
+    map, or the fp32 kernels' 16-byte copies, carry any such strides).
+    Returns the element strides ``(batch, head, token)``; a dimension of size
+    1 is never stepped over, so it reports the row length."""
     if t.dim() != 4:
         raise ValueError(f"{name} must have 4 dims, got {tuple(t.shape)}")
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"{name} must be {torch.bfloat16}, got {t.dtype}")
+    if t.dtype not in KERNELS:
+        raise ValueError(f"{name} must be {torch.bfloat16} or {torch.float32}, got {t.dtype}")
     d = t.shape[-1]
     if t.stride(-1) != 1:
         raise ValueError(f"{name}'s last dimension must be contiguous, got stride "
                          f"{t.stride(-1)}")
     strides = tuple(t.stride(i) if t.shape[i] > 1 else d for i in range(3))
-    if t.data_ptr() % 16 or any(s % 8 or s <= 0 for s in strides):
+    per_row = 16 // t.element_size()
+    if t.data_ptr() % 16 or any(s % per_row or s <= 0 for s in strides):
         raise ValueError(f"{name}'s rows must start on 16-byte boundaries: data_ptr "
                          f"{t.data_ptr():#x}, strides {tuple(t.stride())}")
     return strides
 
 
+def _check_dtypes(named) -> torch.dtype:
+    """The dtype that every tensor of ``named`` shares, one the kernels take."""
+    dtype = named[0][1].dtype
+    for name, x in named:
+        if x.dtype != dtype:
+            raise ValueError(f"{name} is {x.dtype}, {named[0][0]} {dtype}: the kernels take "
+                             "one dtype")
+    if dtype not in KERNELS:
+        raise ValueError(f"the flash kernels take {torch.bfloat16} or {torch.float32}, got "
+                         f"{dtype}")
+    return dtype
+
+
 def flash_attention_cuda(q, k, v, sm_scale: float, return_lse: bool = False, out=None):
-    """Launch the forward kernel on bf16 ``[B, H, T, Dh]`` CUDA tensors whose
-    last dimension is contiguous (any 16-byte-aligned batch, head and token
-    strides). ``out`` is where O is written, in any such layout (default: a
-    new contiguous tensor); with ``return_lse`` also returns the fp32
-    ``[B, H, T]`` LSE."""
+    """Launch the forward kernel of q's dtype (bf16 or fp32, ``KERNELS``) on
+    ``[B, H, T, Dh]`` CUDA tensors whose last dimension is contiguous (any
+    16-byte-aligned batch, head and token strides). ``out`` is where O is
+    written, in any such layout (default: a new contiguous tensor); with
+    ``return_lse`` also returns the fp32 ``[B, H, T]`` LSE."""
     if not (q.shape == k.shape == v.shape):
         raise ValueError(f"q, k, v shapes differ: {q.shape}, {k.shape}, {v.shape}")
     b, h, t, d = q.shape
@@ -165,19 +189,22 @@ def flash_attention_cuda(q, k, v, sm_scale: float, return_lse: bool = False, out
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     elif out.shape != q.shape:
         raise ValueError(f"out must have q's shape {tuple(q.shape)}, got {tuple(out.shape)}")
+    named = (("q", q), ("k", k), ("v", v), ("out", out))
+    dtype = _check_dtypes(named)
     strides = []
-    for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+    for name, x in named:
         if not x.is_cuda or x.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on q's device")
         strides += check_strided(x, name)
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32) if return_lse else None
-    err = _fwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     None if lse is None else lse.data_ptr(), b, h, t, d,
-                     (ctypes.c_int64 * 12)(*strides), float(sm_scale),
-                     torch.cuda.current_stream(q.device).cuda_stream)
+    err = _fwd_lib(dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                          None if lse is None else lse.data_ptr(), b, h, t, d,
+                          (ctypes.c_int64 * 12)(*strides), float(sm_scale),
+                          torch.cuda.current_stream(q.device).cuda_stream)
+    stem = KERNELS[dtype][0]
     if err:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
-    LAUNCHES["flash_attention"] += 1
+        raise RuntimeError(f"{stem} launch failed: cudaError {err}")
+    LAUNCHES[stem] += 1
     return (out, lse) if return_lse else out
 
 
@@ -189,28 +216,35 @@ def _row_dot(do, o):
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=None):
-    """Launch the backward on the forward's inputs, its output ``o`` and LSE
-    (fp32 ``[B, H, T]``, contiguous) and the output gradient ``do``: a small
-    pass computes Di = rowsum(do * o) on the card, then one fused kernel
-    computes all three gradients (``csrc/flash_attention_bwd.cu``). q, k, v,
-    o and do are bf16 ``[B, H, T, Dh]`` CUDA tensors in any layout
-    ``check_strided`` takes, Dh 64, 128, 256 or 512. Returns contiguous
-    ``(dq, dk, dv)``;
-    ``LAUNCHES["flash_attention_bwd"]`` counts the call's launches (the Di
-    pass, the kernel and, past one 128-key tile, the dQ conversion) once.
+    """Launch the backward of q's dtype on the forward's inputs, its output
+    ``o`` and LSE (fp32 ``[B, H, T]``, contiguous) and the output gradient
+    ``do``. bf16 (``csrc/flash_attention_bwd.cu``): a small pass computes
+    Di = rowsum(do * o) on the card, then one fused kernel computes all three
+    gradients, at Dh 64, 128, 256 or 512. fp32
+    (``csrc/flash_attention_bwd_f32.cu``): the Di pass, then a dK/dV and a dQ
+    kernel, at any Dh the forward takes. q, k, v, o and do are ``[B, H, T,
+    Dh]`` CUDA tensors of one dtype in any layout ``check_strided`` takes.
+    Returns contiguous ``(dq, dk, dv)``; ``LAUNCHES`` counts the call's
+    launches once, under the backward's name (``KERNELS``).
     ``workspace``, a uint8 CUDA tensor of at least
-    ``bwd_workspace_bytes(B * H, T, Dh)`` bytes, is used instead of a new one
-    when given; it starts with the Di pass's output, fp32 ``[B * H,
-    ceil(T / 64), 2, 64]``: LSE * log2(e) (+inf past T), then Di (0 past T)."""
+    ``bwd_workspace_bytes(B * H, T, Dh, dtype)`` bytes, is used instead of a
+    new one when given; it starts with the Di pass's output: bf16, fp32
+    ``[B * H, ceil(T / 64), 2, 64]``: LSE * log2(e) (+inf past T), then Di (0
+    past T); fp32, Di as fp32 ``[B * H, T]``."""
     if not (q.shape == k.shape == v.shape == o.shape == do.shape):
         raise ValueError(f"q, k, v, o, do shapes differ: {q.shape}, {k.shape}, {v.shape}, "
                          f"{o.shape}, {do.shape}")
     b, h, t, d = q.shape
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"the flash-attention backward kernel takes head dims "
+    named = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
+    dtype = _check_dtypes(named)
+    if dtype == torch.bfloat16 and d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the bf16 flash-attention backward kernel takes head dims "
                          f"{BWD_HEAD_DIMS}, got {d}")
+    if d % 64 or d > MAX_HEAD_DIM:
+        raise ValueError(f"the fp32 flash-attention backward kernel takes head dims that "
+                         f"are multiples of 64 up to {MAX_HEAD_DIM}, got {d}")
     strides = []
-    for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+    for name, x in named:
         if not x.is_cuda or x.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on q's device")
         strides += check_strided(x, name)
@@ -219,20 +253,21 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=Non
         raise ValueError(f"lse must be [B, H, T] = {(b, h, t)} on q's device, got "
                          f"{tuple(lse.shape)}")
     dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(3))
-    nbytes = bwd_workspace_bytes(b * h, t, d)
+    nbytes = bwd_workspace_bytes(b * h, t, d, dtype)
     if workspace is None:
         workspace = torch.empty(nbytes, device=q.device, dtype=torch.uint8)
     elif (workspace.device != q.device or workspace.dtype != torch.uint8
           or workspace.numel() < nbytes or workspace.data_ptr() % 256):
         raise ValueError(f"workspace must be {nbytes} bytes (uint8) on q's device, "
                          "256-byte aligned")
-    err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                     lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                     workspace.data_ptr(), b, h, t, d, (ctypes.c_int64 * 15)(*strides),
-                     float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+    err = _bwd_lib(dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                          lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                          workspace.data_ptr(), b, h, t, d, (ctypes.c_int64 * 15)(*strides),
+                          float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+    stem = KERNELS[dtype][1]
     if err:
-        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {err}")
-    LAUNCHES["flash_attention_bwd"] += 1
+        raise RuntimeError(f"{stem} launch failed: cudaError {err}")
+    LAUNCHES[stem] += 1
     return dq, dk, dv
 
 

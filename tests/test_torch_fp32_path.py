@@ -1,0 +1,88 @@
+"""The fp32 compute path (``diffusion.compute_dtype=float32``) on the CPU:
+which flash kernel each dtype selects, with nothing launched, and the
+layouts the fp32 kernels take. A CPU tensor never reaches a kernel, so the
+wrappers' dtype dispatch is read from the C entry points they resolve.
+
+Held elsewhere, and not repeated here: the fp32 entry points against the
+JAX package (``train_ae.main``: tests/test_torch_her2_entry.py::
+test_train_ae_her2_matches_jax; ``train_diff.main`` and
+``predict_diff.main``: tests/test_torch_entry.py, both at
+``diffusion.compute_dtype=float32``); the stock fp32 backward in interpret
+mode at Dh 512 (tests/test_torch_attention_bwd.py, ``float32-1-1-256-512``).
+"""
+
+import pytest
+import torch
+
+from stedm_tpu_torch.ops import LAUNCHES
+from stedm_tpu_torch.ops import blocked_attention as pattn
+
+
+@pytest.fixture
+def resolved(monkeypatch):
+    """The (source, entry point) each wrapper asks ``_kernel_fn`` for."""
+    asked = []
+
+    def fake(stem, name, argtypes, restype=None):
+        asked.append((stem, name))
+        return lambda *a: 0
+
+    monkeypatch.setattr(pattn, "_kernel_fn", fake)
+    return asked
+
+
+@pytest.mark.parametrize("dtype,fwd,bwd", [
+    (torch.bfloat16, ("flash_attention", "flash_attention_fwd"),
+     ("flash_attention_bwd", "flash_attention_bwd")),
+    (torch.float32, ("flash_attention_f32", "flash_attention_f32_fwd"),
+     ("flash_attention_bwd_f32", "flash_attention_bwd_f32")),
+])
+def test_each_dtype_selects_its_kernels(resolved, dtype, fwd, bwd):
+    pattn._fwd_lib(dtype)
+    pattn._bwd_lib(dtype)
+    pattn.bwd_workspace_bytes(4, 100, 128, dtype)
+    assert resolved == [fwd, bwd, (bwd[0], bwd[0] + "_workspace")]
+    # each source counts its own launches
+    assert pattn.KERNELS[dtype] == (fwd[0], bwd[0])
+    assert set(pattn.KERNELS[dtype]) <= set(LAUNCHES)
+
+
+def test_kernels_take_bf16_and_fp32_only():
+    x = torch.zeros(1, 2, 16, 64)
+    named = [("q", x), ("k", x), ("v", x)]
+    assert pattn._check_dtypes(named) == torch.float32
+    assert pattn._check_dtypes([(n, t.bfloat16()) for n, t in named]) == torch.bfloat16
+    with pytest.raises(ValueError, match="one dtype"):
+        pattn._check_dtypes([("q", x), ("k", x.bfloat16())])
+    with pytest.raises(ValueError, match="take"):
+        pattn._check_dtypes([(n, t.half()) for n, t in named])
+
+
+@pytest.mark.parametrize("dtype,dh,match", [
+    (torch.bfloat16, 192, "bf16 flash-attention backward kernel takes head dims"),
+    (torch.bfloat16, 128, "CUDA tensor"),
+    (torch.float32, 192, "CUDA tensor"),         # every Dh of the forward
+    (torch.float32, 448, "CUDA tensor"),
+    (torch.float32, 96, "multiples of 64"),
+])
+def test_backward_head_dims_by_dtype(dtype, dh, match):
+    """The bf16 backward takes Dh 64, 128, 256 and 512; the fp32 one every
+    multiple of 64 up to 512. Past the gates, a CPU tensor is refused before
+    any launch."""
+    q = torch.zeros(1, 1, 64, dh, dtype=dtype)
+    lse = torch.zeros(1, 1, 64)
+    with pytest.raises(ValueError, match=match):
+        pattn.flash_attention_bwd_cuda(q, q, q, q, lse, q, 0.1)
+
+
+def test_fp32_strided_views_of_the_attention_block():
+    """The U-Net's AttentionBlock at fp32: q, k, v as views of the packed
+    ``[B, T, H, 3, Dh]`` projection and O token-major, all read through
+    their strides (16-byte rows: 4 floats)."""
+    proj = torch.zeros(2, 16, 4, 3, 64)
+    for x in proj.permute(0, 2, 3, 1, 4).unbind(2):
+        assert pattn.check_strided(x, "x") == (16 * 4 * 3 * 64, 3 * 64, 4 * 3 * 64)
+    out = torch.empty(2, 16, 4, 64).permute(0, 2, 1, 3)
+    assert pattn.check_strided(out, "out") == (16 * 4 * 64, 64, 4 * 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        pattn.check_strided(torch.zeros(2, 2, 16, 66)[..., :64], "q")   # a 264-byte pitch

@@ -575,3 +575,167 @@ def test_graph_replay_equals_eager_serving(cuda, carry):
     # mid-block attention and one nearest code)
     assert LAUNCHES["flash_attention"] - before["flash_attention"] == 1
     assert LAUNCHES["nearest_code"] - before["nearest_code"] == 1
+
+
+# ---- the fp32 flash kernels and the streaming nearest code ----
+
+def _f32_forward_tolerance(q, k, v, s, ref):
+    """2^-16 (P |V| + |ref|): fp32 products and sums in other orders."""
+    p = torch.softmax((q @ k.transpose(-1, -2)) * s, dim=-1)
+    return 2 ** -16 * (p @ v.abs() + ref.abs())
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 40, 64), (1, 2, 200, 128), (1, 1, 130, 192),
+                                   (1, 2, 300, 256), (1, 1, 100, 320), (1, 1, 333, 448),
+                                   (1, 1, 2500, 512), (3, 16, 300, 128)])
+def test_flash_attention_f32_forward(cuda, shape):
+    """Every head-dimension class at ragged T: O within 2^-16 (P|V| + |ref|)
+    of the plain version (TF32 off), the LSE against torch.logsumexp, two
+    launches bit for bit."""
+    from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
+
+    q, k, v = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(3))
+    s = shape[-1] ** -0.5
+    before = LAUNCHES["flash_attention_f32"]
+    got, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+    assert LAUNCHES["flash_attention_f32"] == before + 1
+    ref = a.attention_reference(q, k, v, s)
+    assert bool(((got - ref).abs() <= _f32_forward_tolerance(q, k, v, s, ref)).all())
+    lse_ref = torch.logsumexp((q @ k.transpose(-1, -2)) * s, -1)
+    assert bool(((lse - lse_ref).abs() <= 1e-5 * lse_ref.abs() + 1e-5).all())
+    assert torch.equal(got, a.flash_attention_cuda(q, k, v, s))
+
+
+@pytest.mark.parametrize("b,t,h,dh", [(2, 256, 8, 128), (1, 200, 4, 64), (2, 70, 1, 512)])
+def test_flash_attention_f32_strided_equals_contiguous(cuda, b, t, h, dh):
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    proj = torch.randn((b, t, h, 3, dh), generator=cuda, device="cuda")
+    q, k, v = proj.permute(0, 2, 3, 1, 4).unbind(2)
+    s = dh ** -0.5
+    out = torch.empty((b, t, h, dh), device="cuda").permute(0, 2, 1, 3)
+    got = a.flash_attention_cuda(q, k, v, s, out=out)
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(got, a.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                                   v.contiguous(), s))
+
+
+def _f64_backward(q, k, v, o, lse, do, s):
+    """attention_backward_reference's steps in float64 and each gradient's
+    sqrt(sum terms^2): the fp32 plain version sums 16k keys in one cuBLAS
+    sequence, whose own error reaches the fp32 tolerance there."""
+    Q, K, V, O, DO = (x.double() for x in (q, k, v, o, do))
+    log2e = 1.4426950408889634
+    P = torch.exp2((Q @ K.transpose(-1, -2)) * (s * log2e) - lse.double()[..., None] * log2e)
+    dS = P * (DO @ V.transpose(-1, -2) - (DO * O).sum(-1, keepdim=True)) * s
+    ref = (dS @ K, dS.transpose(-1, -2) @ Q, P.transpose(-1, -2) @ DO)
+    bounds = ((dS.square() @ K.square()).sqrt(),
+              (dS.transpose(-1, -2).square() @ Q.square()).sqrt(),
+              (P.transpose(-1, -2).square() @ DO.square()).sqrt())
+    return ref, bounds
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 40, 64), (1, 2, 200, 128), (1, 1, 130, 192),
+                                   (1, 2, 300, 256), (1, 1, 100, 320), (1, 1, 257, 512),
+                                   (3, 8, 130, 64), (2, 1, 1000, 512)])
+def test_flash_attention_f32_backward(cuda, shape):
+    """dq, dk, dv within 2^-16 (sqrt(sum terms^2) + |ref|) of the plain
+    version's steps in float64; two launches give the same bits."""
+    from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
+
+    q, k, v, do = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(4))
+    s = shape[-1] ** -0.5
+    o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+    before = LAUNCHES["flash_attention_bwd_f32"]
+    got = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+    assert LAUNCHES["flash_attention_bwd_f32"] == before + 1
+    ref, bounds = _f64_backward(q, k, v, o, lse, do, s)
+    for name, g, r, bd in zip(("dq", "dk", "dv"), got, ref, bounds):
+        d = (g.double() - r).abs()
+        assert bool((d <= 2 ** -16 * (bd + r.abs())).all()), (name, float(d.max()))
+    again = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+    for name, g, g2 in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(g, g2), name
+
+
+def test_flash_attention_function_f32_launches_fp32_kernels(cuda):
+    """The U-Net's AttentionBlock at fp32: FlashAttentionFunction on strided
+    views runs the fp32 forward and backward and equals the direct launches."""
+    from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
+
+    proj = torch.randn(1, 96, 2, 3, 64, generator=cuda, device="cuda").requires_grad_()
+    q, k, v = proj.permute(0, 2, 3, 1, 4).unbind(2)
+    do = torch.randn(1, 96, 2, 64, generator=cuda, device="cuda")
+    before = dict(LAUNCHES)
+    out = a.flash_attention(q, k, v, 0.125)
+    out.transpose(1, 2).backward(do)
+    assert LAUNCHES["flash_attention_f32"] == before["flash_attention_f32"] + 1
+    assert LAUNCHES["flash_attention_bwd_f32"] == before["flash_attention_bwd_f32"] + 1
+    assert LAUNCHES["flash_attention"] == before["flash_attention"]
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    o, lse = a.flash_attention_cuda(qd, kd, vd, 0.125, return_lse=True)
+    assert torch.equal(out.detach(), o)
+    direct = a.flash_attention_bwd_cuda(qd, kd, vd, o, lse, do.transpose(1, 2), 0.125)
+    grads = proj.grad.permute(0, 2, 3, 1, 4).unbind(2)
+    for name, g, d in zip(("dq", "dk", "dv"), grads, direct):
+        assert torch.equal(g, d), name
+
+
+# widths 1-16 (registers) and 20 (read from the L1); codebooks beyond a
+# CTA's shared memory at width 3; splits of 8, 2 and 1; a last chunk partly
+# padding
+@pytest.mark.parametrize("n,width,n_embed", [(3000, 4, 16384), (2049, 8, 1030), (70, 1, 5),
+                                             (5000, 16, 4096), (700, 20, 300), (3000, 3, 200000),
+                                             (40000, 3, 16384), (1000, 7, 2049)])
+def test_nearest_code_stream_kernel(cuda, n, width, n_embed):
+    """The streaming kernel against the plain version: equal indices but at
+    fp32 near-ties; duplicated codes keep the lowest index; two launches
+    equal."""
+    from stedm_tpu_torch.ops import LAUNCHES, quantize as qz
+
+    assert qz._launch_plan(n, n_embed, width)["kernel"] == "stream"
+    half = (n_embed + 1) // 2
+    base = torch.randn(half, width, generator=cuda, device="cuda")
+    cb = torch.cat([base, base])[:n_embed].contiguous()
+    z = cb[torch.randint(0, n_embed, (n,), generator=cuda, device="cuda")].clone()
+    z[::3] += 0.01 * torch.randn(z[::3].shape, generator=cuda, device="cuda")
+    before = LAUNCHES["nearest_code_stream"]
+    got = qz.nearest_code_cuda(z, cb)
+    assert LAUNCHES["nearest_code_stream"] == before + 1
+    ref = qz.nearest_code_reference(z, cb)
+    rows = [tuple(r) for r in cb.tolist()]
+    first = {}
+    for i, row in enumerate(rows):
+        first.setdefault(row, i)
+    assert all(first[rows[i]] == i for i in got.tolist())
+    diff = (got != ref).nonzero().flatten()
+    d = lambda i: ((z[diff].double() - cb[i[diff].long()].double()) ** 2).sum(1)
+    assert bool(((d(got) - d(ref)).abs() <= 1e-5 * (1 + (z[diff] ** 2).sum(1))).all())
+    assert torch.equal(got, qz.nearest_code_cuda(z, cb))
+
+
+@pytest.mark.parametrize("n,n_embed", [(40000, 16384), (3000, 5000)])
+def test_nearest_code_stream_is_the_argmin_in_its_own_order(cuda, n, n_embed):
+    """Widths 3 (at 16384 codes and 40000 tokens through the streaming
+    kernel, the slice too large for the resident one) and 4 (padded to 8):
+    on a coarse grid many distances tie exactly; the index is the first minimum of the distances
+    formed in the kernel's order (||c||^2 - 2 (((z0 c0 + z1 c1) + z2 c2) +
+    ...), each product and sum rounded)."""
+    from stedm_tpu_torch.ops import quantize as qz
+
+    for width in (3, 4):
+        cb = (torch.randint(-6, 7, (n_embed, width), generator=cuda, device="cuda") * 0.25).float()
+        z = (torch.randint(-8, 9, (n, width), generator=cuda, device="cuda") * 0.125).float()
+        if width == 4:
+            assert qz._launch_plan(n, n_embed, width)["kernel"] == "stream"
+        got = qz.nearest_code_cuda(z, cb)
+        w = cb[:, 0] * cb[:, 0]
+        for i in range(1, width):
+            w = w + cb[:, i] * cb[:, i]
+        want = []
+        for zc in z.split(4096):
+            dot = zc[:, :1] * cb[:, 0]
+            for i in range(1, width):
+                dot = dot + zc[:, i:i + 1] * cb[:, i]
+            want.append(torch.argmin(w - 2 * dot, dim=1).to(torch.int32))
+        assert torch.equal(got, torch.cat(want)), width

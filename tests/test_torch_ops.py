@@ -150,7 +150,8 @@ def test_cpu_wrappers_launch_nothing():
     pattn.flash_attention(q, q, q, 0.125)
     pq.nearest_code(torch.randn(16, 3), torch.randn(32, 3))
     assert set(LAUNCHES) == {"gn_silu", "flash_attention", "flash_attention_bwd",
-                             "nearest_code"}
+                             "nearest_code", "flash_attention_f32", "flash_attention_bwd_f32",
+                             "nearest_code_stream"}
     assert not any(LAUNCHES.values()), LAUNCHES
 
 
@@ -240,12 +241,17 @@ def test_check_strided_refusals(case):
         "last_stride": lambda: base.transpose(2, 3)[..., :64],  # last dimension strided
         "token_pitch": lambda: torch.zeros(2, 2, 16, 68, dtype=torch.bfloat16)[..., :64],
         "base": lambda: base[..., 4:68],                        # rows start 8 bytes off
-        "dtype": lambda: base.float()[..., :64],
+        "dtype": lambda: base.half()[..., :64],                 # the kernels take bf16 and fp32
         "rank": lambda: base[0, ..., :64],
     }[case]()
     with pytest.raises(ValueError):
         pattn.check_strided(bad, "q")
     assert pattn.check_strided(base[..., :64], "q") == (2 * 16 * 72, 16 * 72, 72)
+    # fp32 (the fp32 kernels): the same 16-byte rule, 4 floats
+    assert pattn.check_strided(base.float()[..., :64], "q") == (2 * 16 * 72, 16 * 72, 72)
+    assert pattn.check_strided(base.float()[..., 4:68], "q") == (2 * 16 * 72, 16 * 72, 72)
+    with pytest.raises(ValueError):
+        pattn.check_strided(base.float()[..., 2:66], "q")     # rows start 8 bytes off
 
 
 def test_flash_attention_cuda_refuses_cpu_tensors():
@@ -320,5 +326,7 @@ def test_packed_codebook_layout():
         assert p["bar_off"] - p["scratch_off"] >= max(12 * p["codes_per_cta"], 8 * pq._TILE)
         assert p["scratch_off"] % 16 == 0 and p["bar_off"] % 8 == 0
         assert p["bar_off"] + 16 <= p["smem"] <= 232448 and p["smem"] >= 118784
-    with pytest.raises(ValueError):
-        pq._launch_plan(16, 8 * 20000)   # a slice beyond a block's shared memory
+    # a slice beyond a block's shared memory takes the streaming kernel
+    # (tests/test_torch_nearest_code.py holds its plan)
+    p = pq._launch_plan(16, 8 * 20000)
+    assert p["kernel"] == "stream" and p["smem"] <= 232448
