@@ -159,7 +159,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    that run; the launches of every kernel inside each call; phase 6's tree
    is removed at the end of phase 10;
 10. the fp32 compute path and the wide codebooks, on phase 6's tree: 10a.
-   the fp32 flash forward (``csrc/flash_attention_f32.cu``) at the sampling,
+   the fp32 flash forward (``csrc/flash_attention_f32.cu``: 3xTF32 wgmma
+   over TF32 hi and lo copies, the head dimension split across a cluster)
+   at the sampling,
    training and codec shapes, a ragged T and the AttentionBlock's strided
    views (bit for bit against contiguous copies), within 2^-16 (P|V| +
    |ref|) of ``attention_reference``; the fp32 backward
@@ -176,7 +178,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bounds (3xTF32 products over the TF32 peak); 10b. the tiny STEDM at fp32
    sampled and trained on the card against the CPU (``F32_TINY_TOL``);
    10c. at fp32 the flagship sampler (eager and as graphs, the latents bit
-   for bit, a profile), a 512^2 training micro-step and a vq-f4 codec step;
+   for bit, a profile), a 512^2 training micro-step and a vq-f4 codec step
+   (profiled: ``profile_f32_codec.txt`` and the fp32 flash kernels' share
+   of its device time);
    10d. ``train_ae``, ``train_diff`` and ``predict_diff`` at
    ``diffusion.compute_dtype=float32``, and ``train_ae`` with vq-f8's and
    vq-f16's codebooks (4 / 4 / 16384, 8 / 8 / 16384); in 10c and 10d the
@@ -269,6 +273,9 @@ PATHS_F32 = ("f32_sample_batch", "f32_train_micro_step", "f32_codec_step", "f32_
              "f32_entry_train", "f32_entry_predict")
 PATHS_WIDE = ("wide4_entry_ae", "wide8_entry_ae")
 
+
+# ptxas's notes that wgmma instructions were serialised
+SERIALISED = ("C7512", "C7514", "C7520")
 
 # the keys of each kernel on the kernels line
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -2768,7 +2775,7 @@ def generation_workflow(torch, entry_root: Path, out_dir: Path, card: str) -> tu
 # Phase 10: the fp32 compute path (diffusion.compute_dtype=float32) and the
 # wide-codebook path (CompVis vq-f8's 4 x 16384 and vq-f16's 8 x 16384
 # codebooks on vq-f4's layout), on their own kernels: the fp32 flash forward
-# and backward (3xTF32 mma.sync), GN+SiLU at fp32, and nearest code at any
+# and backward (3xTF32 wgmma), GN+SiLU at fp32, and nearest code at any
 # width and codebook size (the streaming kernel).
 
 # NVIDIA H100 SXM data sheet (dense): the TF32 tensor-core peak; the fp32
@@ -2835,7 +2842,8 @@ def f32_forward_checks(torch, rec, flush):
         again = a.flash_attention_cuda(q, k, v, s)
         same = torch.equal(again, got)
         log(f"  flash_attention_f32 {list(shape)}: {worst:.3f} of the tolerance 2^-16 (P|V| + "
-            f"|ref|); the plain version with TF32 products {ctrl:.1f} of it (must exceed 1); "
+            f"|ref|) (the earlier mma.sync kernel: 0.023-0.055); the plain version with TF32 "
+            f"products {ctrl:.1f} of it (must exceed 1); "
             f"LSE within 1e-5 rel + 1e-5: {lse_ok}; two launches equal: {same}")
         require(ctrl > 1, f"the TF32 control passes the fp32 tolerance at {list(shape)}")
         require(lse_ok and same, f"the fp32 forward's LSE or run-to-run bits at {list(shape)}")
@@ -2940,7 +2948,8 @@ def f32_backward_checks(torch, rec, flush):
             torch.cuda.empty_cache()
         fmt = lambda d_: ", ".join(f"{n} {x:.3f}" for n, x in d_.items())
         log(f"  flash_attention_bwd_f32 {list(shape)}: against the plain version's steps in "
-            f"float64, of the tolerance 2^-16 (sqrt(sum terms^2) + |ref|): kernel {fmt(worst)}; "
+            f"float64, of the tolerance 2^-16 (sqrt(sum terms^2) + |ref|): kernel {fmt(worst)} "
+            f"(the earlier mma.sync kernels: 0.113-0.213); "
             f"the fp32 plain version (cuBLAS, TF32 off) {fmt(plain32)}; the kernel against the "
             f"fp32 plain version {fmt(vs32)}; the TF32 control {fmt(ctrl)} (must exceed 1)")
         log(f"  two launches equal bit for bit: {det}; FlashAttentionFunction on the strided "
@@ -3252,10 +3261,20 @@ def f32_full_width(torch, out_dir: Path, card: str) -> tuple:
     require(all(math.isfinite(x) for x in vals.values()), f"non-finite fp32 codec logs {vals}")
     moved = sum(not torch.equal(b_, p) for b_, p in zip(before, codec.parameters()))
     require(moved > 0, "the fp32 codec did not move")
-    out["codec"] = dict(samples_per_s=2 / sec, peak_mem_gib=peak)
-    log(f"  a step in {sec:.3f} s: {2 / sec:.4f} samples/s; peak memory {peak:.2f} GiB; "
-        f"total_loss {vals['train/total_loss']:.4f}, perplexity {vals['train/perplexity']:.1f}; "
-        f"{moved} codec tensors moved; 10c took {time.time() - t0:.1f} s")
+    # where the step's device time goes, and the fp32 flash kernels' share
+    # (their split, stats and dQ passes included)
+    kernels = profile_main_path(torch, lambda: astep(st, img), sec * 1e3, out_dir,
+                                "profile_f32_codec.txt")
+    busy = sum(ms for _, _, ms in kernels)
+    flash = sum(ms for name, _, ms in kernels if re.search(F32_FLASH_KERNELS, name))
+    out["codec"] = dict(samples_per_s=2 / sec, peak_mem_gib=peak, device_busy_ms=busy,
+                        flash_ms=flash, flash_share=flash / busy if busy else None)
+    log(f"  a step in {sec:.3f} s: {2 / sec:.4f} samples/s (with the earlier mma.sync flash "
+        f"kernels, on an H100 80GB HBM3 at 700 W: 1.840 s, 1.0867 samples/s); peak memory "
+        f"{peak:.2f} GiB; total_loss {vals['train/total_loss']:.4f}, perplexity "
+        f"{vals['train/perplexity']:.1f}; {moved} codec tensors moved; device busy {busy:.1f} ms "
+        f"a step, the fp32 flash kernels {flash:.1f} ms of it "
+        f"({flash / busy if busy else 0:.1%}); 10c took {time.time() - t0:.1f} s")
     del codec, disc, lpips, st, astep, img, before
     torch.cuda.empty_cache()
     return out, counts
@@ -3395,9 +3414,14 @@ def fp32_and_wide(torch, entry_root: Path, out_dir: Path, card: str, recs: dict)
             {**counts, **entry_counts})
 
 
+# the fp32 flash kernels' device kernels: the forward and the backward, their
+# split pass, the backward's stats and dQ passes
+F32_FLASH_KERNELS = r"flash_fwd_f32|flash_bwd_f32|split_tf32"
+
 # device-kernel name patterns, first match wins
 _CATEGORIES = (
     ("gn_silu (CUDA)", r"gn_silu_kernel"),
+    ("fp32 flash split pass (CUDA)", r"split_tf32"),
     ("flash_attention (CUDA)", r"flash_fwd_"),
     ("flash_attention_bwd (CUDA)", r"flash_bwd"),
     ("nearest_code (CUDA)", r"nearest_code_kernel"),
@@ -3503,10 +3527,15 @@ def main() -> int:
         regs = [ln.strip() for ln in text.splitlines() if "Used" in ln and "registers" in ln]
         spills = [ln.strip() for ln in text.splitlines()
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-        serialised = sum("(C7512)" in ln or "(C7514)" in ln for ln in text.splitlines())
+        serialised = sum(any(f"({c})" in ln for c in SERIALISED) for ln in text.splitlines())
         log(f"  built {stem}: {'; '.join(regs) or 'ok'}; "
             f"{len(spills)} of {len(regs)} kernels spill{': ' + '; '.join(spills) if spills else ''}; "
             f"{serialised} with serialised wgmma")
+        # the fp32 flash kernels sit near the register budget, where ptxas
+        # spills or serialises wgmma without failing the build
+        require(stem not in ("flash_attention_f32", "flash_attention_bwd_f32")
+                or not (spills or serialised),
+                f"{stem} spills or serialises wgmma ({', '.join(SERIALISED)})")
     log(f"  build {time.time() - t0:.1f} s")
 
     log("== phase 2: kernels against their plain versions (bf16 unless stated)")

@@ -7,7 +7,7 @@
 // diffusion training ([B, 8, 1024, 128] at 512^2) and the codec's
 // AttnBlockVQ in codec fine-tuning ([B, 1, 16384, 512]). Given the
 // forward's inputs, its output O and LSE and the output gradient dO:
-//   Di = rowsum(dO o O)                               (the Di pass)
+//   Di = rowsum(dO o O)
 //   P  = exp2(Q K^T * sm_scale * log2 e - LSE * log2 e)
 //   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - Di) * sm_scale,
 //   dK = dS^T Q,  dQ = dS K,
@@ -15,355 +15,669 @@
 // attention_backward_reference) computes them at fp32. The bf16 backward
 // (flash_attention_bwd.cu) is untouched.
 //
-// What bounds it on the H100: the products. This design runs seven of them
-// (dK/dV side: Q K^T, dO V^T, P^T dO, dS^T Q; dQ side: Q K^T, dO V^T, dS K),
-// 14 T^2 Dh operations a head, each as 3xTF32 mma.sync (mma_tf32.cuh): three
-// TF32 products, for fp32 accuracy. Its least time is 3 x 14 T^2 Dh over the
-// TF32 peak.
+// What bounds it on the H100: the five products, 10 T^2 Dh operations a
+// head, each as three TF32 wgmma products (3xTF32, wgmma_tf32.cuh) for fp32
+// accuracy; the least time is 3 x 10 T^2 Dh over the TF32 peak.
 //
-// Design (a simple kernel first, deterministic: no atomics, every sum in a
-// fixed order, so two launches give the same bits):
-//   * three launches: the Di pass (a warp a row), then one kernel template in
-//     two instances. The dK/dV instance keeps R = 16 G keys of K and V in
-//     shared memory and streams Q and dO (with the LSE and Di of each query)
-//     in tiles of 32 queries; the dQ instance keeps R queries of Q and dO
-//     and streams K and V. Both form X1 = A1 B1^T and X2 = A2 B2^T for the
-//     tile, four warps each (one 8-column n-tile a warp, every row group),
-//     then P and dS elementwise in shared memory, then the products into
-//     the gradients, which the warps hold in registers, a warp 16 rows x
-//     D / (8 / G) columns: dK += dS^T Q and dV += P^T dO, or dQ += dS K;
-//   * G = 8, 4, 2, 1 16-row groups at Dh <= 64, 128, 256, 512; up to Dh 256
-//     the streamed tiles are double-buffered (the next one loads under this
-//     one's products); above, the shared memory holds one;
-//   * rows past T arrive as zeros; a key past T has P = 0 (its LSE-based P
-//     would not be), and no gradient row past T is stored;
-//   * the tensor cores truncate as they accumulate, so no chain of mma.sync
-//     into one accumulator is longer than 12 (X: 32 of Dh; the gradients:
-//     one streamed tile); each chain starts from zero
-//     and is added to its fp32 sum with one rounding to nearest.
+// Design (after flash_attention_bwd.cu, each product computed once):
+//   * flash_bwd_f32_stats: LSE * log2(e) and Di = rowsum(dO o O) per
+//     32-query tile, [B*H, nq, 2, 32] (rows past T: +inf and 0, so their P
+//     is 0); the split pass (wgmma_tf32.cuh: split_tf32) writes Q, K, V and
+//     dO as TF32 hi and lo halves, [2, B*H, T, D], and Q and dO transposed,
+//     [2, B*H, D, T']: wgmma's TF32 operands in shared memory are K-major
+//     only, and each of Q and dO is reduced over Dh in one product and over
+//     tokens in another. Q^T and dO^T hold each group of 8 tokens in the
+//     order pi, so P^T and dS^T go from their accumulators into the A
+//     operand as they are;
+//   * flash_bwd_f32: a block owns 64 keys and DL columns of the head
+//     dimension (DL = 128 at Dh 128, 256 and 512, else 64); Dh / DL
+//     blocks form a thread-block cluster. K and V (hi and lo, 128 KB at 128
+//     columns) stay in shared memory, and K^T, the A operand of dQ^T =
+//     K^T dS^T, in registers (each consumer its 64 head columns x 64 keys,
+//     hi and lo, 64 a thread, read once from the split K: streamed with
+//     every query tile it took a third of the ring and stalled the dQ^T
+//     products on its loads). A producer warpgroup streams, per 32-query
+//     tile, Q and dO (the B operands of S^T = K Q^T and dP^T = V dO^T) and
+//     dO^T and Q^T (of dV += P^T dO and dK += dS^T Q) as 16 KB items
+//     through a ring of four slots (TMA from 4-D tensor maps over the split
+//     copies, full/empty mbarriers), and each tile's LSE and Di through a
+//     ring of two. Two
+//     consumer warpgroups under setmaxnreg split the products by role:
+//     consumer 0 computes S^T, P^T, dV and dQ^T's first 64 columns,
+//     consumer 1 dP^T, dS^T, dK and dQ^T's others, each holding one of dV
+//     and dK in fp32 registers (64 a thread at 128 columns);
+//   * S^T and dP^T over the cluster: each rank computes its partials over
+//     its columns, and every rank sums all ranks' partials through
+//     distributed shared memory in rank order, so all ranks (and both
+//     consumers, which each make P^T) have the same bits of P^T and dS^T;
+//     after a named barrier of the warpgroup, lane r of its first warp
+//     signals rank r's barrier (signal_ranks);
+//   * consumer 1 writes dS transposed ([32 queries][64 keys], hi and lo) as
+//     the B operand of dQ^T (named barriers hand it to consumer 0 and back);
+//     each consumer stages its part of dQ^T in its exchange section, and a
+//     thread of the producer warpgroup adds it into an fp32 workspace with
+//     one bulk reduction at the L2, in key-block order behind a turn
+//     counter per (head, query tile, rank, half), so dQ
+//     is the same bits on every run (no atomics in an unordered sum: block
+//     kt adds after block kt - 1 has, kt = 0 stores; the bulk reduction
+//     takes whole lines at the L2, where per-thread reductions were slower);
+//     flash_bwd_f32_dq writes the sums into dQ;
+//   * the tensor cores truncate as they accumulate (measured on mma.sync
+//     and on wgmma: tools/torch_flash_f32_variants.py), so no wgmma chain
+//     into one accumulator is longer than 4 k-steps (12 wgmma): the chains
+//     go to two fresh accumulators in turn,
+//     each added to its fp32 sum in registers with one rounding to nearest
+//     while the next chain runs;
+//   * keys past T get P = 0, and no gradient row past T is stored.
+// All products are m64n32k8: S^T and dP^T are 64 keys x 32 queries, and dK,
+// dV and dQ^T are kept as 32-column accumulators.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_tf32.cuh"
+#include "sm90_async.cuh"
+#include "wgmma_sm90.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
-using namespace tf32x3;
+using namespace sm90;
+using namespace tf32w;
 
-constexpr int THREADS = 256;
-constexpr int SR = 32;                   // streamed rows a tile
+constexpr int THREADS = 3 * WG;            // two consumer warpgroups, then the producer's
+// registers a thread after setmaxnreg: (24 + 2 * 240) * 128 = 64512 of the SM's 65536
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int BKV = 64, BQ = 32;           // keys a block, queries a tile
+constexpr int ITEM = 16384;                // a streamed item: hi (8 KB), then lo
+constexpr int ITEM_PART = 8192;
+constexpr int NSLOT = 4;
+constexpr int STAT_BYTES = 2 * BQ * 4;     // a tile's LSE * log2(e), then Di
+constexpr int XCH_BYTES = 4 * WG * 16;     // a consumer's partials, [4 float4][128 threads]
+constexpr int STATS_THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
 
-struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* o;
-  const float* d_o;
-  const float* lse;                      // [B, H, T]
-  const float* di;                       // [B, H, T], the Di pass's output
-  float* dq;
-  float* dk;
-  float* dv;                             // contiguous [B, H, T, D]
-  int64_t sq[3], sk[3], sv[3], so[3], sdo[3];
-  int h, t;
-  float sm_scale, scale_log2;
-};
-
-template <int D>
-struct Shape {
-  static constexpr int G = D <= 64 ? 8 : D <= 128 ? 4 : D <= 256 ? 2 : 1;
-  static constexpr int CG = 8 / G;                 // warps sharing a row group's columns
-  static constexpr int R = 16 * G;                 // resident rows
-  static constexpr int DC = D / CG;
-  static constexpr int NT = DC / 8;
-  static constexpr int STAGES = D <= 256 ? 2 : 1;
-  static constexpr int SETS = G == 1 ? 2 : 1;      // parts summed in turn along Dh
-  static constexpr int AS = D + 4, BS = D + 4, PS = SR + 4;
-  static constexpr int A2_OFF = R * AS;
-  static constexpr int B1_OFF = 2 * R * AS;
-  static constexpr int B2_OFF = B1_OFF + STAGES * SR * BS;
-  static constexpr int PB_OFF = B2_OFF + STAGES * SR * BS;
-  static constexpr int DS_OFF = PB_OFF + R * PS;
-  static constexpr int RL_OFF = DS_OFF + R * PS;   // resident LSE * log2 e, Di (dQ side)
-  static constexpr int RD_OFF = RL_OFF + R;
-  static constexpr int SL_OFF = RD_OFF + R;        // streamed LSE * log2 e, Di (dK/dV side)
-  static constexpr int SD_OFF = SL_OFF + STAGES * SR;
-  static constexpr int SMEM = (SD_OFF + STAGES * SR) * 4;
-  static_assert(DC % 8 == 0, "a warp's columns come in n-tiles of 8");
+template <int DL>
+struct Bwd {
+  static constexpr int NC = DL / 64;
+  static constexpr int KV_PART = BKV * DL * 4;          // K or V, hi or lo
+  static constexpr int V_OFF = 2 * KV_PART;
+  static constexpr int RING_OFF = 4 * KV_PART;
+  static constexpr int DS_PART = BQ * BKV * 4;          // dS [32 queries][64 keys], hi or lo
+  static constexpr int DS_OFF = RING_OFF + NSLOT * ITEM;
+  static constexpr int XCH_OFF = DS_OFF + 2 * DS_PART;  // S^T's partials, then dP^T's
+  static constexpr int STAT_OFF = XCH_OFF + 2 * XCH_BYTES;
+  static constexpr int BAR_OFF = STAT_OFF + 2 * STAT_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (9 + 2 * NSLOT + 4) + 1024;   // + alignment slack
+  static constexpr int ITEMS = 4 * NC;                  // streamed items a query tile
   static_assert(SMEM <= 232448, "shared memory");
 };
 
-// Di = rowsum(dO o O) in fp32, a warp a row of [B * H * T]
-__global__ void __launch_bounds__(THREADS) di_pass(const Params p, float* out, int d, int rows) {
-  const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const int bh = row / p.t, tok = row % p.t, b = bh / p.h, hh = bh % p.h;
-  const float* o = p.o + b * p.so[0] + hh * p.so[1] + tok * p.so[2];
-  const float* g = p.d_o + b * p.sdo[0] + hh * p.sdo[1] + tok * p.sdo[2];
-  float s = 0.f;
-  for (int c = lane; c < d; c += 32) s = fmaf(g[c], o[c], s);
-  s = warp_sum(s);
-  if (lane == 0) out[row] = s;
+struct Params {
+  const float* ks;      // K split, [2, BH, T, D]: its lo half at ks + ks_part
+  int64_t ks_part;
+  const float* stats;   // [BH, nq, 2, BQ]
+  float* acc;           // [BH, nq, D / 64, 64 * BQ]: dQ^T's sums in register order
+  int* turn;            // [BH, nq, cl, NC]
+  float* dk;            // [BH, T, D] contiguous, as dv
+  float* dv;
+  int t, d, nq, nk;
+  float scale_log2, sm_scale;
+};
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// DQ: the dQ instance (resident Q, dO; streamed K, V); else dK and dV
-// (resident K, V; streamed Q, dO)
-template <int D, bool DQ>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_f32(const Params p) {
-  using S = Shape<D>;
-  extern __shared__ __align__(16) float sm[];
-  float* a1s = sm;
-  float* a2s = sm + S::A2_OFF;
-  float* b1s = sm + S::B1_OFF;
-  float* b2s = sm + S::B2_OFF;
-  float* pbs = sm + S::PB_OFF;
-  float* dss = sm + S::DS_OFF;
-  float* rls = sm + S::RL_OFF;
-  float* rds = sm + S::RD_OFF;
-  float* sls = sm + S::SL_OFF;
-  float* sds = sm + S::SD_OFF;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
-  const int bh = blockIdx.y, b = bh / p.h, hh = bh % p.h;
-  const int res0 = blockIdx.x * S::R;
-  const int64_t* sa1 = DQ ? p.sq : p.sk;
-  const int64_t* sa2 = DQ ? p.sdo : p.sv;
-  const int64_t* sb1 = DQ ? p.sk : p.sq;
-  const int64_t* sb2 = DQ ? p.sv : p.sdo;
-  const float* a1g = (DQ ? p.q : p.k) + b * sa1[0] + hh * sa1[1];
-  const float* a2g = (DQ ? p.d_o : p.v) + b * sa2[0] + hh * sa2[1];
-  const float* b1g = (DQ ? p.k : p.q) + b * sb1[0] + hh * sb1[1];
-  const float* b2g = (DQ ? p.v : p.d_o) + b * sb2[0] + hh * sb2[1];
-  const float* lse = p.lse + static_cast<int64_t>(bh) * p.t;
-  const float* di = p.di + static_cast<int64_t>(bh) * p.t;
-  const int n_tiles = (p.t + SR - 1) / SR;
-
-  // a streamed tile (and, on the dK/dV side, its rows' LSE and Di) into a stage
-  auto load_tile = [&](int j, int stage) {
-    load_rows<D, THREADS>(b1s + stage * SR * S::BS, S::BS, b1g, sb1[2], j * SR, SR, p.t);
-    load_rows<D, THREADS>(b2s + stage * SR * S::BS, S::BS, b2g, sb2[2], j * SR, SR, p.t);
-    if (!DQ && threadIdx.x < SR) {
-      const int row = j * SR + threadIdx.x;
-      sls[stage * SR + threadIdx.x] = row < p.t ? lse[row] * LOG2E : 0.f;
-      sds[stage * SR + threadIdx.x] = row < p.t ? di[row] : 0.f;
+// LSE * log2(e) and Di = rowsum(dO o O) for query tile blockIdx.x of head
+// blockIdx.y; one warp a row.
+__global__ void __launch_bounds__(STATS_THREADS)
+flash_bwd_f32_stats(const float* __restrict__ o, const float* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ stats, int64_t o_sb,
+                    int64_t o_sh, int64_t o_st, int64_t d_sb, int64_t d_sh, int64_t d_st, int t,
+                    int h, int d, int nq) {
+  constexpr int WARPS = STATS_THREADS / 32;
+  const int j = blockIdx.x, bh = blockIdx.y, b = bh / h, hh = bh % h;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* st = stats + ((int64_t)bh * nq + j) * 2 * BQ;
+  for (int r = warp; r < BQ; r += WARPS) {
+    const int row = j * BQ + r;
+    float di = 0.f;
+    if (row < t) {
+      const float* po = o + b * o_sb + hh * o_sh + row * o_st;
+      const float* pd = dout + b * d_sb + hh * d_sh + row * d_st;
+      for (int c = lane; c < d; c += 32) di = fmaf(pd[c], po[c], di);
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) di += __shfl_xor_sync(0xffffffffu, di, m);
     }
-  };
-
-  load_rows<D, THREADS>(a1s, S::AS, a1g, sa1[2], res0, S::R, p.t);
-  load_rows<D, THREADS>(a2s, S::AS, a2g, sa2[2], res0, S::R, p.t);
-  if (DQ && threadIdx.x < S::R) {
-    const int row = res0 + threadIdx.x;
-    rls[threadIdx.x] = row < p.t ? lse[row] * LOG2E : 0.f;
-    rds[threadIdx.x] = row < p.t ? di[row] : 0.f;
+    if (lane == 0) {
+      st[r] = row < t ? lse[(int64_t)bh * t + row] * LOG2E : INFINITY;
+      st[BQ + r] = di;
+    }
   }
-  load_tile(0, 0);
-  cp_async_commit();
+}
 
-  // the gradients: DQ: acc1 = dQ; else acc1 = dK, acc2 = dV
-  float acc1[S::NT][4], acc2[DQ ? 1 : S::NT][4];
+// dQ^T's sums into dQ, [BH, T, D]: the sums of (head, query tile j, head
+// columns 64 c ..) are 8 KB in the consumers' register order (thread lt's
+// accumulator element 4 f + k at float4 f * 128 + lt, component k); one
+// block a (query tile, column group, head), a thread a register set.
+__global__ void __launch_bounds__(WG)
+flash_bwd_f32_dq(const float4* __restrict__ acc, float* __restrict__ dq, int t, int d, int nq) {
+  const int j = blockIdx.x, c = blockIdx.y, bh = blockIdx.z;
+  const int lt = threadIdx.x, warp = lt / 32, g = (lt % 32) >> 2, tg = lt & 3;
+  const float4* part = acc + (((int64_t)bh * nq + j) * (d / 64) + c) * (4 * WG) + lt;
 #pragma unroll
-  for (int i = 0; i < S::NT; ++i) acc1[i][0] = acc1[i][1] = acc1[i][2] = acc1[i][3] = 0.f;
+  for (int f = 0; f < 4; ++f) {
+    const float4 v = part[f * WG];
+    const float x[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int i = 0; i < (DQ ? 1 : S::NT); ++i) acc2[i][0] = acc2[i][1] = acc2[i][2] = acc2[i][3] = 0.f;
-  const int which = warp / 4, xnt = warp % 4;      // X phase: X1 or X2, an n-tile
-  const int rg = warp / S::CG, cg = warp % S::CG;  // products: rows and columns
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = S::STAGES == 2 ? j & 1 : 0;
-    if (S::STAGES == 2) {
-      if (j + 1 < n_tiles) load_tile(j + 1, (j + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int k = 0; k < 4; ++k) {
+      const int e = 4 * f + k;
+      const int col = 64 * c + 16 * warp + g + 8 * ((e >> 1) & 1);
+      const int q = j * BQ + 8 * (e / 4) + 2 * tg + (e & 1);
+      if (q < t) dq[((int64_t)bh * t + q) * d + col] = x[k];
     }
-    __syncthreads();
-    const float* bst1 = b1s + stage * SR * S::BS;
-    const float* bst2 = b2s + stage * SR * S::BS;
-    // X = A B^T for one 8-column n-tile of the streamed rows, every row
-    // group, in chunks of 32 of Dh a part, each summed apart and then added in
-    float x[S::G][4];
+  }
+}
+
+// Consumer CW: 0 computes S^T, P^T, dV and dQ^T's first 64 columns; 1
+// dP^T, dS^T, dK and dQ^T's others.
+template <int DL, int CL, int CW>
+__device__ __forceinline__ void bwd_consumer(const Params& p, unsigned char* smem, uint32_t base,
+                                             uint32_t bars, int rank, int kt, int bh) {
+  using C = Bwd<DL>;
+  constexpr int NC = C::NC, ITEMS = C::ITEMS;
+  // wgmma descriptors take the offset in the block's 256 KB window: in a
+  // cluster launch the window's address carries the rank from bit 24
+  const uint32_t dbase = base & 0x3FFFFu;
+  const uint32_t kv_full = bars, x_full = bars + 8, x_empty = bars + 16;
+  auto st_full = [&](int u) { return bars + 24 + 8 * u; };
+  auto st_empty = [&](int u) { return bars + 40 + 8 * u; };
+  auto full = [&](int s) { return bars + 56 + 8 * s; };
+  auto empty = [&](int s) { return bars + 56 + 8 * (NSLOT + s); };
+  // this consumer's dQ^T part staged for the adder / read by the adder
+  const uint32_t staged = bars + 56 + 16 * NSLOT + 8 * CW, freed = bars + 72 + 16 * NSLOT + 8 * CW;
+  const int col0 = rank * DL, key0 = kt * BKV;
+  const int lt = threadIdx.x % WG, warp = lt / 32, lane = lt % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  const int key_w = 16 * warp + g;               // this lane's keys: key_w, key_w + 8 of the block
+  const bool key_ok0 = key0 + key_w < p.t, key_ok1 = key0 + key_w + 8 < p.t;
+  auto slot_addr = [&](int item) { return dbase + C::RING_OFF + (item % NSLOT) * ITEM; };
+  auto wait_item = [&](int item) { mbar_wait(full(item % NSLOT), (item / NSLOT) & 1); };
+  auto free_item = [&](int item) { mbar_arrive(empty(item % NSLOT)); };
+  const uint32_t ds_s = dbase + C::DS_OFF;
+  const uint32_t xch = base + C::XCH_OFF + lt * 16;          // S^T's section; dP^T's + XCH_BYTES
+  unsigned char* xch_p = smem + C::XCH_OFF + CW * XCH_BYTES + lt * 16;
+  // named barriers: 1 + CW within a consumer; 4 "dS written" (consumer 1
+  // arrives, 0 waits); 5 "dS read" (consumer 0 arrives after its dQ^T
+  // products of tiles 0 .. nq - 2, consumer 1 waits before writing tiles
+  // 1 .. nq - 1)
+
+  // consumer 0: dV, consumer 1: dK; 2 NC accumulators of 32 columns each
+  float dg[2 * NC][16];
 #pragma unroll
-    for (int i = 0; i < S::G; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
+  for (int c = 0; c < 2 * NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) dg[c][e] = 0.f;
+
+  // K^T's A fragments for this consumer's dQ^T rows (head columns col0 +
+  // 64 CW + r, r = 16 warp + g (+ 8)) over the block's keys (k-step kk:
+  // keys 8 kk + tg (+ 4)); keys past T are 0
+  uint32_t kth[CW < NC ? 8 : 1][4], ktl[CW < NC ? 8 : 1][4];
+  if constexpr (CW < NC) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int key = key0 + 8 * kk + tg + 4 * (v >> 1);
+        const int col = col0 + 64 * CW + key_w + 8 * (v & 1);
+        const int64_t at = ((int64_t)bh * p.t + key) * p.d + col;
+        kth[kk][v] = key < p.t ? __float_as_uint(p.ks[at]) : 0u;
+        ktl[kk][v] = key < p.t ? __float_as_uint(p.ks[p.ks_part + at]) : 0u;
+      }
+  }
+
+  mbar_wait(kv_full, 0);
+  int it = 0;                                    // the first item of this query tile
+  for (int j = 0; j < p.nq; ++j) {
+    float pa[16], pb[16];
+
+    // ---- consumer 0: S^T = K Q^T, consumer 1: dP^T = V dO^T, over this
+    // rank's columns: chain ch covers columns 32 ch .. (item ch / 2) ----
+    float x[16];
+    auto x_chain = [&](int ch, float (&acc)[16]) {
+      const int item = it + CW * NC + ch / 2;
+      if (ch % 2 == 0) wait_item(item);
+      const uint32_t a = dbase + CW * C::V_OFF + ch * BKV * 128;
+      const uint32_t b = slot_addr(item) + (ch % 2) * BQ * 128;
+      fresh(acc);
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ss3(acc, a + kk * 32, C::KV_PART, b + kk * 32, ITEM_PART, kk == 0);
+      wgmma::commit();
+    };
+    auto x_fold = [&](int ch, float (&acc)[16]) {
+      fence_operand(acc);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) x[e] = ch == 0 ? acc[e] : x[e] + acc[e];
+      if (ch % 2 == 1) free_item(it + CW * NC + ch / 2);
+    };
+    constexpr int NX = 2 * NC;
+    x_chain(0, pa);
+#pragma unroll
+    for (int ch = 1; ch < NX; ++ch) {
+      if (ch % 2) x_chain(ch, pb); else x_chain(ch, pa);
+      wgmma::wait<1>();
+      if (ch % 2) x_fold(ch - 1, pa); else x_fold(ch - 1, pb);
+    }
+    wgmma::wait<0>();
+    x_fold(NX - 1, pb);
+
+    // ---- the full S^T (both consumers) and dP^T (consumer 1): the ranks'
+    // partials summed in rank order; P^T (keys past T: 0) and, in consumer
+    // 1, dS^T = P^T o (dP^T - Di) * s; element e: key key_w + 8 ((e >> 1) &
+    // 1), query 8 (e / 4) + 2 tg + (e & 1) ----
     {
-      const float* as = which ? a2s : a1s;
-      const float* bs = (which ? bst2 : bst1) + xnt * 8 * S::BS;
-      for (int kc = 0; kc < D / 8; kc += 4 * S::SETS) {
-        float part[S::SETS][S::G][4];
+      if (j > 0) mbar_wait_cluster(x_empty, (j - 1) & 1);
+      if (CW < NC && j > 0) mbar_wait(freed, (j - 1) & 1);   // the adder has read the section
 #pragma unroll
-        for (int s = 0; s < S::SETS; ++s)
+      for (int f = 0; f < 4; ++f)
+        *reinterpret_cast<float4*>(xch_p + f * WG * 16) =
+            make_float4(x[4 * f], x[4 * f + 1], x[4 * f + 2], x[4 * f + 3]);
+      group_sync(1 + CW, WG);
+      if (warp == 0) signal_ranks<CL>(x_full, lane);
+      mbar_wait(st_full(j % 2), (j / 2) & 1);
+      const float* stat = reinterpret_cast<const float*>(smem + C::STAT_OFF + (j % 2) * STAT_BYTES);
+      mbar_wait_cluster(x_full, j & 1);
+      float4 v[4];
+      sum_ranks<4, CL>(v, xch);
 #pragma unroll
-          for (int i = 0; i < S::G; ++i)
-            part[s][i][0] = part[s][i][1] = part[s][i][2] = part[s][i][3] = 0.f;
+      for (int e = 0; e < 16; ++e) {
+        const float st = (&v[e / 4].x)[e % 4];
+        const int q = 8 * (e / 4) + 2 * tg + (e & 1);
+        const bool ok = (e & 2) ? key_ok1 : key_ok0;
+        x[e] = ok ? exp2f(fmaf(st, p.scale_log2, -stat[q])) : 0.f;
+      }
+      if constexpr (CW == 1) {
+        sum_ranks<4, CL>(v, xch + XCH_BYTES);
 #pragma unroll
-        for (int k2 = 0; k2 < 4 * S::SETS; ++k2) {
-          const int kk = kc + k2;
-          uint32_t bhi[2], blo[2];
-          load_b_nk(bhi, blo, bs + kk * 8, S::BS, g, tq);
+        for (int e = 0; e < 16; ++e) {
+          const int q = 8 * (e / 4) + 2 * tg + (e & 1);
+          x[e] = x[e] * ((&v[e / 4].x)[e % 4] - stat[BQ + q]) * p.sm_scale;
+        }
+      }
+      group_sync(1 + CW, WG);
+      if (warp == 0) signal_ranks<CL>(x_empty, lane);
+      mbar_arrive(st_empty(j % 2));
+    }
+    if (CW == 1) {
+      // dS as the B operand of dQ^T: [32 queries][64 keys], hi then lo, in
+      // the 128-byte swizzle (row q's 16-byte chunk c at chunk c ^ (q & 7)),
+      // once consumer 0's products of the previous tile have read it
+      if (j > 0) group_sync(5, 2 * WG);
+      unsigned char* ds_p = smem + C::DS_OFF;
 #pragma unroll
-          for (int i = 0; i < S::G; ++i) {
-            uint32_t ah[4], al[4];
-            load_a(ah, al, as + i * 16 * S::AS + kk * 8, S::AS, g, tq);
-            mma3(part[k2 % S::SETS][i], ah, al, bhi, blo);
+      for (int e = 0; e < 16; ++e) {
+        const int q = 8 * (e / 4) + 2 * tg + (e & 1), key = key_w + 8 * ((e >> 1) & 1);
+        const int at = (key / 32) * BQ * 128 + q * 128 + ((((key % 32) / 4) ^ (q & 7)) * 16) +
+                       (key % 4) * 4;
+        uint32_t hi, lo;
+        split(x[e], hi, lo);
+        *reinterpret_cast<uint32_t*>(ds_p + at) = hi;
+        *reinterpret_cast<uint32_t*>(ds_p + C::DS_PART + at) = lo;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      group_sync(2, WG);                         // this consumer's own products read it too
+      group_arrive(4, 2 * WG);
+    }
+    // P^T (consumer 0) or dS^T (consumer 1) as A operands
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(x + 4 * kk, ah[kk], al[kk]);
+
+    // ---- consumer 0: dV += P^T dO (dO^T items), consumer 1: dK += dS^T Q
+    // (Q^T items); chain c covers columns 32 c .. (item c / 2) ----
+    auto g_chain = [&](int c, float (&acc)[16]) {
+      const int item = it + (2 + CW) * NC + c / 2;
+      if (c % 2 == 0) wait_item(item);
+      const uint32_t b = slot_addr(item) + (c % 2) * 32 * 128;
+      fresh(acc);
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) rs3(acc, ah[kk], al[kk], b + kk * 32, ITEM_PART, kk == 0);
+      wgmma::commit();
+    };
+    auto g_fold = [&](int c, float (&acc)[16]) {
+      fence_operand(acc);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) dg[c][e] += acc[e];
+      if (c % 2 == 1) free_item(it + (2 + CW) * NC + c / 2);
+    };
+    g_chain(0, pa);
+#pragma unroll
+    for (int c = 1; c < 2 * NC; ++c) {
+      if (c % 2) g_chain(c, pb); else g_chain(c, pa);
+      wgmma::wait<1>();
+      if (c % 2) g_fold(c - 1, pa); else g_fold(c - 1, pb);
+    }
+    wgmma::wait<0>();
+    g_fold(2 * NC - 1, pb);
+
+    // ---- dQ^T = K^T dS^T over the block's keys: consumer h takes the head
+    // columns 64 h .. (with 64 columns, consumer 0 all of them); chain kh
+    // covers keys 32 kh .. ----
+    if (CW == 0) group_sync(4, 2 * WG);          // consumer 1's dS is in shared memory
+    if (CW < NC) {
+      float dq[16];
+      auto d_chain = [&](int kh, float (&acc)[16]) {
+        const uint32_t b = ds_s + kh * BQ * 128;
+        fresh(acc);
+        wgmma::fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          rs3(acc, kth[4 * kh + kk], ktl[4 * kh + kk], b + kk * 32, C::DS_PART, kk == 0);
+        wgmma::commit();
+      };
+      d_chain(0, pa);
+      d_chain(1, pb);
+      wgmma::wait<0>();
+      fence_operand(pa);
+      fence_operand(pb);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) dq[e] = pa[e] + pb[e];
+      if (CW == 0 && j + 1 < p.nq) group_arrive(5, 2 * WG);   // dS may be rewritten
+
+      // ---- this block's part of dQ^T to the adder (a thread of the
+      // producer warpgroup), staged in this consumer's exchange section (free
+      // once every rank has read the tile's partials) in register order ----
+      if constexpr (CL > 1) mbar_wait_cluster(x_empty, j & 1);
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        *reinterpret_cast<float4*>(xch_p + f * WG * 16) =
+            make_float4(dq[4 * f], dq[4 * f + 1], dq[4 * f + 2], dq[4 * f + 3]);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      group_sync(1 + CW, WG);
+      if (lt == 0) mbar_arrive(staged);
+    }
+    it += ITEMS;
+  }
+
+  // ---- consumer 0's dV, consumer 1's dK for this block's keys (keys past
+  // T are not written) ----
+  float* out = CW == 0 ? p.dv : p.dk;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + key_w + 8 * r;
+    if (key >= p.t) continue;
+    float* o = out + ((int64_t)bh * p.t + key) * p.d + col0 + 2 * tg;
+#pragma unroll
+    for (int c = 0; c < 2 * NC; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        *reinterpret_cast<float2*>(o + 32 * c + 8 * jj) =
+            make_float2(dg[c][4 * jj + 2 * r], dg[c][4 * jj + 2 * r + 1]);
+  }
+}
+
+template <int DL, int CL>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_f32(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+              const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+              const __grid_constant__ CUtensorMap map_qt, const __grid_constant__ CUtensorMap map_dot,
+              const Params p) {
+  using C = Bwd<DL>;
+  constexpr int NC = C::NC, ITEMS = C::ITEMS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bars = base + C::BAR_OFF;
+  const uint32_t kv_full = bars, x_full = bars + 8, x_empty = bars + 16;
+  auto st_full = [&](int u) { return bars + 24 + 8 * u; };
+  auto st_empty = [&](int u) { return bars + 40 + 8 * u; };
+  auto full = [&](int s) { return bars + 56 + 8 * s; };
+  auto empty = [&](int s) { return bars + 56 + 8 * (NSLOT + s); };
+
+  const int rank = blockIdx.x % CL, kt = blockIdx.x / CL, bh = blockIdx.y;
+  const int col0 = rank * DL, key0 = kt * BKV;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(x_full, 2 * CL);
+    mbar_init(x_empty, 2 * CL);
+    for (int u = 0; u < 2; ++u) {
+      mbar_init(st_full(u), 1);
+      mbar_init(st_empty(u), 2 * WG);
+    }
+    for (int s = 0; s < NSLOT; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WG);
+    }
+    for (int c = 0; c < 4; ++c) mbar_init(bars + 56 + 16 * NSLOT + 8 * c, 1);   // staged[2], freed[2]
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  if constexpr (CL > 1)
+    cluster_sync_all();   // every rank's barriers are initialised before any remote arrival
+  else
+    __syncthreads();
+
+  if (wg == 2) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 2 * WG) {
+      // ---- loads: K and V once, then a query tile's LSE and Di and its
+      // items in the order the consumers take them: Q, dO, dO^T, Q^T (NC
+      // items each, 64 columns an item) ----
+      mbar_expect_tx(kv_full, 4 * C::KV_PART);
+      for (int part = 0; part < 2; ++part)
+        for (int sub = 0; sub < DL / 32; ++sub) {
+          const uint32_t at = base + part * C::KV_PART + sub * BKV * 128;
+          tma_load(at, &map_k, kv_full, col0 + 32 * sub, key0, bh, part);
+          tma_load(at + C::V_OFF, &map_v, kv_full, col0 + 32 * sub, key0, bh, part);
+        }
+      int it = 0;
+      for (int j = 0; j < p.nq; ++j) {
+        mbar_wait(st_empty(j % 2), ((j / 2) & 1) ^ 1);
+        mbar_expect_tx(st_full(j % 2), STAT_BYTES);
+        bulk_load(base + C::STAT_OFF + (j % 2) * STAT_BYTES,
+                  p.stats + ((int64_t)bh * p.nq + j) * 2 * BQ, STAT_BYTES, st_full(j % 2));
+        for (int n = 0; n < ITEMS; ++n, ++it) {
+          const int s = it % NSLOT, kind = n / NC, c = n % NC;
+          const uint32_t dst = base + C::RING_OFF + s * ITEM;
+          mbar_wait(empty(s), ((it / NSLOT) & 1) ^ 1);
+          mbar_expect_tx(full(s), ITEM);
+          for (int part = 0; part < 2; ++part) {
+            const uint32_t at = dst + part * ITEM_PART;
+            if (kind <= 1) {      // Q, dO: 32 queries x columns 64 c .., two sub-tiles
+              const CUtensorMap* map = kind == 0 ? &map_q : &map_do;
+              tma_load(at, map, full(s), col0 + 64 * c, j * BQ, bh, part);
+              tma_load(at + BQ * 128, map, full(s), col0 + 64 * c + 32, j * BQ, bh, part);
+            } else {              // dO^T, Q^T: columns 64 c .. x 32 queries
+              tma_load(at, kind == 2 ? &map_dot : &map_qt, full(s), j * BQ, col0 + 64 * c, bh,
+                       part);
+            }
           }
         }
-#pragma unroll
-        for (int i = 0; i < S::G; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            x[i][e] += S::SETS == 2 ? part[0][i][e] + part[S::SETS - 1][i][e] : part[0][i][e];
       }
-    }
-    const int col = xnt * 8 + 2 * tq;
-    if (which == 1) {                                // dP, raw
-#pragma unroll
-      for (int i = 0; i < S::G; ++i) {
-        *reinterpret_cast<float2*>(dss + (i * 16 + g) * S::PS + col) = make_float2(x[i][0], x[i][1]);
-        *reinterpret_cast<float2*>(dss + (i * 16 + g + 8) * S::PS + col) =
-            make_float2(x[i][2], x[i][3]);
-      }
-    }
-    __syncthreads();
-    if (which == 0) {                                // P and dS from X1 and dP
-#pragma unroll
-      for (int i = 0; i < S::G; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = i * 16 + g + (e >> 1) * 8, c = col + (e & 1);
-          const float l2 = DQ ? rls[r] : sls[stage * SR + c];
-          const float dd = DQ ? rds[r] : sds[stage * SR + c];
-          const float pv = j * SR + c < p.t ? exp2f(x[i][e] * p.scale_log2 - l2) : 0.f;
-          const float ds = pv * (dss[r * S::PS + c] - dd) * p.sm_scale;
-          dss[r * S::PS + c] = ds;
-          if (!DQ) pbs[r * S::PS + c] = pv;
+    } else if (threadIdx.x % 32 == 0 && threadIdx.x / 32 - 9 < NC) {
+      // ---- the adder of consumer c: its dQ^T part of each query tile into
+      // the sums with one 8 KB bulk reduction at the L2 (block kt = 0
+      // stores), after block kt - 1 has added its own (the turn counter) ----
+      const int c = threadIdx.x / 32 - 9;
+      const uint32_t staged = bars + 56 + 16 * NSLOT + 8 * c, freed = bars + 72 + 16 * NSLOT + 8 * c;
+      const uint32_t src = base + Bwd<DL>::XCH_OFF + c * XCH_BYTES;
+      for (int j = 0; j < p.nq; ++j) {
+        int* turn = p.turn + (((int64_t)bh * p.nq + j) * CL + rank) * NC + c;
+        float* acc = p.acc + (((int64_t)bh * p.nq + j) * (p.d / 64) + rank * NC + c) * (64 * BQ);
+        mbar_wait(staged, j & 1);
+        if (kt > 0) {
+          while (ld_acquire(turn) < kt) {
+          }
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");
+          bulk_reduce_add_f32(acc, src, XCH_BYTES);
+        } else {
+          bulk_store(acc, src, XCH_BYTES);
         }
-    }
-    __syncthreads();
-    // dQ += dS K, or dK += dS^T Q and dV += P^T dO (the transposes are the
-    // resident side's rows): the tile's part summed apart for each n-tile,
-    // then added with one rounding
-    uint32_t dh[SR / 8][4], dl[SR / 8][4], ph[DQ ? 1 : SR / 8][4], pl[DQ ? 1 : SR / 8][4];
-#pragma unroll
-    for (int kk = 0; kk < SR / 8; ++kk) {
-      load_a(dh[kk], dl[kk], dss + rg * 16 * S::PS + kk * 8, S::PS, g, tq);
-      if (!DQ) load_a(ph[DQ ? 0 : kk], pl[DQ ? 0 : kk], pbs + rg * 16 * S::PS + kk * 8, S::PS, g, tq);
-    }
-#pragma unroll
-    for (int i = 0; i < S::NT; ++i) {
-      const int c0 = cg * S::DC + i * 8;
-      float part1[4] = {0.f, 0.f, 0.f, 0.f}, part2[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < SR / 8; ++kk) {
-        uint32_t bhi[2], blo[2];
-        load_b_kn(bhi, blo, bst1 + kk * 8 * S::BS + c0, S::BS, g, tq);
-        mma3(part1, dh[kk], dl[kk], bhi, blo);
-        if (!DQ) {
-          load_b_kn(bhi, blo, bst2 + kk * 8 * S::BS + c0, S::BS, g, tq);
-          mma3(part2, ph[DQ ? 0 : kk], pl[DQ ? 0 : kk], bhi, blo);
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(freed);                        // the section may be written again
+        bulk_wait();                               // the sums are written: pass the turn on
+        if (kt + 1 < p.nk) {
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");
+          __threadfence();
+          atomicAdd(turn, 1);
         }
       }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc1[i][e] += part1[e];
-        if (!DQ) acc2[DQ ? 0 : i][e] += part2[e];
-      }
     }
-    __syncthreads();
-    if (S::STAGES == 1 && j + 1 < n_tiles) {
-      load_tile(j + 1, 0);
-      cp_async_commit();
-    }
+  } else {
+    reg_alloc<CONSUMER_REGS>();
+    if (wg == 0)
+      bwd_consumer<DL, CL, 0>(p, smem, base, bars, rank, kt, bh);
+    else
+      bwd_consumer<DL, CL, 1>(p, smem, base, bars, rank, kt, bh);
   }
-
-  const int ra = res0 + rg * 16 + g, rb = ra + 8;
-  const int64_t base = static_cast<int64_t>(bh) * p.t * D;
-  float* out1 = (DQ ? p.dq : p.dk) + base;
-#pragma unroll
-  for (int i = 0; i < S::NT; ++i) {
-    const int c0 = cg * S::DC + i * 8 + 2 * tq;
-    if (ra < p.t) {
-      *reinterpret_cast<float2*>(out1 + static_cast<int64_t>(ra) * D + c0) =
-          make_float2(acc1[i][0], acc1[i][1]);
-      if (!DQ)
-        *reinterpret_cast<float2*>(p.dv + base + static_cast<int64_t>(ra) * D + c0) =
-            make_float2(acc2[DQ ? 0 : i][0], acc2[DQ ? 0 : i][1]);
-    }
-    if (rb < p.t) {
-      *reinterpret_cast<float2*>(out1 + static_cast<int64_t>(rb) * D + c0) =
-          make_float2(acc1[i][2], acc1[i][3]);
-      if (!DQ)
-        *reinterpret_cast<float2*>(p.dv + base + static_cast<int64_t>(rb) * D + c0) =
-            make_float2(acc2[DQ ? 0 : i][2], acc2[DQ ? 0 : i][3]);
-    }
-  }
+  // no block leaves while another rank may still read its partials or
+  // arrive on its barriers
+  if constexpr (CL > 1) cluster_sync_all();
 }
 
-template <int D, bool DQ>
-cudaError_t launch_side(const Params& p, int bh, cudaStream_t stream) {
-  using S = Shape<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_f32<D, DQ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-  if (err != cudaSuccess) return err;
-  flash_bwd_f32<D, DQ><<<dim3((p.t + S::R - 1) / S::R, bh), THREADS, S::SMEM, stream>>>(p);
-  return cudaGetLastError();
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+// The workspace: the split copies (Q, K, V, dO natural; Q and dO
+// transposed), the stats, the turn counters and dQ^T's sums, each region
+// 256-byte aligned.
+struct Layout {
+  int nq, nk, tp;
+  size_t nat[4], tr[2], stats_off, turn_off, acc_off, bytes;
+};
+
+Layout layout(int bh, int t, int d) {
+  Layout l;
+  l.nq = (t + BQ - 1) / BQ;
+  l.nk = (t + BKV - 1) / BKV;
+  l.tp = (t + 7) / 8 * 8;
+  const size_t nat = align256((size_t)2 * bh * t * d * 4);
+  const size_t tr = align256((size_t)2 * bh * d * l.tp * 4);
+  size_t off = 0;
+  for (int i = 0; i < 4; ++i, off += nat) l.nat[i] = off;
+  for (int i = 0; i < 2; ++i, off += tr) l.tr[i] = off;
+  l.stats_off = off;
+  off += align256((size_t)bh * l.nq * 2 * BQ * 4);
+  l.turn_off = off;
+  off += align256((size_t)bh * l.nq * (d / 64) * 4);   // cl * NC = D / 64
+  l.acc_off = off;
+  l.bytes = off + align256((size_t)bh * d * l.nq * BQ * 4);
+  return l;
 }
 
-template <int D>
-int launch(const Params& p, int bh, cudaStream_t stream) {
-  di_pass<<<(bh * p.t + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0, stream>>>(
-      p, const_cast<float*>(p.di), D, bh * p.t);
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) err = launch_side<D, false>(p, bh, stream);
-  if (err == cudaSuccess) err = launch_side<D, true>(p, bh, stream);
-  return (int)err;
+template <int DL, int CL>
+int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+           const float* lse, void* dq, void* dk, void* dv, void* workspace, int b, int h, int t,
+           int d, const int64_t* s, float sm_scale, cudaStream_t stream) {
+  using C = Bwd<DL>;
+  // set before every launch: a launch from another host thread (autograd's
+  // worker, which runs this backward) did not see it set once from the first
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_f32<DL, CL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int bh = b * h;
+  const Layout l = layout(bh, t, d);
+  unsigned char* ws = (unsigned char*)workspace;
+  float* nat[4];
+  float* tr[2];
+  for (int i = 0; i < 4; ++i) nat[i] = (float*)(ws + l.nat[i]);   // Q, K, V, dO
+  for (int i = 0; i < 2; ++i) tr[i] = (float*)(ws + l.tr[i]);     // Q^T, dO^T (pi)
+  float* stats = (float*)(ws + l.stats_off);
+  int* turn = (int*)(ws + l.turn_off);
+  float* acc = (float*)(ws + l.acc_off);
+
+  err = cudaMemsetAsync(turn, 0, (size_t)bh * l.nq * (d / 64) * 4, stream);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_f32_stats<<<dim3(l.nq, bh), STATS_THREADS, 0, stream>>>(
+      (const float*)o, (const float*)dout, lse, stats, s[9], s[10], s[11], s[12], s[13], s[14], t,
+      h, d, l.nq);
+  SplitParams sp = {};
+  sp.job[0] = {(const float*)q, s[0], s[1], s[2], nat[0], tr[0], 1};
+  sp.job[1] = {(const float*)k, s[3], s[4], s[5], nat[1], nullptr, 0};
+  sp.job[2] = {(const float*)v, s[6], s[7], s[8], nat[2], nullptr, 0};
+  sp.job[3] = {(const float*)dout, s[12], s[13], s[14], nat[3], tr[1], 1};
+  sp.njobs = 4;
+  sp.h = h;
+  sp.t = t;
+  sp.d = d;
+  sp.tp = l.tp;
+  sp.bh = bh;
+  err = launch_split(sp, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  CUtensorMap map_k, map_v, map_q, map_do, map_qt, map_dot;
+  if (!make_split_map(&map_k, nat[1], bh, t, d, BKV) ||
+      !make_split_map(&map_v, nat[2], bh, t, d, BKV) ||
+      !make_split_map(&map_q, nat[0], bh, t, d, BQ) ||
+      !make_split_map(&map_do, nat[3], bh, t, d, BQ) ||
+      !make_split_map(&map_qt, tr[0], bh, d, l.tp, 64) ||
+      !make_split_map(&map_dot, tr[1], bh, d, l.tp, 64))
+    return (int)cudaErrorInvalidValue;
+  const Params p = {nat[1], (int64_t)bh * t * d, stats, acc, turn, (float*)dk, (float*)dv, t, d,
+                    l.nq, l.nk,
+                    sm_scale * LOG2E, sm_scale};
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_launch(&attr, 0, THREADS, CL, C::SMEM, stream);
+  cfg.gridDim = dim3(l.nk * CL, bh);
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_f32<DL, CL>, map_k, map_v, map_q, map_do, map_qt, map_dot,
+                           p);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_f32_dq<<<dim3(l.nq, d / 64, bh), WG, 0, stream>>>((const float4*)acc, (float*)dq, t,
+                                                               d, l.nq);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Device bytes of the backward's workspace: the Di pass's output, fp32 [B * H, T].
-size_t flash_attention_bwd_f32_workspace(int bh, int t, int d) {
-  (void)d;
-  return (static_cast<size_t>(bh) * t * 4 + 255) / 256 * 256;
-}
+// Device bytes of the backward's workspace for [B * H = bh, T, D]: Q, K, V
+// and dO split, [2, bh, T, D] fp32 each; Q and dO split and transposed,
+// [2, bh, D, T rounded up to 8] each; LSE * log2(e) and Di, [bh, nq, 2, 32];
+// the turn counters, [bh, nq, D / 64] int32; dQ^T's sums, [bh, nq, D / 64,
+// 64 * 32] in the consumers' register order;
+// nq = ceil(T / 32); each
+// region 256-byte aligned.
+size_t flash_attention_bwd_f32_workspace(int bh, int t, int d) { return layout(bh, t, d).bytes; }
 
 // q, k, v, o, d_o: fp32 [B, H, T, D] on the device, last dimension contiguous;
 // strides: their element strides {batch, head, token} (15 values), each a
 // multiple of 4 (16 bytes), bases 16-byte aligned. lse: contiguous fp32
 // [B, H, T]; dq, dk, dv: contiguous fp32 [B, H, T, D]; workspace:
-// flash_attention_bwd_f32_workspace bytes. D a multiple of 64, at most 512.
-// Returns the first cudaError_t of the three launches.
+// flash_attention_bwd_f32_workspace bytes, 256-byte aligned. D a multiple of
+// 64, at most 512; `cluster` the blocks that split it (D / 128 when D is
+// 128, 256 or 512, else D / 64; anything else is refused). Launches the
+// stats and split passes, the kernel and the dQ pass on `stream`; returns
+// the first cudaError_t of the launches.
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                             const void* d_o, const void* lse, void* dq, void* dk, void* dv,
-                            void* workspace, int b, int h, int t, int d, const int64_t* strides,
-                            float sm_scale, void* stream) {
-  if (d % 64 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0 || b * h > 65535)
+                            void* workspace, int b, int h, int t, int d, int cluster,
+                            const int64_t* strides, float sm_scale, void* stream) {
+  if (d % 64 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0 || b * h > 65535 ||
+      cluster != d / block_columns(d))
     return (int)cudaErrorInvalidValue;
-  Params p = {(const float*)q, (const float*)k, (const float*)v, (const float*)o,
-              (const float*)d_o, (const float*)lse, (const float*)workspace, (float*)dq,
-              (float*)dk, (float*)dv, {}, {}, {}, {}, {}, h, t, sm_scale,
-              sm_scale * LOG2E};
-  for (int i = 0; i < 3; ++i) {
-    p.sq[i] = strides[i];
-    p.sk[i] = strides[3 + i];
-    p.sv[i] = strides[6 + i];
-    p.so[i] = strides[9 + i];
-    p.sdo[i] = strides[12 + i];
-  }
   cudaStream_t s = (cudaStream_t)stream;
+  const float* l = (const float*)lse;
+#define BWD(D, DL)                                                                           \
+  case D:                                                                                    \
+    return launch<DL, D / DL>(q, k, v, o, d_o, l, dq, dk, dv, workspace, b, h, t, d, strides, \
+                              sm_scale, s)
   switch (d) {
-    case 64: return launch<64>(p, b * h, s);
-    case 128: return launch<128>(p, b * h, s);
-    case 192: return launch<192>(p, b * h, s);
-    case 256: return launch<256>(p, b * h, s);
-    case 320: return launch<320>(p, b * h, s);
-    case 384: return launch<384>(p, b * h, s);
-    case 448: return launch<448>(p, b * h, s);
-    case 512: return launch<512>(p, b * h, s);
+    BWD(64, 64); BWD(128, 128); BWD(192, 64); BWD(256, 128);
+    BWD(320, 64); BWD(384, 64); BWD(448, 64); BWD(512, 128);
   }
+#undef BWD
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,257 +15,498 @@
 // uses to rebuild P. The bf16 kernels (flash_attention.cu) are untouched.
 //
 // What bounds it on the H100: the two products, 4 T^2 Dh operations a head
-// against 16 T Dh bytes. At fp32 the products must keep fp32 accuracy, so
-// TF32 alone (10-bit mantissa) will not do; they run as 3xTF32 mma.sync
-// (mma_tf32.cuh), three TF32 products each, whose least time is 3 x 4 T^2 Dh
-// over the TF32 peak (about 2.5x less than the same work in fp32 FFMA).
+// against 16 T Dh bytes. They must keep fp32 accuracy, so each runs as three
+// TF32 wgmma products (3xTF32, wgmma_tf32.cuh); the least time is 3 x 4 T^2
+// Dh over the TF32 peak.
 //
-// Design (a simple kernel first):
-//   * a block of 8 warps owns BR query rows of one head (128 at Dh <= 128,
-//     64 at Dh <= 256, 32 above) and walks over key tiles of 32; Q stays in
-//     shared memory, K and V tiles come in by cp.async, the K tile of the
-//     next step loading under this step's softmax and P V, the V tile under
-//     the next step's Q K^T;
-//   * a warp owns 16 query rows x D / CG columns of O in registers; S = Q K^T
-//     is split over the warps by (16 rows, 8-key n-tile) tiles and stored to
-//     shared memory, where one warp a row takes the row's 32 keys, one a
-//     lane: max, exp2, sum and the rescale factor with warp shuffles; then
-//     every warp rescales its O rows and adds P V;
-//   * the row pitches of the tiles in shared memory (D + 4 floats for Q and
-//     K, D + 8 for V, 36 for S/P) put the fragment loads on distinct banks;
-//   * the softmax runs on exp2 with the scale folded into one multiply;
-//   * the tensor cores truncate as they accumulate, so no chain of mma.sync
-//     into one accumulator is longer than 12 (Q K^T: 64 of Dh, split in two
-//     parts; P V: one key tile): each chain starts from zero and is added to
-//     the fp32 sum with one rounding to nearest, so the sums over Dh and
-//     over the keys carry no truncation bias that grows with their length.
+// Design:
+//   * a split pass (wgmma_tf32.cuh: split_tf32) writes Q and K as their TF32
+//     hi and lo halves, [2, B*H, T, D], and V transposed, [2, B*H, D, T'],
+//     its keys in the order pi of each group of 8, so that P goes from S's
+//     accumulator into the A operand of P V as it is; the workspace holds
+//     them (flash_attention_f32_workspace);
+//   * the head dimension is split across a thread-block cluster of CL =
+//     Dh / DL blocks (DL = 128 columns at Dh 128, 256 and 512, else 64):
+//     Q, one K tile and one V tile of 64 keys as hi and lo take 192 KB at
+//     128 columns, and O of 64 rows 64 registers a thread. Rank r holds
+//     columns r DL .. r DL + DL - 1 of Q and O; each rank computes its
+//     partial S = Q K^T over its columns, and the ranks sum the partials
+//     through distributed shared memory in rank order, so every rank has the
+//     same bits of S (and of the softmax, which each computes). After a
+//     named barrier of the warpgroup, lane r of its first warp signals rank
+//     r's barrier (signal_ranks). With a cluster, S of tile i + 1 is
+//     computed and its partials posted (two exchange buffers) before tile
+//     i's softmax and P V, so the exchange's round trip runs under them;
+//   * a block owns 64 query rows and is three warpgroups: a producer, one
+//     thread of which loads Q once and then streams 64-key tiles of K and
+//     V^T as 64 x 64 items (hi and lo, 32 KB) through a ring of four slots
+//     with full/empty mbarriers, TMA from 4-D tensor maps over the split
+//     copies, so the next tile's K loads while this tile's softmax and P V
+//     run; and two consumers under setmaxnreg, consumer c taking keys 32 c
+//     .. 32 c + 31 of every tile with a running max, sum and O of its own
+//     (split-K within the block: their wgmma streams and exchanges overlap),
+//     the two combined through shared memory at the end;
+//   * the tensor cores truncate as they accumulate (measured on mma.sync
+//     and on wgmma: tools/torch_flash_f32_variants.py), so no wgmma chain
+//     into one accumulator is longer than 4 k-steps (12 wgmma): S's chains
+//     over 32 columns each go to two fresh
+//     accumulators in turn, each added to the fp32 sum in registers with one
+//     rounding to nearest while the next chain runs; a tile's P V over a
+//     consumer's 32 keys is one chain, and O = O * alpha + P V is one fused
+//     multiply-add an element;
+//   * the softmax runs on exp2 with the scale folded into one fused
+//     multiply-add an element; keys >= T are masked to -inf in the last tile
+//     only; rows >= T are not stored.
+// S is m64n32k8 (64 rows x a consumer's 32 keys), P V m64n64k8 (one
+// accumulator per 64 columns of O, one V^T item each).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_tf32.cuh"
+#include "sm90_async.cuh"
+#include "wgmma_sm90.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
-using namespace tf32x3;
+using namespace sm90;
+using namespace tf32w;
 
-constexpr int THREADS = 256;
-constexpr int BC = 32;                   // keys a tile: one a lane in the row pass
+constexpr int THREADS = 3 * WG;            // two consumer warpgroups, then the producer's
+// registers a thread after setmaxnreg: (24 + 2 * 240) * 128 = 64512 of the SM's 65536
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int BM = 64, BK = 64;            // query rows a block, keys a tile
+constexpr int SUBB = 64 * 128;             // a 64-row x 32-column sub-tile
+constexpr int ITEM = 4 * SUBB;             // a 64 x 64 item: hi, then lo (2 sub-tiles each)
+constexpr int ITEM_PART = 2 * SUBB;
+constexpr int NSLOT = 4;
+constexpr int XCH_BYTES = 4 * WG * 16;     // a consumer's S partials, [4 float4][128 threads]
+
+template <int DL>
+struct Fwd {
+  static constexpr int NC = DL / 64;                 // 64-column items a tile of K or V^T
+  static constexpr int Q_PART = BM * DL * 4;
+  static constexpr int RING_OFF = 2 * Q_PART;
+  static constexpr int XCH_OFF = RING_OFF + NSLOT * ITEM;
+  static constexpr int BAR_OFF = XCH_OFF + 4 * XCH_BYTES;   // [consumer][buffer]
+  static constexpr int SMEM = BAR_OFF + 8 * (9 + 2 * NSLOT) + 1024;   // + alignment slack
+  static_assert(SMEM <= 232448, "shared memory");
+  // the end: a consumer's running max and sum ([2][128]) and the half of O
+  // the other consumer combines ([NC * 16][128]), over the ring
+  static_assert(2 * (4 * WG + NC * 16 * WG) * 4 <= NSLOT * ITEM, "the combine's buffers");
+};
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
   float* o;
-  float* lse;
-  int64_t sq[3], sk[3], sv[3], so[3];    // element strides {batch, head, token}
-  int h, t;
-  float scale_log2;                      // sm_scale * log2(e)
+  float* lse;                 // [B, H, T] or null
+  int64_t o_sb, o_sh, o_st;   // element strides of o
+  int t, h;                   // tokens, heads
+  float scale_log2;           // sm_scale * log2(e): the softmax runs on exp2
 };
 
-template <int D>
-struct Shape {
-  static constexpr int RG = D <= 128 ? 8 : D <= 256 ? 4 : 2;   // 16-row groups a block
-  static constexpr int CG = 8 / RG;                            // warps sharing a row group
-  static constexpr int BR = 16 * RG;
-  static constexpr int DC = D / CG;                            // O columns a warp
-  static constexpr int NT = DC / 8;
-  static constexpr int TPW = 4 / CG;                           // S n-tiles a warp
-  static constexpr int QS = D + 4, KS = D + 4, VS = D + 8, PS = BC + 4;
-  static constexpr int K_OFF = BR * QS;
-  static constexpr int V_OFF = K_OFF + BC * KS;
-  static constexpr int P_OFF = V_OFF + BC * VS;
-  static constexpr int M_OFF = P_OFF + BR * PS;                // running max (log2 domain)
-  static constexpr int L_OFF = M_OFF + BR;                     // running sum
-  static constexpr int A_OFF = L_OFF + BR;                     // this step's rescale
-  static constexpr int SMEM = (A_OFF + BR) * 4;
-  static_assert(DC % 8 == 0, "a warp's O columns come in n-tiles of 8");
-  static_assert(SMEM <= 232448, "shared memory");
-};
+// Consumer CW: keys 32 CW .. 32 CW + 31 of every tile, a running max, sum
+// and O of its own, combined with the other consumer's at the end.
+template <int DL, int CL, int CW>
+__device__ __forceinline__ void fwd_consumer(const Params& p, unsigned char* smem, uint32_t base,
+                                             uint32_t bars, int rank, int q0, int bh,
+                                             int ntiles) {
+  using C = Fwd<DL>;
+  constexpr int NC = C::NC, NCH = DL / 32;
+  const uint32_t dbase = base & 0x3FFFFu;   // wgmma descriptors' addresses (see the kernel)
+  // this consumer's exchange buffers u = 0, 1: partials written by every
+  // rank (x_full) and read by every rank (x_empty)
+  auto x_full = [&](int u) { return bars + 8 + 8 * (2 * CW + u); };
+  auto x_empty = [&](int u) { return bars + 40 + 8 * (2 * CW + u); };
+  auto full = [&](int s) { return bars + 72 + 8 * s; };
+  auto empty = [&](int s) { return bars + 72 + 8 * (NSLOT + s); };
+  const int col0 = rank * DL;
+  const int lt = threadIdx.x % WG, warp = lt / 32, lane = lt % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  auto xch = [&](int u) { return base + C::XCH_OFF + (2 * CW + u) * XCH_BYTES + lt * 16; };
+  auto slot_addr = [&](int item) { return dbase + C::RING_OFF + (item % NSLOT) * ITEM; };
+  auto wait_item = [&](int item) { mbar_wait(full(item % NSLOT), (item / NSLOT) & 1); };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1) flash_fwd_f32(const Params p) {
-  using S = Shape<D>;
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;
-  float* ks = sm + S::K_OFF;
-  float* vs = sm + S::V_OFF;
-  float* ps = sm + S::P_OFF;
-  float* ms = sm + S::M_OFF;
-  float* ls = sm + S::L_OFF;
-  float* as = sm + S::A_OFF;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
-  const int bh = blockIdx.y, b = bh / p.h, hh = bh % p.h;
-  const int q0 = blockIdx.x * S::BR;
-  const float* qg = p.q + b * p.sq[0] + hh * p.sq[1];
-  const float* kg = p.k + b * p.sk[0] + hh * p.sk[1];
-  const float* vg = p.v + b * p.sv[0] + hh * p.sv[1];
-  const int rg = warp / S::CG, cg = warp % S::CG, r0 = 16 * rg;
-  const int n_tiles = (p.t + BC - 1) / BC;
+  float o[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[c][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};   // running max (scaled, log2 units) of rows g, g + 8
+  float l[2] = {0.f, 0.f};               // this lane's share of the running sum
 
-  if (threadIdx.x < S::BR) {
-    ms[threadIdx.x] = -INFINITY;
-    ls[threadIdx.x] = 0.f;
+  // ---- S = Q K^T of tile i for this consumer's 32 keys over the rank's
+  // columns: chain ch covers columns 32 ch .. (K item ch / 2 of the tile,
+  // sub-tile ch % 2); the tile's K items are items 2 NC i .. ----
+  auto s_tile = [&](int i, float (&s)[16]) {
+    const int it = 2 * NC * i;
+    float pa[16], pb[16];
+    auto s_chain = [&](int ch, float (&acc)[16]) {
+      const int item = it + ch / 2;
+      if (ch % 2 == 0) wait_item(item);
+      const uint32_t a = dbase + ch * SUBB;
+      const uint32_t b = slot_addr(item) + (ch % 2) * SUBB + CW * 32 * 128;
+      fresh(acc);
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ss3(acc, a + kk * 32, C::Q_PART, b + kk * 32, ITEM_PART, kk == 0);
+      wgmma::commit();
+    };
+    auto s_fold = [&](int ch, float (&acc)[16]) {
+      fence_operand(acc);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) s[e] = ch == 0 ? acc[e] : s[e] + acc[e];
+      if (ch % 2 == 1) mbar_arrive(empty((it + ch / 2) % NSLOT));
+    };
+    s_chain(0, pa);
+#pragma unroll
+    for (int ch = 1; ch < NCH; ++ch) {
+      if (ch % 2) s_chain(ch, pb); else s_chain(ch, pa);
+      wgmma::wait<1>();
+      if (ch % 2) s_fold(ch - 1, pa); else s_fold(ch - 1, pb);
+    }
+    wgmma::wait<0>();
+    s_fold(NCH - 1, pb);
+  };
+  // ---- the ranks' partials of tile i summed in rank order through buffer
+  // i % 2: post (write, one arrival on every rank), collect (wait, sum,
+  // release); tile i + 1 is posted before tile i's softmax and P V, so the
+  // round trip runs under them ----
+  auto post = [&](int i, const float (&s)[16]) {
+    const int u = i % 2;
+    if (i >= 2) mbar_wait_cluster(x_empty(u), ((i - 2) / 2) & 1);
+    unsigned char* at = smem + (xch(u) - base);
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      *reinterpret_cast<float4*>(at + f * WG * 16) =
+          make_float4(s[4 * f], s[4 * f + 1], s[4 * f + 2], s[4 * f + 3]);
+    group_sync(1 + CW, WG);
+    if (warp == 0) signal_ranks<CL>(x_full(u), lane);
+  };
+  auto collect = [&](int i, float (&s)[16]) {
+    const int u = i % 2;
+    float4 v[4];
+    mbar_wait_cluster(x_full(u), (i / 2) & 1);
+    sum_ranks<4, CL>(v, xch(u));
+    group_sync(1 + CW, WG);
+    if (warp == 0) signal_ranks<CL>(x_empty(u), lane);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      s[4 * f] = v[f].x;
+      s[4 * f + 1] = v[f].y;
+      s[4 * f + 2] = v[f].z;
+      s[4 * f + 3] = v[f].w;
+    }
+  };
+
+  mbar_wait(bars, 0);                    // Q
+  float s[16], s_next[16];
+  s_tile(0, s);
+  if constexpr (CL > 1) {
+    post(0, s);
+    collect(0, s);
   }
-  load_rows<D, THREADS>(qs, S::QS, qg, p.sq[2], q0, S::BR, p.t);
-  load_rows<D, THREADS>(ks, S::KS, kg, p.sk[2], 0, BC, p.t);
-  cp_async_commit();
-  load_rows<D, THREADS>(vs, S::VS, vg, p.sv[2], 0, BC, p.t);
-  cp_async_commit();
+  for (int i = 0; i < ntiles; ++i) {
+    const int it = 2 * NC * i + NC;      // this tile's first V^T item
+    const bool more = i + 1 < ntiles;
+    if constexpr (CL > 1) {              // (with no exchange, S of the next tile after P V)
+      if (more) {
+        s_tile(i + 1, s_next);
+        post(i + 1, s_next);
+      }
+    }
 
-  float o[S::NT][4];
+    // ---- the online softmax: keys i BK + 32 CW + 8 j + 2 tg + (e & 1) ----
+    const int key0 = i * BK + 32 * CW;
+    if (key0 + 32 > p.t) {
 #pragma unroll
-  for (int i = 0; i < S::NT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+      for (int e = 0; e < 16; ++e)
+        if (key0 + (e / 4) * 8 + 2 * tg + (e & 1) >= p.t) s[e] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, alpha[2];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // consumer 1 may have seen no key yet (T <= 32): its max stays -inf
+      // and 0 stands in for it, so that nothing becomes NaN
+      const float m_new = fmaxf(m[r], quad_max(mx[r]) * p.scale_log2);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = exp2f(m[r] - m_use);    // 0 on the first tile (m = -inf)
+      m[r] = m_new;
+      l[r] *= alpha[r];
+      mx[r] = m_use;
+    }
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int r = (e >> 1) & 1;
+      s[e] = exp2f(fmaf(s[e], p.scale_log2, -mx[r]));
+      l[r] += s[e];
+    }
+    // P as the A operand of P V, split: k-step kk holds keys 8 kk + 2 tg, + 1
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(s + 4 * kk, ph[kk], pl[kk]);
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * BC;
-    cp_async_wait<1>();                  // Q and this K tile (the V tile may still fly)
-    __syncthreads();
-    // S = Q K^T: this warp's TPW n-tiles of its row group, in chunks of 64
-    // of Dh, each summed apart (two parts in turn) and then added in
-    float acc[S::TPW][4];
+    // ---- O = O * alpha + P V: chain c covers O's columns 64 c .. (V^T
+    // item c, this consumer's sub-tile of keys) ----
+    float qa[32], qb[32];
+    auto pv_chain = [&](int c, float (&acc)[32]) {
+      const int item = it + c;
+      wait_item(item);
+      const uint32_t b = slot_addr(item) + CW * SUBB;
+      fresh(acc);
+      wgmma::fence();
 #pragma unroll
-    for (int i = 0; i < S::TPW; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    for (int kc = 0; kc < D / 8; kc += 8) {
-      float part[2][S::TPW][4];
+      for (int kk = 0; kk < 4; ++kk) rs3(acc, ph[kk], pl[kk], b + kk * 32, ITEM_PART, kk == 0);
+      wgmma::commit();
+    };
+    auto pv_fold = [&](int c, float (&acc)[32]) {
+      fence_operand(acc);
 #pragma unroll
-      for (int s = 0; s < 2; ++s)
+      for (int e = 0; e < 32; ++e) o[c][e] = fmaf(o[c][e], alpha[(e >> 1) & 1], acc[e]);
+      mbar_arrive(empty((it + c) % NSLOT));
+    };
+    pv_chain(0, qa);
 #pragma unroll
-        for (int i = 0; i < S::TPW; ++i)
-          part[s][i][0] = part[s][i][1] = part[s][i][2] = part[s][i][3] = 0.f;
-#pragma unroll
-      for (int k2 = 0; k2 < 8; ++k2) {
-        const int kk = kc + k2;
-        uint32_t ah[4], al[4];
-        load_a(ah, al, qs + r0 * S::QS + kk * 8, S::QS, g, tq);
-#pragma unroll
-        for (int i = 0; i < S::TPW; ++i) {
-          uint32_t bhi[2], blo[2];
-          load_b_nk(bhi, blo, ks + 8 * (cg * S::TPW + i) * S::KS + kk * 8, S::KS, g, tq);
-          mma3(part[k2 & 1][i], ah, al, bhi, blo);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < S::TPW; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] += part[0][i][e] + part[1][i][e];
+    for (int c = 1; c < NC; ++c) {
+      if (c % 2) pv_chain(c, qb); else pv_chain(c, qa);
+      wgmma::wait<1>();
+      if (c % 2) pv_fold(c - 1, qa); else pv_fold(c - 1, qb);
     }
+    wgmma::wait<0>();
+    if (NC % 2) pv_fold(NC - 1, qa); else pv_fold(NC - 1, qb);
+    if (more) {
+      if constexpr (CL > 1) {
+        collect(i + 1, s_next);
 #pragma unroll
-    for (int i = 0; i < S::TPW; ++i) {
-      const int col = 8 * (cg * S::TPW + i) + 2 * tq;
-      *reinterpret_cast<float2*>(ps + (r0 + g) * S::PS + col) = make_float2(acc[i][0], acc[i][1]);
-      *reinterpret_cast<float2*>(ps + (r0 + g + 8) * S::PS + col) =
-          make_float2(acc[i][2], acc[i][3]);
-    }
-    __syncthreads();
-    if (j + 1 < n_tiles) load_rows<D, THREADS>(ks, S::KS, kg, p.sk[2], kv0 + BC, BC, p.t);
-    cp_async_commit();
-    // the online softmax: a warp a row, a lane a key
-    for (int r = warp; r < S::BR; r += THREADS / 32) {
-      const float x = kv0 + lane < p.t ? ps[r * S::PS + lane] * p.scale_log2 : -INFINITY;
-      const float m_old = ms[r];
-      const float m_new = fmaxf(m_old, warp_max(x));
-      const float e = exp2f(x - m_new);
-      const float sum = warp_sum(e);
-      ps[r * S::PS + lane] = e;
-      if (lane == 0) {
-        const float a = exp2f(m_old - m_new);
-        as[r] = a;
-        ls[r] = ls[r] * a + sum;
-        ms[r] = m_new;
+        for (int e = 0; e < 16; ++e) s[e] = s_next[e];
+      } else {
+        s_tile(i + 1, s);
       }
     }
-    cp_async_wait<1>();                  // this V tile (the next K tile may still fly)
-    __syncthreads();
-    // O = O * alpha + P V over this warp's rows and columns: the tile's P V
-    // summed apart for each n-tile, then folded in with one rounding
-    const float a0 = as[r0 + g], a1 = as[r0 + g + 8];
-    uint32_t ph[BC / 8][4], pl[BC / 8][4];
-#pragma unroll
-    for (int kk = 0; kk < BC / 8; ++kk) load_a(ph[kk], pl[kk], ps + r0 * S::PS + kk * 8, S::PS, g, tq);
-#pragma unroll
-    for (int i = 0; i < S::NT; ++i) {
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < BC / 8; ++kk) {
-        uint32_t bhi[2], blo[2];
-        load_b_kn(bhi, blo, vs + kk * 8 * S::VS + cg * S::DC + i * 8, S::VS, g, tq);
-        mma3(part, ph[kk], pl[kk], bhi, blo);
-      }
-      o[i][0] = fmaf(o[i][0], a0, part[0]);
-      o[i][1] = fmaf(o[i][1], a0, part[1]);
-      o[i][2] = fmaf(o[i][2], a1, part[2]);
-      o[i][3] = fmaf(o[i][3], a1, part[3]);
-    }
-    __syncthreads();
-    if (j + 1 < n_tiles) load_rows<D, THREADS>(vs, S::VS, vg, p.sv[2], kv0 + BC, BC, p.t);
-    cp_async_commit();
   }
 
-  const int qa = q0 + r0 + g, qb = qa + 8;
-  const float inv_a = 1.f / ls[r0 + g], inv_b = 1.f / ls[r0 + g + 8];
-  float* og = p.o + b * p.so[0] + hh * p.so[1];
+  // ---- combine the two consumers' softmax states (split-K) and store:
+  // consumer CW finishes the flat elements CW * NC * 16 .. of O, the other
+  // consumer's share of its O going through the ring's memory ----
+  constexpr int HALF = NC * 16;
+  float* stat = reinterpret_cast<float*>(smem + C::RING_OFF);          // [2][4][128]
+  float* part = stat + 2 * 4 * WG;                                     // [2][HALF][128]
 #pragma unroll
-  for (int i = 0; i < S::NT; ++i) {
-    const int col = cg * S::DC + i * 8 + 2 * tq;
-    if (qa < p.t)
-      *reinterpret_cast<float2*>(og + qa * p.so[2] + col) = make_float2(o[i][0] * inv_a,
-                                                                        o[i][1] * inv_a);
-    if (qb < p.t)
-      *reinterpret_cast<float2*>(og + qb * p.so[2] + col) = make_float2(o[i][2] * inv_b,
-                                                                        o[i][3] * inv_b);
+  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+  group_sync(3, 2 * WG);                 // both consumers are done with the ring's items
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    stat[(CW * 4 + r) * WG + lt] = m[r];
+    stat[(CW * 4 + 2 + r) * WG + lt] = l[r];
   }
-  // the natural LSE of the scaled logits: (m + log2 l) ln 2
-  if (p.lse != nullptr && threadIdx.x < S::BR && q0 + static_cast<int>(threadIdx.x) < p.t)
-    p.lse[static_cast<int64_t>(bh) * p.t + q0 + threadIdx.x] =
-        (ms[threadIdx.x] + log2f(ls[threadIdx.x])) * 0.6931471805599453f;
+#pragma unroll
+  for (int f = 0; f < HALF; ++f) {       // the elements the other consumer finishes
+    constexpr int other = (1 - CW) * HALF;
+    part[(CW * HALF + f) * WG + lt] = o[(other + f) / 32][(other + f) % 32];
+  }
+  group_sync(3, 2 * WG);
+  const int b = bh / p.h, h = bh % p.h;
+  const int row0 = q0 + warp * 16 + g;
+  float sc_me[2], sc_other[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mo = stat[((1 - CW) * 4 + r) * WG + lt];
+    const float lo = stat[((1 - CW) * 4 + 2 + r) * WG + lt];
+    const float mm = fmaxf(m[r], mo);     // finite: consumer 0 always holds key 0
+    sc_me[r] = exp2f(m[r] - mm);
+    sc_other[r] = exp2f(mo - mm);
+    const float total = l[r] * sc_me[r] + lo * sc_other[r];
+    inv[r] = 1.f / total;
+    const int row = row0 + 8 * r;
+    if (CW == 0 && rank == 0 && p.lse != nullptr && tg == 0 && row < p.t)
+      p.lse[(int64_t)bh * p.t + row] = (mm + log2f(total)) * 0.6931471805599453f;
+  }
+#pragma unroll
+  for (int f = 0; f < HALF; f += 2) {
+    constexpr int mine = CW * HALF;
+    const int c = (mine + f) / 32, e = (mine + f) % 32, r = (e >> 1) & 1;
+    const int row = row0 + 8 * r;
+    if (row >= p.t) continue;
+    const float* po = part + ((1 - CW) * HALF + f) * WG + lt;
+    const float x0 = fmaf(o[c][e], sc_me[r], po[0] * sc_other[r]);
+    const float x1 = fmaf(o[c][e + 1], sc_me[r], po[WG] * sc_other[r]);
+    float* out = p.o + b * p.o_sb + h * p.o_sh + row * p.o_st + col0 + 64 * c + 8 * (e / 4) +
+                 2 * tg;
+    *reinterpret_cast<float2*>(out) = make_float2(x0 * inv[r], x1 * inv[r]);
+  }
 }
 
-template <int D>
-int launch(const Params& p, int b, cudaStream_t stream) {
-  using S = Shape<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+template <int DL, int CL>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_f32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_vt, const Params p) {
+  using C = Fwd<DL>;
+  constexpr int NC = C::NC;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  // barriers: Q full, x_full[2][2] and x_empty[2][2] (consumer c's
+  // partials in buffer u written and read on every rank), full[NSLOT],
+  // empty[NSLOT]
+  const uint32_t bars = base + C::BAR_OFF;
+  auto full = [&](int s) { return bars + 72 + 8 * s; };
+  auto empty = [&](int s) { return bars + 72 + 8 * (NSLOT + s); };
+
+  const int rank = blockIdx.x % CL, q0 = blockIdx.x / CL * BM, bh = blockIdx.y;
+  const int col0 = rank * DL;
+  const int ntiles = (p.t + BK - 1) / BK;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int x = 0; x < 8; ++x) mbar_init(bars + 8 + 8 * x, CL);   // x_full[2][2], x_empty[2][2]
+    for (int s = 0; s < NSLOT; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  if constexpr (CL > 1)
+    cluster_sync_all();   // every rank's barriers are initialised before any remote arrival
+  else
+    __syncthreads();
+
+  if (wg == 2) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 2 * WG) {
+      // ---- loads: Q once, then K and V^T a 64-column item at a time ----
+      mbar_expect_tx(bars, 2 * C::Q_PART);
+      for (int part = 0; part < 2; ++part)
+        for (int sub = 0; sub < DL / 32; ++sub)
+          tma_load(base + part * C::Q_PART + sub * SUBB, &map_q, bars, col0 + 32 * sub, q0, bh,
+                   part);
+      int it = 0;
+      for (int i = 0; i < ntiles; ++i) {
+        for (int kind = 0; kind < 2; ++kind) {
+          for (int c = 0; c < NC; ++c, ++it) {
+            const int s = it % NSLOT;
+            const uint32_t dst = base + C::RING_OFF + s * ITEM;
+            mbar_wait(empty(s), ((it / NSLOT) & 1) ^ 1);
+            mbar_expect_tx(full(s), ITEM);
+            for (int part = 0; part < 2; ++part)
+              for (int sub = 0; sub < 2; ++sub) {
+                const uint32_t at = dst + part * ITEM_PART + sub * SUBB;
+                if (kind == 0)   // K: 64 keys x columns 64 c ..
+                  tma_load(at, &map_k, full(s), col0 + 64 * c + 32 * sub, i * BK, bh, part);
+                else             // V^T: columns 64 c .. x 64 keys
+                  tma_load(at, &map_vt, full(s), i * BK + 32 * sub, col0 + 64 * c, bh, part);
+              }
+          }
+        }
+      }
+    }
+  } else {
+    reg_alloc<CONSUMER_REGS>();
+    if (wg == 0)
+      fwd_consumer<DL, CL, 0>(p, smem, base, bars, rank, q0, bh, ntiles);
+    else
+      fwd_consumer<DL, CL, 1>(p, smem, base, bars, rank, q0, bh, ntiles);
+  }
+  // no block leaves while another rank may still read its partials or
+  // arrive on its barriers
+  if constexpr (CL > 1) cluster_sync_all();
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+struct Layout {
+  size_t q_off, k_off, vt_off, bytes;
+  int tp;
+};
+
+Layout layout(int bh, int t, int d) {
+  Layout l;
+  l.tp = (t + 7) / 8 * 8;
+  const size_t nat = align256((size_t)2 * bh * t * d * 4);
+  l.q_off = 0;
+  l.k_off = nat;
+  l.vt_off = 2 * nat;
+  l.bytes = 2 * nat + align256((size_t)2 * bh * d * l.tp * 4);
+  return l;
+}
+
+template <int DL, int CL>
+int launch(const void* q, const void* k, const void* v, const Params& p, int b, int d,
+           const int64_t* s, unsigned char* ws, cudaStream_t stream) {
+  using C = Fwd<DL>;
+  // set before every launch, so that a launch from another host thread
+  // (autograd's worker, when a checkpointed block recomputes) sees it
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<DL, CL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.t + S::BR - 1) / S::BR, b * p.h);
-  flash_fwd_f32<D><<<grid, THREADS, S::SMEM, stream>>>(p);
-  return (int)cudaGetLastError();
+  const int bh = b * p.h;
+  const Layout l = layout(bh, p.t, d);
+  float* qs = (float*)(ws + l.q_off);
+  float* ks = (float*)(ws + l.k_off);
+  float* vt = (float*)(ws + l.vt_off);
+  SplitParams sp = {};
+  sp.job[0] = {(const float*)q, s[0], s[1], s[2], qs, nullptr, 0};
+  sp.job[1] = {(const float*)k, s[3], s[4], s[5], ks, nullptr, 0};
+  sp.job[2] = {(const float*)v, s[6], s[7], s[8], nullptr, vt, 1};
+  sp.njobs = 3;
+  sp.h = p.h;
+  sp.t = p.t;
+  sp.d = d;
+  sp.tp = l.tp;
+  sp.bh = bh;
+  err = launch_split(sp, stream);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_q, map_k, map_vt;
+  if (!make_split_map(&map_q, qs, bh, p.t, d, BM) || !make_split_map(&map_k, ks, bh, p.t, d, BK) ||
+      !make_split_map(&map_vt, vt, bh, d, l.tp, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_launch(&attr, 0, THREADS, CL, C::SMEM, stream);
+  cfg.gridDim = dim3((p.t + BM - 1) / BM * CL, bh);
+  return (int)cudaLaunchKernelEx(&cfg, flash_fwd_f32<DL, CL>, map_q, map_k, map_vt, p);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Device bytes of the forward's workspace for [B * H = bh, T, D]: Q and K
+// split, [2, bh, T, D] fp32 each, and V split and transposed, [2, bh, D, T
+// rounded up to 8], each region 256-byte aligned.
+size_t flash_attention_f32_workspace(int bh, int t, int d) { return layout(bh, t, d).bytes; }
+
 // q, k, v, o: fp32 [B, H, T, D] on the device, last dimension contiguous;
 // strides: the element strides {batch, head, token} of q, k, v and o (12
-// values), each a multiple of 4 (16 bytes), bases 16-byte aligned. D a
-// multiple of 64, at most 512. lse: contiguous fp32 [B, H, T], or null when
-// the caller needs no LSE. Returns the cudaError_t of the launch.
+// values). D a multiple of 64, at most 512; `cluster` the blocks that split
+// it, D / 128 when D is 128, 256 or 512, else D / 64 (the wrapper's plan;
+// anything else is refused). lse: contiguous fp32 [B, H, T], or null when
+// the caller needs no LSE. workspace: flash_attention_f32_workspace bytes,
+// 256-byte aligned. Launches the split pass and the kernel on `stream`;
+// returns the cudaError_t of the launches.
 int flash_attention_f32_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int b, int h, int t, int d, const int64_t* strides, float sm_scale,
-                            void* stream) {
-  if (d % 64 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0 || b * h > 65535)
+                            void* workspace, int b, int h, int t, int d, int cluster,
+                            const int64_t* strides, float sm_scale, void* stream) {
+  if (d % 64 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0 || b * h > 65535 ||
+      cluster != d / block_columns(d))
     return (int)cudaErrorInvalidValue;
-  Params p = {(const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse,
-              {}, {}, {}, {}, h, t, sm_scale * 1.4426950408889634f};
-  for (int i = 0; i < 3; ++i) {
-    p.sq[i] = strides[i];
-    p.sk[i] = strides[3 + i];
-    p.sv[i] = strides[6 + i];
-    p.so[i] = strides[9 + i];
-  }
+  const Params p = {(float*)o, (float*)lse, strides[9], strides[10], strides[11], t, h,
+                    sm_scale * 1.4426950408889634f};
   cudaStream_t s = (cudaStream_t)stream;
+  unsigned char* ws = (unsigned char*)workspace;
+#define FWD(D, DL) \
+  case D: return launch<DL, D / DL>(q, k, v, p, b, d, strides, ws, s)
   switch (d) {
-    case 64: return launch<64>(p, b, s);
-    case 128: return launch<128>(p, b, s);
-    case 192: return launch<192>(p, b, s);
-    case 256: return launch<256>(p, b, s);
-    case 320: return launch<320>(p, b, s);
-    case 384: return launch<384>(p, b, s);
-    case 448: return launch<448>(p, b, s);
-    case 512: return launch<512>(p, b, s);
+    FWD(64, 64); FWD(128, 128); FWD(192, 64); FWD(256, 128);
+    FWD(320, 64); FWD(384, 64); FWD(448, 64); FWD(512, 128);
   }
+#undef FWD
   return (int)cudaErrorInvalidValue;
 }
 

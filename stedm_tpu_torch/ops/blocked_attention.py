@@ -9,8 +9,10 @@ on CPU tensors. The forward reads q, k and v through their strides (any
 writes O in any such layout. bf16 tensors take the bf16 kernels; fp32
 tensors (``diffusion.compute_dtype=float32``) take
 ``csrc/flash_attention_f32.cu`` and ``csrc/flash_attention_bwd_f32.cu``,
-which keep fp32 accuracy (3xTF32 products) at every head dimension the
-forward takes (``KERNELS``). When a gradient is wanted it goes through
+which keep fp32 accuracy (3xTF32 wgmma products over TF32 hi and lo copies
+that a split pass writes into a workspace) at every head dimension the
+forward takes (``KERNELS``), the head dimension split across a cluster of
+``fp32_plan``'s size. When a gradient is wanted it goes through
 ``FlashAttentionFunction``, whose backward launches
 ``csrc/flash_attention_bwd.cu`` (a Di pass and one fused kernel for dQ, dK
 and dV: the port of the stock kernel's ``dkv`` and ``dq`` Pallas kernels,
@@ -40,6 +42,7 @@ from stedm_tpu_torch.ops import LAUNCHES
 
 MAX_HEAD_DIM = 512
 BWD_HEAD_DIMS = (64, 128, 256, 512)      # the bf16 backward's; the fp32 one takes the forward's
+FP32_WIDE_HEAD_DIMS = (128, 256, 512)    # the fp32 kernels' head dims split 128 columns a block
 _LOG2E = 1.0 / math.log(2.0)
 # the kernels of each dtype: (forward, backward) sources under csrc/, each
 # also the name of its LAUNCHES count
@@ -119,22 +122,48 @@ def _kernel_fn(stem: str, name: str, argtypes, restype=ctypes.c_int):
 
 def _fwd_lib(dtype):
     stem = KERNELS[dtype][0]
+    if dtype == torch.float32:       # + the workspace pointer and the cluster size
+        return _kernel_fn(stem, f"{stem}_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                          + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
     return _kernel_fn(stem, f"{stem}_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                       + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
 
 
 def _bwd_lib(dtype):
     stem = KERNELS[dtype][1]
-    return _kernel_fn(stem, stem, [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+    ints = 5 if dtype == torch.float32 else 4     # fp32: + the cluster size
+    return _kernel_fn(stem, stem, [ctypes.c_void_p] * 10 + [ctypes.c_int] * ints
                       + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p])
 
 
 def bwd_workspace_bytes(bh: int, t: int, d: int, dtype=torch.bfloat16) -> int:
     """Device bytes the backward of ``dtype`` needs: bf16, the Di pass's
     output, the dQ turn counters and, with more than one 128-key tile, the
-    fp32 sums of dQ; fp32, the Di pass's output."""
+    fp32 sums of dQ; fp32, the TF32 hi and lo copies of Q, K, V and dO (and
+    of Q and dO transposed), LSE * log2(e) and Di, the turn counters and the
+    fp32 sums of dQ^T."""
     stem = KERNELS[dtype][1]
     return _kernel_fn(stem, f"{stem}_workspace", [ctypes.c_int] * 3, ctypes.c_size_t)(bh, t, d)
+
+
+def fwd_workspace_bytes(bh: int, t: int, d: int) -> int:
+    """Device bytes the fp32 forward needs: the TF32 hi and lo copies of Q
+    and K, and of V transposed."""
+    stem = KERNELS[torch.float32][0]
+    return _kernel_fn(stem, f"{stem}_workspace", [ctypes.c_int] * 3, ctypes.c_size_t)(bh, t, d)
+
+
+def fp32_plan(b: int, h: int, t: int, d: int) -> dict:
+    """The fp32 kernels' launch plan for ``[B, H, T, Dh]``: the head
+    dimension split into ``columns`` a block (``FP32_WIDE_HEAD_DIMS`` take
+    128, the others 64) over a thread-block ``cluster`` of Dh / columns
+    blocks, the C entry points (``fwd``, ``bwd``) and the workspace bytes
+    each asks for. The C side refuses any other cluster size."""
+    cols = 128 if d in FP32_WIDE_HEAD_DIMS else 64
+    return {"columns": cols, "cluster": d // cols,
+            "fwd": _fwd_lib(torch.float32), "bwd": _bwd_lib(torch.float32),
+            "fwd_workspace": fwd_workspace_bytes(b * h, t, d),
+            "bwd_workspace": bwd_workspace_bytes(b * h, t, d, torch.float32)}
 
 
 def check_strided(t: torch.Tensor, name: str) -> tuple[int, int, int]:
@@ -197,10 +226,16 @@ def flash_attention_cuda(q, k, v, sm_scale: float, return_lse: bool = False, out
             raise ValueError(f"{name} must be a CUDA tensor on q's device")
         strides += check_strided(x, name)
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32) if return_lse else None
-    err = _fwd_lib(dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                          None if lse is None else lse.data_ptr(), b, h, t, d,
-                          (ctypes.c_int64 * 12)(*strides), float(sm_scale),
-                          torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
+    tail = ((ctypes.c_int64 * 12)(*strides), float(sm_scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if dtype == torch.float32:
+        plan = fp32_plan(b, h, t, d)
+        ws = torch.empty(plan["fwd_workspace"], device=q.device, dtype=torch.uint8)
+        err = plan["fwd"](*ptrs, ws.data_ptr(), b, h, t, d, plan["cluster"], *tail)
+    else:
+        err = _fwd_lib(dtype)(*ptrs, b, h, t, d, *tail)
     stem = KERNELS[dtype][0]
     if err:
         raise RuntimeError(f"{stem} launch failed: cudaError {err}")
@@ -221,16 +256,20 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=Non
     ``do``. bf16 (``csrc/flash_attention_bwd.cu``): a small pass computes
     Di = rowsum(do * o) on the card, then one fused kernel computes all three
     gradients, at Dh 64, 128, 256 or 512. fp32
-    (``csrc/flash_attention_bwd_f32.cu``): the Di pass, then a dK/dV and a dQ
-    kernel, at any Dh the forward takes. q, k, v, o and do are ``[B, H, T,
-    Dh]`` CUDA tensors of one dtype in any layout ``check_strided`` takes.
+    (``csrc/flash_attention_bwd_f32.cu``): a stats pass (LSE * log2(e), Di),
+    a split pass (TF32 hi and lo copies), one fused kernel computing each of
+    the five products once (the head dimension split across a cluster,
+    ``fp32_plan``) and a pass that writes dQ, at any Dh the forward takes.
+    q, k, v, o and do are ``[B, H, T, Dh]`` CUDA tensors of one dtype in any
+    layout ``check_strided`` takes.
     Returns contiguous ``(dq, dk, dv)``; ``LAUNCHES`` counts the call's
     launches once, under the backward's name (``KERNELS``).
     ``workspace``, a uint8 CUDA tensor of at least
     ``bwd_workspace_bytes(B * H, T, Dh, dtype)`` bytes, is used instead of a
-    new one when given; it starts with the Di pass's output: bf16, fp32
+    new one when given; bf16: it starts with the Di pass's output, fp32
     ``[B * H, ceil(T / 64), 2, 64]``: LSE * log2(e) (+inf past T), then Di (0
-    past T); fp32, Di as fp32 ``[B * H, T]``."""
+    past T); fp32: the layout of ``flash_attention_bwd_f32_workspace``
+    (csrc/flash_attention_bwd_f32.cu)."""
     if not (q.shape == k.shape == v.shape == o.shape == do.shape):
         raise ValueError(f"q, k, v, o, do shapes differ: {q.shape}, {k.shape}, {v.shape}, "
                          f"{o.shape}, {do.shape}")
@@ -253,17 +292,22 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=Non
         raise ValueError(f"lse must be [B, H, T] = {(b, h, t)} on q's device, got "
                          f"{tuple(lse.shape)}")
     dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(3))
-    nbytes = bwd_workspace_bytes(b * h, t, d, dtype)
+    plan = fp32_plan(b, h, t, d) if dtype == torch.float32 else None
+    nbytes = plan["bwd_workspace"] if plan else bwd_workspace_bytes(b * h, t, d, dtype)
     if workspace is None:
         workspace = torch.empty(nbytes, device=q.device, dtype=torch.uint8)
     elif (workspace.device != q.device or workspace.dtype != torch.uint8
           or workspace.numel() < nbytes or workspace.data_ptr() % 256):
         raise ValueError(f"workspace must be {nbytes} bytes (uint8) on q's device, "
                          "256-byte aligned")
-    err = _bwd_lib(dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                          lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                          workspace.data_ptr(), b, h, t, d, (ctypes.c_int64 * 15)(*strides),
-                          float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), workspace.data_ptr())
+    tail = ((ctypes.c_int64 * 15)(*strides), float(sm_scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if plan:
+        err = plan["bwd"](*ptrs, b, h, t, d, plan["cluster"], *tail)
+    else:
+        err = _bwd_lib(dtype)(*ptrs, b, h, t, d, *tail)
     stem = KERNELS[dtype][1]
     if err:
         raise RuntimeError(f"{stem} launch failed: cudaError {err}")

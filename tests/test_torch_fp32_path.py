@@ -1,7 +1,8 @@
 """The fp32 compute path (``diffusion.compute_dtype=float32``) on the CPU:
-which flash kernel each dtype selects, with nothing launched, and the
-layouts the fp32 kernels take. A CPU tensor never reaches a kernel, so the
-wrappers' dtype dispatch is read from the C entry points they resolve.
+which flash kernel each dtype selects, with nothing launched, the fp32
+kernels' launch plan (the head dimension split across a cluster, the
+workspaces) and the layouts they take. A CPU tensor never reaches a kernel,
+so the wrappers' dispatch is read from the C entry points they resolve.
 
 Held elsewhere, and not repeated here: the fp32 entry points against the
 JAX package (``train_ae.main``: tests/test_torch_her2_entry.py::
@@ -86,3 +87,39 @@ def test_fp32_strided_views_of_the_attention_block():
     assert pattn.check_strided(out, "out") == (16 * 4 * 64, 64, 4 * 64)
     with pytest.raises(ValueError, match="16-byte"):
         pattn.check_strided(torch.zeros(2, 2, 16, 66)[..., :64], "q")   # a 264-byte pitch
+
+
+@pytest.mark.parametrize("d", range(64, 513, 64))
+def test_fp32_launch_plan_matches_the_c_side(monkeypatch, d):
+    """For every head dimension the fp32 kernels take: the columns a block
+    and the cluster size the C entry points insist on (128 columns at Dh
+    128, 256 and 512, else 64; Dh / columns blocks, at most 8, the portable
+    cluster size), the entry points resolved with their ctypes
+    signatures (the cluster size after Dh, the workspace pointer after the
+    tensors), and each workspace exactly what the C side's
+    ``*_workspace(B * H, T, Dh)`` returns for the launch's shape."""
+    asked = {}
+
+    def fake(stem, name, argtypes, restype=None):
+        def fn(*args):
+            if name.endswith("_workspace"):
+                return hash((name, args)) % 10 ** 9
+            raise AssertionError("nothing is launched on the CPU")
+        asked[name] = (stem, len(argtypes), fn)
+        return fn
+
+    monkeypatch.setattr(pattn, "_kernel_fn", fake)
+    b, h, t = 2, 3, 100
+    plan = pattn.fp32_plan(b, h, t, d)
+    cols = 128 if d in (128, 256, 512) else 64
+    assert (plan["columns"], plan["cluster"]) == (cols, d // cols)
+    assert plan["cluster"] * plan["columns"] == d and 1 <= plan["cluster"] <= 8
+    fwd_stem, bwd_stem = pattn.KERNELS[torch.float32]
+    # the instances the wrapper resolves: the fp32 forward (6 pointers, 5
+    # ints: b, h, t, d and the cluster size, strides, scale, stream) and
+    # backward (10 pointers, 5 ints, ...)
+    assert asked[fwd_stem + "_fwd"][:2] == (fwd_stem, 6 + 5 + 3)
+    assert asked[bwd_stem][:2] == (bwd_stem, 10 + 5 + 3)
+    assert plan["fwd"] is asked[fwd_stem + "_fwd"][2] and plan["bwd"] is asked[bwd_stem][2]
+    assert plan["fwd_workspace"] == hash((fwd_stem + "_workspace", (b * h, t, d))) % 10 ** 9
+    assert plan["bwd_workspace"] == hash((bwd_stem + "_workspace", (b * h, t, d))) % 10 ** 9

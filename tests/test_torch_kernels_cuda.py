@@ -585,9 +585,12 @@ def _f32_forward_tolerance(q, k, v, s, ref):
     return 2 ** -16 * (p @ v.abs() + ref.abs())
 
 
+# T not a multiple of the 64-row / 64-key tiles, Dh 512 below one tile, and
+# every cluster size (Dh / 128, or Dh / 64 at 192, 320, 448)
 @pytest.mark.parametrize("shape", [(2, 3, 40, 64), (1, 2, 200, 128), (1, 1, 130, 192),
                                    (1, 2, 300, 256), (1, 1, 100, 320), (1, 1, 333, 448),
-                                   (1, 1, 2500, 512), (3, 16, 300, 128)])
+                                   (1, 1, 2500, 512), (3, 16, 300, 128), (2, 2, 97, 384),
+                                   (1, 2, 40, 512), (2, 1, 1, 512), (1, 3, 129, 64)])
 def test_flash_attention_f32_forward(cuda, shape):
     """Every head-dimension class at ragged T: O within 2^-16 (P|V| + |ref|)
     of the plain version (TF32 off), the LSE against torch.logsumexp, two
@@ -635,9 +638,11 @@ def _f64_backward(q, k, v, o, lse, do, s):
     return ref, bounds
 
 
+# T not a multiple of the 32-query / 64-key tiles, Dh 512 below one tile
 @pytest.mark.parametrize("shape", [(2, 3, 40, 64), (1, 2, 200, 128), (1, 1, 130, 192),
                                    (1, 2, 300, 256), (1, 1, 100, 320), (1, 1, 257, 512),
-                                   (3, 8, 130, 64), (2, 1, 1000, 512)])
+                                   (3, 8, 130, 64), (2, 1, 1000, 512), (2, 2, 97, 384),
+                                   (1, 2, 20, 512), (1, 1, 333, 448), (2, 1, 33, 128)])
 def test_flash_attention_f32_backward(cuda, shape):
     """dq, dk, dv within 2^-16 (sqrt(sum terms^2) + |ref|) of the plain
     version's steps in float64; two launches give the same bits."""
@@ -656,6 +661,47 @@ def test_flash_attention_f32_backward(cuda, shape):
     again = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
     for name, g, g2 in zip(("dq", "dk", "dv"), got, again):
         assert torch.equal(g, g2), name
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 700, 512), (2, 4, 333, 128), (1, 2, 650, 192)])
+def test_flash_attention_f32_backward_is_deterministic(cuda, shape):
+    """Many 64-key blocks add their parts of dQ into the sums in key-block
+    order behind turn counters (one per head, query tile and cluster rank):
+    two launches give the same bits, with a fresh workspace each time and
+    with one reused."""
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    b, h, t, d = shape
+    q, k, v, do = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(4))
+    s = d ** -0.5
+    o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+    first = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+    ws = torch.empty(a.fp32_plan(b, h, t, d)["bwd_workspace"], device="cuda", dtype=torch.uint8)
+    for _ in range(2):
+        again = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s, workspace=ws)
+        for name, g, g2 in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(g, g2), name
+
+
+@pytest.mark.parametrize("d", [64, 192, 256, 512])
+def test_flash_attention_f32_refuses_another_cluster(cuda, d):
+    """The C side takes only the wrapper's plan: Dh / 128 blocks a cluster,
+    or Dh / 64 when Dh is not a multiple of 128."""
+    import ctypes
+
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    q = torch.randn((1, 1, 64, d), generator=cuda, device="cuda")
+    plan = a.fp32_plan(1, 1, 64, d)
+    ws = torch.empty(plan["fwd_workspace"], device="cuda", dtype=torch.uint8)
+    out = torch.empty_like(q)
+    strides = (ctypes.c_int64 * 12)(*([64 * d, 64 * d, d] * 4))
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), None, ws.data_ptr(),
+            1, 1, 64, d)
+    assert plan["fwd"](*args, plan["cluster"], strides, 0.1, stream) == 0
+    assert plan["fwd"](*args, plan["cluster"] + 1, strides, 0.1, stream) != 0
+    torch.cuda.synchronize()
 
 
 def test_flash_attention_function_f32_launches_fp32_kernels(cuda):
