@@ -129,7 +129,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the data and h2d laps; 8d. ``predict_diff.main`` pairing her2_anno
    layouts with her2_unanno styles, 8 pairs exact and 8 in the serving mode
    through the CUDA-graph sampler; 8e. ``train_seg.main`` on 8d's pairs
-   (her2_anno 0.2, her2_syn 0.8), two epochs, the patient IoU keys and a val
+   (her2_anno 0.2, her2_syn 0.8), one epoch, the patient IoU keys and a val
    tile with a cut margin; 8f. CATCH (when h5py imports; else one line says
    so): ``train_diff.main data=catch`` for one update and ``train_seg.main
    data=catch`` for one epoch with the subtype IoU; the launches of every
@@ -144,7 +144,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the CPU at phase 3's tolerance; 9b. ``predict_diff.main
    +canvas_size=1024`` on phase 6's tree (2 x 2 layouts a canvas, batches
    of 8 layouts, so two canvases a batch and every tile at phase 2's
-   batch-2 shapes; three batches, exact DDIM-50 through the graph-replayed
+   batch-2 shapes; three batches, exact DDIM-25 through the graph-replayed
    blocks, tiled eps and decode): PNG pairs at the canvas size, pairs/s
    after the first batch and tiles a step; 9c.
    ``train_diff.main style_agg=svit`` (the shipped set-ViT, dropout 0.1
@@ -181,12 +181,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    for bit, a profile), a 512^2 training micro-step and a vq-f4 codec step
    (profiled: ``profile_f32_codec.txt`` and the fp32 flash kernels' share
    of its device time);
-   10d. ``train_ae``, ``train_diff`` and ``predict_diff`` at
-   ``diffusion.compute_dtype=float32``, and ``train_ae`` with vq-f8's and
+   10d. ``train_ae``, ``train_diff`` and ``predict_diff`` (4 pairs, the
+   eager sampler) at ``diffusion.compute_dtype=float32``, and ``train_ae`` with vq-f8's and
    vq-f16's codebooks (4 / 4 / 16384, 8 / 8 / 16384); in 10c and 10d the
    launches of every kernel inside each call, and no CUDA tensor reaching
    a plain version (``PlainOnCard``);
-11. a ``kernels`` JSON line, the card line, and as the last line
+11. several processes (``stedm_tpu_torch/parallel/``), on phase 6's tree:
+   11a. a one-process torchrun-style launch (the script sets RANK,
+   WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT) over NCCL:
+   ``train_diff.main`` (2 micro-steps, accumulation 2) and
+   ``predict_diff.main`` (8 pairs), their launches counted; 11b. two gloo
+   ranks sharing this card (the script runs itself as each process,
+   ``--dist-worker``) against one process at the same global batch, fp32 at
+   reduced widths: the parameters and the EMA after two updates within 2 lr
+   each and 1e-3 lr on average (``DIST_*``), the scale factor, seg PNGs
+   equal and images within 1; the same ranks drawing t and the noise for
+   their own rows only must fail that check (its reading printed); 11c.
+   phase 8c's HER2 epoch through the worker-process loader
+   (``location.loader=grain``, 4 worker processes) beside 8c's threaded
+   loader: samples/s, the data lap's share of the epoch, the host ms of an
+   item; phase 8's tree is removed at the end;
+12. a ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 fp32 matrix products and convolutions run without TF32 here (both backend
@@ -291,7 +306,7 @@ class KernelRecord:
                   "seg_train_step", "seg_entry", "her2_ae", "her2_train", "her2_predict_exact",
                   "her2_predict_serving", "her2_seg", "catch_train", "catch_seg", "plms_batch",
                   "dpm_batch", "canvas_predict", "svit_train", "svit_predict", "handoff_ae",
-                  "handoff_train", "handoff_predict")
+                  "handoff_train", "handoff_predict", "dist_train", "dist_predict")
     PATHS = PATHS_BF16 + PATHS_F32 + PATHS_WIDE
 
     def __init__(self, name, route, source, replaces, counter=None, paths=PATHS_BF16):
@@ -344,7 +359,8 @@ def kernel_records() -> dict:
             f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
             "(_flash_attention_bwd_dq)", paths=("sample_batch", "train_micro_step",
                                                 "entry_train", "her2_train", "catch_train",
-                                                "svit_train", "handoff_train")),
+                                                "svit_train", "handoff_train",
+                                                "dist_train")),
         "flash_attention_bwd_dh512": KernelRecord(
             "flash_attention_bwd_dh512", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
             f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
@@ -2316,8 +2332,8 @@ def style_white_share(args: list, n: int = 16) -> dict:
 
 def histopathology(torch) -> dict:
     """Phase 8: the WSI reader chain and the entry points over HER2 (8a-8e)
-    and CATCH (8f) at the shipped widths; returns its numbers and the
-    launches of each call."""
+    and CATCH (8f) at the shipped widths; returns its numbers, the launches
+    of each call and what phase 11c needs of 8c (its tree stays)."""
     import importlib.util
 
     import numpy as np
@@ -2438,7 +2454,7 @@ def histopathology(torch) -> dict:
     t1 = time.time()
     seg_args = her2 + ["data/dataset=[her2_anno,her2_syn]", "data.ratios=[0.2,0.8]",
                        "data.dataset.her2_syn.folder_name=exact", "data.samples=20",
-                       "num_epochs=2"]
+                       "num_epochs=1"]   # cut (PR 14): 2 epochs -> 1
     seg = run("her2_seg", train_seg.main, seg_args)
     out["her2_seg"] = check_seg_run(Path(seg["run_dir"]), seg, ("Val Patient IoU Score",
                                                                  "Val Patient IoU Var"))
@@ -2474,10 +2490,12 @@ def histopathology(torch) -> dict:
         out["catch"] = dict(seconds=time.time() - t1, seg=metrics,
                             train_epoch_s=c_train["epochs"][0]["seconds"])
         log(f"  phase 8f took {time.time() - t1:.1f} s")
-    shutil.rmtree(root, ignore_errors=True)
     out["seconds"] = time.time() - t0
-    log(f"  phase 8 took {out['seconds']:.1f} s")
-    return {"her2_counts": counts, "paths_not_run": not_run, "histopathology": out}
+    log(f"  phase 8 took {out['seconds']:.1f} s (its tree stays for phase 11c)")
+    keep = dict(root=root, diff_args=diff_args, threaded_epochs=eps,
+                threaded_steps=first["step"])
+    return {"her2_counts": counts, "paths_not_run": not_run, "histopathology": out,
+            "her2_keep": keep}
 
 
 def check_seg_run(run: Path, res: dict, extra_keys) -> dict:
@@ -2650,7 +2668,7 @@ def generation_workflow(torch, entry_root: Path, out_dir: Path, card: str) -> tu
               "data.ratios=[1.0,1.0]", "cfg_scale=1.5", "style_sampling=augmented",
               "style_agg=mean", *where, "+use_ema=true"]
     log(f"== phase 9b: predict_diff.main +canvas_size={2 * patch} (2 x 2 layouts of phase 6's "
-        "tree a canvas, two canvases a batch, three batches, exact DDIM-50, the "
+        "tree a canvas, two canvases a batch, three batches, exact DDIM-25, the "
         "graph-replayed blocks)")
     t1 = time.time()
     # batches of 8 layouts make two canvases, so each tile's U-Net and decode
@@ -2659,7 +2677,8 @@ def generation_workflow(torch, entry_root: Path, out_dir: Path, card: str) -> tu
     # and [4, 8, 1024, 128], nearest code at N 32768); three batches, since
     # predict writes the first batch's PNGs after it has issued the second
     res = run("canvas_predict", predict_diff.main, readme + [
-        f"+canvas_size={2 * patch}", "data.samples=12", "data.batch_size=8", "ddim_steps=50",
+        # cut (PR 14): DDIM-50 -> 25, halving the blocks captured as graphs
+        f"+canvas_size={2 * patch}", "data.samples=12", "data.batch_size=8", "ddim_steps=25",
         "+predict_name=canvas"])
     check_pairs(Path(res["predict_dir"]), 6, 2 * patch)
     lat = patch // 4
@@ -3364,9 +3383,11 @@ def f32_entry_points(torch, entry_root: Path) -> tuple:
     pred = run("f32_entry_predict", predict_diff.main,
                ["data=flowers", "data/dataset=[flowers_anno,flowers_unanno]",
                 "data.ratios=[1.0,1.0]", "cfg_scale=1.5", "style_sampling=augmented",
-                "style_agg=mean", *where, *fp32, "data.samples=4", "ddim_steps=10",
-                "+predict_name=f32"])
-    check_pairs(Path(pred["predict_dir"]), 8, ENTRY_PATCH)
+                "style_agg=mean", *where, *fp32, "data.samples=2", "ddim_steps=10",
+                # cut (PR 14): 4 pairs through the eager sampler; 10c holds the
+                # fp32 graphs, whose capture at 512^2 took 31 s here
+                "+host_loop=false", "+predict_name=f32"])
+    check_pairs(Path(pred["predict_dir"]), 4, ENTRY_PATCH)
     out["f32_entry_predict"] = {k: v for k, v in predict_rates(pred).items()
                                 if k != "predict_dir"}
     log("== phase 10d: train_ae.main with vq-f8's and vq-f16's codebooks on vq-f4's layout")
@@ -3485,12 +3506,343 @@ def profile_main_path(torch, run, unprofiled_ms: float, out_dir: Path,
     return kernels
 
 
+# Phase 11: several processes, one card each (stedm_tpu_torch/parallel/dist.py).
+# 11b's tolerance, two gloo ranks against one process at the same global
+# batch, fp32 (TF32 off): the sums run in other orders (a rank's half batch,
+# the all-reduce), so gradients differ in their last bits, and Adam's update
+# of a gradient that is rounding noise takes either sign; every parameter
+# within 2 lr an update and the mean over all within 1e-3 lr. A rank that
+# draws t and the noise for its own rows only (``rank_rows`` dropped) moves
+# most parameters by a sizeable fraction of lr.
+DIST_LR, DIST_UPDATES, DIST_MEAN_TOL = 1e-4, 2, 1e-3
+DIST_TRAIN = ["data=flowers", "style_sampling=augmented", "style_agg=mean", "lr=1e-4",
+              "diffusion.compute_dtype=float32", "data.patch_size=64",
+              "diffusion.unet_config.params.model_channels=32",
+              "diffusion.unet_config.params.num_res_blocks=1",
+              "diffusion.unet_config.params.num_heads=4",
+              "diffusion.first_stage_config.params.ddconfig.ch=32",
+              "diffusion.first_stage_config.params.ddconfig.num_res_blocks=1",
+              "diffusion.first_stage_config.params.n_embed=256", "data.test_folder=null",
+              "+diffusion.scale_by_std=true", "data.samples=16", "num_epochs=1",
+              "accumulate_grad_batches=2"]
+DIST_PREDICT = ["data=flowers", "data/dataset=[flowers_anno,flowers_unanno]",
+                "data.ratios=[1.0,1.0]", "style_sampling=augmented", "style_agg=mean",
+                "diffusion.compute_dtype=float32", "data.patch_size=64",
+                "diffusion.unet_config.params.model_channels=32",
+                "diffusion.unet_config.params.num_res_blocks=1",
+                "diffusion.unet_config.params.num_heads=4",
+                "diffusion.first_stage_config.params.ddconfig.ch=32",
+                "diffusion.first_stage_config.params.ddconfig.num_res_blocks=1",
+                "diffusion.first_stage_config.params.n_embed=256", "data.samples=4",
+                "ddim_steps=10"]
+DIST_GLOBAL_BATCH = 4
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_worker(mode: str, data: str, results: str, out: str) -> int:
+    """One process of phase 11b (``chip_smoke.py --dist-worker``): ``one``
+    is a plain process; ``rank`` and ``local_draws`` are ranks of a gloo
+    group on ``cuda:0`` (NCCL refuses two ranks on one device), the latter
+    with each rank drawing t and the noise for its own rows only. Trains
+    and predicts at the global batch of ``DIST_GLOBAL_BATCH``; writes the
+    returned numbers to ``out``."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from stedm_tpu_torch import predict_diff, train_diff
+    from stedm_tpu_torch.parallel import dist
+
+    if mode != "one":
+        torch.distributed.init_process_group("gloo", init_method="env://")
+    if mode == "local_draws":
+        dist.rank_rows = lambda sample, shape, **kw: sample(tuple(shape), **kw)
+    world = dist.world_size()
+    where = [f"location.data_dir={data}", f"location.result_dir={results}",
+             f"location.mesh.data={world}", f"data.batch_size={DIST_GLOBAL_BATCH // world}"]
+    got = {"world": world, "backend": torch.distributed.get_backend() if world > 1 else None}
+    got["train"] = train_diff.main(DIST_TRAIN + where)
+    if mode != "local_draws":
+        got["predict"] = predict_diff.main(DIST_PREDICT + where + [
+            f"+predict_name={Path(results).name}"])
+    Path(out).write_text(json.dumps(got, default=str))
+    if world > 1:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _param_reading(torch, a: dict, b: dict) -> tuple[float, float]:
+    """(max, mean) |a - b| over the float tensors, in units of lr."""
+    diffs = [(a[k].double() - b[k].double()).abs() for k in a if a[k].is_floating_point()]
+    n = sum(d.numel() for d in diffs)
+    return (float(max(d.max() for d in diffs)) / DIST_LR,
+            float(sum(d.sum() for d in diffs)) / n / DIST_LR)
+
+
+def _loader_item_ms(loader, workers: int) -> tuple[float, int]:
+    """One pass of ``loader`` alone: the host ms a worker spends on an item
+    with all ``workers`` busy (wall time x workers / items), and the items."""
+    t = time.perf_counter()
+    n = sum(len(b[0]) for b in loader)
+    return (time.perf_counter() - t) * workers / max(n, 1) * 1e3, n
+
+
+def several_processes(torch, entry_root: Path, her2: dict, card: str) -> tuple[dict, dict]:
+    """Phase 11: 11a a one-process torchrun-style launch over NCCL
+    (``train_diff`` 2 micro-steps at accumulation 2, ``predict_diff`` 8
+    pairs) on phase 6's tree; 11b two gloo ranks on this card against one
+    process, and the variant without the ranks' rows of the draws, which
+    must fail; 11c phase 8's HER2 ``train_diff`` epoch through the
+    worker-process loader (``location.loader=grain``, 4 workers) beside the
+    threaded loader's. Removes phase 8's tree. Returns its numbers and the
+    launches of 11a's calls."""
+    import threading
+
+    t0 = time.time()
+    data, root = entry_root / "data", entry_root / "phase11"
+    out, counts = nccl_launch(torch, data, root)
+    # 11c's workers spawn (and open their slides) while 11b's processes run
+    loaders = {}
+    spawn = threading.Thread(target=lambda: loaders.update(her2_loaders(her2)))
+    spawn.start()
+    out["gloo"] = two_ranks(torch, data, root)
+    spawn.join()
+    require("workers" in loaders, "11c: the worker loader did not start")
+    out["her2_loaders"] = worker_loader_epoch(torch, her2, **loaders)
+    out["seconds"] = time.time() - t0
+    log(f"  phase 11 took {out['seconds']:.1f} s on {card}")
+    return {"phase11": out}, counts
+
+
+def nccl_launch(torch, data: Path, root: Path) -> tuple[dict, dict]:
+    """Phase 11a; returns its numbers and its calls' launches."""
+    import os
+
+    from stedm_tpu_torch import predict_diff, train_diff
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.parallel import dist
+    from stedm_tpu_torch.train import checkpoints
+
+    counts, out = {}, {}
+    log("== phase 11a: a one-process torchrun-style launch (RANK, WORLD_SIZE, LOCAL_RANK, "
+        "MASTER_ADDR, MASTER_PORT set), NCCL: train_diff (2 micro-steps, accumulation 2) "
+        "and predict_diff (8 pairs, DDIM-20) on phase 6's tree at the shipped widths")
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(free_port()))
+    where = [f"location.data_dir={data}", f"location.result_dir={root / 'nccl'}"]
+    reset_launch_counts()
+    train = train_diff.main(["data=flowers", "style_sampling=augmented", "style_agg=mean",
+                             *where, "+diffusion.scale_by_std=true", "data.samples=4",
+                             "num_epochs=1", "accumulate_grad_batches=2",
+                             "data.test_folder=null"])
+    torch.cuda.synchronize()
+    counts["dist_train"] = dict(LAUNCHES)
+    backend = torch.distributed.get_backend()
+    require(backend == "nccl" and dist.world_size() == 1, f"backend {backend}")
+    saved = checkpoints.load(checkpoints.checkpoint_file(f"{train['run_dir']}/ckpt",
+                                                         Path(train["run_dir"]).name + "_last"))
+    require(train["step"] == 2 and saved["opt"]["gradient_step"] == 1,
+            f"steps {train['step']}, updates {saved['opt']['gradient_step']}")
+    del saved
+    reset_launch_counts()
+    pred = predict_diff.main(["data=flowers", "data/dataset=[flowers_anno,flowers_unanno]",
+                              "data.ratios=[1.0,1.0]", "style_sampling=augmented",
+                              "style_agg=mean", *where, "data.samples=4", "ddim_steps=20",
+                              "+predict_name=phase11a"])
+    torch.cuda.synchronize()
+    counts["dist_predict"] = dict(LAUNCHES)
+    check_pairs(Path(pred["predict_dir"]), 8, 512)
+    torch.distributed.destroy_process_group()
+    for k in TORCHRUN_ENV:
+        os.environ.pop(k)
+    ep = train["epochs"][0]
+    out["nccl"] = dict(train_samples_per_s=ep["samples"] / ep["seconds"], pairs=pred["pairs"],
+                       predict=predict_rates(pred))
+    log(f"  backend {backend}, world 1: {ep['micro_steps']} micro-steps, 1 update, loss "
+        f"{ep['loss']:.5f}, {ep['samples'] / ep['seconds']:.4f} samples/s; {pred['pairs']} "
+        f"pairs; launches train {counts['dist_train']}, predict {counts['dist_predict']}")
+    for name in ("dist_train", "dist_predict"):
+        _launch_check(counts[name], ("gn_silu", "flash_attention"), name)
+    require(counts["dist_train"]["flash_attention_bwd"] > 0, "no flash backward in 11a")
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def two_ranks(torch, data: Path, root: Path) -> dict:
+    """Phase 11b; returns its readings."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from stedm_tpu_torch.train import checkpoints
+
+    t1 = time.time()
+    log(f"== phase 11b: two gloo ranks sharing this card against one process, global batch "
+        f"{DIST_GLOBAL_BATCH}, fp32 at reduced widths (patch 64, U-Net 32 channels, codec 32): "
+        f"train_diff {2 * DIST_UPDATES} micro-steps at accumulation 2 ({DIST_UPDATES} updates, "
+        f"scale_by_std), predict_diff 8 pairs (DDIM-10) from each run's checkpoint; then the "
+        f"ranks without their rows of the draws")
+    port, port_bad = free_port(), free_port()
+    root.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for tag, mode, env in (
+            ("one", "one", {}),
+            *((f"rank{r}", "rank", {"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+                                    "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)})
+              for r in range(2)),
+            *((f"bad{r}", "local_draws", {"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+                                          "MASTER_ADDR": "localhost",
+                                          "MASTER_PORT": str(port_bad)}) for r in range(2))):
+        results = root / {"one": "one", "rank": "two", "local_draws": "bad"}[mode]
+        env = {**{k: v for k, v in os.environ.items() if k not in TORCHRUN_ENV}, **env}
+        procs.append((tag, results, subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dist-worker", mode, str(data),
+             str(results), str(root / f"{tag}.json")], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    runs = {}
+    for tag, results, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        (root / f"{tag}.log").write_text(text)
+        require(proc.returncode == 0, f"11b worker {tag} failed:\n{text[-3000:]}")
+        runs[tag] = (json.loads((root / f"{tag}.json").read_text()), results)
+
+    def params(results):
+        run = "diff_flowers_augmented_mean"
+        return checkpoints.load(results / run / "ckpt" / f"{run}_last")
+
+    ref, two, bad = (params(runs[t][1]) for t in ("one", "rank0", "bad0"))
+    require(ref["step"] == two["step"] == bad["step"] == 2 * DIST_UPDATES
+            and two["opt"]["gradient_step"] == DIST_UPDATES, "11b steps")
+    readings = {}
+    for name, other in (("ranks", two), ("local_draws", bad)):
+        readings[name] = {k: _param_reading(torch, ref[k], other[k]) for k in ("params", "ema")}
+    max_tol = 2 * DIST_UPDATES
+    for name, r in readings.items():
+        log(f"  {name}: parameters max {r['params'][0]:.4g} lr, mean {r['params'][1]:.4g} lr; "
+            f"EMA max {r['ema'][0]:.4g} lr, mean {r['ema'][1]:.4g} lr (tolerance: max "
+            f"{max_tol} lr, mean {DIST_MEAN_TOL} lr)")
+    ok = {name: all(m <= max_tol and mean <= DIST_MEAN_TOL for m, mean in r.values())
+          for name, r in readings.items()}
+    require(ok["ranks"], "two ranks did not train the parameters of one process")
+    require(not ok["local_draws"], "the check passed ranks that draw for their own rows only")
+    sf = [runs[t][0]["train"]["scale_factor"] for t in ("one", "rank0", "rank1")]
+    require(abs(sf[1] - sf[0]) <= 1e-6 * abs(sf[0]) and sf[1] == sf[2], f"scale factors {sf}")
+    require(runs["rank0"][0]["backend"] == "gloo", "11b backend")
+    want, got = data / "syn_data" / "one", data / "syn_data" / "two"
+    names = sorted(p.name for p in want.glob("*.png"))
+    require(len(names) == 16 and names == sorted(p.name for p in got.glob("*.png")),
+            f"pairs {len(names)}")
+    img_diff, seg_equal = 0, True
+    for name in names:
+        a, b = np.array(Image.open(want / name)), np.array(Image.open(got / name))
+        if name.startswith("seg"):
+            seg_equal &= bool(np.array_equal(a, b))
+        else:
+            img_diff = max(img_diff, int(np.abs(a.astype(int) - b.astype(int)).max()))
+    pairs = [runs[t][0]["predict"]["pairs"] for t in ("one", "rank0", "rank1")]
+    log(f"  scale factors one / rank 0 / rank 1: {sf}; pairs written {pairs}; seg PNGs "
+        f"equal: {seg_equal}; images max |diff| {img_diff} (tolerance 1); 11b took "
+        f"{time.time() - t1:.1f} s")
+    require(pairs == [8, 4, 4] and seg_equal and img_diff <= 1, "11b predict")
+    return dict(readings=readings, scale_factors=sf, img_max_diff=img_diff,
+                seconds=time.time() - t1)
+
+
+def _grain_args(her2: dict) -> list:
+    return her2["diff_args"] + ["location.loader=grain", "location.n_workers=4",
+                                f"location.result_dir={her2['root'] / 'grain'}", "num_epochs=2"]
+
+
+def her2_loaders(her2: dict) -> dict:
+    """Phase 11c's loader alone: phase 8c's HER2 train dataset through the
+    worker loader (4 workers), its first pass (the spawn included, timed
+    while phase 11b runs beside it)."""
+    from stedm_tpu_torch.config import compose
+    from stedm_tpu_torch.data.dm import DataModule
+
+    cfg = compose("config_diff", _grain_args(her2))
+    cfg.data.batch_size = cfg.data.batch_base * cfg.location.batch_mul   # as train_diff sets it
+    dm = DataModule(cfg)
+    dm.setup()
+    workers = dm.train_loader(seed=0)
+    spawn_ms, _ = _loader_item_ms(workers, 4)
+    return {"workers": workers, "spawn_ms": spawn_ms}
+
+
+def worker_loader_epoch(torch, her2: dict, workers, spawn_ms: float) -> dict:
+    """Phase 11c; removes phase 8's tree; returns each loader's numbers."""
+    import gc
+    import multiprocessing
+
+    from stedm_tpu_torch import train_diff
+    from stedm_tpu_torch.data.loader import Loader
+    from stedm_tpu_torch.data.worker_loader import WorkerLoader
+    from stedm_tpu_torch.ops import reset_launch_counts
+
+    t1 = time.time()
+    log("== phase 11c: phase 8c's HER2 train_diff epoch through the worker-process loader "
+        "(location.loader=grain, 4 worker processes) beside phase 8c's threaded loader (4 "
+        "threads)")
+    grain = _grain_args(her2)
+    require(isinstance(workers, WorkerLoader), f"loader {type(workers).__name__}")
+    w_ms_warm, n = _loader_item_ms(workers, 4)     # spawned and first pass beside 11b
+    workers.close()
+    threads = Loader(workers.dataset, workers.batch_size, shuffle=True, num_workers=4)
+    _loader_item_ms(threads, 4)                    # this process's slides opened
+    t_ms, _ = _loader_item_ms(threads, 4)
+    reset_launch_counts()
+    run = train_diff.main(grain)
+    torch.cuda.synchronize()
+    gc.collect()
+    left = multiprocessing.active_children()
+    require(not left, f"worker processes left running: {left}")
+    # epoch 0 of each run: threads start with it, workers are spawned in it;
+    # epoch 1: 8c's resumed run (fresh threads), the workers kept
+    def row(e, item_ms):
+        return dict(samples_per_s=e["samples"] / e["seconds"],
+                    data_share=e["data_s"] / e["seconds"], item_ms=item_ms,
+                    seconds=e["seconds"])
+
+    (t0_, t1_), (w0_, w1_) = her2["threaded_epochs"], run["epochs"]
+    rows = {"threads_epoch0": row(t0_, t_ms), "threads_epoch1": row(t1_, t_ms),
+            "workers_epoch0": row(w0_, spawn_ms), "workers_epoch1": row(w1_, w_ms_warm)}
+    require(run["step"] == 2 * her2["threaded_steps"]
+            and all(math.isfinite(e["loss"]) for e in run["epochs"]),
+            f"grain epochs: {run['step']} steps, losses {[e['loss'] for e in run['epochs']]}")
+    for name, r in rows.items():
+        log(f"  {name}: {r['samples_per_s']:.4f} samples/s, data lap {100 * r['data_share']:.1f} "
+            f"% of the epoch ({r['seconds']:.2f} s), item {r['item_ms']:.2f} ms of a worker "
+            f"(the loader alone over {n} items)")
+    log(f"  (epoch 0 spawns the workers; their item ms there is the loader's first pass, "
+        f"the spawn included, timed beside phase 11b); 11c took {time.time() - t1:.1f} s")
+    shutil.rmtree(her2["root"], ignore_errors=True)
+    return rows
+
+
 def main() -> int:
     global LOG_FILE
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=REPO / "build" / "chip_smoke",
                     help="directory for the nvcc log and the profile table")
-    out_dir = ap.parse_args().out
+    ap.add_argument("--dist-worker", nargs=4, metavar=("MODE", "DATA", "RESULTS", "OUT"),
+                    help="(phase 11b runs itself so) one process of the two-rank check")
+    args = ap.parse_args()
+    if args.dist_worker:
+        return dist_worker(*args.dist_worker)
+    out_dir = args.out
     try:
         import torch
     except ImportError:
@@ -3658,6 +4010,7 @@ def main() -> int:
     her2 = histopathology(torch)
     workflow, workflow_counts = generation_workflow(torch, entry_root, out_dir, card)
     phase10, phase10_counts = fp32_and_wide(torch, entry_root, out_dir, card, recs)
+    phase11, phase11_counts = several_processes(torch, entry_root, her2.pop("her2_keep"), card)
     shutil.rmtree(entry_root, ignore_errors=True)
     # launches: each kernel's count on each main path it runs on, zeroed just
     # before and read just after (the sampler's batch, the serving batch, one
@@ -3668,7 +4021,7 @@ def main() -> int:
                    "codec_step": codec["codec_launches_per_step"], **entry["entry_counts"],
                    "seg_train_step": seg["seg_launches_per_micro_step"],
                    "seg_entry": seg_entry["seg_entry_counts"], **her2.pop("her2_counts"),
-                   **workflow_counts, **phase10_counts}
+                   **workflow_counts, **phase10_counts, **phase11_counts}
     not_run = her2.pop("paths_not_run")
     if not_run:
         log(f"  launches on {', '.join(not_run)}: null, those paths did not run")
@@ -3688,7 +4041,7 @@ def main() -> int:
                       "gn_bound_ms_sample_batch": gn_bound_ms, "gn_ms_sample_batch": gn_ms,
                       "host_us_per_call": host_us, **serving, **train, **codec, **entry,
                       **seg_parity, **seg, **seg_entry, "seg_seconds": seg_seconds,
-                      **her2, **workflow, **phase10, "card": card}))
+                      **her2, **workflow, **phase10, **phase11, "card": card}))
     # the line holds each kernel's summary; its shapes and its launches on
     # every path (tens of kB) go to <out>/kernels.json
     (out_dir / "kernels.json").write_text(json.dumps([r.entry for r in recs.values()], indent=1))

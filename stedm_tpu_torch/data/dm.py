@@ -10,9 +10,8 @@ this is how unseen styles pair with known layouts at generation time
 A copy of stedm_tpu/data/dm.py (the port imports nothing of the JAX package)
 with one change: a shipped classpath ``stedm_tpu.data.<mod>.<Cls>`` resolves
 to ``stedm_tpu_torch.data.<mod>.<Cls>``. The Flowers, HER2 and CATCH modules
-are ported; the grain loader is not (ROADMAP §1: a multiprocess loader)
-and raises
-``NotImplementedError``.
+are ported; ``location.loader: grain`` selects the worker-process loader
+(data/worker_loader.py) where the JAX package selects grain.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from __future__ import annotations
 import importlib
 
 from stedm_tpu_torch.data.loader import ConcatDataset, Loader
+from stedm_tpu_torch.data.worker_loader import WorkerLoader
 
 _JAX_DATA = "stedm_tpu.data."
 _PORTED = ("flowers", "her2", "catch")
@@ -64,9 +64,6 @@ def _maybe_rng(ds, idx, rng):
 
 class DataModule:
     def __init__(self, cfg):
-        if cfg.location.get("loader") == "grain":
-            raise NotImplementedError("location.loader=grain (the multiprocess loader) "
-                                      "is not ported (ROADMAP §1: a multiprocess loader)")
         self._cfg = cfg
         self._batch_size = cfg.data.batch_size
         self._n_workers = cfg.location.n_workers
@@ -99,10 +96,13 @@ class DataModule:
 
     def _loader(self, dataset, *, shuffle: bool, seed: int = 0,
                 drop_last: bool = True) -> Loader:
-        return Loader(dataset, self._batch_size, shuffle=shuffle,
-                      num_workers=self._n_workers,
-                      prefetch=self._cfg.location.get("prefetch", 2), seed=seed,
-                      drop_last=drop_last)
+        # multiprocess option (the reference's torch DataLoader workers):
+        # worker processes where the JAX package runs grain's (dm.py:80-92)
+        cls = WorkerLoader if self._cfg.location.get("loader") == "grain" else Loader
+        return cls(dataset, self._batch_size, shuffle=shuffle,
+                   num_workers=self._n_workers,
+                   prefetch=self._cfg.location.get("prefetch", 2), seed=seed,
+                   drop_last=drop_last)
 
     def train_loader(self, seed: int = 0) -> Loader:
         return self._loader(self._concat("train_dataset"), shuffle=True, seed=seed)

@@ -118,6 +118,14 @@ class _SlideCache:
         self._slides: dict = {}
         self._mu = threading.Lock()
 
+    # a worker process of the multiprocess loader (data/worker_loader.py)
+    # gets an empty cache and opens its slides itself, lazily (her2.py:97-110)
+    def __getstate__(self):
+        return {}
+
+    def __setstate__(self, state):
+        self.__init__()
+
     def get(self, key, path):
         with self._mu:
             entry = self._slides.setdefault(key, [threading.Lock(), None])

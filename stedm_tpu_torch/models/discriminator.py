@@ -13,6 +13,8 @@ never writes the module's buffers (``set_running_stats`` does). A step can
 so thread them through several calls (the discriminator step: real, then
 fake) or discard them (the generator step). ``ActNorm`` starts at loc 0,
 scale 1, as the JAX module does (taming initialises it from the first batch).
+Across ranks (parallel/dist.py) the batch statistics are the global
+batch's, summed over ranks with their gradients.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from stedm_tpu_torch.parallel import dist
 
 _BN_EPS, _BN_MOMENTUM = 1e-5, 0.9
 
@@ -93,13 +97,21 @@ class NLayerDiscriminator(nn.Module):
         for layer in self.main:
             if isinstance(layer, nn.BatchNorm2d):
                 mean, var = next(norms)
-                flat = h.detach().transpose(0, 1).reshape(h.shape[1], -1)
-                b_mean = flat.mean(1)
-                b_var = (flat.square().mean(1) - b_mean.square()).clamp(min=0)
+                if dist.world_size() == 1:
+                    flat = h.detach().transpose(0, 1).reshape(h.shape[1], -1)
+                    b_mean = flat.mean(1)
+                    b_var = (flat.square().mean(1) - b_mean.square()).clamp(min=0)
+                    h_next = F.batch_norm(h, None, None, layer.weight, layer.bias,
+                                          training=True, eps=layer.eps)
+                else:   # the global batch's statistics, summed over ranks with gradients
+                    b_mean, b_var = dist.batch_moments(h, (0, 2, 3))
+                    scale = torch.rsqrt(b_var + layer.eps) * layer.weight
+                    h_next = (h - b_mean[None, :, None, None]) * scale[None, :, None, None] \
+                        + layer.bias[None, :, None, None]
+                    b_mean, b_var = b_mean.detach(), b_var.detach()
                 new.append((_BN_MOMENTUM * mean + (1 - _BN_MOMENTUM) * b_mean,
                             _BN_MOMENTUM * var + (1 - _BN_MOMENTUM) * b_var))
-                h = F.batch_norm(h, None, None, layer.weight, layer.bias, training=True,
-                                 eps=layer.eps)
+                h = h_next
             else:
                 h = layer(h)
         return h.permute(0, 2, 3, 1), new

@@ -24,7 +24,10 @@ Numerics of the JAX module, where flax and torch defaults differ:
   mode the batch statistics (variance E[x^2] - E[x]^2, flax's fast form)
   normalise, with gradients through them, and the running statistics move
   to ``0.99 old + 0.01 batch`` with the batch's biased variance; in eval
-  mode the running statistics normalise; fp32 throughout;
+  mode the running statistics normalise; fp32 throughout; across ranks
+  (parallel/dist.py) the batch statistics are the global batch's, their
+  sums all-reduced in fp32 with their gradients, as flax's BatchNorm sees
+  the global array of a step jitted over sharded inputs;
 * padding: flax's SAME (none for the spatial-reduction conv, whose kernel
   is its stride; 1 for the 3x3 convs), the patch embeds' explicit 3 and 1;
   decoder convs have no bias; GELU is exact (erf); the decoder upsamples
@@ -45,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from stedm_tpu_torch.models.layers import Conv2d, Linear, channels_last
+from stedm_tpu_torch.parallel import dist
 
 LN_EPS, BN_EPS, BN_MOMENTUM = 1e-6, 1e-5, 0.99
 
@@ -101,8 +105,7 @@ class BatchNorm(nn.Module):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            mean = x.mean((0, 2, 3))
-            var = torch.clamp(x.square().mean((0, 2, 3)) - mean.square(), min=0.0)
+            mean, var = dist.batch_moments(x, (0, 2, 3))   # over every rank's rows
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)

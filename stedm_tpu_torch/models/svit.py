@@ -31,6 +31,7 @@ from torch import nn
 
 from stedm_tpu_torch.models.layers import Linear
 from stedm_tpu_torch.models.swin import LayerNorm32
+from stedm_tpu_torch.parallel import dist
 
 
 def _norm(dim: int) -> LayerNorm32:
@@ -47,7 +48,9 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     if generator is None:
         raise ValueError("dropout in train mode needs the step's generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    # across ranks, this rank's rows of the global batch's mask (x's leading
+    # axis is the batch)
+    mask = dist.rank_rows(torch.rand, x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

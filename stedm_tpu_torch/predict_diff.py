@@ -1,6 +1,6 @@
 """Generate synthetic (image, segmentation) pairs with DDIM, PLMS or
-DPM-Solver++(2M) and rescaled CFG on one card (the counterpart of
-predict_diff.py:50-325).
+DPM-Solver++(2M) and rescaled CFG on one card, or under torchrun on one
+card a process (the counterpart of predict_diff.py:50-325).
 
 * loads a trained checkpoint (train/checkpoints.py: a full train state, from
   which ``+use_ema=true`` samples with the EMA shadow of the U-Net, or bare
@@ -39,11 +39,29 @@ Usage, from the repository root, on a machine with one CUDA card::
         data.ratios=[1.0,1.0] style_sampling=augmented style_agg=mean cfg_scale=1.5
     python -m stedm_tpu_torch.predict_diff data=her2 \\
         data/dataset=[her2_anno,her2_unanno] data.ratios=[1.0,1.0]
+    torchrun --nproc_per_node=N -m stedm_tpu_torch.predict_diff ...
+
+Across N ranks (parallel/dist.py) the predict grid is sharded rank by rank
+(predict_diff.py:160-168): every rank loads its rank-interleaved share of
+each global batch, takes its rows of the global batch's x_T (drawn from the
+batch's seed for ``N * local rows``, :320) and writes only its own pairs
+(:268-276). Each process holds one card, so a local batch needs no padding
+(:305-310); the rows that wrap-pad the last shard repeat an item, are
+sampled and are not written. A pair thus equals the one-process run's
+when the number of layouts divides by N (a padded global batch draws more
+rows). Each rank picks its sampler as one card does (the graphed blocks on
+the card, ``+host_loop=false`` the eager loop), since it holds a whole
+card; an explicit ``+host_loop=true`` with several ranks is refused as JAX
+refuses it (:222-230). The ``auto:`` drift calibration runs on rank 0's
+first batch and every rank uses its positions (JAX calibrates on each
+process's own batch; ROADMAP §3). Sampling noise at ``eta > 0`` is each
+rank's own draw.
 
 ``main(argv, device=None, x_T_fn=None)`` runs on ``cuda``; tests pass
-``device="cpu"``. Refused: a mesh of more than one device (ROADMAP §1:
-torch.distributed) and a HER2 or CATCH tree that is not staged (ROADMAP
-§1: the pull from an EXACT server).
+``device="cpu"``. ``x_T_fn(batch_idx, shape)`` draws a global batch's x_T.
+Refused: a mesh axis other than ``data`` or more than one device in a
+process (parallel/dist.py:mesh_size) and a HER2 or CATCH tree that is not
+staged (ROADMAP §1: the pull from an EXACT server).
 """
 
 from __future__ import annotations
@@ -67,11 +85,12 @@ from stedm_tpu_torch.core.schedules import DiffusionSchedule
 from stedm_tpu_torch.data.dm import DataModule
 from stedm_tpu_torch.data.prefetch import pinned
 from stedm_tpu_torch.models.stedm import build_stedm
+from stedm_tpu_torch.parallel import dist
 from stedm_tpu_torch.train import checkpoints
 from stedm_tpu_torch.train.calibrate import measure_cache_drift
 from stedm_tpu_torch.train.host_sampler import make_host_sample_fn
 from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
-from stedm_tpu_torch.train_diff import batch_to_ldm, single_device
+from stedm_tpu_torch.train_diff import batch_to_ldm
 
 
 def load_sampling_weights(model, ckpt_path: str, use_ema: bool) -> str:
@@ -165,11 +184,12 @@ def main(argv: list[str], device=None, x_T_fn: Callable | None = None) -> dict:
     PNGs (``png``)."""
     t_start = time.perf_counter()
     cfg = compose("config_predict", argv)
-    dev = resolve_device(device)
+    dev = dist.maybe_initialize_distributed(resolve_device(device))
 
     if cfg.data.batch_size is None:
         cfg.data.batch_size = cfg.data.batch_base * cfg.location.batch_mul
-    n_devices = single_device(cfg, dev)
+    n_devices = dist.mesh_size(cfg, dev)
+    world, rank = dist.world_size(), dist.rank()
     global_batch = cfg.data.batch_size * n_devices
     p = cfg.data.patch_size
     canvas = int(cfg.get("canvas_size", 0) or 0)
@@ -192,7 +212,9 @@ def main(argv: list[str], device=None, x_T_fn: Callable | None = None) -> dict:
     predict_dir.mkdir(parents=True, exist_ok=True)
 
     dm = DataModule(cfg)
-    dm.prepare_data()
+    if dist.is_main():
+        dm.prepare_data()
+    dist.barrier()
     dm.setup()
 
     model = build_stedm(cfg, dev)
@@ -213,8 +235,10 @@ def main(argv: list[str], device=None, x_T_fn: Callable | None = None) -> dict:
         cache_levels=int(cfg.get("cache_levels", 1)),
         cfg_interval=parse_cfg_interval(cfg.get("cfg_interval", None)))
 
+    # multi-rank: the rank-interleaved predict grid (predict_diff.py:160-168)
     loader = dm.predict_loader()
-    loader.batch_size = global_batch
+    loader.batch_size = dist.local_batch_size(global_batch)
+    loader.process_shard = dist.process_shard()
     loader.drop_last = False
     seed = cfg.get("seed", 0)
     if x_T_fn is None:
@@ -235,14 +259,21 @@ def main(argv: list[str], device=None, x_T_fn: Callable | None = None) -> dict:
             loader_stream = itertools.chain([first], loader_stream)
             calib_cfg = dataclasses.replace(sampler_cfg, cache_interval=1,
                                             cache_schedule=None)
-            drift = measure_cache_drift(model, schedule, calib_cfg, batch_to_ldm(first),
-                                        generator=eta_gen.manual_seed(seed), device=dev)
+            if dist.is_main():   # rank 0's batch calibrates every rank
+                drift = measure_cache_drift(model, schedule, calib_cfg, batch_to_ldm(first),
+                                            generator=eta_gen.manual_seed(seed), device=dev)
+            drift = dist.broadcast_object(drift)
         positions = positions_from_spec(spec, n_steps, drift)
         print(f"cache_schedule: refreshing the deep trunk at positions "
               f"{list(positions)} of {n_steps} steps")
         sampler_cfg = dataclasses.replace(sampler_cfg, cache_schedule=tuple(positions))
 
     use_host = cfg.get("host_loop", None)
+    if use_host and world > 1:
+        raise SystemExit(
+            "+host_loop=true requires a single device and a single process "
+            f"(got devices={n_devices}, processes={world}); drop host_loop: each "
+            "rank then picks its sampler as one card does")
     if use_host is None:
         use_host = dev.type == "cuda"
     if use_host:
@@ -271,12 +302,13 @@ def main(argv: list[str], device=None, x_T_fn: Callable | None = None) -> dict:
 
     def flush(prev) -> None:
         """Wait for a generated batch's readback and write its pairs."""
-        host_u8, ready, segs, idxs, n_rows, bi = prev
+        host_u8, ready, segs, idxs, keep, bi = prev
         if ready is not None:
             ready.synchronize()
         laps.lap("wait")
         imgs = host_u8.numpy()
-        for img_u8, seg, num in zip(imgs[:n_rows], segs, idxs):
+        n_rows = int(keep.sum())
+        for img_u8, seg, num in zip(imgs[keep], segs[keep], idxs[keep]):
             num_str = str(int(num)).zfill(5)
             Image.fromarray(img_u8).save(predict_dir / f"img_{num_str}.png")
             Image.fromarray(seg).save(predict_dir / f"seg_{num_str}.png")
@@ -286,14 +318,19 @@ def main(argv: list[str], device=None, x_T_fn: Callable | None = None) -> dict:
     # one-batch pipeline: issue batch k+1 (upload + sampler launches) BEFORE
     # reading back batch k, so that the readback and the PNG encoding of k
     # overlap the card computing k+1
-    pending, n_pairs, first_pairs = None, 0, 0
+    pending, n_pairs, first_pairs, seen = None, 0, 0, 0
     setup_s = time.perf_counter() - t_start
     laps = _Laps()
     for batch_idx, np_batch in enumerate(loader_stream):
         laps.lap("data")
         ldm_batch = batch_to_ldm(np_batch)
         indices = np.asarray(np_batch[4])
+        # this rank's items; the rows that wrap-pad the last shard are not written
+        valid = dist.valid_rows(len(loader.dataset), seen, len(indices)).numpy()
+        seen += len(indices)
         if grid > 1:
+            g = grid * grid
+            valid = valid[:len(valid) // g * g:g]
             ldm_batch, indices = mosaic(ldm_batch, indices, grid)
             if indices.size == 0:
                 print(f"batch {batch_idx}: fewer than {grid * grid} layouts, skipping")
@@ -301,7 +338,8 @@ def main(argv: list[str], device=None, x_T_fn: Callable | None = None) -> dict:
         b, side = ldm_batch["segmentation"].shape[:2]
         batch = upload(ldm_batch)
         laps.lap("h2d")
-        x_T = x_T_fn(batch_idx, (b, side // 4, side // 4, 3))
+        # the global batch's draw, and this rank's rows of it
+        x_T = x_T_fn(batch_idx, (b * world, side // 4, side // 4, 3))[rank::world]
         imgs = sample(model, batch, x_T=x_T,
                       generator=eta_gen.manual_seed((int(seed) << 32) + batch_idx))
         # the PNG quantisation ((x+1)*127.5, truncated) on the device
@@ -317,11 +355,12 @@ def main(argv: list[str], device=None, x_T_fn: Callable | None = None) -> dict:
         laps.lap("sample")
         if pending is not None:
             flush(pending)
-        pending = (host_u8, ready, segs, indices, b, batch_idx)
-        first_pairs = first_pairs or b
-        n_pairs += b
+        pending = (host_u8, ready, segs, indices, valid, batch_idx)
+        first_pairs = first_pairs or int(valid.sum())
+        n_pairs += int(valid.sum())
     if pending is not None:
         flush(pending)
+    dist.barrier()   # every rank's pairs are on disk when any rank returns
     return {"pairs": n_pairs, "setup_s": setup_s, **laps.summary(first_pairs),
             "predict_dir": str(predict_dir)}
 

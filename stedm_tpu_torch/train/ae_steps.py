@@ -23,6 +23,12 @@ takes its posterior noise as ``noise=`` (standard normal, the latent's
 shape), reused by the discriminator's re-run; without it a generator seeded
 from ``seed`` and the step counter draws it (other bits than the JAX
 package's ``fold_in(PRNGKey(seed), step)``).
+
+Across ranks (parallel/dist.py) each rank takes its rows of the global
+batch's posterior noise, the gradients of both updates and those that set
+the adaptive GAN weight are averaged over ranks, and the PatchGAN's
+BatchNorm normalises over the global batch, so the step is the one-process
+step on the global batch.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Callable
 import torch
 
 from stedm_tpu_torch._device import resolve_device
+from stedm_tpu_torch.parallel import dist
 from stedm_tpu_torch.train.vae_losses import (
     VAELossConfig,
     discriminator_loss,
@@ -102,6 +109,7 @@ def _apply(opt: torch.optim.Optimizer, params, loss) -> None:
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
+    dist.all_reduce_mean_([p.grad for p in params])   # across ranks: the global mean
     opt.step()
     opt.zero_grad(set_to_none=True)
 
@@ -138,8 +146,8 @@ def make_ae_train_step(model, cfg: VAELossConfig, lpips=None, variant: str = "vq
         else:
             if noise is None:
                 gen = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + step)
-                noise = torch.randn(state.model.latent_shape(img.shape), generator=gen,
-                                    device=dev)
+                noise = dist.rank_rows(torch.randn, state.model.latent_shape(img.shape),
+                                       generator=gen, device=dev)
             noise = noise.to(dev, torch.float32)
 
             def forward():

@@ -14,6 +14,16 @@ accumulation mirrors ``optax.MultiSteps``: the gradients of k micro-batches
 are averaged and applied on every k-th call; parameters do not move on the
 others. ``clip_grad_norm`` clips the global norm of the averaged gradients
 as ``optax.clip_by_global_norm`` does.
+
+With several processes (parallel/dist.py) the gradients are averaged over
+ranks on every k-th call, before the division by k, the clip and the step:
+the global mean that XLA's all-reduce gives the JAX step
+(train_diff.py:186-193). The call is made here rather than through
+``DistributedDataParallel``: the optimizer accumulates the k micro-batches
+itself, so one all-reduce an update is enough (DDP reduces on every
+backward unless each one is wrapped in ``no_sync``), and the model keeps
+its own module names, so checkpoints are the same files on one process and
+on many.
 """
 
 from __future__ import annotations
@@ -21,6 +31,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from stedm_tpu_torch.parallel import dist
 
 FROZEN_PARAM_GROUPS = ("first_stage",)
 
@@ -86,6 +98,8 @@ class Optimizer:
         if state.mini_step < self.accumulate_grad_batches:
             return False
         state.mini_step = 0
+        # across ranks: the accumulated gradients averaged once an update
+        dist.reduce_grads_(state.params)
         grads = [p.grad for p in state.params if p.grad is not None]
         if self.accumulate_grad_batches > 1:
             torch._foreach_div_(grads, float(self.accumulate_grad_batches))

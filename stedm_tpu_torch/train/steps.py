@@ -45,6 +45,7 @@ from stedm_tpu_torch.core.dpm_solver import dpm_solver_pp_sample
 from stedm_tpu_torch.core.plms import plms_sample
 from stedm_tpu_torch.core.schedules import DiffusionSchedule
 from stedm_tpu_torch.ops.tiled import tiled_apply
+from stedm_tpu_torch.parallel import dist
 from stedm_tpu_torch.train.ema import ema_update
 from stedm_tpu_torch.train.optim import Optimizer, OptState
 
@@ -90,12 +91,18 @@ def init_logvar(num_timesteps: int, logvar_init: float = 0.0,
 
 def compute_scale_by_std(model: torch.nn.Module, images: torch.Tensor) -> float:
     """``1 / std(z)`` over the encoded first batch (stedm_tpu
-    steps.py:64-73); the caller sets ``model.scale_factor`` to it."""
+    steps.py:64-73); the caller sets ``model.scale_factor`` to it. Across
+    ranks ``images`` are this rank's rows and the std is the global
+    batch's."""
     if float(model.scale_factor) != 1.0:
         raise ValueError("rather not use custom rescaling and std-rescaling "
                          "simultaneously (reference ddpm.py:483)")
-    z = model.encode_first_stage(images)
-    return float(1.0 / z.std(unbiased=False))
+    z = model.encode_first_stage(images).double()
+    # the moments in float64, summed over every rank's rows
+    n = z.numel() * dist.world_size()
+    s = dist.all_reduce_sum(torch.stack([z.sum(), z.square().sum()]))
+    mean = s[0] / n
+    return float(1.0 / torch.sqrt(s[1] / n - mean * mean).float())
 
 
 def make_train_step(model: torch.nn.Module, schedule: DiffusionSchedule, tx: Optimizer, *,
@@ -127,10 +134,13 @@ def make_train_step(model: torch.nn.Module, schedule: DiffusionSchedule, tx: Opt
         image, seg, style_imgs = (torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
                                   for k in ("image", "segmentation", "style_imgs"))
         z = model.encode_first_stage(image)
+        # across ranks, each rank keeps its rows of the global batch's draws
+        # (parallel/dist.py:rank_rows), as one process draws them
         if t is None:
-            t = torch.randint(0, n_t, (z.shape[0],), generator=generator, device=dev)
+            t = dist.rank_rows(lambda shape, **kw: torch.randint(0, n_t, shape, **kw),
+                               (z.shape[0],), generator=generator, device=dev)
         if noise is None:
-            noise = torch.randn(z.shape, generator=generator, device=dev)
+            noise = dist.rank_rows(torch.randn, z.shape, generator=generator, device=dev)
         seg_cond = model.cond_encode(seg)
         # the set-ViT's dropout draws from the generator after t and noise
         style = model.style_encode(style_imgs, train=True, generator=generator)

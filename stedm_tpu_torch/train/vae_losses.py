@@ -17,6 +17,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from stedm_tpu_torch.parallel import dist
+
 
 def hinge_d_loss(logits_real, logits_fake):
     return 0.5 * (torch.mean(F.relu(1.0 - logits_real)) + torch.mean(F.relu(1.0 + logits_fake)))
@@ -104,6 +106,7 @@ def adaptive_weight(cfg: VAELossConfig, nll_grad: torch.Tensor, g_grad: torch.Te
 def _d_weight(cfg, nll, g, last_layer):
     nll_grad, = torch.autograd.grad(nll, last_layer, retain_graph=True)
     g_grad, = torch.autograd.grad(g, last_layer, retain_graph=True)
+    dist.all_reduce_mean_([nll_grad, g_grad])   # across ranks: the global batch's
     return adaptive_weight(cfg, nll_grad, g_grad)
 
 

@@ -1,4 +1,5 @@
-"""Codec fine-tuning on one card (the counterpart of train_ae.py): ``main``
+"""Codec fine-tuning on one card, or under torchrun on one card a process
+(the counterpart of train_ae.py): ``main``
 composes ``config_ae``, reads the data module's images and runs the
 combined generator + discriminator step (``train/ae_steps.py``) with the
 taming lr rule, validating every epoch and writing ``<run>_last`` and, on a
@@ -9,6 +10,17 @@ Usage, from the repository root, on a machine with one CUDA card::
 
     python -m stedm_tpu_torch.train_ae data=her2 location.data_dir=/data \\
         location.result_dir=/results +lpips_ckpt=/weights/vgg.pth,/weights/vgg16.pth
+    torchrun --nproc_per_node=N -m stedm_tpu_torch.train_ae data=her2 ...
+
+Across N ranks (parallel/dist.py) every rank trains on its rank-interleaved
+share of the global batch and the step averages the gradients
+(train/ae_steps.py), so the ranks train as one process on the global batch.
+JAX's ``train_ae.py:186`` gives every process the whole global batch and no
+``process_shard``; the port shards as ``train_diff`` does (ROADMAP §3).
+Validation runs on rank 0 alone, over the whole val split at the global
+batch, so its metrics and the choice of ``_best`` are the one-process run's;
+rank 0 alone logs (its train log covers its own rows) and writes
+checkpoints.
 
 ``main(argv, device=None)`` runs on ``cuda``; tests pass ``device="cpu"``.
 Without ``lpips_ckpt`` the perceptual term is off, as in the JAX entry
@@ -19,9 +31,10 @@ a torchvision VGG16, a full taming LPIPS) is loaded. A warm start
 reads a torch state dict through ``map_vq`` (a CompVis ``vq-f4.ckpt``,
 bare or under ``first_stage_model.``), or the port's own checkpoint file: a
 ``_best`` or ``_last`` of this entry point or a params file. Refused: a JAX
-orbax directory (ROADMAP §1: reading a JAX orbax directory), a mesh of more
-than one device (ROADMAP §1: torch.distributed) and a HER2 or CATCH tree
-that is not staged (ROADMAP §1: the pull from an EXACT server).
+orbax directory (ROADMAP §1: reading a JAX orbax directory), a mesh axis
+other than ``data`` or more than one device in a process
+(parallel/dist.py:mesh_size) and a HER2 or CATCH tree that is not staged
+(ROADMAP §1: the pull from an EXACT server).
 
 The repository's configs are yaml; this package keeps Python copies of the
 pieces its tests and chip_smoke.py build codecs from (``AE_LOSS``:
@@ -54,6 +67,7 @@ from stedm_tpu_torch.data.prefetch import prefetch_to_device
 from stedm_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from stedm_tpu_torch.models.lpips import LPIPS
 from stedm_tpu_torch.models.vq import VQModelInterface
+from stedm_tpu_torch.parallel import dist
 from stedm_tpu_torch.train import checkpoints
 from stedm_tpu_torch.train.ae_steps import (
     ae_optimizers,
@@ -63,8 +77,7 @@ from stedm_tpu_torch.train.ae_steps import (
     make_ae_train_step,
 )
 from stedm_tpu_torch.train.vae_losses import VAELossConfig, build_discriminator
-from stedm_tpu_torch.train_diff import single_device
-from stedm_tpu_torch.utils.logging import EventLogger
+from stedm_tpu_torch.utils.logging import EventLogger, NullLogger
 from stedm_tpu_torch.utils.weights import load_first_stage, load_torch_state_dict
 
 # configs/config_ae.yaml
@@ -183,21 +196,24 @@ def main(argv: list[str], device=None) -> dict:
     and issuing their copies (``h2d_s``); the last step and the run
     directory."""
     cfg = compose("config_ae", argv)
-    dev = resolve_device(device)
+    dev = dist.maybe_initialize_distributed(resolve_device(device))
     if cfg.data.batch_size is None:
         cfg.data.batch_size = cfg.data.batch_base * cfg.location.batch_mul
-    n_devices = single_device(cfg, dev)
+    n_devices = dist.mesh_size(cfg, dev)
     global_batch = cfg.data.batch_size * n_devices
     accum = int(cfg.get("accumulate_grad_batches", 1))
     lr = scaled_lr(cfg.base_lr, accum, global_batch, cfg.get("lr"))
     seed = cfg.get("seed", 0)
 
+    main_rank = dist.is_main()
     run_name = cfg.get("run_name") or f"ae_{cfg.data.name}"
     dm = DataModule(cfg)
-    dm.prepare_data()  # before anything is written: an unstaged tree refuses
+    if main_rank:
+        dm.prepare_data()  # before anything is written: an unstaged tree refuses
+    dist.barrier()
     result_dir = f"{cfg.location.result_dir}/{run_name}"
-    logger = EventLogger(result_dir, run_name, use_wandb=cfg.location.get("wandb", False),
-                         config=dict(cfg))
+    logger = (EventLogger if main_rank else NullLogger)(
+        result_dir, run_name, use_wandb=cfg.location.get("wandb", False), config=dict(cfg))
     print(f"devices={n_devices} global_batch={global_batch} lr={lr:.3e}")
     dm.setup()
 
@@ -226,7 +242,8 @@ def main(argv: list[str], device=None) -> dict:
                                   device=dev)
 
     loader = dm.train_loader(seed=seed)
-    loader.batch_size = global_batch
+    loader.batch_size = dist.local_batch_size(global_batch)
+    loader.process_shard = dist.process_shard()
     val_loader = dm.val_loader()
     val_loader.batch_size = global_batch
     prefetch = cfg.location.get("prefetch", 2)
@@ -249,7 +266,8 @@ def main(argv: list[str], device=None) -> dict:
             logger.log({**train, "epoch": epoch, "epoch_time_s": record["seconds"]},
                        step=state.step)
         vals = [eval_step(batch["img"])[0] for batch in
-                prefetch_to_device(val_loader, size=prefetch, transform=images, device=dev)]
+                prefetch_to_device(val_loader, size=prefetch, transform=images, device=dev)
+                ] if main_rank else []
         if vals:
             record["val"] = _mean(vals)
             logger.log(record["val"], step=state.step)
@@ -259,6 +277,7 @@ def main(argv: list[str], device=None) -> dict:
                 checkpoints.save(ckpt_dir, state, name=f"{run_name}_best")
         epochs.append(record)
 
+    dist.barrier()   # rank 0's checkpoints are on disk when any rank returns
     logger.close()
     return {"epochs": epochs, "step": state.step, "run_dir": result_dir, "lr": lr,
             "variant": variant}

@@ -1,8 +1,10 @@
 """Train the style- and layout-conditioned latent diffusion model on one card
-(the counterpart of train_diff.py:56-303).
+or, under torchrun, on one card a process (the counterpart of
+train_diff.py:56-303).
 
 * per-device batch = batch_base * batch_mul; lr = base_lr * batch * n_devices
-  (reference train_diff.py:36-39),
+  (reference train_diff.py:36-39), n_devices the processes that
+  ``location.mesh``'s ``data`` axis resolves to (``-1``: all of them),
 * gradient accumulation (``accumulate_grad_batches``, default 4) inside the
   optimizer,
 * a full-state checkpoint every epoch (``<result_dir>/<run>/ckpt/<run>_last.pt``,
@@ -20,6 +22,19 @@ Usage, from the repository root, on a machine with one CUDA card::
     python -m stedm_tpu_torch.train_diff data=her2 style_sampling=nearby \\
         location.data_dir=/data location.result_dir=/results
 
+and on N cards, one process each (parallel/dist.py; NCCL)::
+
+    torchrun --nproc_per_node=N -m stedm_tpu_torch.train_diff data=flowers ...
+
+Every rank loads its rank-interleaved share of the global batch, takes its
+rows of the global batch's draws of t and noise, and the optimizer averages
+the gradients over ranks once an update, so N ranks train as one process
+does on the global batch. Rank 0 stages the data while the others wait
+(train_diff.py:80), and alone logs, writes checkpoints and previews
+(:142, :211); every rank resumes from the same file. ``scale_by_std`` takes
+the std of the whole first global batch and every rank uses rank 0's value
+(JAX's processes each use their own rows' factor; ROADMAP §3).
+
 Warm starts (train_diff.py:97-111), both paths under ``location.result_dir``:
 ``diffusion.first_stage_config.params.ckpt_path`` loads the codec, from a
 ``train_ae`` output (``<run>/ckpt/<run>_best.pt``, the documented hand-off)
@@ -28,16 +43,16 @@ CompVis ``.ckpt`` into the U-Net (``load_only_unet``, default true) or the
 whole model, with ``ignore_keys`` (utils/weights.py).
 
 ``main(argv, device=None)`` runs on ``cuda``; tests pass ``device="cpu"``.
-Not ported, and refused: a mesh of more than one device (ROADMAP §1:
-torch.distributed), a HER2 or CATCH tree that is not staged (ROADMAP §1:
-the pull from an EXACT server), a JAX orbax directory as a warm start
+Not ported, and refused: a mesh axis other than ``data`` or more than one
+device in a process (parallel/dist.py:mesh_size), a HER2 or CATCH tree
+that is not staged (ROADMAP §1: the pull from an EXACT server), a JAX
+orbax directory as a warm start
 (ROADMAP §1: reading a JAX orbax directory) and ``+adamw_m_bf16``.
 """
 
 from __future__ import annotations
 
 import json
-import math
 import os
 import sys
 import time
@@ -51,6 +66,7 @@ from stedm_tpu_torch.core.schedules import DiffusionSchedule
 from stedm_tpu_torch.data.dm import DataModule
 from stedm_tpu_torch.data.prefetch import prefetch_to_device
 from stedm_tpu_torch.models.stedm import build_stedm
+from stedm_tpu_torch.parallel import dist
 from stedm_tpu_torch.train import checkpoints
 from stedm_tpu_torch.train.optim import make_optimizer, scaled_lr
 from stedm_tpu_torch.train.steps import (
@@ -61,7 +77,7 @@ from stedm_tpu_torch.train.steps import (
     make_sample_fn,
     make_train_step,
 )
-from stedm_tpu_torch.utils.logging import EventLogger
+from stedm_tpu_torch.utils.logging import EventLogger, NullLogger
 from stedm_tpu_torch.utils.weights import load_first_stage, load_into_model
 
 
@@ -73,21 +89,6 @@ def batch_to_ldm(np_batch: tuple) -> dict:
     seg2 = np.concatenate([one_hot[..., :1], fg], axis=-1)
     return {"image": img, "segmentation": seg2.astype(np.float32),
             "style_imgs": style}
-
-
-def single_device(cfg, dev: torch.device) -> int:
-    """The device count that ``location.mesh`` resolves to (``-1``: every
-    visible card), which must be one: a mesh of several devices, or several
-    processes, is not ported (ROADMAP §1: torch.distributed)."""
-    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-    mesh = dict(cfg.location.mesh)
-    n = math.prod(visible if int(v) == -1 else int(v) for v in mesh.values())
-    procs = int(os.environ.get("WORLD_SIZE", "1"))
-    if n != 1 or procs != 1:
-        raise NotImplementedError(
-            f"location.mesh {mesh} resolves to {n} devices in {procs} processes: the port "
-            "runs on one device (multi-GPU is ROADMAP §1: torch.distributed)")
-    return n
 
 
 def warm_start(cfg, model) -> dict:
@@ -135,27 +136,30 @@ def main(argv: list[str], device=None) -> dict:
     the step it started from (the restored one on a resume) and the last;
     the scale factor; the warm starts' (loaded, left at init) counts."""
     cfg = compose("config_diff", argv)
-    dev = resolve_device(device)
+    dev = dist.maybe_initialize_distributed(resolve_device(device))
     if cfg.get("adamw_m_bf16"):
         raise NotImplementedError("+adamw_m_bf16 (a bf16 first moment) has no counterpart "
                                   "in torch.optim.AdamW")
 
     if cfg.data.batch_size is None:
         cfg.data.batch_size = cfg.data.batch_base * cfg.location.batch_mul
-    n_devices = single_device(cfg, dev)
+    n_devices = dist.mesh_size(cfg, dev)
     lr = scaled_lr(cfg.base_lr, cfg.data.batch_base, cfg.location.batch_mul,
                    n_devices, cfg.lr)
     global_batch = cfg.data.batch_size * n_devices
     seed = cfg.get("seed", 0)
+    main_rank = dist.is_main()
 
     run_name = f"{cfg.name}_{cfg.data.name}_{cfg.style_sampling.name}_{cfg.style_agg.name}"
     result_dir = f"{cfg.location.result_dir}/{run_name}"
-    logger = EventLogger(result_dir, run_name, use_wandb=cfg.location.get("wandb", False),
-                         config=dict(cfg))
+    logger = (EventLogger if main_rank else NullLogger)(
+        result_dir, run_name, use_wandb=cfg.location.get("wandb", False), config=dict(cfg))
     print(f"devices={n_devices} global_batch={global_batch} lr={lr:.3e}")
 
     dm = DataModule(cfg)
-    dm.prepare_data()
+    if main_rank:
+        dm.prepare_data()
+    dist.barrier()
     dm.setup()
 
     model = build_stedm(cfg, dev, seed=seed)
@@ -166,14 +170,18 @@ def main(argv: list[str], device=None) -> dict:
         cfg.diffusion.beta_schedule, cfg.diffusion.timesteps,
         cfg.diffusion.linear_start, cfg.diffusion.linear_end)
 
+    # each rank loads its rank-interleaved share of the global batch
+    # (train_diff.py:120-124)
     loader = dm.train_loader(seed=seed)
-    loader.batch_size = global_batch
+    loader.batch_size = dist.local_batch_size(global_batch)
+    loader.process_shard = dist.process_shard()
 
     # first-batch latent std rescale (reference ddpm.py:480-494); the factor is
     # persisted so resumes reproduce restarted_from_ckpt semantics (set once, kept)
     if cfg.diffusion.get("scale_by_std", False):
         sf_file = f"{result_dir}/scale_factor.json"
-        if os.path.isfile(sf_file):
+        # rank 0's view decides, before it writes the file
+        if dist.broadcast_value(float(os.path.isfile(sf_file)), dev):
             with open(sf_file) as f:
                 sf = json.load(f)["scale_factor"]
         else:
@@ -181,8 +189,10 @@ def main(argv: list[str], device=None) -> dict:
             loader.epoch = 0  # the peek must not consume an epoch's permutation
             with torch.no_grad():
                 sf = compute_scale_by_std(model, torch.as_tensor(first["image"], device=dev))
-            with open(sf_file, "w") as f:
-                json.dump({"scale_factor": sf}, f)
+            sf = dist.broadcast_value(sf, dev)
+            if main_rank:
+                with open(sf_file, "w") as f:
+                    json.dump({"scale_factor": sf}, f)
         print(f"### USING STD-RESCALING ### scale_factor={sf:.6f}")
         model.scale_factor = sf
 
@@ -204,7 +214,7 @@ def main(argv: list[str], device=None) -> dict:
     if cfg.get("resume"):
         if checkpoints.checkpoint_file(ckpt_dir, ckpt_name).is_file():
             state = checkpoints.restore(ckpt_dir, state, name=ckpt_name)
-            start_epoch = state.step // max(len(dm.train_loader()), 1)
+            start_epoch = state.step // max(len(loader), 1)
             print(f"resumed from step {state.step} (epoch ~{start_epoch})")
         else:
             print(f"resume requested but no checkpoint at "
@@ -226,16 +236,23 @@ def main(argv: list[str], device=None) -> dict:
             gen.manual_seed(step_seed(seed, state.step))
             state, metrics = train_step(state, batch, gen)
             losses.append(metrics["loss"])
-        train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+        train_loss = float("nan")
+        if losses:
+            rank_losses = torch.stack(losses)
+            dist.all_reduce_mean_([rank_losses])    # each rank's rows: the global mean
+            train_loss = float(rank_losses.mean())
         seconds = time.time() - t0
         logger.log({"Train Loss": train_loss, "epoch": epoch, "epoch_time_s": seconds},
                    step=state.step)
-        checkpoints.save(ckpt_dir, state, name=ckpt_name)
+        if main_rank:
+            checkpoints.save(ckpt_dir, state, name=ckpt_name)
         epochs.append({"epoch": epoch, "loss": train_loss, "seconds": seconds,
                        "micro_steps": len(losses), "samples": len(losses) * global_batch,
                        "data_s": laps.get("data", 0.0), "h2d_s": laps.get("h2d", 0.0)})
-        preview_previews(cfg, model, schedule, state, logger, epoch, dev)
+        if main_rank:
+            preview_previews(cfg, model, schedule, state, logger, epoch, dev)
 
+    dist.barrier()   # rank 0's checkpoint is on disk when any rank returns
     logger.close()
     return {"epochs": epochs, "start_step": start_step, "step": state.step,
             "scale_factor": float(model.scale_factor), "run_dir": result_dir,

@@ -1,5 +1,6 @@
 """Train the downstream segmentation net on real + synthetic pairs on one
-card (the counterpart of train_seg.py:87-240).
+card, or under torchrun on one card a process (the counterpart of
+train_seg.py:87-240).
 
 * the MiT-B2 U-Net (models/segformer.py) at ``compute_dtype`` (bf16 unless
   set), loss = ce_ratio * CE + dice_ratio * Dice on border-cropped logits;
@@ -29,12 +30,23 @@ Usage, from the repository root, on a machine with one CUDA card
         data.ratios=[0.2,0.8] location.data_dir=/data location.result_dir=/results
     python -m stedm_tpu_torch.train_seg data=her2 data/dataset=[her2_anno,her2_syn] \\
         data.ratios=[0.2,0.8] location.data_dir=/data location.result_dir=/results
+    torchrun --nproc_per_node=N -m stedm_tpu_torch.train_seg data=her2 ...
+
+Across N ranks (parallel/dist.py) every loader is sharded rank by rank:
+the loss and the BatchNorm statistics are the global batch's
+(train/seg_steps.py, models/segformer.py), the optimizer averages the
+gradients, the confusion matrices and losses of train, val and test are
+summed over ranks and the IoUs computed from the global matrices; the
+wrap-padded rows of the val and test shards are left out. JAX's
+``train_seg.py:188`` gives every process the whole global batch and no
+``process_shard``; the port shards as ``train_diff`` does (ROADMAP §3).
+Rank 0 alone logs and writes checkpoints; every rank tests on the same
+files.
 
 ``main(argv, device=None)`` runs on ``cuda``; tests pass ``device="cpu"``.
-Not ported, and refused: a mesh of more than one device (ROADMAP §1:
-torch.distributed), the grain loader (ROADMAP §1: a multiprocess loader)
-and a HER2 or CATCH tree that is not staged (ROADMAP §1: the pull from an
-EXACT server).
+Not ported, and refused: a mesh axis other than ``data`` or more than one
+device in a process (parallel/dist.py:mesh_size) and a HER2 or CATCH tree
+that is not staged (ROADMAP §1: the pull from an EXACT server).
 
 The JAX entry point never hands ``_epoch_metrics`` the subtype names, so
 it logs no subtype IoU whatever ``eval_subtypes`` says; this one does when
@@ -54,6 +66,7 @@ from stedm_tpu_torch.config import compose
 from stedm_tpu_torch.data.dm import DataModule
 from stedm_tpu_torch.data.prefetch import prefetch_to_device
 from stedm_tpu_torch.models.segformer import SegUNet
+from stedm_tpu_torch.parallel import dist
 from stedm_tpu_torch.train import checkpoints
 from stedm_tpu_torch.train.optim import scaled_lr
 from stedm_tpu_torch.train.seg_steps import (
@@ -62,9 +75,8 @@ from stedm_tpu_torch.train.seg_steps import (
     make_seg_optimizer,
     make_seg_train_step,
 )
-from stedm_tpu_torch.train_diff import single_device
 from stedm_tpu_torch.utils import metrics as M
-from stedm_tpu_torch.utils.logging import EventLogger
+from stedm_tpu_torch.utils.logging import EventLogger, NullLogger
 from stedm_tpu_torch.utils.weights import load_seg_encoder
 
 
@@ -146,14 +158,15 @@ def _eval_batch(np_batch: tuple) -> dict:
 def main(argv: list[str], device=None) -> dict:
     """Train, validate and test as configured; returns the run's numbers:
     per epoch the train loss, seconds, micro-steps and samples, the val
-    loss; the test metrics by tag; the step training ended at and the run
-    directory."""
+    loss; the test metrics by tag; the step training ended at, the run
+    directory and the confusion matrices (train and val per epoch, test by
+    tag)."""
     cfg = compose("config_seg", argv)
-    dev = resolve_device(device)
+    dev = dist.maybe_initialize_distributed(resolve_device(device))
 
     if cfg.data.batch_size is None:
         cfg.data.batch_size = cfg.data.batch_base * cfg.location.batch_mul
-    n_devices = single_device(cfg, dev)
+    n_devices = dist.mesh_size(cfg, dev)
     lr = scaled_lr(cfg.base_lr, cfg.data.batch_base, cfg.location.batch_mul,
                    n_devices, cfg.lr)
     global_batch = cfg.data.batch_size * n_devices
@@ -163,13 +176,16 @@ def main(argv: list[str], device=None) -> dict:
     if run_name is None:
         syn = [n for n in cfg.data.dataset if n.endswith("_syn")]
         run_name = f"seg_{syn[0] if syn else cfg.data.name}"
-    # first, so that the grain loader and a HER2 or CATCH tree that would
-    # need the EXACT pull refuse before anything is written (ROADMAP §1: the pull from an EXACT server)
+    # first, so that a HER2 or CATCH tree that would need the EXACT pull
+    # refuses before anything is written (ROADMAP §1: the pull from an EXACT server)
+    main_rank = dist.is_main()
     dm = DataModule(cfg)
-    dm.prepare_data()
+    if main_rank:
+        dm.prepare_data()
+    dist.barrier()
     result_dir = f"{cfg.location.result_dir}/{run_name}"
-    logger = EventLogger(result_dir, run_name, use_wandb=cfg.location.get("wandb", False),
-                         config=dict(cfg))
+    logger = (EventLogger if main_rank else NullLogger)(
+        result_dir, run_name, use_wandb=cfg.location.get("wandb", False), config=dict(cfg))
     print(f"devices={n_devices} global_batch={global_batch} lr={lr:.3e}")
     dm.setup()
     subtypes = subtype_args(cfg, dm)
@@ -198,24 +214,35 @@ def main(argv: list[str], device=None) -> dict:
         cm = torch.zeros((num_classes, num_classes), dtype=torch.float64, device=dev)
         inst = torch.zeros((num_inst, num_classes, num_classes), dtype=torch.float64,
                            device=dev)
-        losses = []
+        losses, seen = [], 0
         for batch in prefetch_to_device(loader, size=prefetch, transform=_eval_batch,
                                         device=dev):
+            rows = batch["img"].shape[0]
+            valid = None
+            if dist.world_size() > 1:
+                valid = dist.valid_rows(len(loader.dataset), seen, rows)
+            seen += rows
             out = eval_steps[split](batch["img"], batch["seg"], batch["cut_y"],
-                                    batch["cut_x"], batch["wsi_nr"])
+                                    batch["cut_x"], batch["wsi_nr"], valid)
             losses.append(out["loss"])
             cm += out["cm"]
             inst += out["inst_cm"]
+        dist.all_reduce_sum(cm)
+        dist.all_reduce_sum(inst)
         loss = float(torch.stack(losses).double().mean()) if losses else float("nan")
         return loss, cm.cpu().numpy(), inst.cpu().numpy()
 
-    loader = dm.train_loader(seed=seed)
-    loader.batch_size = global_batch
-    val_loader = dm.val_loader()
-    val_loader.batch_size = global_batch
+    def sharded(loader):
+        loader.batch_size = dist.local_batch_size(global_batch)
+        loader.process_shard = dist.process_shard()
+        return loader
+
+    loader = sharded(dm.train_loader(seed=seed))
+    val_loader = sharded(dm.val_loader())
     ckpt_dir = result_dir + "/ckpt"
 
     best_val, epochs = float("inf"), []
+    matrices = {"train": [], "val": [], "test": {}}   # the global confusion matrices
     for epoch in range(cfg.num_epochs):
         t0 = time.time()
         losses = []
@@ -225,32 +252,42 @@ def main(argv: list[str], device=None) -> dict:
             state, metrics_out = train_step(state, batch["img"], batch["seg"])
             losses.append(metrics_out["loss"])
             cm_train += metrics_out["cm"]
-        train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+        train_loss = float("nan")
+        if losses:
+            rank_losses = torch.stack(losses)
+            dist.all_reduce_mean_([rank_losses])
+            train_loss = float(rank_losses.mean())
+        dist.all_reduce_sum(cm_train)
         seconds = time.time() - t0
         logger.log({"Train Loss": train_loss, "epoch": epoch, "epoch_time_s": seconds},
                    step=state.step)
+        class_names = list(cfg.data.classes) if main_rank else None  # rank 0 draws
         _epoch_metrics("Train", cm_train.cpu().numpy(), None, logger, state.step,
-                       class_names=list(cfg.data.classes))
+                       class_names=class_names)
         record = {"epoch": epoch, "loss": train_loss, "seconds": seconds,
                   "micro_steps": len(losses), "samples": len(losses) * global_batch}
+        matrices["train"].append(cm_train.cpu().numpy())
 
         if len(val_loader) > 0:
             val_loss, cm_val, inst_val = run_eval(val_loader, "val")
             logger.log({"Val Loss": val_loss}, step=state.step)
+            matrices["val"].append(cm_val)
             record["val"] = {"loss": val_loss, **_epoch_metrics(
                 "Val", cm_val, inst_val, logger, state.step,
-                class_names=list(cfg.data.classes), **subtypes["val"])}
-            checkpoints.save(ckpt_dir, state, name=f"{run_name}_last")
+                class_names=class_names, **subtypes["val"])}
+            if main_rank:
+                checkpoints.save(ckpt_dir, state, name=f"{run_name}_last")
             if val_loss < best_val:
                 best_val = val_loss
-                checkpoints.save(ckpt_dir, state, name=f"{run_name}_best")
+                if main_rank:
+                    checkpoints.save(ckpt_dir, state, name=f"{run_name}_best")
         epochs.append(record)
 
     final_step = state.step
     # test twice: last weights, then best (reference train_seg.py:90-93);
     # without a val split no checkpoint was written and there is no test
-    test_loader = dm.test_loader()
-    test_loader.batch_size = global_batch
+    dist.barrier()   # rank 0's checkpoints are on disk before any rank reads them
+    test_loader = sharded(dm.test_loader())
     tests = {}
     if len(test_loader) > 0:
         for tag in ("last", "best"):
@@ -259,12 +296,13 @@ def main(argv: list[str], device=None) -> dict:
                 continue
             state = checkpoints.restore(ckpt_dir, state, name=name)
             _loss, cm_test, inst_test = run_eval(test_loader, "test")
+            matrices["test"][tag] = cm_test
             tests[tag] = _epoch_metrics(f"Test ({tag})", cm_test, inst_test, logger,
                                         state.step, **subtypes["test"])
 
     logger.close()
     return {"epochs": epochs, "tests": tests, "step": final_step, "run_dir": result_dir,
-            "lr": lr}
+            "lr": lr, "matrices": matrices}
 
 
 if __name__ == "__main__":

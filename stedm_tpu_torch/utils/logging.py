@@ -79,3 +79,21 @@ class EventLogger:
         self._file.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class NullLogger:
+    """``EventLogger``'s surface for the ranks other than 0, which log
+    nothing (train_diff.py:142, :211): no file, no print, no W&B."""
+
+    def __init__(self, run_dir: str | Path, run_name: str, **_):
+        self.run_dir = Path(run_dir)
+        self.run_name = run_name
+
+    def log(self, metrics: dict, step: int | None = None) -> None:
+        pass
+
+    def log_images(self, key: str, images, step: int | None = None) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

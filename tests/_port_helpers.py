@@ -5,7 +5,11 @@ bridge) and the same inputs, made with numpy from a seed; they exchange
 numpy arrays. Comparisons are fp32 on the CPU.
 """
 
+import contextlib
+import functools
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -39,6 +43,84 @@ def random_params(module, seed: int, *args, **kwargs):
         lambda p, s: _leaf(rng, p, s.shape).astype(np.float32), shapes["params"])
 
 
+_INIT_MEMO: dict = {}
+
+
+@contextlib.contextmanager
+def jax_init(mode: str):
+    """Within the block, flax's ``Module.init`` (which a JAX entry point
+    calls op by op, one compile a primitive) is cheaper: ``"jit"`` gives the
+    same values through one ``jax.jit``; ``"memo"`` computes them as flax
+    does, once for each module, key and input shapes in this process (a
+    test's own init and its JAX entry point's); ``"shapes"`` gives zeros of
+    the shapes ``eval_shape`` traces, for a JAX entry point whose parameters
+    are all restored or whose init values no check reads. The JAX package
+    itself is unchanged."""
+    import flax.linen as nn
+
+    orig = nn.Module.init
+
+    def init(self, rngs, *args, **kwargs):
+        dyn = [i for i, a in enumerate(args) if isinstance(a, (jax.Array, np.ndarray))]
+
+        def call(r, *arrays):
+            full = list(args)
+            for i, a in zip(dyn, arrays):
+                full[i] = a
+            return orig(self, r, *full, **kwargs)
+
+        arrays = [args[i] for i in dyn]
+        if mode == "memo":
+            key = (repr(self), np.asarray(jax.random.key_data(rngs) if jnp.issubdtype(
+                rngs.dtype, jax.dtypes.prng_key) else rngs).tobytes(),
+                tuple((np.shape(a), str(np.asarray(a).dtype)) if i in dyn else repr(a)
+                      for i, a in enumerate(args)), repr(sorted(kwargs.items())))
+            if key not in _INIT_MEMO:   # host copies: a caller may donate its arrays
+                _INIT_MEMO[key] = jax.tree_util.tree_map(
+                    np.array, orig(self, rngs, *args, **kwargs))
+            return jax.tree_util.tree_map(jnp.array, _INIT_MEMO[key])
+        if mode == "shapes":
+            return jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
+                                          jax.eval_shape(call, rngs, *arrays))
+        return jax.jit(call)(rngs, *arrays)
+
+    nn.Module.init = init
+    try:
+        yield
+    finally:
+        nn.Module.init = orig
+
+
+# XLA's backend optimisation off: a JAX reference compiles in a fraction of
+# the time and moves by ~1e-6 (tests/test_torch_train.py, tests/_ae_helpers.py)
+QUICK_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def quick_jit(fn, **kwargs):
+    """``jax.jit(fn)`` compiled with ``QUICK_COMPILE``."""
+    return jax.jit(fn, compiler_options=QUICK_COMPILE, **kwargs)
+
+
+@contextlib.contextmanager
+def quick_compile():
+    """Within the block, every ``jax.jit`` made (a JAX entry point's train
+    and eval steps) compiles with ``QUICK_COMPILE`` unless it names its own
+    options. The JAX package itself is unchanged."""
+    orig = jax.jit
+
+    def jit(fun=None, **kwargs):
+        kwargs.setdefault("compiler_options", QUICK_COMPILE)
+        if fun is None:
+            return functools.partial(jit, **kwargs)
+        return orig(fun, **kwargs)
+
+    jax.jit = jit
+    try:
+        yield
+    finally:
+        jax.jit = orig
+
+
 def jax_apply(module, params, *args, method=None):
     """A jitted apply (one compile beats op-by-op dispatch on the CPU)."""
     fn = jax.jit(lambda p, *a: module.apply({"params": p}, *a, method=method))
@@ -58,3 +140,31 @@ def load(module: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
     """Strict load: every port key must come from the bridge and back."""
     module.load_state_dict(state_dict, strict=True)
     return module.eval()
+
+
+def check_grain_loader(dm, seed: int = 0) -> None:
+    """``location.loader=grain``: the data module's train loader is the
+    worker-process loader, and its first batch equals, bit for bit, the
+    threaded loader's over the same dataset."""
+    from stedm_tpu_torch.data.loader import Loader
+    from stedm_tpu_torch.data.worker_loader import WorkerLoader
+
+    loader = dm.train_loader(seed=seed)
+    assert isinstance(loader, WorkerLoader)
+    threads = Loader(loader.dataset, loader.batch_size, shuffle=True, seed=seed)
+    try:
+        got = next(iter(loader))
+    finally:
+        loader.close()
+    want = next(iter(threads))
+
+    def equal(g, w):
+        if isinstance(w, tuple):
+            assert isinstance(g, tuple) and len(g) == len(w)
+            for a, b in zip(g, w):
+                equal(a, b)
+        else:
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+
+    equal(got, want)

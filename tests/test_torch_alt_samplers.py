@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _port_helpers import quick_jit
 from test_torch_serving import BASE, B, P, _schedules, models  # noqa: F401
 
 import stedm_tpu.train.host_sampler as jhost
@@ -87,7 +88,7 @@ def _jax_images(models, kw):  # noqa: F811
     jm, params, pm, batch = models
     jsched = _schedules()[0]
     rng = jax.random.PRNGKey(7)
-    jsample = jax.jit(jmake_sample_fn(jm, jsched, JSamplerConfig(**kw)))
+    jsample = quick_jit(jmake_sample_fn(jm, jsched, JSamplerConfig(**kw)))
     want = np.asarray(jsample(params, {k: jnp.asarray(v) for k, v in batch.items()}, rng))
     x_T = np.array(jax.random.normal(rng, (B, P // 4, P // 4, 3), jnp.float32))
     return want, torch.from_numpy(x_T)
@@ -177,7 +178,7 @@ def test_same_value_errors(models, case):  # noqa: F811
     kw, match = REFUSALS[case]
     kw = {**BASE, **kw}
     with pytest.raises(ValueError, match=match):   # some raise only when traced
-        jmake_sample_fn(jm, jsched, JSamplerConfig(**kw))(
+        jax.jit(jmake_sample_fn(jm, jsched, JSamplerConfig(**kw))).lower(
             params, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
     with pytest.raises(ValueError, match=match):
         jhost.make_host_sample_fn(jm, jsched, JSamplerConfig(**kw))

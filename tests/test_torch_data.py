@@ -1,14 +1,15 @@
 """The port's copy of the data pipeline (stedm_tpu_torch/data/) against the
 JAX package's on a tiny generated Flowers tree: the batches of every loader,
 bit for bit in every field, and batch_to_ldm; the repaired generator
-hand-over of ConcatDataset; the grain loader and an unstaged HER2 or CATCH
-tree raise."""
+hand-over of ConcatDataset; an unstaged HER2 or CATCH tree raises, and
+``location.loader=grain`` builds the worker-process loader."""
 
 import numpy as np
 import pytest
 import torch
 
 import _port_helpers  # noqa: F401  (caps torch threads)
+from _port_helpers import check_grain_loader
 from _flowers_helpers import jax_train_loader, run_overrides, write_flowers_tree
 
 from stedm_tpu.config import compose as jcompose
@@ -99,11 +100,20 @@ def test_batch_to_ldm_and_the_cpu_prefetch(modules):
 @pytest.mark.parametrize("overrides,match", [
     (["data=her2"], "EXACT server.*ROADMAP §1: the pull from an EXACT server"),
     (["data=catch"], "EXACT server.*ROADMAP §1: the pull from an EXACT server"),
-    (["location.loader=grain"], "a multiprocess loader"),
+    (["location.loader=grain"], None),
 ], ids=["her2", "catch", "grain"])
-def test_unported_data_modules_raise(overrides, match, tmp_path):
-    """The grain loader refuses at once; HER2 and CATCH, ported, refuse the
-    pull from an EXACT server when no tree or zip is staged."""
+def test_unported_data_modules_raise(overrides, match, tmp_path, modules):
+    """HER2 and CATCH, ported, refuse the pull from an EXACT server when no
+    tree or zip is staged. The grain loader, once refused, is the
+    worker-process loader (match None), on the Flowers tree."""
+    if match is None:
+        loc = modules[1]._cfg.location
+        dm = DataModule(compose("config_diff", run_overrides(loc.data_dir, loc.result_dir)
+                                + overrides + ["location.n_workers=2", "data.samples=6"]))
+        dm.prepare_data()
+        dm.setup()
+        check_grain_loader(dm, SEED)
+        return
     with pytest.raises(NotImplementedError, match=match):
         DataModule(compose("config_diff", overrides + [f"location.data_dir={tmp_path}"])
                    ).prepare_data()

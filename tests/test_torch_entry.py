@@ -21,7 +21,7 @@ from _flowers_helpers import (
     write_flowers_tree,
     write_preview_fixture,
 )
-from _port_helpers import random_params
+from _port_helpers import check_grain_loader, jax_init, random_params
 
 from stedm_tpu.config import compose as jcompose
 from stedm_tpu.data.dm import DataModule as JDataModule
@@ -30,6 +30,7 @@ from stedm_tpu.train import checkpoints as jcheckpoints
 from stedm_tpu.train.steps import compute_scale_by_std as jcompute_scale_by_std
 from stedm_tpu_torch import predict_diff, train_diff
 from stedm_tpu_torch.config import compose
+from stedm_tpu_torch.data.dm import DataModule
 from stedm_tpu_torch.train import checkpoints
 from stedm_tpu_torch.utils.weights import state_dict_from_jax
 
@@ -130,7 +131,8 @@ def test_predict_entry_point_matches_jax(tree, weights):
 
     data, _ = tree
     overrides, jpath, ppath = weights
-    jpredict_diff.main(overrides + PREDICT + [f"+ckpt_path={jpath}", "+predict_name=jax"])
+    with jax_init("shapes"):   # every parameter is restored from jpath
+        jpredict_diff.main(overrides + PREDICT + [f"+ckpt_path={jpath}", "+predict_name=jax"])
 
     def jax_x_T(batch_idx, shape):
         key = jax.random.fold_in(jax.random.PRNGKey(SEED), batch_idx)
@@ -236,12 +238,18 @@ def _write_compvis(path, groups):
     (["diffusion.first_stage_config.params.ckpt_path=vq.ckpt"], None),
     (["+adamw_m_bf16=true"], "AdamW"),
     (["location.mesh.data=4"], "torch.distributed"),
-    (["location.loader=grain"], "a multiprocess loader"),
+    (["location.loader=grain", "location.n_workers=2"], None),
     (["style_agg=svit"], None),
 ], ids=["unet_warm_start", "codec_warm_start", "adamw_m_bf16", "mesh", "grain", "svit"])
 def test_train_refusals(tree, extra, match):
     data, results = tree
     args = run_overrides(data, results / "refused") + extra
+    if "location.loader=grain" in extra:   # now the worker-process loader
+        dm = DataModule(compose("config_diff", args))
+        dm.prepare_data()
+        dm.setup()
+        check_grain_loader(dm)
+        return
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
             train_diff.main(args, device="cpu")

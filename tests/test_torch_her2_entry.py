@@ -33,7 +33,7 @@ import _port_helpers  # noqa: F401  (caps torch threads)
 from _flowers_helpers import TINY_OVERRIDES, jax_train_loader
 from _her2_helpers import HER2_OVERRIDES, fix_jax_mask_step, write_her2_tree
 from _her2_helpers import write_syn_folder
-from _port_helpers import random_params
+from _port_helpers import check_grain_loader, jax_init, quick_compile, random_params
 
 import stedm_tpu.data.loader as jloader
 from stedm_tpu.config import compose as jcompose
@@ -136,7 +136,8 @@ def test_predict_her2_matches_jax(tree, tmp_path):
     jpath = tmp_path / "jax_ckpt"
     jcheckpoints.save(jpath, params, name="params")
     ppath = checkpoints.save(tmp_path / "port_ckpt", state_dict_from_jax(params), name="params")
-    jpredict_diff.main(overrides + [f"+ckpt_path={jpath}", "+predict_name=jax"])
+    with jax_init("shapes"):   # every parameter is restored from jpath
+        jpredict_diff.main(overrides + [f"+ckpt_path={jpath}", "+predict_name=jax"])
 
     def jax_x_T(batch_idx, shape):
         key = jax.random.fold_in(jax.random.PRNGKey(SEED), batch_idx)
@@ -176,9 +177,10 @@ def test_train_ae_her2_matches_jax(tree, tmp_path, monkeypatch):
     from stedm_tpu.train.vae_losses import VAELossConfig as JLossConfig
     from stedm_tpu.train.vae_losses import build_discriminator as jbuild_disc
 
-    gen = jmodel.init(jax.random.PRNGKey(SEED), jnp.zeros((1, 32, 32, 3)))["params"]
-    dvars = jbuild_disc(JLossConfig(**dict(jcfg.loss))).init(jax.random.PRNGKey(SEED + 1),
-                                                             jnp.zeros((1, 32, 32, 3)))
+    with jax_init("memo"):   # JAX's main makes these inits again
+        gen = jmodel.init(jax.random.PRNGKey(SEED), jnp.zeros((1, 32, 32, 3)))["params"]
+        dvars = jbuild_disc(JLossConfig(**dict(jcfg.loss))).init(
+            jax.random.PRNGKey(SEED + 1), jnp.zeros((1, 32, 32, 3)))
     np_tree = functools.partial(jax.tree_util.tree_map, np.asarray)
     build_codec, build_disc = train_ae.build_codec, train_ae.build_discriminator
 
@@ -196,7 +198,8 @@ def test_train_ae_her2_matches_jax(tree, tmp_path, monkeypatch):
     monkeypatch.setattr(jloader.ConcatDataset, "__getitem__", ConcatDataset.__getitem__)
     monkeypatch.setattr(train_ae, "build_codec", codec_from_jax)
     monkeypatch.setattr(train_ae, "build_discriminator", disc_from_jax)
-    jtrain_ae.main(AE + _where(tree, tmp_path / "jax"))
+    with quick_compile(), jax_init("memo"):
+        jtrain_ae.main(AE + _where(tree, tmp_path / "jax"))
     out = train_ae.main(AE + _where(tree, tmp_path / "port"), device="cpu")
     assert out["step"] == 2 and out["variant"] == "vq" and out["lr"] == 1e-3
     jev, pev = _events(tmp_path / "jax" / "ae_her2"), _events(tmp_path / "port" / "ae_her2")
@@ -225,11 +228,20 @@ def test_train_ae_her2_matches_jax(tree, tmp_path, monkeypatch):
     (["diffusion.first_stage_config.params.ckpt_path=vq-f4.ckpt"], None),
     (["diffusion.first_stage_config.params.ckpt_path=orbax_dir"], "reading a JAX orbax directory"),
     (["location.mesh.data=2"], "torch.distributed"),
-    (["location.loader=grain"], "a multiprocess loader"),
+    (["location.loader=grain"], None),
 ], ids=["compvis_ckpt", "orbax_dir", "mesh", "grain"])
 def test_train_ae_refusals(tree, tmp_path, capsys, extra, match):
     (tmp_path / "orbax_dir").mkdir()
     args = AE + _where(tree, tmp_path) + extra
+    if "location.loader=grain" in extra:   # once refused: the worker-process loader
+        from stedm_tpu_torch.config import compose
+        from stedm_tpu_torch.data.dm import DataModule
+
+        dm = DataModule(compose("config_ae", args))
+        dm.prepare_data()
+        dm.setup()
+        check_grain_loader(dm)
+        return
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
             train_ae.main(args, device="cpu")

@@ -3,8 +3,10 @@ for sampling (the serving mode too), for diffusion training, for codec
 fine-tuning, through the train and predict entry points (PLMS, DPM-Solver,
 a tiled canvas, the set-ViT and a warm start included), for downstream
 segmentation, and on the histopathology data path (the host library, the
-WSI reader chain, the HER2 data module) and ``train_ae.main`` (with every
-import of JAX blocked)."""
+WSI reader chain, the HER2 data module) and ``train_ae.main``, and as a
+rank of a gloo group (``parallel/``) with the worker-process loader
+(``data/worker_loader.py``), whose worker process reports its own modules
+(with every import of JAX blocked in the parent)."""
 
 import ast
 import subprocess
@@ -134,10 +136,64 @@ img, one_hot, seg, style = next(iter(her2_dm.train_loader()))[:4]
 assert img.shape == (2, 32, 32, 3) and one_hot.shape == (2, 32, 32, 6)
 run = train_ae.main(AE_OVERRIDES, device="cpu")
 assert run["step"] == 2 and run["epochs"][0]["val"]
+# several processes: a rank of a gloo group (torchrun's variables) and the
+# worker-process loader; a worker process reads a HER2 item and lists the
+# modules it holds
+import os
+from stedm_tpu_torch import parallel
+from stedm_tpu_torch.data import worker_loader
+os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                  MASTER_PORT=PORT)
+assert parallel.maybe_initialize_distributed("cpu") == torch.device("cpu")
+assert torch.distributed.get_backend() == "gloo" and parallel.world_size() == 1
+run = train_diff.main(OVERRIDES + ["location.loader=grain", "location.n_workers=1",
+                                   "num_epochs=2", "+resume=true"], device="cpu")
+assert run["step"] == 4
+sys.path.insert(0, PROBE_DIR)
+from probe_ds import Modules
+loader = worker_loader.WorkerLoader(Modules(her2_dm.train_loader().dataset), 1, num_workers=1)
+(worker_bad,), item = next(iter(loader))[-1], next(iter(loader))[:-1]
+assert worker_bad == "" and item[0].shape == (1, 32, 32, 3), worker_bad
+loader.close()
+torch.distributed.destroy_process_group()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "stedm_tpu"))
 print("LOADED", bad)
 """
+
+
+_PROBE_DS = """
+import sys
+import numpy as np
+
+
+class Modules:
+    \"\"\"A dataset's items and, last, the JAX modules of the process that
+    reads them (empty: none).\"\"\"
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __getitem__(self, idx, rng=None):
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "stedm_tpu"))
+        item = self.inner.__getitem__(idx, rng=rng or np.random.default_rng(0))
+        return (*item, ",".join(bad))
+"""
+
+
+def _free_port() -> str:
+    import socket
+
+    try:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return str(s.getsockname()[1])
+    except OSError:
+        pytest.skip("cannot bind a localhost port in this sandbox")
 
 
 def test_import_and_forward_load_no_jax(tmp_path):
@@ -161,7 +217,9 @@ def test_import_and_forward_load_no_jax(tmp_path):
         "diffusion.first_stage_config.params.ddconfig.num_res_blocks=1",
         "diffusion.first_stage_config.params.n_embed=64", "loss.disc_ndf=8",
         "loss.disc_num_layers=1"]
+    (tmp_path / "probe_ds.py").write_text(_PROBE_DS)
     head = (f"OVERRIDES = {overrides!r}\nRUN = 'diff_flowers_augmented_mean'\n"
+            f"PORT = '{_free_port()}'\nPROBE_DIR = {str(tmp_path)!r}\n"
             f"SEG_OVERRIDES = {seg_overrides!r}\nHER2_OVERRIDES = {her2_overrides!r}\n"
             f"AE_OVERRIDES = {ae_overrides!r}\n")
     out = subprocess.run([sys.executable, "-c", head + _PROBE], cwd=PKG.parent,

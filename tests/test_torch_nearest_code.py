@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _port_helpers import ATOL, RTOL, random_params
+from _port_helpers import ATOL, RTOL, jax_init, quick_compile, random_params
 
 from stedm_tpu.models import vq as jvq
 from stedm_tpu.ops.quantize import _nearest_code_pallas
@@ -160,9 +160,10 @@ def test_train_ae_with_vq_f16s_codebook_matches_jax(tmp_path, monkeypatch):
     tree = write_her2_tree(tmp_path / "data")
     jcfg = jcompose("config_ae", args)
     jmodel, _ = jtrain_ae.build_codec(jcfg, jnp.float32)
-    gen = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))["params"]
-    dvars = jbuild_disc(JLossConfig(**dict(jcfg.loss))).init(jax.random.PRNGKey(1),
-                                                             jnp.zeros((1, 32, 32, 3)))
+    with jax_init("memo"):   # JAX's main makes these inits again
+        gen = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))["params"]
+        dvars = jbuild_disc(JLossConfig(**dict(jcfg.loss))).init(
+            jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 3)))
     np_tree = functools.partial(jax.tree_util.tree_map, np.asarray)
     build_codec, build_disc = train_ae.build_codec, train_ae.build_discriminator
 
@@ -181,7 +182,8 @@ def test_train_ae_with_vq_f16s_codebook_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setattr(train_ae, "build_codec", codec_from_jax)
     monkeypatch.setattr(train_ae, "build_discriminator", disc_from_jax)
     where = lambda r: [f"location.data_dir={tree}", f"location.result_dir={tmp_path / r}"]
-    jtrain_ae.main(args + where("jax"))
+    with quick_compile(), jax_init("memo"):
+        jtrain_ae.main(args + where("jax"))
     out = train_ae.main(args + where("port"), device="cpu")
     assert out["step"] == 2 and out["variant"] == "vq"
     events = [[json.loads(line) for line in (tmp_path / r / "ae_her2" / "events.jsonl")

@@ -29,6 +29,7 @@ import torch
 from PIL import Image
 
 import _port_helpers  # noqa: F401  (caps torch threads)
+from _port_helpers import check_grain_loader, jax_init, quick_compile
 from _flowers_helpers import write_flowers_tree
 from test_torch_seg_model import DEC, ENC
 
@@ -86,7 +87,9 @@ def test_train_seg_main_matches_jax(data, tmp_path, monkeypatch):
     import train_seg as jtrain_seg
 
     tiny = functools.partial(JSegUNet, decoder_channels=DEC, encoder_config=ENC)
-    init = tiny(classes=2).init(jax.random.PRNGKey(0), jnp.zeros((1, PATCH, PATCH, 3)), False)
+    with jax_init("memo"):   # JAX's main makes this init again
+        init = tiny(classes=2).init(jax.random.PRNGKey(0), jnp.zeros((1, PATCH, PATCH, 3)),
+                                    False)
     sd = seg_state_dict(jax.tree_util.tree_map(np.asarray, init["params"]),
                         jax.tree_util.tree_map(np.asarray, init["batch_stats"]))
 
@@ -98,7 +101,8 @@ def test_train_seg_main_matches_jax(data, tmp_path, monkeypatch):
     monkeypatch.setattr(jtrain_seg, "SegUNet", tiny)
     monkeypatch.setattr(jloader.ConcatDataset, "__getitem__", ConcatDataset.__getitem__)
     monkeypatch.setattr(train_seg, "build_seg_model", build_tiny)
-    jtrain_seg.main(OVERRIDES + _where(data, tmp_path / "jax"))
+    with quick_compile(), jax_init("memo"):
+        jtrain_seg.main(OVERRIDES + _where(data, tmp_path / "jax"))
     out = train_seg.main(OVERRIDES + _where(data, tmp_path / "port"), device="cpu")
 
     assert [e["micro_steps"] for e in out["epochs"]] == [5, 5] and out["step"] == 10
@@ -191,10 +195,20 @@ def test_train_seg_main_loads_a_mit_encoder(data, tmp_path, monkeypatch, capsys)
     # HER2 and CATCH are ported; a tree that is not staged refuses the EXACT pull
     (["data=her2"], NotImplementedError, "EXACT server.*ROADMAP §1: the pull from an EXACT server"),
     (["data=catch"], NotImplementedError, "EXACT server.*ROADMAP §1: the pull from an EXACT server"),
-    (["+location.loader=grain"], NotImplementedError, "a multiprocess loader"),
+    # once refused: the worker-process loader (error None)
+    (["+location.loader=grain", "location.n_workers=2"], None, None),
     (["location.mesh.data=2"], NotImplementedError, "torch.distributed"),
 ], ids=["no_card", "her2", "catch", "grain", "mesh"])
-def test_refusals(args, error, match, tmp_path):
+def test_refusals(args, error, match, tmp_path, data):
+    if error is None:
+        from stedm_tpu_torch.config import compose
+        from stedm_tpu_torch.data.dm import DataModule
+
+        dm = DataModule(compose("config_seg", OVERRIDES + _where(data, tmp_path) + args))
+        dm.prepare_data()
+        dm.setup()
+        check_grain_loader(dm)
+        return
     device = None if error is RuntimeError else "cpu"
     if torch.cuda.is_available() and device is None:
         pytest.skip("a card is present")

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _port_helpers import load, random_params
+from _port_helpers import load, quick_jit, random_params
 
 from stedm_tpu.core.schedules import DiffusionSchedule as JSchedule
 from stedm_tpu.models.stedm import STEDM as JSTEDM
@@ -129,7 +129,7 @@ def _sample_both(models, kw):
     jsched, sched = _schedules()
     kw = {**BASE, **kw}
     rng = jax.random.PRNGKey(7)
-    jsample = jax.jit(jmake_sample_fn(jm, jsched, JSamplerConfig(**kw)))
+    jsample = quick_jit(jmake_sample_fn(jm, jsched, JSamplerConfig(**kw)))
     want = np.asarray(jsample(params, {k: jnp.asarray(v) for k, v in batch.items()}, rng))
     x_T = torch.from_numpy(np.array(jax.random.normal(rng, (B, P // 4, P // 4, 3),
                                                       jnp.float32)))

@@ -19,7 +19,7 @@ from test_torch_serving import BASE, B, P, _schedules, models  # noqa: F401
 
 import _port_helpers  # noqa: F401  (caps torch threads)
 from _flowers_helpers import run_overrides, write_flowers_tree
-from _port_helpers import random_params
+from _port_helpers import jax_init, quick_jit, random_params
 
 import stedm_tpu.train.host_sampler as jhost
 from stedm_tpu.config import compose as jcompose
@@ -97,7 +97,7 @@ def test_canvas_sampler_matches_jax(models, case, host):  # noqa: F811
         want = np.asarray(jhost.make_host_sample_fn(jm, jsched, JSamplerConfig(**kw),
                                                     unroll=2)(params, jbatch, rng))
     else:
-        want = np.asarray(jax.jit(jmake_sample_fn(jm, jsched, JSamplerConfig(**kw)))(
+        want = np.asarray(quick_jit(jmake_sample_fn(jm, jsched, JSamplerConfig(**kw)))(
             params, jbatch, rng))
     x_T = torch.from_numpy(np.array(jax.random.normal(
         rng, (B, CANVAS // 4, CANVAS // 4, 3), jnp.float32)))
@@ -137,8 +137,8 @@ def test_canvas_refusals_match_jax(models, case):  # noqa: F811
     jsched, sched = _schedules()
     kw, exc, match = REFUSALS[case]
     kw = {**BASE, "ddim_steps": 4, **kw}
-    with pytest.raises(exc, match=match):
-        jmake_sample_fn(jm, jsched, JSamplerConfig(**kw))(
+    with pytest.raises(exc, match=match):   # at build or trace time
+        jax.jit(jmake_sample_fn(jm, jsched, JSamplerConfig(**kw))).lower(
             params, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
     for make in (make_sample_fn, make_host_sample_fn):
         with pytest.raises(exc, match=match):
@@ -174,7 +174,8 @@ def test_predict_canvas_matches_jax(tree):
     jpath = results / "jax_ckpt"
     jcheckpoints.save(jpath, params, name="params")
     ppath = checkpoints.save(results / "port_ckpt", state_dict_from_jax(params), name="params")
-    jpredict_diff.main(overrides + [f"+ckpt_path={jpath}", "+predict_name=jax"])
+    with jax_init("shapes"):   # every parameter is restored from jpath
+        jpredict_diff.main(overrides + [f"+ckpt_path={jpath}", "+predict_name=jax"])
 
     def jax_x_T(batch_idx, shape):
         key = jax.random.fold_in(jax.random.PRNGKey(0), batch_idx)

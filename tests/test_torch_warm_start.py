@@ -29,7 +29,7 @@ import torch
 
 import _port_helpers  # noqa: F401  (caps torch threads)
 from _flowers_helpers import run_overrides, write_flowers_tree
-from _port_helpers import random_params
+from _port_helpers import jax_init, random_params
 
 import stedm_tpu.utils.torch_import as jimport
 from stedm_tpu.config import compose as jcompose
@@ -120,7 +120,8 @@ def _run_both(monkeypatch, capsys, overrides):
 
     monkeypatch.setattr(jimport, "load_into_params", spy)
     capsys.readouterr()
-    jtrain_diff.main(overrides)
+    with jax_init("shapes"):   # no check reads JAX's values left at init
+        jtrain_diff.main(overrides)
     jcounts = _MERGED.findall(capsys.readouterr().out)
     build = train_diff.build_stedm
 
@@ -249,7 +250,7 @@ def test_jax_train_diff_does_not_take_a_jax_train_ae_directory(tree, monkeypatch
     ckpt = results / "jax_ae" / "ae_flowers" / "ckpt"
     jcheckpoints.save(ckpt, state, name="ae_flowers_best")
     fs = "diffusion.first_stage_config.params.ckpt_path=ae_flowers/ckpt/ae_flowers_best"
-    with pytest.raises(ValueError, match="tree structures do not match"):
+    with pytest.raises(ValueError, match="tree structures do not match"), jax_init("shapes"):
         jtrain_diff.main(base + [fs])
     with pytest.raises(NotImplementedError, match="reading a JAX orbax directory"):
         train_diff.main(base + [fs], device="cpu")
