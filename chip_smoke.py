@@ -91,7 +91,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    three 500x667 images each): a training run of 8 micro-steps at
    accumulation 4 (``data.samples=16``, one epoch, 20-step previews), a
    resume into a second epoch, then README's predict of 8 pairs with the
-   run's EMA weights, exact (128 DDIM steps) and in the serving mode
+   run's EMA weights, exact (DDIM-50, cut from the config's 128 to make room
+   for phase 12) and in the serving mode
    (``auto:5``, window (0.35, 0.65), 50 steps), each through the CUDA-graph
    block sampler; pair counts, PNG shapes and values, finite losses, the
    moved EMA, the resumed step and the launches of every kernel inside these
@@ -127,8 +128,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``train_diff.main data=her2 style_sampling=nearby``: 8 micro-steps at
    accumulation 4 and a resume, the layout mapper [2 -> 3], samples/s and
    the data and h2d laps; 8d. ``predict_diff.main`` pairing her2_anno
-   layouts with her2_unanno styles, 8 pairs exact and 8 in the serving mode
-   through the CUDA-graph sampler; 8e. ``train_seg.main`` on 8d's pairs
+   layouts with her2_unanno styles, 8 pairs exact (DDIM-50, cut for phase 12)
+   and 8 in the serving mode through the CUDA-graph sampler; 8e. ``train_seg.main`` on 8d's pairs
    (her2_anno 0.2, her2_syn 0.8), one epoch, the patient IoU keys and a val
    tile with a cut margin; 8f. CATCH (when h5py imports; else one line says
    so): ``train_diff.main data=catch`` for one update and ``train_seg.main
@@ -177,8 +178,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    beside their plain versions, SDPA at fp32 (its backend named) and their
    bounds (3xTF32 products over the TF32 peak); 10b. the tiny STEDM at fp32
    sampled and trained on the card against the CPU (``F32_TINY_TOL``);
-   10c. at fp32 the flagship sampler (eager and as graphs, the latents bit
-   for bit, a profile), a 512^2 training micro-step and a vq-f4 codec step
+   10c. at fp32 the flagship sampler (DDIM-25, cut for phase 12; eager and as
+   graphs, the latents bit for bit, a profile), a 512^2 training micro-step and a vq-f4 codec step
    (profiled: ``profile_f32_codec.txt`` and the fp32 flash kernels' share
    of its device time);
    10d. ``train_ae``, ``train_diff`` and ``predict_diff`` (4 pairs, the
@@ -201,7 +202,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``location.loader=grain``, 4 worker processes) beside 8c's threaded
    loader: samples/s, the data lap's share of the epoch, the host ms of an
    item; phase 8's tree is removed at the end;
-12. a ``kernels`` JSON line, the card line, and as the last line
+12. the diffusion model's options, on phase 6's tree (removed at its end):
+   12a. the four flash kernels at Dh 32 (``num_head_channels: 32``: the
+   bf16 forward's own instance, the others' Dh-64 instances on a padded
+   head dimension; launches counted as ``<kernel>_dh32``) against their
+   plain versions with phase 2b's and 10a's tolerances, and GroupNorm with
+   FiLM at the scale-shift ResBlocks' shapes, forward and backward; 12b.
+   tiny STEDMs with the options (``OPTIONS_12B`` under the cosine schedule
+   sampled in bf16, sampled and trained at fp32; the spatial transformer
+   under crossattn, sampled) on the card against the CPU; 12c. the
+   flagship sampler (256^2, batch 8, DDIM-50, CFG 1.5, phi 0.7) with the
+   landscape U-Net under ``OPTIONS_12C`` (scale-shift norm, up/down
+   ResBlocks, 32-wide heads): warm img/s and the device time a batch, and
+   a 512^2 micro-step of it in bf16 and at fp32;
+   12d. ``train_diff.main`` (2 micro-steps) and ``predict_diff.main`` (8
+   pairs, DDIM-20) with the spatial transformer, U-Net dropout 0.1,
+   crossattn, the cosine schedule and ``+adamw_m_bf16``, then
+   ``train_ae.main`` (2 steps) with codec dropout 0.1; 12e. the two entry
+   points with 12c's U-Net (the Dh-32 kernels at batch 2, and 4 under
+   predict's CFG), since the spatial transformer replaces every flash
+   launch of the U-Net;
+13. a ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 fp32 matrix products and convolutions run without TF32 here (both backend
@@ -287,6 +308,12 @@ def time_ms(fn, iters: int, flush=None) -> float:
 PATHS_F32 = ("f32_sample_batch", "f32_train_micro_step", "f32_codec_step", "f32_entry_ae",
              "f32_entry_train", "f32_entry_predict")
 PATHS_WIDE = ("wide4_entry_ae", "wide8_entry_ae")
+# phase 12's paths: the options' flagship sampler and 512^2 micro-step, the
+# entry points with the spatial transformer (12d) and at Dh 32 (12e), bf16;
+# the options' 512^2 micro-step at fp32
+PATHS_12 = ("opt_sample_batch", "opt_train_micro_step", "opt_entry_train", "opt_entry_predict",
+            "opt_entry_ae", "opt_dh32_entry_train", "opt_dh32_entry_predict")
+PATHS_12_F32 = ("opt_f32_train_micro_step",)
 
 
 # ptxas's notes that wgmma instructions were serialised
@@ -307,7 +334,7 @@ class KernelRecord:
                   "her2_predict_serving", "her2_seg", "catch_train", "catch_seg", "plms_batch",
                   "dpm_batch", "canvas_predict", "svit_train", "svit_predict", "handoff_ae",
                   "handoff_train", "handoff_predict", "dist_train", "dist_predict")
-    PATHS = PATHS_BF16 + PATHS_F32 + PATHS_WIDE
+    PATHS = PATHS_BF16 + PATHS_F32 + PATHS_WIDE + PATHS_12 + PATHS_12_F32
 
     def __init__(self, name, route, source, replaces, counter=None, paths=PATHS_BF16):
         # the launch counter the kernel's wrapper adds to, and the main paths
@@ -386,6 +413,29 @@ def kernel_records() -> dict:
         "nearest_code_stream": KernelRecord(
             "nearest_code_stream", "cuda", "stedm_tpu_torch/csrc/nearest_code.cu",
             "stedm_tpu/ops/quantize.py:62", paths=wide),
+        # phase 12's kernels: each flash kernel at Dh 32 (num_head_channels
+        # 32; the bf16 forward's own instance, the others' Dh-64 instances
+        # on a padded head dimension; counted apart: ops.LAUNCHES
+        # "<name>_dh32") and GroupNorm with FiLM (use_scale_shift_norm,
+        # counted apart: "gn_silu_film")
+        "flash_attention_dh32": KernelRecord(
+            "flash_attention_dh32", "cuda", "stedm_tpu_torch/csrc/flash_attention.cu",
+            "stedm_tpu/ops/blocked_attention.py:99", paths=PATHS_12),
+        "flash_attention_bwd_dh32": KernelRecord(
+            "flash_attention_bwd_dh32", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
+            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
+            "(_flash_attention_bwd_dq)", paths=PATHS_12),
+        "flash_attention_f32_dh32": KernelRecord(
+            "flash_attention_f32_dh32", "cuda", "stedm_tpu_torch/csrc/flash_attention_f32.cu",
+            f"{stock_flash}:589 (_flash_attention_impl), reached through "
+            "stedm_tpu/ops/blocked_attention.py:99", paths=PATHS_12_F32),
+        "flash_attention_bwd_f32_dh32": KernelRecord(
+            "flash_attention_bwd_f32_dh32", "cuda",
+            "stedm_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
+            "(_flash_attention_bwd_dq)", paths=PATHS_12_F32),
+        "gn_silu_film": KernelRecord("gn_silu_film", "cuda", "stedm_tpu_torch/csrc/gn_silu.cu",
+                                     "stedm_tpu/ops/gn_silu.py:125", paths=PATHS_12),
     }
 
 
@@ -395,11 +445,11 @@ def bf16_close(got, ref, rel: float, abs_: float):
     return float(d.max()), bool((d <= rel * ref.float().abs() + abs_).all())
 
 
-def check_gn(torch, rec, flush):
+def check_gn(torch, rec, flush, cases=None):
     from stedm_tpu_torch.ops import gn_silu as g
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [  # (shape NHWC, mode, eps)
+    cases = cases or [  # (shape NHWC, mode, eps)
         # sampling at 256^2: U-Net level 0, decoder concats, bottleneck, VQ decoder
         ((8, 64, 64, 128), "add", 1e-5), ((16, 64, 64, 640), "add", 1e-5),
         ((16, 16, 16, 1536), "add", 1e-5), ((16, 8, 8, 2048), "add", 1e-5),
@@ -455,18 +505,21 @@ def _attention_close(torch, got, q, k, v, s):
     return float(d.max()), bool((d <= 2 ** -7 * scale).all())
 
 
-def check_attention(torch, rec, flush):
+# U-Net bottleneck and VQ decoder at 256^2 (sampling); the U-Net bottleneck
+# and the VQ encoder at 512^2 (training: the first with the LSE, the second
+# the frozen encode, batch 8); a ragged T and the head dimension between
+# and the entry points' bottleneck (predict's CFG fan-out, training) and
+# VQ mid-block at 512^2, batch 2
+ATTENTION_SHAPES = ((16, 8, 256, 128), (8, 1, 4096, 512), (8, 8, 1024, 128), (8, 1, 16384, 512),
+                    (2, 4, 200, 64), (2, 2, 520, 256), (4, 8, 1024, 128), (2, 8, 1024, 128),
+                    (2, 1, 16384, 512))
+
+
+def check_attention(torch, rec, flush, shapes=ATTENTION_SHAPES, strided=True):
     from stedm_tpu_torch.ops import blocked_attention as a
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    # U-Net bottleneck and VQ decoder at 256^2 (sampling); the U-Net bottleneck
-    # and the VQ encoder at 512^2 (training: the first with the LSE, the second
-    # the frozen encode, batch 8); a ragged T and the head dimension between
-    # and the entry points' bottleneck (predict's CFG fan-out, training) and
-    # VQ mid-block at 512^2, batch 2
-    for shape in ((16, 8, 256, 128), (8, 1, 4096, 512), (8, 8, 1024, 128), (8, 1, 16384, 512),
-                  (2, 4, 200, 64), (2, 2, 520, 256), (4, 8, 1024, 128), (2, 8, 1024, 128),
-                  (2, 1, 16384, 512)):
+    for shape in shapes:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         s = shape[-1] ** -0.5
@@ -489,6 +542,8 @@ def check_attention(torch, rec, flush):
         bh, t, d = shape[0] * shape[1], shape[2], shape[3]
         rec.add(shape, err, ok, ms, pms, lib, 4 * bh * t * d * 2, 4 * bh * t * t * d,
                 BF16_FLOPS)
+    if not strided:
+        return
     # the layout the U-Net's AttentionBlock hands over: q, k, v as views of
     # the packed projection, O written token-major so that merging the heads
     # is a view; the same kernel on contiguous copies must give the same bits
@@ -636,21 +691,24 @@ class GNCallLog:
 TINY_TOL = (1e-2, 0.125)
 
 
-def _tiny_sampling_models(torch, dtype=None):
+def _tiny_sampling_models(torch, dtype=None, unet_options=None, conditioning_key="hybrid",
+                          schedule: str = "linear"):
     """Phase 3's tiny STEDM on the CPU and a copy on the card (computing in
-    ``dtype``, bf16 unless given), its batch, x_T and the schedule."""
+    ``dtype``, bf16 unless given; phase 12b: with ``unet_options``,
+    ``conditioning_key`` and ``schedule``), its batch, x_T and the schedule."""
     from stedm_tpu_torch.core.schedules import DiffusionSchedule
     from stedm_tpu_torch.models.stedm import STEDM
 
     p = 32
     dtype = dtype or torch.bfloat16
     torch.manual_seed(4)
-    cpu = STEDM(dtype=dtype, **_tiny_configs(p)).eval()
+    cfg = _tiny_configs(p, unet_options, conditioning_key)
+    cpu = STEDM(dtype=dtype, **cfg).eval()
     with torch.no_grad():
         for prm in cpu.parameters():
             if prm.dim() == 4:
                 prm.add_(0.005)
-    gpu = STEDM(dtype=dtype, **_tiny_configs(p)).eval()
+    gpu = STEDM(dtype=dtype, **cfg).eval()
     gpu.load_state_dict(cpu.state_dict())
     gpu.cuda()
     gen = torch.Generator().manual_seed(5)
@@ -659,7 +717,7 @@ def _tiny_sampling_models(torch, dtype=None):
     seg[:, 8:20, 4:28] = torch.tensor([0.0, 1.0])
     batch = {"segmentation": seg, "style_imgs": torch.rand(2, 1, p, p, 3, generator=gen) * 2 - 1}
     x_T = torch.randn(2, p // 4, p // 4, 3, generator=gen)
-    return cpu, gpu, batch, x_T, DiffusionSchedule.create("linear", 1000, 0.0015, 0.0205)
+    return cpu, gpu, batch, x_T, DiffusionSchedule.create(schedule, 1000, 0.0015, 0.0205)
 
 
 def sample_with_latent(sampler, model, batch, **kw):
@@ -878,14 +936,16 @@ def check_attention_backward(torch, rec, flush, shapes, seed):
                 BF16_FLOPS)
 
 
-def check_gn_backward(torch, flush):
+def check_gn_backward(torch, flush, cases=(((8, 128, 128, 128), "add"),
+                                           ((8, 32, 32, 1024), "add"),
+                                           ((8, 32, 32, 1024), "film"))):
     """Phase 2c: GNSiLUFunction on the card (CUDA forward, plain backward)
-    against autograd of gn_silu_reference at the 512^2 U-Net training shapes."""
+    against autograd of gn_silu_reference at the 512^2 U-Net training shapes
+    (phase 12a: the scale-shift ResBlocks' FiLM shapes)."""
     from stedm_tpu_torch.ops import gn_silu as g
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    for shape, mode in (((8, 128, 128, 128), "add"), ((8, 32, 32, 1024), "add"),
-                        ((8, 32, 32, 1024), "film")):
+    for shape, mode in cases:
         b, c = shape[0], shape[3]
         x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(torch.bfloat16)
         gamma = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
@@ -931,19 +991,20 @@ def check_gn_backward(torch, flush):
         require(ok, f"GN backward disagrees with autograd at {list(shape)} {mode}")
 
 
-def _tiny_configs(p: int) -> dict:
+def _tiny_configs(p: int, unet_options=None, conditioning_key: str = "hybrid") -> dict:
     return dict(
         unet_config=dict(in_channels=6, out_channels=3, model_channels=32,
                          num_res_blocks=1, channel_mult=(1, 4, 8), num_heads=4,
-                         attention_resolutions=(32, 16, 8)),
+                         attention_resolutions=(32, 16, 8), **(unet_options or {})),
         first_stage_config=dict(embed_dim=3, n_embed=256, ddconfig=dict(
             z_channels=3, resolution=p, in_channels=3, out_ch=3, ch=32, ch_mult=[1, 2, 2],
             num_res_blocks=1, attn_resolutions=[])),
         cond_stage_config=dict(n_stages=2, in_channels=2, out_channels=3),
-        style_agg="mean", style_sampling="nearby", patch_size=p)
+        style_agg="mean", style_sampling="nearby", patch_size=p,
+        conditioning_key=conditioning_key)
 
 
-def _tiny_train_runs(torch, dtype) -> dict:
+def _tiny_train_runs(torch, dtype, unet_options=None, schedule: str = "linear") -> dict:
     """The tiny STEDM (Dh 64 at the bottleneck, non-zero proj_out) trained
     for three micro-steps at accumulation 2, computing in ``dtype``, on the
     CPU and on the card, same weights, t and noise: for each device the
@@ -957,10 +1018,10 @@ def _tiny_train_runs(torch, dtype) -> dict:
 
     p = 32
     torch.manual_seed(8)
-    cpu = STEDM(dtype=dtype, **_tiny_configs(p))
+    cpu = STEDM(dtype=dtype, **_tiny_configs(p, unet_options))
     for layer in cpu.unet.zero_init_layers():
         layer.reset_parameters()
-    gpu = STEDM(dtype=dtype, **_tiny_configs(p))
+    gpu = STEDM(dtype=dtype, **_tiny_configs(p, unet_options))
     gpu.load_state_dict(cpu.state_dict())
     gpu.cuda()
     gen = torch.Generator().manual_seed(9)
@@ -973,7 +1034,7 @@ def _tiny_train_runs(torch, dtype) -> dict:
              "style_imgs": style}
     draws = [(torch.randint(0, 1000, (2,), generator=gen), torch.randn(2, 8, 8, 3, generator=gen))
              for _ in range(3)]
-    sched = DiffusionSchedule.create("linear", 1000, 0.0015, 0.0205)
+    sched = DiffusionSchedule.create(schedule, 1000, 0.0015, 0.0205)
     runs = {}
     for dev, model in (("cpu", cpu), ("cuda", gpu)):
         before = {k: v.detach().float().cpu().clone() for k, v in model.state_dict().items()}
@@ -1751,7 +1812,9 @@ def entry_points(torch) -> tuple[Path, dict]:
               "style_sampling=augmented", "style_agg=mean", *where,
               "data.samples=4", "+use_ema=true"]
     predicts = {}
-    for name, extra in (("exact", []), ("serving", [
+    # cut, to make room for phase 12: the exact run at DDIM-50, not the
+    # config's 128 (143 steps)
+    for name, extra in (("exact", ["ddim_steps=50"]), ("serving", [
             "ddim_steps=50", "+cache_schedule=auto:5", "+cfg_interval=[0.35,0.65]"])):
         args = readme + extra + [f"+predict_name={name}"]
         log(f"  predict_diff.main({args})")
@@ -2439,7 +2502,9 @@ def histopathology(torch) -> dict:
                      "cfg_scale=1.5", "style_sampling=nearby", "data.samples=4", "+use_ema=true"]
     out["her2_style_white"] = style_white_share(readme)
     out["her2_predict"] = {}
-    for name, extra in (("exact", []), ("serving", [
+    # cut, to make room for phase 12: the exact run at DDIM-50, not the
+    # config's 128 (143 steps; its first batch took 11.4 s)
+    for name, extra in (("exact", ["ddim_steps=50"]), ("serving", [
             "ddim_steps=50", "+cache_schedule=auto:5", "+cfg_interval=[0.35,0.65]"])):
         res = run(f"her2_predict_{name}", predict_diff.main,
                   readme + extra + [f"+predict_name={name}"])
@@ -2561,7 +2626,8 @@ def _sampler_runs(torch, model, batch, schedule, cfg, name: str, out_dir: Path,
     want = cfg.ddim_steps + (cfg.method == "plms")
     require(evals == want, f"{name}: {evals} U-Net evaluations, not {want}")
     require(counts["nearest_code"] == 1, f"{name}: nearest-code launches {counts}")
-    eager_t = timed_runs(torch, lambda: eager(model, batch, generator=gen.manual_seed(0)), 3)
+    # cut, to make room for phase 12: two warm runs each, eager and as graphs
+    eager_t = timed_runs(torch, lambda: eager(model, batch, generator=gen.manual_seed(0)), 2)
     host = make_host_sample_fn(model, schedule, cfg)
     t1 = time.time()
     _, z_g = sample_with_latent(host, model, batch, generator=gen.manual_seed(0))
@@ -2572,10 +2638,10 @@ def _sampler_runs(torch, model, batch, schedule, cfg, name: str, out_dir: Path,
         f"{capture_s:.2f} s; launches at capture {host.capture_launches}; latent z_0 equals the "
         f"eager loop's bit for bit: {same} (max |diff| {float((z_g - z_e).abs().max()):.3e})")
     require(same, f"{name}: the graph-replayed latent differs from the eager loop's")
-    graph_t = timed_runs(torch, lambda: host(model, batch, generator=gen.manual_seed(0)), 3)
+    graph_t = timed_runs(torch, lambda: host(model, batch, generator=gen.manual_seed(0)), 2)
     rates = {"eager": [b / t for t in eager_t], "graph": [b / t for t in graph_t]}
     for mode, r in rates.items():
-        log(f"  {name} {mode} img/s (3 warm runs, host clock): "
+        log(f"  {name} {mode} img/s (2 warm runs, host clock): "
             + " ".join(f"{x:.4f}" for x in r) + f"; median {_median(r):.4f} on {card}")
     kernels = profile_main_path(torch, lambda: host(model, batch, generator=gen.manual_seed(0)),
                                 _median(graph_t) * 1e3, out_dir, f"profile_{name}_graph.txt")
@@ -2822,7 +2888,11 @@ def _ratio(torch, got, ref, tol) -> float:
     return float(((got.double() - ref.double()).abs() / tol).max())
 
 
-def f32_forward_checks(torch, rec, flush):
+F32_FORWARD_SHAPES = ((16, 8, 256, 128), (8, 1, 4096, 512), (8, 8, 1024, 128),
+                      (8, 1, 16384, 512), (2, 1, 16384, 512), (1, 1, 2500, 512))
+
+
+def f32_forward_checks(torch, rec, flush, shapes=F32_FORWARD_SHAPES, strided=True):
     """10a: the fp32 forward against attention_reference (fp32, TF32 off),
     a sample at a time, within 2^-16 (P|V| + |ref|); the LSE against
     torch.logsumexp; the TF32 control; times beside the plain version and
@@ -2831,11 +2901,10 @@ def f32_forward_checks(torch, rec, flush):
     from stedm_tpu_torch.ops import blocked_attention as a
 
     gen = torch.Generator(device="cuda").manual_seed(21)
-    # the U-Net bottleneck sampling at 256^2 (CFG batch 16) and training at
-    # 512^2; the VQ decoder at 256^2 and the encoder at 512^2 (batch 8), the
-    # codec at 512^2 and batch 2 (its encode); a ragged T
-    for shape in ((16, 8, 256, 128), (8, 1, 4096, 512), (8, 8, 1024, 128), (8, 1, 16384, 512),
-                  (2, 1, 16384, 512), (1, 1, 2500, 512)):
+    # F32_FORWARD_SHAPES: the U-Net bottleneck sampling at 256^2 (CFG batch
+    # 16) and training at 512^2; the VQ decoder at 256^2 and the encoder at
+    # 512^2 (batch 8), the codec at 512^2 and batch 2 (its encode); a ragged T
+    for shape in shapes:
         b, h, t, d = shape
         q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
         s = d ** -0.5
@@ -2878,6 +2947,8 @@ def f32_forward_checks(torch, rec, flush):
                 3 * 4 * bh * t * t * d, TF32_FLOPS)
         del q, k, v, got, lse, again
         torch.cuda.empty_cache()
+    if not strided:
+        return
     # the AttentionBlock's views of its packed fp32 projection, O token-major
     proj = torch.randn((16, 256, 8, 3, 128), generator=gen, device="cuda")
     q, k, v = proj.permute(0, 2, 3, 1, 4).unbind(2)
@@ -2910,7 +2981,8 @@ def _f64_backward(torch, q, k, v, o, lse, do, s):
     return ref, bounds
 
 
-def f32_backward_checks(torch, rec, flush):
+def f32_backward_checks(torch, rec, flush, shapes=((8, 8, 1024, 128), (2, 8, 1024, 128),
+                                                   (2, 1, 4096, 512), (2, 1, 16384, 512))):
     """10a: the fp32 backward (Di pass, dK/dV and dQ kernels) on the
     AttentionBlock's strided views and directly, two launches bit for bit,
     each gradient within 2^-16 (sqrt(sum terms^2) + |ref|) of the plain
@@ -2920,7 +2992,7 @@ def f32_backward_checks(torch, rec, flush):
     from stedm_tpu_torch.ops import blocked_attention as a
 
     gen = torch.Generator(device="cuda").manual_seed(22)
-    for shape in ((8, 8, 1024, 128), (2, 8, 1024, 128), (2, 1, 4096, 512), (2, 1, 16384, 512)):
+    for shape in shapes:
         b, h, t, dh = shape
         proj = torch.randn((b, t, h, 3, dh), generator=gen, device="cuda")
         qv, kv, vv = proj.permute(0, 2, 3, 1, 4).unbind(2)
@@ -3118,16 +3190,19 @@ def _tiny_rel(torch, got, ref) -> float:
     return float((got.float().cpu() - ref.float()).norm() / ref.float().norm())
 
 
-def f32_tiny_parity(torch):
+def f32_tiny_parity(torch, unet_options=None, suffix: str = "", schedule: str = "linear"):
     """10b: the tiny STEDM at fp32, DDIM-4 with rescaled CFG, then three
     micro-steps at accumulation 2, card (kernels) against CPU (plain
-    versions), same weights, x_T, t and noise."""
+    versions), same weights, x_T, t and noise (phase 12b: with
+    ``unet_options`` and ``schedule``, the flash kernels counted under their
+    names + ``suffix``)."""
     from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
 
     log(f"  tolerance {F32_TINY_TOL} relative (L2 norm for tensors): phase 3's bf16 tolerance "
         "tightened to what fp32 permits")
-    cpu, gpu, batch, x_T, sched = _tiny_sampling_models(torch, torch.float32)
+    cpu, gpu, batch, x_T, sched = _tiny_sampling_models(torch, torch.float32, unet_options,
+                                                        schedule=schedule)
     cfg = SamplerConfig(ddim_steps=4, eta=0.0, cfg_scale=1.5, rescale_phi=0.7,
                         batched_cfg=True, downsample=4)
     ref = make_sample_fn(cpu, sched, cfg, device="cpu")(cpu, batch, x_T=x_T)
@@ -3138,12 +3213,13 @@ def f32_tiny_parity(torch):
     rel = _tiny_rel(torch, got, ref)
     log(f"  tiny STEDM sampling at fp32, card vs CPU: relative L2 {rel:.3e}, max |diff| "
         f"{float((got.cpu() - ref).abs().max()):.3e}; launches {counts}")
-    require(counts["flash_attention_f32"] > 0 and counts["flash_attention"] == 0,
+    require(counts["flash_attention_f32" + suffix] > 0 and counts["flash_attention" + suffix] == 0,
             f"the fp32 sampler did not run the fp32 forward: {counts}")
     require(rel <= F32_TINY_TOL, "tiny fp32 sampling: the card disagrees with the CPU")
-    runs = _tiny_train_runs(torch, torch.float32)
+    runs = _tiny_train_runs(torch, torch.float32, unet_options, schedule)
     (lc, gc, dc, _), (lg, gg, dg, counts) = runs["cpu"], runs["cuda"]
-    require(counts["flash_attention_bwd_f32"] >= 3 and counts["flash_attention_bwd"] == 0,
+    require(counts["flash_attention_bwd_f32" + suffix] >= 3
+            and counts["flash_attention_bwd" + suffix] == 0,
             f"the fp32 training did not run the fp32 backward: {counts}")
     loss_err = max(abs(x - y) / abs(y) for x, y in zip(lg, lc))
     log(f"  losses card {['%.7f' % x for x in lg]} cpu {['%.7f' % x for x in lc]}: max rel err "
@@ -3190,10 +3266,11 @@ def f32_full_width(torch, out_dir: Path, card: str) -> tuple:
         require(guard.calls == 0, f"{name}: a plain version ran on the card")
         return res
 
-    log("== phase 10c: the flagship at fp32 (256^2, batch 8, DDIM-50, CFG 1.5, phi 0.7), "
+    log("== phase 10c: the flagship at fp32 (256^2, batch 8, DDIM-25, CFG 1.5, phi 0.7), "
         "eager and as graphs")
     model, batch, schedule = build_flagship(batch=8, dtype=torch.float32)
-    cfg = SamplerConfig(ddim_steps=50, eta=0.0, cfg_scale=1.5, rescale_phi=0.7,
+    # cut, to make room for phase 12: DDIM-50 -> 25, five fp32 batches of ~6 s
+    cfg = SamplerConfig(ddim_steps=25, eta=0.0, cfg_scale=1.5, rescale_phi=0.7,
                         batched_cfg=True, downsample=4)
     sample = make_sample_fn(model, schedule, cfg)
     gen = torch.Generator(device="cuda")
@@ -3202,7 +3279,7 @@ def f32_full_width(torch, out_dir: Path, card: str) -> tuple:
     c = counts["f32_sample_batch"]
     require(tuple(img.shape) == (8, 256, 256, 3) and bool(torch.isfinite(img).all())
             and float(img.float().std()) > 0, "the fp32 flagship's images")
-    require(c["flash_attention_f32"] >= 51 and c["flash_attention"] == 0
+    require(c["flash_attention_f32"] >= 26 and c["flash_attention"] == 0
             and c["nearest_code"] == 1 and c["gn_silu"] > 0, f"fp32 sampling launches {c}")
     # a batch takes seconds at fp32 (cuDNN's fp32 convolutions, TF32 off):
     # one warm run each, eager and as graphs, and the profiled graph run
@@ -3383,9 +3460,10 @@ def f32_entry_points(torch, entry_root: Path) -> tuple:
     pred = run("f32_entry_predict", predict_diff.main,
                ["data=flowers", "data/dataset=[flowers_anno,flowers_unanno]",
                 "data.ratios=[1.0,1.0]", "cfg_scale=1.5", "style_sampling=augmented",
-                "style_agg=mean", *where, *fp32, "data.samples=2", "ddim_steps=10",
+                "style_agg=mean", *where, *fp32, "data.samples=2", "ddim_steps=4",
                 # cut (PR 14): 4 pairs through the eager sampler; 10c holds the
-                # fp32 graphs, whose capture at 512^2 took 31 s here
+                # fp32 graphs, whose capture at 512^2 took 31 s here; and,
+                # for phase 12, DDIM-10 -> 4: its first batch took 17.3 s
                 "+host_loop=false", "+predict_name=f32"])
     check_pairs(Path(pred["predict_dir"]), 4, ENTRY_PATCH)
     out["f32_entry_predict"] = {k: v for k, v in predict_rates(pred).items()
@@ -3832,6 +3910,293 @@ def worker_loader_epoch(torch, her2: dict, workers, spawn_ms: float) -> dict:
     return rows
 
 
+# ---- phase 12: the diffusion model's options ----
+
+# the options of the JAX U-Net that phase 12c runs at the landscape widths:
+# FiLM in every ResBlock, ResBlocks that resample, 32-wide heads (the
+# bottleneck AttentionBlock at Dh 32)
+OPTIONS_12C = dict(use_scale_shift_norm=True, resblock_updown=True, num_head_channels=32)
+# 12b's tiny models: the same with the resampling convs off (Dh 32 at the
+# 256-channel bottleneck), then the spatial transformer under crossattn
+OPTIONS_12B = dict(OPTIONS_12C, conv_resample=False)
+OPTIONS_12B_ST = dict(use_spatial_transformer=True, transformer_depth=2, num_head_channels=32)
+UNET_KEY = "diffusion.unet_config.params."
+# 12d: the overrides of the spatial transformer's entry-point run
+OVERRIDES_12D = [UNET_KEY + "use_spatial_transformer=true", UNET_KEY + "dropout=0.1",
+                 "diffusion.conditioning_key=crossattn", "diffusion.beta_schedule=cosine",
+                 "+adamw_m_bf16=true"]
+# 12e: 12c's U-Net through the entry points (batch 2; predict's CFG batch 4)
+OVERRIDES_12E = [UNET_KEY + "use_scale_shift_norm=true", UNET_KEY + "resblock_updown=true",
+                 "+" + UNET_KEY + "num_head_channels=32"]
+# the scale-shift ResBlocks' GroupNorm at 256^2 sampling, batch 8: the FiLM
+# of U-Net levels 0, 1 and 2
+FILM_CASES = (((8, 64, 64, 128), "film", 1e-5), ((8, 32, 32, 512), "film", 1e-5),
+              ((8, 16, 16, 1024), "film", 1e-5))
+
+
+def options_kernels(torch, recs):
+    """12a: the four flash kernels at Dh 32 against their plain versions
+    (phase 2b's and 10a's tolerance forms), and GroupNorm with FiLM at the
+    scale-shift ResBlocks' shapes, forward and backward."""
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # the L2 flush
+    flush = scratch.zero_
+    log("  -- bf16 forward: 12c's sampling bottleneck (CFG batch 16) and 512^2 micro-step "
+        "(batch 8), the entry points' (batch 2, predict's CFG batch 4)")
+    check_attention(torch, recs["flash_attention_dh32"], flush,
+                    shapes=((16, 32, 256, 32), (8, 32, 1024, 32), (2, 32, 1024, 32),
+                            (4, 32, 1024, 32)), strided=False)
+    log("  -- bf16 backward (and the forward with its LSE): 12c's 512^2 micro-step (batch 8) "
+        "and train_diff's (batch 2)")
+    check_attention_backward(torch, recs["flash_attention_bwd_dh32"], flush,
+                             ((8, 32, 1024, 32), (2, 32, 1024, 32)), 31)
+    log("  -- fp32 forward and backward: the sampling bottleneck and 12c's fp32 micro-step")
+    f32_forward_checks(torch, recs["flash_attention_f32_dh32"], flush,
+                       shapes=((16, 32, 256, 32), (8, 32, 1024, 32)), strided=False)
+    f32_backward_checks(torch, recs["flash_attention_bwd_f32_dh32"], flush,
+                        shapes=((8, 32, 1024, 32),))
+    log("  -- GroupNorm + FiLM + SiLU at the scale-shift ResBlocks' shapes, forward and "
+        "backward")
+    check_gn(torch, recs["gn_silu_film"], flush, cases=FILM_CASES)
+    check_gn_backward(torch, flush, cases=tuple((c[0], c[1]) for c in FILM_CASES))
+    del scratch, flush
+    torch.cuda.empty_cache()
+
+
+def options_tiny_parity(torch):
+    """12b: tiny STEDMs with the new options, card against CPU: OPTIONS_12B
+    under the cosine schedule sampled (DDIM-4, rescaled CFG) in bf16
+    (phase 3's tolerance), then sampled and trained (three micro-steps) at
+    fp32 (10b's); the spatial transformer under crossattn sampled in bf16."""
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
+
+    cfg = SamplerConfig(ddim_steps=4, eta=0.0, cfg_scale=1.5, rescale_phi=0.7,
+                        batched_cfg=True, downsample=4)
+    for opts, key in ((OPTIONS_12B, "hybrid"), (OPTIONS_12B_ST, "crossattn")):
+        cpu, gpu, batch, x_T, sched = _tiny_sampling_models(torch, torch.bfloat16, opts, key,
+                                                            "cosine")
+        ref = make_sample_fn(cpu, sched, cfg, device="cpu")(cpu, batch, x_T=x_T)
+        reset_launch_counts()
+        got = make_sample_fn(gpu, sched, cfg, device="cuda")(gpu, batch, x_T=x_T)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        _tiny_close(torch, got, ref, f"tiny STEDM {key} {opts} (cosine) card vs CPU")
+        log(f"    launches {counts}")
+        # the AttentionBlock at Dh 32 (none under the spatial transformer,
+        # whose attention is plain torch); flash_attention counts the codec's
+        require((counts["flash_attention_dh32"] > 0) == (key == "hybrid"),
+                f"the tiny {key} sampler's launches {counts}")
+        require(key != "hybrid" or counts["gn_silu_film"] > 0, f"no FiLM launch: {counts}")
+        del cpu, gpu
+    # training held at fp32 (10b's tolerances): in bf16 this model's
+    # gradients move 12-24 % between bf16 and fp32 on the CPU (the shipped
+    # tiny model's 3-5 %), past phase 3b's 0.3 for two bf16 runs
+    f32_tiny_parity(torch, OPTIONS_12B, "_dh32", "cosine")
+
+
+def options_sampler(torch, model, batch, schedule, out_dir: Path, card: str,
+                    landscape_ms: float) -> tuple:
+    """12c's sampler (256^2, batch 8, DDIM-50, CFG 1.5, phi 0.7, shared-encoder
+    CFG) on ``model``: its launches and numbers."""
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
+
+    n_params = sum(p.numel() for p in model.unet.parameters())
+    cfg = SamplerConfig(ddim_steps=50, eta=0.0, cfg_scale=1.5, rescale_phi=0.7,
+                        batched_cfg=True, downsample=4)
+    sample = make_sample_fn(model, schedule, cfg)
+    gen = torch.Generator(device="cuda")
+    reset_launch_counts()
+    t1 = time.time()
+    img = sample(model, batch, generator=gen.manual_seed(0))
+    torch.cuda.synchronize()
+    cold_s = time.time() - t1
+    c = dict(LAUNCHES)
+    log(f"  U-Net with {OPTIONS_12C}: {n_params} parameters; cold batch {cold_s:.2f} s; "
+        f"launches {c}")
+    require(tuple(img.shape) == (8, 256, 256, 3) and bool(torch.isfinite(img).all()),
+            "the options' flagship sample is not finite of shape [8, 256, 256, 3]")
+    require(float(img.float().std()) > 0.0, "flat output")
+    require(c["flash_attention_dh32"] >= 50 and c["flash_attention"] >= 1
+            and c["gn_silu_film"] > 0 and c["nearest_code"] == 1,
+            f"the options' sampler did not run the Dh-32 forward and FiLM: {c}")
+    times = timed_runs(torch, lambda: sample(model, batch, generator=gen.manual_seed(0)), 2)
+    median_s = _median(times)
+    kernels = profile_main_path(torch, lambda: sample(model, batch, generator=gen.manual_seed(0)),
+                                median_s * 1e3, out_dir, "profile_options.txt")
+    busy_ms = sum(ms for _, _, ms in kernels)
+    log(f"  options' flagship: warm img/s " + " ".join(f"{8 / t:.4f}" for t in times)
+        + f" (median {8 / median_s:.4f}); device time a batch {busy_ms:.1f} ms, against "
+        f"{landscape_ms:.1f} ms for the landscape U-Net in phase 5 of this run, on {card}")
+    return c, dict(img_per_s=8 / median_s, img_per_s_runs=[8 / t for t in times],
+                   device_ms_per_batch=busy_ms, landscape_device_ms=landscape_ms, cold_s=cold_s)
+
+
+def options_flagship(torch, out_dir: Path, card: str, landscape_ms: float) -> tuple:
+    """12c: the landscape U-Net under OPTIONS_12C: the flagship sampler, then
+    a 512^2 training micro-step in bf16 and at fp32. Returns the numbers and
+    each path's launches."""
+    from stedm_tpu_torch.models.attention import AttentionBlock
+    from stedm_tpu_torch.models.stedm import build_flagship
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.train.optim import make_optimizer
+    from stedm_tpu_torch.train.steps import create_train_state, make_train_step
+
+    counts, out = {}, {}
+    model, batch, schedule = build_flagship(batch=8, unet_options=OPTIONS_12C)
+    counts["opt_sample_batch"], out["sample"] = options_sampler(
+        torch, model, batch, schedule, out_dir, card, landscape_ms)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    for dtype, name in ((torch.bfloat16, "opt_train_micro_step"),
+                        (torch.float32, "opt_f32_train_micro_step")):
+        model, batch, schedule = build_flagship(batch=8, patch=512, nonzero_init=True,
+                                                dtype=dtype, unet_options=OPTIONS_12C)
+        # accumulation 2: the first micro-step's gradients stay to be read
+        tx = make_optimizer(1e-4, accumulate_grad_batches=2)
+        state = create_train_state(model, tx)
+        step = make_train_step(model, schedule, tx)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t1 = time.time()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        cold_s = time.time() - t1
+        counts[name] = c = dict(LAUNCHES)
+        n_attn = sum(isinstance(x, AttentionBlock) for x in model.unet.modules())
+        sfx = "_f32" if dtype == torch.float32 else ""
+        log(f"  {name}: first micro-step {cold_s:.2f} s, loss {float(m['loss']):.5f}; launches "
+            f"{c}; AttentionBlocks {n_attn}")
+        require(bool(torch.isfinite(m["loss"])), f"{name}: non-finite loss")
+        require(c[f"flash_attention_bwd{sfx}_dh32"] == n_attn
+                and c[f"flash_attention{sfx}_dh32"] >= n_attn,
+                f"{name}: {n_attn} AttentionBlocks, launches {c}")
+        qkv = [p.grad for n, p in model.unet.named_parameters() if n.endswith("qkv.weight")]
+        require(float(qkv[0].float().norm()) > 0, f"{name}: the attention's qkv got no gradient")
+        times = []
+        for _ in range(2):
+            t1 = time.time()
+            state, m = step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.time() - t1)
+        require(bool(torch.isfinite(m["loss"])) and state.opt_state.gradient_step == 1,
+                f"{name}: non-finite loss, or the update not applied")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[name] = dict(samples_per_s=[8 / t for t in times], peak_mem_gib=peak)
+        log(f"  {name}: warm micro-steps " + " ".join(f"{8 / t:.4f}" for t in times)
+            + f" samples/s (the first applies the update); peak memory {peak:.2f} GiB")
+        del model, batch, state, step, tx
+        torch.cuda.empty_cache()
+    return out, counts
+
+
+def options_entry_points(torch, entry_root: Path) -> tuple:
+    """12d: train_diff (2 micro-steps) and predict_diff (8 pairs, DDIM-20)
+    with the spatial transformer, U-Net dropout 0.1, crossattn, the cosine
+    schedule and a bf16 first moment, then train_ae (2 steps) with codec
+    dropout 0.1; 12e: train_diff and predict_diff with 12c's U-Net (the
+    Dh-32 kernels at the entry points' batch 2). On phase 6's tree."""
+    from stedm_tpu_torch import predict_diff, train_ae, train_diff
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.train import checkpoints
+
+    data, patch = entry_root / "data", 512
+    counts, out = {}, {}
+
+    def run(name: str, main, args: list):
+        log(f"  {main.__module__}.main({args})")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        res = main(args)
+        torch.cuda.synchronize()
+        counts[name] = dict(LAUNCHES)
+        log(f"    launches {counts[name]}")
+        torch.cuda.empty_cache()
+        return res
+
+    for tag, overrides in (("opt", OVERRIDES_12D), ("opt_dh32", OVERRIDES_12E)):
+        t1 = time.time()
+        where = [f"location.data_dir={data}", f"location.result_dir={entry_root / tag}"]
+        style = ["data=flowers", "style_sampling=augmented", "style_agg=mean", *where]
+        tr = run(f"{tag}_entry_train", train_diff.main, style + overrides + [
+            "+diffusion.scale_by_std=true", "data.samples=4", "num_epochs=1",
+            "+preview_ddim_steps=4", "accumulate_grad_batches=1"])
+        ep = tr["epochs"][0]
+        require(tr["step"] == 2 and math.isfinite(ep["loss"]), f"{tag}: train_diff {tr['step']} "
+                f"steps, loss {ep['loss']}")
+        ckpt = checkpoints.load(checkpoints.checkpoint_file(
+            f"{tr['run_dir']}/ckpt", Path(tr["run_dir"]).name + "_last"))
+        if "+adamw_m_bf16=true" in overrides:
+            m_dtypes = {v["exp_avg"].dtype for v in ckpt["opt"]["adamw"]["state"].values()}
+            log(f"    the checkpoint's first moments: {m_dtypes}")
+            require(m_dtypes == {torch.bfloat16}, f"first moments {m_dtypes}")
+        del ckpt
+        pred = run(f"{tag}_entry_predict", predict_diff.main, [
+            "data=flowers", "data/dataset=[flowers_anno,flowers_unanno]",
+            "data.ratios=[1.0,1.0]", "cfg_scale=1.5", "style_sampling=augmented",
+            "style_agg=mean", *where, *overrides, "data.samples=4", "ddim_steps=20",
+            f"+predict_name={tag}"])
+        check_pairs(Path(pred["predict_dir"]), 8, patch)
+        out[tag] = dict(train_loss=ep["loss"], predict=predict_rates(pred),
+                        seconds=time.time() - t1)
+        log(f"  {tag}: train loss {ep['loss']:.5f}; {time.time() - t1:.1f} s")
+    ae = run("opt_entry_ae", train_ae.main, [
+        "data=flowers", "style_sampling=augmented", f"location.data_dir={data}",
+        f"location.result_dir={entry_root / 'opt_ae'}", "data.samples=4", "num_epochs=1",
+        "loss.disc_start=0", "diffusion.first_stage_config.params.ddconfig.dropout=0.1"])
+    ep = ae["epochs"][0]
+    logs = {**ep["train"], **ep["val"]}.values()
+    require(ae["step"] == 2 and all(math.isfinite(v) for v in logs),
+            f"train_ae with codec dropout: {ae['step']} steps, {ep}")
+    out["ae_steps"] = ae["step"]
+    return out, counts
+
+
+def model_options(torch, entry_root: Path, out_dir: Path, card: str, recs: dict,
+                  landscape_ms: float) -> tuple:
+    """Phase 12, on phase 6's tree; returns its numbers and each path's
+    launches (a path's count of each kernel zeroed just before it and read
+    just after)."""
+    from stedm_tpu_torch.ops import LAUNCHES
+
+    t0 = time.time()
+    log("== phase 12a: the flash kernels at Dh 32 and GroupNorm with FiLM against their "
+        "plain versions")
+    options_kernels(torch, recs)
+    t_a = time.time() - t0
+    log(f"  phase 12a took {t_a:.1f} s")
+    log("== phase 12b: tiny STEDMs with the new options, card against CPU")
+    t1 = time.time()
+    options_tiny_parity(torch)
+    t_b = time.time() - t1
+    log(f"  phase 12b took {t_b:.1f} s")
+    log(f"== phase 12c: the flagship with {OPTIONS_12C} (256^2 sampling, batch 8, DDIM-50, "
+        "CFG 1.5, phi 0.7; a 512^2 micro-step in bf16 and at fp32)")
+    t1 = time.time()
+    flagship, counts = options_flagship(torch, out_dir, card, landscape_ms)
+    t_c = time.time() - t1
+    log(f"  phase 12c took {t_c:.1f} s")
+    log("== phase 12d: train_diff / predict_diff with the spatial transformer, dropout 0.1, "
+        "crossattn, cosine, +adamw_m_bf16, and train_ae with codec dropout; 12e: the "
+        "entry points with 12c's U-Net")
+    t1 = time.time()
+    entry, entry_counts = options_entry_points(torch, entry_root)
+    t_d = time.time() - t1
+    counts.update(entry_counts)
+    dh32 = {k: sum(c[k] for c in counts.values()) for k in LAUNCHES if k.endswith("_dh32")}
+    log(f"  phase 12 launches at Dh 32, each kernel apart: {dh32}; gn_silu_film "
+        f"{sum(c['gn_silu_film'] for c in counts.values())}")
+    for k, v in dh32.items():
+        require(v > 0, f"phase 12 launched no {k}")
+    seconds = time.time() - t0
+    log(f"  phase 12d/12e took {t_d:.1f} s; phase 12 took {seconds:.1f} s (12a {t_a:.1f}, "
+        f"12b {t_b:.1f}, 12c {t_c:.1f})")
+    return ({"phase12_flagship": flagship, "phase12_entry": entry,
+             "phase12_seconds": seconds}, counts)
+
+
 def main() -> int:
     global LOG_FILE
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4011,6 +4376,8 @@ def main() -> int:
     workflow, workflow_counts = generation_workflow(torch, entry_root, out_dir, card)
     phase10, phase10_counts = fp32_and_wide(torch, entry_root, out_dir, card, recs)
     phase11, phase11_counts = several_processes(torch, entry_root, her2.pop("her2_keep"), card)
+    phase12, phase12_counts = model_options(torch, entry_root, out_dir, card, recs,
+                                            sum(ms for _, _, ms in kernels))
     shutil.rmtree(entry_root, ignore_errors=True)
     # launches: each kernel's count on each main path it runs on, zeroed just
     # before and read just after (the sampler's batch, the serving batch, one
@@ -4021,7 +4388,7 @@ def main() -> int:
                    "codec_step": codec["codec_launches_per_step"], **entry["entry_counts"],
                    "seg_train_step": seg["seg_launches_per_micro_step"],
                    "seg_entry": seg_entry["seg_entry_counts"], **her2.pop("her2_counts"),
-                   **workflow_counts, **phase10_counts, **phase11_counts}
+                   **workflow_counts, **phase10_counts, **phase11_counts, **phase12_counts}
     not_run = her2.pop("paths_not_run")
     if not_run:
         log(f"  launches on {', '.join(not_run)}: null, those paths did not run")
@@ -4041,7 +4408,7 @@ def main() -> int:
                       "gn_bound_ms_sample_batch": gn_bound_ms, "gn_ms_sample_batch": gn_ms,
                       "host_us_per_call": host_us, **serving, **train, **codec, **entry,
                       **seg_parity, **seg, **seg_entry, "seg_seconds": seg_seconds,
-                      **her2, **workflow, **phase10, **phase11, "card": card}))
+                      **her2, **workflow, **phase10, **phase11, **phase12, "card": card}))
     # the line holds each kernel's summary; its shapes and its launches on
     # every path (tens of kB) go to <out>/kernels.json
     (out_dir / "kernels.json").write_text(json.dumps([r.entry for r in recs.values()], indent=1))

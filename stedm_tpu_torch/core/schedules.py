@@ -2,7 +2,7 @@
 
 A copy of the numpy parts of stedm_tpu/core/schedules.py (the port imports
 nothing from the JAX package): schedules are computed in float64 on the host
-and frozen to float32, as the reference does. Only the linear schedule and
+and frozen to float32, as the reference does. The four beta schedules and
 the buffers the sampler and the training loss read are kept.
 """
 
@@ -15,14 +15,26 @@ import torch
 
 
 def make_beta_schedule(schedule: str, n_timestep: int, linear_start: float = 1e-4,
-                       linear_end: float = 2e-2) -> np.ndarray:
-    """Beta schedule in float64 (reference diffusionmodules/util.py:21-43);
-    "linear" is linear in sqrt space. The other schedules come when a
-    configuration needs them."""
-    if schedule != "linear":
-        raise NotImplementedError(f"schedule {schedule!r} is not ported")
-    return np.linspace(linear_start ** 0.5, linear_end ** 0.5, n_timestep,
-                       dtype=np.float64) ** 2
+                       linear_end: float = 2e-2, cosine_s: float = 8e-3) -> np.ndarray:
+    """Beta schedule in float64 (reference diffusionmodules/util.py:21-43;
+    stedm_tpu schedules.py:21-40): "linear" is linear in sqrt space,
+    "cosine" the improved-DDPM cosine schedule clipped at 0.999,
+    "sqrt_linear" linear in beta, "sqrt" the square root of that."""
+    if schedule == "linear":
+        betas = np.linspace(linear_start ** 0.5, linear_end ** 0.5, n_timestep,
+                            dtype=np.float64) ** 2
+    elif schedule == "cosine":
+        timesteps = np.arange(n_timestep + 1, dtype=np.float64) / n_timestep + cosine_s
+        alphas = np.cos(timesteps / (1 + cosine_s) * np.pi / 2) ** 2
+        alphas = alphas / alphas[0]
+        betas = np.clip(1 - alphas[1:] / alphas[:-1], 0, 0.999)
+    elif schedule == "sqrt_linear":
+        betas = np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64)
+    elif schedule == "sqrt":
+        betas = np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64) ** 0.5
+    else:
+        raise ValueError(f"schedule '{schedule}' unknown.")
+    return betas
 
 
 def make_ddim_timesteps(ddim_discr_method: str, num_ddim_timesteps: int,
@@ -65,9 +77,9 @@ class DiffusionSchedule:
     @classmethod
     def create(cls, beta_schedule: str = "linear", timesteps: int = 1000,
                linear_start: float = 1e-4, linear_end: float = 2e-2,
-               parameterization: str = "eps") -> "DiffusionSchedule":
+               parameterization: str = "eps", cosine_s: float = 8e-3) -> "DiffusionSchedule":
         betas = make_beta_schedule(beta_schedule, timesteps, linear_start=linear_start,
-                                   linear_end=linear_end)
+                                   linear_end=linear_end, cosine_s=cosine_s)
         alphas = 1.0 - betas
         alphas_cumprod = np.cumprod(alphas, axis=0)
         alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])

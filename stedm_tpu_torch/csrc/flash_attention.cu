@@ -40,16 +40,16 @@
 //   * Dh <= 256 (flash_fwd_small): each consumer warpgroup owns 64 query rows
 //     of a 128-row tile and the whole O of them in registers; P goes from
 //     S's registers into the A operand of P V. K and V tiles go through
-//     rings of two stages (three at Dh 64) shared by both warpgroups, so K
-//     and V are read once per 128 rows; a K slot is freed as soon as its
-//     Q K^T has landed, a V slot after its P V. Inside a warpgroup Q K^T of
-//     tile i + 1 is started before P V of tile i and the softmax of tile i + 1
-//     runs under that P V; the two warpgroups take turns at starting (named
-//     barriers), so one's softmax runs under the other's products. The
-//     kernel is persistent, one block an SM walking over (head, query tile)
-//     items, with a second Q buffer where it fits: the producer loads the
-//     next item's Q, K and V while this item's last products and its
-//     epilogue run;
+//     rings of two stages (three at Dh 64, six at Dh 32) shared by both
+//     warpgroups, so K and V are read once per 128 rows; a K slot is freed
+//     as soon as its Q K^T has landed, a V slot after its P V. Inside a
+//     warpgroup Q K^T of tile i + 1 is started before P V of tile i and the
+//     softmax of tile i + 1 runs under that P V; the two warpgroups take
+//     turns at starting (named barriers), so one's softmax runs under the
+//     other's products. The kernel is persistent, one block an SM walking
+//     over (head, query tile) items, with a second Q buffer where it fits:
+//     the producer loads the next item's Q, K and V while this item's last
+//     products and its epilogue run;
 //   * Dh > 256 (flash_fwd_wide): the two consumers share one 64-row query tile,
 //     each owning half of O's columns. S is computed once: each takes half
 //     of the key tile's columns over the full Dh, the row maxima are
@@ -67,7 +67,15 @@
 //     named barriers and the block's own shared memory;
 //   * the softmax runs on exp2 with the scale folded into one fused
 //     multiply-add an element; keys >= T are masked to -inf in the last tile
-//     only; rows >= T are not stored.
+//     only; rows >= T are not stored;
+//   * Dh 32 (the U-Net's AttentionBlock at num_head_channels 32: [2B, 32,
+//     256, 32] sampling at 256^2, [B, 32, 1024, 32] training at 512^2): a
+//     row is 64 bytes, half the 128-byte swizzle row, so flash_fwd_small<32>
+//     keeps its tiles as 32-column sub-tiles in the 64-byte swizzle (the
+//     tensor maps' boxes and every wgmma descriptor, descriptor<64>): Q K^T
+//     is two k-steps of 32 bytes within the row, P V one m64n32k16 a key
+//     step. A K or V tile is 8 KB, so the ring holds six stages, not
+//     three.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -176,15 +184,21 @@ template <int D>
 struct Small {
   static constexpr int BM = 128;
   static constexpr int BK = D <= 128 ? 128 : 64;
-  static constexpr int NSUB = D / SUB;
-  static constexpr int Q_BYTES = NSUB * BM * ROW_BYTES;
-  static constexpr int KV_BYTES = NSUB * BK * ROW_BYTES;   // one K or one V tile
+  // sub-tiles of SC columns, rows of RB bytes: 64 columns in the 128-byte
+  // swizzle, or at Dh 32 all 32 in the 64-byte one
+  static constexpr int RB = D == 32 ? 64 : ROW_BYTES;
+  static constexpr int SC = RB / 2;
+  static constexpr int NSUB = D / SC;
+  static constexpr int Q_BYTES = NSUB * BM * RB;
+  static constexpr int KV_BYTES = NSUB * BK * RB;          // one K or one V tile
   static constexpr int BUDGET = 224 * 1024;
   // a second Q buffer where two K/V stages still fit beside it, then stages
   static constexpr int QBUF = 2 * Q_BYTES + 4 * KV_BYTES <= BUDGET ? 2 : 1;
-  static constexpr int STAGES = (BUDGET - QBUF * Q_BYTES) / (2 * KV_BYTES) >= 3 ? 3 : 2;
+  static constexpr int FIT = (BUDGET - QBUF * Q_BYTES) / (2 * KV_BYTES);
+  static constexpr int MAX_STAGES = D == 32 ? 6 : 3;
+  static constexpr int STAGES = FIT >= MAX_STAGES ? MAX_STAGES : FIT >= 3 ? 3 : 2;
   static constexpr int BARS = QBUF * Q_BYTES + 2 * STAGES * KV_BYTES;
-  static constexpr int SMEM = BARS + 128 + 1024;           // + barriers + alignment slack
+  static constexpr int SMEM = BARS + 32 + 32 * STAGES + 1024;   // + barriers + alignment slack
   static dim3 grid(const Params& p) {                      // one block an SM, or an item
     const int nwork = (p.t + BM - 1) / BM * p.nbh;
     return dim3(nwork < sm_count() ? nwork : sm_count());
@@ -202,6 +216,7 @@ flash_fwd_small(const __grid_constant__ CUtensorMap map_q, const __grid_constant
                 const __grid_constant__ CUtensorMap map_v, const Params p) {
   using C = Small<D>;
   constexpr int BK = C::BK, NSUB = C::NSUB, STAGES = C::STAGES, QBUF = C::QBUF;
+  constexpr int RB = C::RB, SC = C::SC;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t kv_s = base + QBUF * C::Q_BYTES, bars = base + C::BARS;
@@ -246,7 +261,7 @@ flash_fwd_small(const __grid_constant__ CUtensorMap map_q, const __grid_constant
         mbar_wait(q_empty(qb), ((item / QBUF) & 1) ^ 1);
         mbar_expect_tx(q_full(qb), C::Q_BYTES);
         for (int sub = 0; sub < NSUB; ++sub)
-          tma_load(q_s + sub * C::BM * ROW_BYTES, &map_q, q_full(qb), sub * SUB, q0, h, b);
+          tma_load(q_s + sub * C::BM * RB, &map_q, q_full(qb), sub * SC, q0, h, b);
         for (int i = 0; i < ntiles; ++i, ++it) {
           const int s = it % STAGES;
           const uint32_t free_parity = ((it / STAGES) & 1) ^ 1;
@@ -254,11 +269,11 @@ flash_fwd_small(const __grid_constant__ CUtensorMap map_q, const __grid_constant
           mbar_wait(k_empty(s), free_parity);
           mbar_expect_tx(k_full(s), C::KV_BYTES);
           for (int sub = 0; sub < NSUB; ++sub)
-            tma_load(k_s + sub * BK * ROW_BYTES, &map_k, k_full(s), sub * SUB, i * BK, h, b);
+            tma_load(k_s + sub * BK * RB, &map_k, k_full(s), sub * SC, i * BK, h, b);
           mbar_wait(v_empty(s), free_parity);
           mbar_expect_tx(v_full(s), C::KV_BYTES);
           for (int sub = 0; sub < NSUB; ++sub)
-            tma_load(v_s + sub * BK * ROW_BYTES, &map_v, v_full(s), sub * SUB, i * BK, h, b);
+            tma_load(v_s + sub * BK * RB, &map_v, v_full(s), sub * SC, i * BK, h, b);
         }
       }
     }
@@ -280,10 +295,10 @@ flash_fwd_small(const __grid_constant__ CUtensorMap map_q, const __grid_constant
       mbar_wait(k_full(it % STAGES), (it / STAGES) & 1);
       wgmma::fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int sub = kk / 4, off = (kk % 4) * 32;
-        wgmma::ss<0>(sc, wgmma::descriptor(q_w / 16 + (sub * C::BM * ROW_BYTES + off) / 16, 16),
-                     wgmma::descriptor(k_s / 16 + (sub * BK * ROW_BYTES + off) / 16, 16),
+      for (int kk = 0; kk < D / 16; ++kk) {     // k-steps of 16 columns, 32 bytes of a row
+        const int sub = kk / (SC / 16), off = (kk % (SC / 16)) * 32;
+        wgmma::ss<0>(sc, wgmma::descriptor<RB>(q_w / 16 + (sub * C::BM * RB + off) / 16, 16),
+                     wgmma::descriptor<RB>(k_s / 16 + (sub * BK * RB + off) / 16, 16),
                      kk != 0);
       }
       wgmma::commit();
@@ -293,8 +308,8 @@ flash_fwd_small(const __grid_constant__ CUtensorMap map_q, const __grid_constant
       mbar_wait(v_full(it % STAGES), (it / STAGES) & 1);
       wgmma::fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma::rs(o, pa[kk], wgmma::descriptor(v_s / 16 + kk * ROW_BYTES, BK * ROW_BYTES), 1);
+      for (int kk = 0; kk < BK / 16; ++kk)     // 16 keys a step: 16 rows of RB bytes
+        wgmma::rs(o, pa[kk], wgmma::descriptor<RB>(v_s / 16 + kk * RB, BK * RB), 1);
       wgmma::commit();
     };
     // the tile's softmax: P (bf16) goes from S's registers into the A operand of P V
@@ -324,7 +339,7 @@ flash_fwd_small(const __grid_constant__ CUtensorMap map_q, const __grid_constant
     for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++item) {
       const int bh = w / nq, q0 = (w % nq) * C::BM;
       const int qb = item % QBUF;
-      q_w = base + qb * C::Q_BYTES + cw * 64 * ROW_BYTES;
+      q_w = base + qb * C::Q_BYTES + cw * 64 * RB;
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
       m[0] = m[1] = -INFINITY;   // running max (scaled, log2 units) of rows g, g + 8
@@ -383,7 +398,7 @@ flash_fwd_small(const __grid_constant__ CUtensorMap map_q, const __grid_constant
 
 template <int D>
 struct Wide {
-  static constexpr int BM = 64, BK = 64;
+  static constexpr int BM = 64, BK = 64, SC = SUB;
   static constexpr int NSUB = D / SUB;
   static constexpr int N0 = (NSUB + 1) / 2;                // sub-tiles of consumer 0
   static constexpr int TILE_BYTES = NSUB * 64 * ROW_BYTES;  // Q, a K tile or a V tile
@@ -590,9 +605,9 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v, const Par
                                          Cfg::SMEM);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap map_q, map_k, map_v;
-  if (!make_map(&map_q, q, b, p.h, p.t, d, strides, Cfg::BM) ||
-      !make_map(&map_k, k, b, p.h, p.t, d, strides + 3, Cfg::BK) ||
-      !make_map(&map_v, v, b, p.h, p.t, d, strides + 6, Cfg::BK))
+  if (!make_map(&map_q, q, b, p.h, p.t, d, strides, Cfg::BM, Cfg::SC) ||
+      !make_map(&map_k, k, b, p.h, p.t, d, strides + 3, Cfg::BK, Cfg::SC) ||
+      !make_map(&map_v, v, b, p.h, p.t, d, strides + 6, Cfg::BK, Cfg::SC))
     return (int)cudaErrorInvalidValue;
   kernel<<<Cfg::grid(p), THREADS, Cfg::SMEM, stream>>>(map_q, map_k, map_v, p);
   return (int)cudaGetLastError();
@@ -604,13 +619,13 @@ extern "C" {
 
 // q, k, v, o: bf16 [B, H, T, D] on the device, last dimension contiguous;
 // strides: the element strides {batch, head, token} of q, k, v and o (12
-// values), each a multiple of 8 (16 bytes), bases 16-byte aligned. D a
-// multiple of 64, at most 512. lse: contiguous fp32 [B, H, T], or null when
+// values), each a multiple of 8 (16 bytes), bases 16-byte aligned. D 32, or
+// a multiple of 64 up to 512. lse: contiguous fp32 [B, H, T], or null when
 // the caller needs no LSE. Returns the cudaError_t of the launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b,
                         int h, int t, int d, const int64_t* strides, float sm_scale,
                         void* stream) {
-  if (d % 64 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0)
+  if ((d % 64 != 0 && d != 32) || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Params p = {(bf16*)o, (float*)lse, strides[9], strides[10], strides[11], t, h, b * h,
@@ -618,7 +633,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
 #define SMALL(D) case D: return launch<Small<D>>(flash_fwd_small<D>, q, k, v, p, b, d, strides, s)
 #define WIDE(D) case D: return launch<Wide<D>>(flash_fwd_wide<D>, q, k, v, p, b, d, strides, s)
   switch (d) {
-    SMALL(64); SMALL(128); SMALL(192); SMALL(256);
+    SMALL(32); SMALL(64); SMALL(128); SMALL(192); SMALL(256);
     WIDE(320); WIDE(384); WIDE(448); WIDE(512);
   }
 #undef SMALL

@@ -84,7 +84,13 @@
 //     (T <= 128) consumer 1 writes dQ itself and the adder and the
 //     conversion have nothing to do.
 //
-// Head dimensions 64, 128, 256 and 512.
+// Head dimensions 64, 128, 256 and 512, and 32 (the U-Net's AttentionBlock
+// at num_head_channels 32: [B, 32, 1024, 32] training at 512^2) on the Dh-64
+// instantiation with the head dimension padded to 64: the tensor maps
+// declare 32 columns, so TMA fills columns 32 .. 63 of every Q, K, V and dO
+// box with zeros; they add nothing to S^T and dP^T and give dQ, dK and dV
+// zero columns, which are not stored (twice the products of a Dh-32 tile, in
+// the layouts every descriptor here reads).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -138,6 +144,7 @@ struct Params {
   bf16* dq;             // [BH, T, D] contiguous, as dk and dv; written here when nk == 1
   bf16* dk;
   bf16* dv;
+  int dcols;            // the head dimension of dq, dk, dv (32 when the kernel runs at 64)
   int t, h, nq, nk;
   float scale_log2, sm_scale;
 };
@@ -202,7 +209,7 @@ __global__ void __launch_bounds__(PREP_THREADS)
 flash_bwd_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                const float* __restrict__ lse, float* __restrict__ stats, int* __restrict__ turn,
                int64_t o_sb, int64_t o_sh, int64_t o_st, int64_t d_sb, int64_t d_sh, int64_t d_st,
-               int t, int h, int nq) {
+               int t, int h, int nq, int dcols) {
   constexpr int WARPS = PREP_THREADS / 32;
   const int j = blockIdx.x, bh = blockIdx.y, b = bh / h, hh = bh % h;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -216,6 +223,7 @@ flash_bwd_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
       const bf16* pd = dout + b * d_sb + hh * d_sh + row * d_st;
 #pragma unroll
       for (int c = 2 * lane; c < D; c += 64) {
+        if (c >= dcols) break;
         const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(po + c));
         const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pd + c));
         di = fmaf(a.x, g.x, fmaf(a.y, g.y, di));
@@ -236,7 +244,8 @@ flash_bwd_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 // [BH, T, D]; one block a (query tile, head), 128 threads a column group.
 template <int D>
 __global__ void __launch_bounds__(D / SUB * WG)
-flash_bwd_dq_convert(const float2* __restrict__ acc, bf16* __restrict__ dq, int t, int nq) {
+flash_bwd_dq_convert(const float2* __restrict__ acc, bf16* __restrict__ dq, int t, int nq,
+                     int dcols) {
   const int j = blockIdx.x, bh = blockIdx.y;
   const int c = threadIdx.x / WG, lt = threadIdx.x % WG;
   const int warp = lt / 32, g = (lt % 32) >> 2, tg = lt & 3;
@@ -245,9 +254,10 @@ flash_bwd_dq_convert(const float2* __restrict__ acc, bf16* __restrict__ dq, int 
   for (int r = 0; r < 2; ++r) {
     const int row = j * BQ + warp * 16 + g + 8 * r;
     if (row >= t) continue;
-    bf16* out = dq + ((int64_t)bh * t + row) * D + c * SUB + 2 * tg;
+    bf16* out = dq + ((int64_t)bh * t + row) * dcols + c * SUB + 2 * tg;
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
+      if (c * SUB + 8 * jj >= dcols) break;
       const float2 v = part[(2 * jj + r) * WG + lt];
       *reinterpret_cast<uint32_t*>(out + 8 * jj) = pack_bf16x2(v.x, v.y);
     }
@@ -582,9 +592,11 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
           for (int r = 0; r < 2; ++r) {
             const int row = i * BQ + row_w + 8 * r;
             if (row >= p.t) continue;
-            bf16* out = p.dq + ((int64_t)bh * p.t + row) * D + (rank * NSUB + c) * SUB + 2 * tg;
+            bf16* out = p.dq + ((int64_t)bh * p.t + row) * p.dcols + (rank * NSUB + c) * SUB +
+                        2 * tg;
 #pragma unroll
             for (int jj = 0; jj < 8; ++jj) {
+              if ((rank * NSUB + c) * SUB + 8 * jj >= p.dcols) break;
               const float2 a = part[(2 * jj + r) * WG];
               *reinterpret_cast<uint32_t*>(out + 8 * jj) =
                   pack_bf16x2(a.x + dq[4 * jj + 2 * r], a.y + dq[4 * jj + 2 * r + 1]);
@@ -627,10 +639,11 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
     for (int r = 0; r < 2; ++r) {
       const int key = key0 + cw * 64 + row_w + 8 * r;
       if (key >= p.t) continue;
-      bf16* ok = p.dk + ((int64_t)bh * p.t + key) * D + col0 + 2 * tg;
-      bf16* ov = p.dv + ((int64_t)bh * p.t + key) * D + col0 + 2 * tg;
+      bf16* ok = p.dk + ((int64_t)bh * p.t + key) * p.dcols + col0 + 2 * tg;
+      bf16* ov = p.dv + ((int64_t)bh * p.t + key) * p.dcols + col0 + 2 * tg;
 #pragma unroll
       for (int jj = 0; jj < C::DL / 8; ++jj) {
+        if (col0 + 8 * jj >= p.dcols) break;
         *reinterpret_cast<uint32_t*>(ok + 8 * jj) = pack_bf16x2(dk[4 * jj + 2 * r], dk[4 * jj + 2 * r + 1]);
         *reinterpret_cast<uint32_t*>(ov + 8 * jj) = pack_bf16x2(dv[4 * jj + 2 * r], dv[4 * jj + 2 * r + 1]);
       }
@@ -652,6 +665,7 @@ struct Layout {   // the workspace: stats, turn counters, dQ sums (more than one
 
 Layout layout(int bh, int t, int d) {
   Layout l;
+  if (d == 32) d = 64;   // run padded
   l.nq = (t + BQ - 1) / BQ;
   l.nk = (t + BKEYS - 1) / BKEYS;
   const size_t tiles = (size_t)bh * l.nq;
@@ -665,7 +679,7 @@ Layout layout(int bh, int t, int d) {
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* lse, void* dq, void* dk, void* dv, void* workspace, int b, int h, int t,
-           const int64_t* s, float sm_scale, cudaStream_t stream) {
+           int dcols, const int64_t* s, float sm_scale, cudaStream_t stream) {
   using C = Bwd<D>;
   // set before every launch: a launch from another host thread (autograd's
   // worker, which runs this backward) did not see it set once from the first
@@ -678,15 +692,16 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   int* turn = (int*)(ws + l.turn_off);
   float* acc = (float*)(ws + l.acc_off);
   CUtensorMap map_q, map_k, map_v, map_do;
-  if (!make_map(&map_q, q, b, h, t, D, s, BQ) || !make_map(&map_k, k, b, h, t, D, s + 3, BKEYS) ||
-      !make_map(&map_v, v, b, h, t, D, s + 6, BKEYS) ||
-      !make_map(&map_do, dout, b, h, t, D, s + 12, BQ))
+  if (!make_map(&map_q, q, b, h, t, dcols, s, BQ) ||
+      !make_map(&map_k, k, b, h, t, dcols, s + 3, BKEYS) ||
+      !make_map(&map_v, v, b, h, t, dcols, s + 6, BKEYS) ||
+      !make_map(&map_do, dout, b, h, t, dcols, s + 12, BQ))
     return (int)cudaErrorInvalidValue;
   const dim3 tiles(l.nq, b * h);
   flash_bwd_prep<D><<<tiles, PREP_THREADS, 0, stream>>>(
       (const bf16*)o, (const bf16*)dout, lse, stats, turn, s[9], s[10], s[11], s[12], s[13], s[14],
-      t, h, l.nq);
-  const Params p = {stats, acc, turn, (bf16*)dq, (bf16*)dk, (bf16*)dv, t, h, l.nq, l.nk,
+      t, h, l.nq, dcols);
+  const Params p = {stats, acc, turn, (bf16*)dq, (bf16*)dk, (bf16*)dv, dcols, t, h, l.nq, l.nk,
                     sm_scale * LOG2E, sm_scale};
   if (C::CL == 1) {
     flash_bwd<D><<<dim3(l.nk, b * h), THREADS, C::SMEM, stream>>>(map_q, map_k, map_v, map_do, p);
@@ -699,7 +714,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   }
   if (l.nk > 1)
     flash_bwd_dq_convert<D><<<tiles, D / SUB * WG, 0, stream>>>((const float2*)acc, (bf16*)dq, t,
-                                                                   l.nq);
+                                                                   l.nq, dcols);
   return (int)cudaGetLastError();
 }
 
@@ -715,25 +730,25 @@ size_t flash_attention_bwd_workspace(int bh, int t, int d) { return layout(bh, t
 // token} of q, k, v, o and dout (15 values), each a multiple of 8 (16 bytes),
 // bases 16-byte aligned. lse: the forward's fp32 [B, H, T] (natural log),
 // contiguous. dq, dk, dv: contiguous bf16 [B, H, T, D] outputs. workspace:
-// flash_attention_bwd_workspace(B * H, T, D) bytes, 256-byte aligned. D 64,
-// 128, 256 or 512. Launches the prep pass, the fused kernel and (more than one
+// flash_attention_bwd_workspace(B * H, T, D) bytes, 256-byte aligned. D 32,
+// 64, 128, 256 or 512. Launches the prep pass, the fused kernel and (more than one
 // key tile) the dQ conversion on `stream`; returns the cudaError_t of the
 // launches.
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const void* lse, void* dq, void* dk, void* dv,
                         void* workspace, int b, int h, int t, int d, const int64_t* strides,
                         float sm_scale, void* stream) {
-  if ((d != 64 && d != 128 && d != 256 && d != 512) || t <= 0 || b <= 0 || h <= 0)
+  if ((d != 32 && d != 64 && d != 128 && d != 256 && d != 512) || t <= 0 || b <= 0 || h <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   if (d == 512)
-    return launch<512>(q, k, v, o, dout, l, dq, dk, dv, workspace, b, h, t, strides, sm_scale, s);
+    return launch<512>(q, k, v, o, dout, l, dq, dk, dv, workspace, b, h, t, d, strides, sm_scale, s);
   if (d == 256)
-    return launch<256>(q, k, v, o, dout, l, dq, dk, dv, workspace, b, h, t, strides, sm_scale, s);
+    return launch<256>(q, k, v, o, dout, l, dq, dk, dv, workspace, b, h, t, d, strides, sm_scale, s);
   if (d == 128)
-    return launch<128>(q, k, v, o, dout, l, dq, dk, dv, workspace, b, h, t, strides, sm_scale, s);
-  return launch<64>(q, k, v, o, dout, l, dq, dk, dv, workspace, b, h, t, strides, sm_scale, s);
+    return launch<128>(q, k, v, o, dout, l, dq, dk, dv, workspace, b, h, t, d, strides, sm_scale, s);
+  return launch<64>(q, k, v, o, dout, l, dq, dk, dv, workspace, b, h, t, d, strides, sm_scale, s);
 }
 
 }  // extern "C"

@@ -68,7 +68,12 @@
 //     go to two fresh accumulators in turn,
 //     each added to its fp32 sum in registers with one rounding to nearest
 //     while the next chain runs;
-//   * keys past T get P = 0, and no gradient row past T is stored.
+//   * keys past T get P = 0, and no gradient row past T is stored;
+//   * Dh 32 (the U-Net's AttentionBlock at num_head_channels 32) runs the
+//     Dh-64 instantiation: the split pass writes 64-column copies whose
+//     columns 32 .. 63 are zeros (they add nothing to S^T and dP^T, and give
+//     dQ, dK and dV zero columns there), and only the 32 real columns of
+//     each gradient are stored.
 // All products are m64n32k8: S^T and dP^T are 64 keys x 32 queries, and dK,
 // dV and dQ^T are kept as 32-column accumulators.
 
@@ -122,7 +127,8 @@ struct Params {
   int* turn;            // [BH, nq, cl, NC]
   float* dk;            // [BH, T, D] contiguous, as dv
   float* dv;
-  int t, d, nq, nk;
+  int t, d, nq, nk;     // d: the columns the kernel runs at (64 for a Dh-32 head)
+  int dcols;            // the head dimension of dk, dv
   float scale_log2, sm_scale;
 };
 
@@ -165,7 +171,8 @@ flash_bwd_f32_stats(const float* __restrict__ o, const float* __restrict__ dout,
 // accumulator element 4 f + k at float4 f * 128 + lt, component k); one
 // block a (query tile, column group, head), a thread a register set.
 __global__ void __launch_bounds__(WG)
-flash_bwd_f32_dq(const float4* __restrict__ acc, float* __restrict__ dq, int t, int d, int nq) {
+flash_bwd_f32_dq(const float4* __restrict__ acc, float* __restrict__ dq, int t, int d, int nq,
+                 int dcols) {
   const int j = blockIdx.x, c = blockIdx.y, bh = blockIdx.z;
   const int lt = threadIdx.x, warp = lt / 32, g = (lt % 32) >> 2, tg = lt & 3;
   const float4* part = acc + (((int64_t)bh * nq + j) * (d / 64) + c) * (4 * WG) + lt;
@@ -178,7 +185,7 @@ flash_bwd_f32_dq(const float4* __restrict__ acc, float* __restrict__ dq, int t, 
       const int e = 4 * f + k;
       const int col = 64 * c + 16 * warp + g + 8 * ((e >> 1) & 1);
       const int q = j * BQ + 8 * (e / 4) + 2 * tg + (e & 1);
-      if (q < t) dq[((int64_t)bh * t + q) * d + col] = x[k];
+      if (q < t && col < dcols) dq[((int64_t)bh * t + q) * dcols + col] = x[k];
     }
   }
 }
@@ -413,13 +420,14 @@ __device__ __forceinline__ void bwd_consumer(const Params& p, unsigned char* sme
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + key_w + 8 * r;
     if (key >= p.t) continue;
-    float* o = out + ((int64_t)bh * p.t + key) * p.d + col0 + 2 * tg;
+    float* o = out + ((int64_t)bh * p.t + key) * p.dcols + col0 + 2 * tg;
 #pragma unroll
     for (int c = 0; c < 2 * NC; ++c)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
-        *reinterpret_cast<float2*>(o + 32 * c + 8 * jj) =
-            make_float2(dg[c][4 * jj + 2 * r], dg[c][4 * jj + 2 * r + 1]);
+        if (col0 + 32 * c + 8 * jj < p.dcols)
+          *reinterpret_cast<float2*>(o + 32 * c + 8 * jj) =
+              make_float2(dg[c][4 * jj + 2 * r], dg[c][4 * jj + 2 * r + 1]);
   }
 }
 
@@ -586,7 +594,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_f32<DL, CL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const int bh = b * h;
+  const int bh = b * h, dx = d;
+  d = run_columns(d);
   const Layout l = layout(bh, t, d);
   unsigned char* ws = (unsigned char*)workspace;
   float* nat[4];
@@ -601,7 +610,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   if (err != cudaSuccess) return (int)err;
   flash_bwd_f32_stats<<<dim3(l.nq, bh), STATS_THREADS, 0, stream>>>(
       (const float*)o, (const float*)dout, lse, stats, s[9], s[10], s[11], s[12], s[13], s[14], t,
-      h, d, l.nq);
+      h, dx, l.nq);
   SplitParams sp = {};
   sp.job[0] = {(const float*)q, s[0], s[1], s[2], nat[0], tr[0], 1};
   sp.job[1] = {(const float*)k, s[3], s[4], s[5], nat[1], nullptr, 0};
@@ -611,6 +620,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   sp.h = h;
   sp.t = t;
   sp.d = d;
+  sp.dx = dx;
   sp.tp = l.tp;
   sp.bh = bh;
   err = launch_split(sp, stream);
@@ -625,8 +635,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
       !make_split_map(&map_dot, tr[1], bh, d, l.tp, 64))
     return (int)cudaErrorInvalidValue;
   const Params p = {nat[1], (int64_t)bh * t * d, stats, acc, turn, (float*)dk, (float*)dv, t, d,
-                    l.nq, l.nk,
-                    sm_scale * LOG2E, sm_scale};
+                    l.nq, l.nk, dx, sm_scale * LOG2E, sm_scale};
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = cluster_launch(&attr, 0, THREADS, CL, C::SMEM, stream);
   cfg.gridDim = dim3(l.nk * CL, bh);
@@ -634,7 +643,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
                            p);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_f32_dq<<<dim3(l.nq, d / 64, bh), WG, 0, stream>>>((const float4*)acc, (float*)dq, t,
-                                                               d, l.nq);
+                                                               d, l.nq, dx);
   return (int)cudaGetLastError();
 }
 
@@ -649,23 +658,25 @@ extern "C" {
 // 64 * 32] in the consumers' register order;
 // nq = ceil(T / 32); each
 // region 256-byte aligned.
-size_t flash_attention_bwd_f32_workspace(int bh, int t, int d) { return layout(bh, t, d).bytes; }
+size_t flash_attention_bwd_f32_workspace(int bh, int t, int d) {
+  return layout(bh, t, run_columns(d)).bytes;
+}
 
 // q, k, v, o, d_o: fp32 [B, H, T, D] on the device, last dimension contiguous;
 // strides: their element strides {batch, head, token} (15 values), each a
 // multiple of 4 (16 bytes), bases 16-byte aligned. lse: contiguous fp32
 // [B, H, T]; dq, dk, dv: contiguous fp32 [B, H, T, D]; workspace:
-// flash_attention_bwd_f32_workspace bytes, 256-byte aligned. D a multiple of
-// 64, at most 512; `cluster` the blocks that split it (D / 128 when D is
-// 128, 256 or 512, else D / 64; anything else is refused). Launches the
+// flash_attention_bwd_f32_workspace bytes, 256-byte aligned. D 32, or a
+// multiple of 64 up to 512; `cluster` the blocks that split it (D / 128 when
+// D is 128, 256 or 512, 1 at D 32, else D / 64; anything else is refused). Launches the
 // stats and split passes, the kernel and the dQ pass on `stream`; returns
 // the first cudaError_t of the launches.
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                             const void* d_o, const void* lse, void* dq, void* dk, void* dv,
                             void* workspace, int b, int h, int t, int d, int cluster,
                             const int64_t* strides, float sm_scale, void* stream) {
-  if (d % 64 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0 || b * h > 65535 ||
-      cluster != d / block_columns(d))
+  if ((d % 64 != 0 && d != 32) || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0 ||
+      b * h > 65535 || cluster != run_columns(d) / block_columns(d))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
@@ -673,6 +684,9 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const v
   case D:                                                                                    \
     return launch<DL, D / DL>(q, k, v, o, d_o, l, dq, dk, dv, workspace, b, h, t, d, strides, \
                               sm_scale, s)
+  if (d == 32)
+    return launch<64, 1>(q, k, v, o, d_o, l, dq, dk, dv, workspace, b, h, t, d, strides, sm_scale,
+                         s);
   switch (d) {
     BWD(64, 64); BWD(128, 128); BWD(192, 64); BWD(256, 128);
     BWD(320, 64); BWD(384, 64); BWD(448, 64); BWD(512, 128);

@@ -5,8 +5,9 @@
 // (gn_silu.cu, nearest_code.cu).
 //
 // Shared-memory tiles are kept as sub-tiles of 64 bf16 columns (128 bytes, one
-// row of the 128-byte swizzle), the layout the wgmma descriptors of
-// wgmma_sm90.cuh read.
+// row of the 128-byte swizzle; the bf16 flash forward at Dh 32: 32 columns in
+// the 64-byte swizzle), the layout the wgmma descriptors of wgmma_sm90.cuh
+// read.
 
 #pragma once
 #include <cuda.h>
@@ -59,8 +60,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// One TMA box {64 columns, rows of the map's box, 1, 1} at (col, row, head,
-// batch) into shared memory; its bytes are counted on `bar`.
+// One TMA box {the map's columns and rows, 1, 1} at (col, row, head, batch)
+// into shared memory; its bytes are counted on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int col, int row, int head, int batch) {
   asm volatile(
@@ -153,18 +154,21 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A bf16 [B, H, T, D] tensor with element strides s = {batch, head, token} as
-// the 4-D map {D, T, H, B}, read in boxes of 64 columns x `rows` tokens in the
-// 128-byte swizzle; rows past T arrive as zeros.
+// the 4-D map {D, T, H, B}, read in boxes of `cols` columns (64: the 128-byte
+// swizzle; 32: the 64-byte one) x `rows` tokens; rows past T, and columns
+// past D (D = 32 in a 64-column box, which the flash backward runs padded to
+// 64), arrive as zeros.
 inline bool make_map(CUtensorMap* map, const void* ptr, int b, int h, int t, int d,
-                     const int64_t* s, int rows) {
+                     const int64_t* s, int rows, int cols = SUB) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)h, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)s[2] * 2, (cuuint64_t)s[1] * 2, (cuuint64_t)s[0] * 2};
-  const cuuint32_t box[4] = {SUB, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == SUB ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

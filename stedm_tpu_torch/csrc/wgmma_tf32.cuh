@@ -296,7 +296,9 @@ inline bool make_split_map(CUtensorMap* map, const float* ptr, int bh, int rows,
 // halves, [2, B*H, T, D] ("nat"), and/or transposed, [2, B*H, D, TP] ("tr",
 // TP = T rounded up to 8; tokens in [T, TP) are written as zeros), the
 // tokens of each group of 8 in the order pi when `perm` is set. A block
-// takes a 32-token x 32-column tile of every job.
+// takes a 32-token x 32-column tile of every job. The inputs have `dx`
+// columns and the copies `d`: with dx 32 and d 64 (the kernels run a Dh-32
+// head padded to 64) columns 32 .. 63 of the copies are written as zeros.
 // ---------------------------------------------------------------------------
 
 struct SplitJob {
@@ -309,7 +311,7 @@ struct SplitJob {
 
 struct SplitParams {
   SplitJob job[4];
-  int njobs, h, t, d, tp, bh;
+  int njobs, h, t, d, dx, tp, bh;
 };
 
 constexpr int SPLIT_THREADS = 256;
@@ -328,7 +330,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS) split_tf32(const SplitParams p)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int tok = t0 + ty + 8 * r;
-      const float v = tok < p.t ? x[tok * job.st + d0 + tx] : 0.f;
+      const float v = tok < p.t && d0 + tx < p.dx ? x[tok * job.st + d0 + tx] : 0.f;
       tile[ty + 8 * r][tx] = v;
       if (job.nat != nullptr && tok < p.t) {
         uint32_t hi, lo;
@@ -369,5 +371,10 @@ inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 // Dh 384, spilled), and Dh / columns blocks a cluster (ops/blocked_attention.
 // py: fp32_plan passes that cluster size, which the entry points check).
 inline int block_columns(int d) { return d == 128 || d == 256 || d == 512 ? 128 : 64; }
+
+// The head dimension the kernels run at: Dh 32 runs padded to 64 (the split
+// copies carry zeros in columns 32 .. 63, and only the real columns of the
+// outputs are stored).
+inline int run_columns(int d) { return d == 32 ? 64 : d; }
 
 }  // namespace tf32w

@@ -63,8 +63,8 @@ class DiagonalGaussian:
 class AutoencoderKL(nn.Module):
     """(stedm_tpu autoencoder_kl.py:71-125) with the VQ codec's module names
     (``encoder``, ``decoder``, ``quant_conv``, ``post_quant_conv``).
-    ``ddconfig`` takes the shipped keys: ``double_z`` must be true and a
-    non-zero ``dropout`` raises (not ported)."""
+    ``ddconfig`` takes the shipped keys: ``double_z`` must be true;
+    ``dropout`` is never drawn, as in the JAX codec (``VQEncoder``)."""
 
     def __init__(self, embed_dim: int = 4, ddconfig: dict | None = None,
                  dtype: torch.dtype = torch.float32):

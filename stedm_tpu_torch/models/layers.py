@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from stedm_tpu_torch.ops.gn_silu import gn_silu
+from stedm_tpu_torch.parallel import dist
 
 
 def channels_last(x: torch.Tensor) -> torch.Tensor:
@@ -78,9 +79,9 @@ def conv1x1(cin: int, cout: int, bias: bool = True) -> Conv2d:
 
 
 class GNSiLU(nn.Module):
-    """GroupNorm(+embedding add)(+SiLU) (stedm_tpu layers.py:63-102) through
-    ``ops.gn_silu``; parameters are torch GroupNorm's ``weight`` and ``bias``;
-    ``add`` is ``[B, C]``."""
+    """GroupNorm(+embedding add | +FiLM)(+SiLU) (stedm_tpu layers.py:63-102)
+    through ``ops.gn_silu``; parameters are torch GroupNorm's ``weight`` and
+    ``bias``; ``add``, ``film_scale`` and ``film_shift`` are ``[B, C]``."""
 
     def __init__(self, channels: int, eps: float = 1e-5, apply_silu: bool = True):
         super().__init__()
@@ -88,12 +89,39 @@ class GNSiLU(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor, add: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, add: torch.Tensor | None = None,
+                film_scale: torch.Tensor | None = None,
+                film_shift: torch.Tensor | None = None) -> torch.Tensor:
         xh = x.permute(0, 2, 3, 1).contiguous()      # a view for channels_last x
-        y = gn_silu(xh, self.weight, self.bias,
-                    add=None if add is None else add.contiguous(),
-                    eps=self.eps, apply_silu=self.apply_silu)
+        vec = lambda v: None if v is None else v.contiguous()
+        y = gn_silu(xh, self.weight, self.bias, add=vec(add), film_scale=vec(film_scale),
+                    film_shift=vec(film_shift), eps=self.eps, apply_silu=self.apply_silu)
         return y.permute(0, 3, 1, 2)
+
+
+def dropout_mask(shape, rate: float, generator: torch.Generator | None,
+                 device) -> torch.Tensor:
+    """Flax ``nn.Dropout``'s keep mask (probability ``1 - rate``), drawn from
+    ``generator``; across ranks, this rank's rows of the global batch's mask
+    (the leading axis is the batch)."""
+    if generator is None:
+        raise ValueError("dropout in train mode needs the step's generator")
+    return dist.rank_rows(torch.rand, shape, generator=generator, device=device) < 1.0 - rate
+
+
+def apply_dropout(x: torch.Tensor, mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """The kept values scaled by ``1 / (1 - rate)``, the others 0."""
+    keep = 1.0 - rate
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: keep with probability ``1 - rate``, scaled by
+    ``1 / (1 - rate)``; identity outside training or at rate 0."""
+    if not train or rate <= 0:
+        return x
+    return apply_dropout(x, dropout_mask(x.shape, rate, generator, x.device), rate)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
@@ -101,22 +129,32 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 
 
 class Upsample(nn.Module):
-    """Nearest 2x upsample + 3x3 conv (reference openaimodel.py:104-132)."""
+    """Nearest 2x upsample + 3x3 conv, or the upsample alone at
+    ``use_conv=False`` (reference openaimodel.py:104-132; stedm_tpu
+    layers.py:127-139)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, use_conv: bool = True):
         super().__init__()
-        self.conv = conv3x3(channels, channels)
+        self.conv = conv3x3(channels, channels) if use_conv else None
 
     def forward(self, x):
-        return self.conv(upsample_nearest_2x(x))
+        x = upsample_nearest_2x(x)
+        return x if self.conv is None else self.conv(x)
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pool, stride 2 (flax ``nn.avg_pool(x, (2, 2), strides=(2, 2))``)."""
+    return channels_last(F.avg_pool2d(x, 2, 2))
 
 
 class Downsample(nn.Module):
-    """Stride-2 3x3 conv downsample (reference openaimodel.py:147-173)."""
+    """Stride-2 3x3 conv downsample, or a 2x2 average pool at
+    ``use_conv=False`` (reference openaimodel.py:147-173; stedm_tpu
+    layers.py:142-155)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, use_conv: bool = True):
         super().__init__()
-        self.op = conv3x3(channels, channels, stride=2)
+        self.op = conv3x3(channels, channels, stride=2) if use_conv else None
 
     def forward(self, x):
-        return self.op(x)
+        return avg_pool_2x(x) if self.op is None else self.op(x)

@@ -4,6 +4,15 @@ Sub-modules mirror the JAX parameter tree's top level: ``unet``,
 ``first_stage`` (the frozen VQ-f4 codec), ``cond_stage`` (SpatialRescaler)
 and ``agg`` (Swin-V2-T + aggregation, or the set-ViT). All methods take and
 return NHWC.
+
+``conditioning_key`` (stedm_tpu stedm.py:120-135): ``hybrid`` concatenates
+the layout to the noisy latent and hands the style to the U-Net as its
+context, ``concat`` the layout only, ``crossattn`` the style only, ``none``
+neither, and ``adm`` passes the style as the U-Net's class labels ``y``
+(which a U-Net with ``num_classes`` refuses, the style being a float vector,
+and one without ignores, as there). Where the layout is not concatenated,
+the U-Net's first conv takes the latent's channels (``embed_dim``), the
+width flax infers from the input.
 """
 
 from __future__ import annotations
@@ -22,6 +31,9 @@ from stedm_tpu_torch.models.unet import UNet
 from stedm_tpu_torch.models.vq import VQModelInterface
 
 
+CONDITIONING_KEYS = ("hybrid", "concat", "crossattn", "adm", "none", None)
+
+
 class STEDM(nn.Module):
     def __init__(self, unet_config: dict, first_stage_config: dict,
                  cond_stage_config: dict, style_agg: str = "linear",
@@ -30,11 +42,12 @@ class STEDM(nn.Module):
                  scale_factor: float = 1.0, conditioning_key: str = "hybrid",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if conditioning_key not in ("hybrid", "concat"):
-            raise NotImplementedError(f"conditioning_key={conditioning_key!r} comes "
-                                      "in a later slice")
+        if conditioning_key not in CONDITIONING_KEYS:
+            raise ValueError(f"unknown conditioning_key {conditioning_key!r}")
         self.scale_factor, self.conditioning_key = scale_factor, conditioning_key
         self.patch_size, self.dtype = patch_size, dtype
+        if conditioning_key not in ("hybrid", "concat"):
+            unet_config = {**unet_config, "in_channels": first_stage_config["embed_dim"]}
         self.unet = UNet(dtype=dtype, **unet_config)
         self.first_stage = VQModelInterface(dtype=dtype, **first_stage_config)
         self.cond_stage = SpatialRescaler(dtype=dtype, **cond_stage_config)
@@ -75,13 +88,26 @@ class STEDM(nn.Module):
             return self.agg(style_imgs, train=train, generator=generator)
         return self.agg(style_imgs)
 
+    @property
+    def bottleneck_only(self) -> bool:
+        """The style enters only at the bottleneck, so CFG's two branches can
+        share the encoder (stedm_tpu steps.py:178, :319): hybrid
+        conditioning without the spatial transformer."""
+        return self.conditioning_key == "hybrid" and not self.unet.use_spatial_transformer
+
     def eps(self, z_noisy: torch.Tensor, t: torch.Tensor, seg_cond: torch.Tensor,
-            style: torch.Tensor) -> torch.Tensor:
-        """Layout channel-concatenated to the noisy latent; in 'hybrid' mode
-        the style rides the U-Net context (stedm_tpu stedm.py:119-135)."""
-        x = torch.cat([z_noisy.to(self.dtype), seg_cond.to(self.dtype)], dim=-1)
-        ctx = style if self.conditioning_key == "hybrid" else None
-        out = self.unet(x.permute(0, 3, 1, 2), t, context=ctx)
+            style: torch.Tensor, train: bool = False,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+        """The conditioning dispatch (stedm_tpu stedm.py:119-135; see the
+        module docstring). ``train``: the U-Net's dropout drawn from
+        ``generator``."""
+        key = self.conditioning_key
+        x = z_noisy.to(self.dtype)
+        if key in ("hybrid", "concat"):
+            x = torch.cat([x, seg_cond.to(self.dtype)], dim=-1)
+        kw = ({"context": style} if key in ("hybrid", "crossattn")
+              else {"y": style} if key == "adm" else {})
+        out = self.unet(x.permute(0, 3, 1, 2), t, train=train, generator=generator, **kw)
         return out.permute(0, 2, 3, 1).float()
 
     def _check_caching(self) -> None:
@@ -124,9 +150,9 @@ def build_stedm(cfg, device=None, seed: int = 0) -> STEDM:
     entry points load it. The layout mapper is two channels wide, the width
     of the one-hot the entry points feed, as flax takes it from the init
     batch; the config's ``cond_stage_config.params.in_channels`` is not
-    read, as there. The U-Net and the codec raise on a key they do not
-    port. Runs on ``cuda`` unless ``device`` says otherwise (``"meta"``
-    builds the structure only)."""
+    read, as there. The U-Net and the codec raise on a key the JAX modules
+    do not take. Runs on ``cuda`` unless ``device`` says otherwise
+    (``"meta"`` builds the structure only)."""
     diff = cfg.diffusion
     dtype = _COMPUTE_DTYPES[diff.get("compute_dtype", "float32")]
     sampling = cfg.style_sampling
@@ -175,7 +201,8 @@ def flagship_configs(patch: int = FLAGSHIP_PATCH) -> dict:
 
 
 def build_flagship(batch: int = 8, device=None, dtype: torch.dtype = torch.bfloat16,
-                   seed: int = 0, patch: int = FLAGSHIP_PATCH, nonzero_init: bool = False):
+                   seed: int = 0, patch: int = FLAGSHIP_PATCH, nonzero_init: bool = False,
+                   unet_options: dict | None = None):
     """Flagship model with random weights from ``seed``, a bench batch and the
     schedule, mirroring bench.py:190-227: bf16 compute, fp32 parameters and
     GroupNorm statistics, and +0.005 on every 4-D parameter (the zero-init
@@ -186,6 +213,9 @@ def build_flagship(batch: int = 8, device=None, dtype: torch.dtype = torch.bfloa
     ``out`` conv) PyTorch's default random init, as a training run needs: a
     zero ``proj_out`` makes the gradient reaching the attention exactly zero.
 
+    ``unet_options``: U-Net keywords added to the landscape config (e.g.
+    ``use_scale_shift_norm``, ``num_head_channels``).
+
     Runs on ``cuda`` unless ``device`` says otherwise (``"meta"`` builds the
     structure only). Returns ``(model, batch_dict, schedule)``; the batch is
     NHWC: an all-background one-hot layout, uniform(-1, 1) style images and
@@ -195,7 +225,9 @@ def build_flagship(batch: int = 8, device=None, dtype: torch.dtype = torch.bfloa
     cuda_devs = [dev.index or 0] if dev.type == "cuda" else []
     with torch.random.fork_rng(devices=cuda_devs), torch.device(dev):
         torch.manual_seed(seed)
-        model = STEDM(dtype=dtype, **flagship_configs(patch)).eval()
+        cfg = flagship_configs(patch)
+        cfg["unet_config"].update(unet_options or {})
+        model = STEDM(dtype=dtype, **cfg).eval()
         if nonzero_init:
             for layer in model.unet.zero_init_layers():
                 layer.reset_parameters()

@@ -29,29 +29,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from stedm_tpu_torch.models.layers import Linear
+from stedm_tpu_torch.models.layers import Linear, dropout
 from stedm_tpu_torch.models.swin import LayerNorm32
-from stedm_tpu_torch.parallel import dist
 
 
 def _norm(dim: int) -> LayerNorm32:
     """flax's LayerNorm: eps 1e-6, computed in fp32."""
     return LayerNorm32(dim, eps=1e-6)
-
-
-def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: torch.Generator | None) -> torch.Tensor:
-    """Flax's ``nn.Dropout``: keep with probability ``1 - rate``, scaled by
-    ``1 / (1 - rate)``; identity outside training or at rate 0."""
-    if not train or rate <= 0:
-        return x
-    if generator is None:
-        raise ValueError("dropout in train mode needs the step's generator")
-    keep = 1.0 - rate
-    # across ranks, this rank's rows of the global batch's mask (x's leading
-    # axis is the batch)
-    mask = dist.rank_rows(torch.rand, x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class LSA(nn.Module):

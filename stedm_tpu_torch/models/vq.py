@@ -120,22 +120,19 @@ class _Mid(nn.Module):
         return self.block_2(self.attn_1(self.block_1(h)))
 
 
-def _check_dropout(dropout: float) -> None:
-    if dropout:
-        raise NotImplementedError(f"dropout {dropout} in the codec's ResnetBlocks is not "
-                                  "ported (ROADMAP §1: the rest; every shipped config sets 0.0)")
-
-
 class VQEncoder(nn.Module):
     """(reference model.py:368-459); ``double_z`` doubles the output
-    channels (the KL codec's mean and log-variance)."""
+    channels (the KL codec's mean and log-variance). ``dropout`` is taken
+    and never drawn: the JAX codec's ResnetBlocks apply it only in train
+    mode, which no caller of the JAX codec passes (stedm_tpu vq.py:288,
+    ``training_recon`` -> ``encode``; ROADMAP §3, mirrored); so here too in
+    the decoder."""
 
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
                  resolution: int = 512, z_channels: int = 3, in_channels: int = 3,
                  double_z: bool = False, dropout: float = 0.0):
         super().__init__()
-        _check_dropout(dropout)
         self.conv_in = conv3x3(in_channels, ch)
         in_mult = (1,) + tuple(ch_mult)
         curr_res = resolution
@@ -178,7 +175,6 @@ class VQDecoder(nn.Module):
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
                  resolution: int = 512, z_channels: int = 3, dropout: float = 0.0):
         super().__init__()
-        _check_dropout(dropout)
         n = len(ch_mult)
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (n - 1)
@@ -264,8 +260,8 @@ def codec_args(ddconfig: dict | None, double_z: bool) -> tuple[dict, dict]:
 class VQModelInterface(nn.Module):
     """Pre-quant encode / quantize-then-decode (stedm_tpu vq.py:242-290).
     ``encode``, ``decode`` and ``training_recon`` take and return NHWC.
-    ``ddconfig`` takes the shipped keys: ``double_z`` must be false and a
-    non-zero ``dropout`` raises (not ported). ``monitor`` is ignored, as in
+    ``ddconfig`` takes the shipped keys: ``double_z`` must be false;
+    ``dropout`` is never drawn, as in the JAX codec (``VQEncoder``). ``monitor`` is ignored, as in
     the JAX package. A ``ckpt_path`` is loaded at construction by
     ``utils.weights.load_first_stage``: a torch state dict through
     ``map_vq``, or this package's ``ae_state`` / ``params`` file."""

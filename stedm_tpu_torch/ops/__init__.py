@@ -6,6 +6,10 @@ a run can show that its main path went through the kernels. The flash
 kernels count by dtype: ``flash_attention`` and ``flash_attention_bwd`` the
 bf16 kernels, ``flash_attention_f32`` and ``flash_attention_bwd_f32`` the fp32
 ones; a backward call's launches (the Di pass and its kernels) count once.
+Each flash kernel's launches at Dh 32 (``num_head_channels: 32``) count
+under its name with ``_dh32`` appended, and not under its own;
+GroupNorm launches with FiLM (``use_scale_shift_norm``) count under
+``gn_silu_film``, the others under ``gn_silu``.
 ``nearest_code`` counts the width-3 kernel with the codebook slice resident,
 ``nearest_code_stream`` the kernel that streams a packed codebook of any
 width and size (its packing launch and search count once).
@@ -17,7 +21,10 @@ launches and stay out of ``LAUNCHES``.
 """
 
 LAUNCHES = {"gn_silu": 0, "flash_attention": 0, "flash_attention_bwd": 0, "nearest_code": 0,
-            "flash_attention_f32": 0, "flash_attention_bwd_f32": 0, "nearest_code_stream": 0}
+            "flash_attention_f32": 0, "flash_attention_bwd_f32": 0, "nearest_code_stream": 0,
+            "flash_attention_dh32": 0, "flash_attention_bwd_dh32": 0,
+            "flash_attention_f32_dh32": 0, "flash_attention_bwd_f32_dh32": 0,
+            "gn_silu_film": 0}
 PLAIN_CALLS = {"gn_silu_bwd": 0}
 
 

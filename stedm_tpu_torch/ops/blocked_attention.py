@@ -18,9 +18,13 @@ forward takes (``KERNELS``), the head dimension split across a cluster of
 and dV: the port of the stock kernel's ``dkv`` and ``dq`` Pallas kernels,
 flash_attention.py:941 and :1287) on CUDA tensors, reading the same strided
 views, and ``attention_backward_reference`` on CPU tensors. The backward
-takes head dimensions 64, 128 (the U-Net's AttentionBlock in diffusion
-training), 256 and 512 (the codec's AttnBlockVQ in codec fine-tuning, where
-a thread-block cluster splits the head dimension).
+takes head dimensions 32 (the AttentionBlock at ``num_head_channels: 32``),
+64, 128 (the U-Net's AttentionBlock in diffusion training), 256 and 512 (the
+codec's AttnBlockVQ in codec fine-tuning, where a thread-block cluster
+splits the head dimension). At Dh 32 (``HEAD_DIMS``) the bf16 forward has
+an instance of its own (tiles in the 64-byte swizzle); the backward and the
+fp32 kernels run their Dh-64 instances on the head dimension padded to 64
+with zeros.
 
 ``sdpa`` keeps the JAX dispatch by name. ``exact``, ``chunked``, ``flash`` and
 ``auto`` name TPU memory strategies for one function, so on a CUDA tensor all
@@ -41,13 +45,22 @@ from stedm_tpu_torch._device import check_cuda_tensor, load_library
 from stedm_tpu_torch.ops import LAUNCHES
 
 MAX_HEAD_DIM = 512
-BWD_HEAD_DIMS = (64, 128, 256, 512)      # the bf16 backward's; the fp32 one takes the forward's
+# the forward kernels' and the fp32 backward's head dims: 32 and the multiples
+# of 64 up to MAX_HEAD_DIM; the bf16 backward takes BWD_HEAD_DIMS
+HEAD_DIMS = (32,) + tuple(range(64, MAX_HEAD_DIM + 1, 64))
+BWD_HEAD_DIMS = (32, 64, 128, 256, 512)
 FP32_WIDE_HEAD_DIMS = (128, 256, 512)    # the fp32 kernels' head dims split 128 columns a block
 _LOG2E = 1.0 / math.log(2.0)
 # the kernels of each dtype: (forward, backward) sources under csrc/, each
 # also the name of its LAUNCHES count
 KERNELS = {torch.bfloat16: ("flash_attention", "flash_attention_bwd"),
            torch.float32: ("flash_attention_f32", "flash_attention_bwd_f32")}
+
+
+def launch_counter(stem: str, d: int) -> str:
+    """The ``LAUNCHES`` key of a launch of ``stem`` at head dim ``d``: Dh 32
+    counts apart."""
+    return f"{stem}_dh32" if d == 32 else stem
 
 
 def _largest_divisor_at_most(n: int, cap: int) -> int:
@@ -156,11 +169,12 @@ def fwd_workspace_bytes(bh: int, t: int, d: int) -> int:
 def fp32_plan(b: int, h: int, t: int, d: int) -> dict:
     """The fp32 kernels' launch plan for ``[B, H, T, Dh]``: the head
     dimension split into ``columns`` a block (``FP32_WIDE_HEAD_DIMS`` take
-    128, the others 64) over a thread-block ``cluster`` of Dh / columns
-    blocks, the C entry points (``fwd``, ``bwd``) and the workspace bytes
-    each asks for. The C side refuses any other cluster size."""
+    128, the others 64; Dh 32 runs as one block of 64, padded) over a
+    thread-block ``cluster`` of Dh / columns blocks, the C entry points
+    (``fwd``, ``bwd``) and the workspace bytes each asks for. The C side
+    refuses any other cluster size."""
     cols = 128 if d in FP32_WIDE_HEAD_DIMS else 64
-    return {"columns": cols, "cluster": d // cols,
+    return {"columns": cols, "cluster": max(1, d // cols),
             "fwd": _fwd_lib(torch.float32), "bwd": _bwd_lib(torch.float32),
             "fwd_workspace": fwd_workspace_bytes(b * h, t, d),
             "bwd_workspace": bwd_workspace_bytes(b * h, t, d, torch.float32)}
@@ -211,9 +225,10 @@ def flash_attention_cuda(q, k, v, sm_scale: float, return_lse: bool = False, out
     if not (q.shape == k.shape == v.shape):
         raise ValueError(f"q, k, v shapes differ: {q.shape}, {k.shape}, {v.shape}")
     b, h, t, d = q.shape
-    if d % 64 or d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} must be a multiple of 64 and at most "
-                         f"{MAX_HEAD_DIM}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash-attention forward kernels ({KERNELS[torch.bfloat16][0]}, "
+                         f"{KERNELS[torch.float32][0]}) take head dims 32 and the multiples "
+                         f"of 64 up to {MAX_HEAD_DIM}, got {d}")
     if out is None:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     elif out.shape != q.shape:
@@ -239,7 +254,7 @@ def flash_attention_cuda(q, k, v, sm_scale: float, return_lse: bool = False, out
     stem = KERNELS[dtype][0]
     if err:
         raise RuntimeError(f"{stem} launch failed: cudaError {err}")
-    LAUNCHES[stem] += 1
+    LAUNCHES[launch_counter(stem, d)] += 1
     return (out, lse) if return_lse else out
 
 
@@ -255,7 +270,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=Non
     ``o`` and LSE (fp32 ``[B, H, T]``, contiguous) and the output gradient
     ``do``. bf16 (``csrc/flash_attention_bwd.cu``): a small pass computes
     Di = rowsum(do * o) on the card, then one fused kernel computes all three
-    gradients, at Dh 64, 128, 256 or 512. fp32
+    gradients, at Dh 32, 64, 128, 256 or 512. fp32
     (``csrc/flash_attention_bwd_f32.cu``): a stats pass (LSE * log2(e), Di),
     a split pass (TF32 hi and lo copies), one fused kernel computing each of
     the five products once (the head dimension split across a cluster,
@@ -278,10 +293,11 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=Non
     dtype = _check_dtypes(named)
     if dtype == torch.bfloat16 and d not in BWD_HEAD_DIMS:
         raise ValueError(f"the bf16 flash-attention backward kernel takes head dims "
-                         f"{BWD_HEAD_DIMS}, got {d}")
-    if d % 64 or d > MAX_HEAD_DIM:
-        raise ValueError(f"the fp32 flash-attention backward kernel takes head dims that "
-                         f"are multiples of 64 up to {MAX_HEAD_DIM}, got {d}")
+                         f"{BWD_HEAD_DIMS} ({KERNELS[dtype][1]}), got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the fp32 flash-attention backward kernel ({KERNELS[dtype][1]}) "
+                         f"takes head dims 32 and the multiples of 64 up to {MAX_HEAD_DIM}, "
+                         f"got {d}")
     strides = []
     for name, x in named:
         if not x.is_cuda or x.device != q.device:
@@ -311,7 +327,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=Non
     stem = KERNELS[dtype][1]
     if err:
         raise RuntimeError(f"{stem} launch failed: cudaError {err}")
-    LAUNCHES[stem] += 1
+    LAUNCHES[launch_counter(stem, d)] += 1
     return dq, dk, dv
 
 

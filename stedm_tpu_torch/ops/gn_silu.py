@@ -291,7 +291,7 @@ def _launch(x, gamma, beta, add, film_scale, film_shift, eps, apply_silu, ints):
                  b, h * w, c, ints, eps, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"gn_silu launch failed: cudaError {err}")
-    LAUNCHES["gn_silu"] += 1
+    LAUNCHES["gn_silu_film" if mode == 2 else "gn_silu"] += 1
     return out
 
 

@@ -115,8 +115,9 @@ def make_train_step(model: torch.nn.Module, schedule: DiffusionSchedule, tx: Opt
     ``batch``: ``image`` [B,P,P,3], ``segmentation`` [B,P,P,2] one-hot,
     ``style_imgs`` [B,N,P,P,3] (style drop already applied). t and the noise
     are drawn from ``generator`` (t first), unless ``t`` and ``noise`` are
-    given; then the set-ViT's dropout (``style_agg: svit``), which the JAX
-    step cannot draw (ROADMAP §3). ``learn_logvar``: the state's ``logvar``
+    given; then the set-ViT's dropout (``style_agg: svit``), then the
+    U-Net's ResBlock dropout (``unet_config.params.dropout``), neither of
+    which the JAX step can draw (ROADMAP §3). ``learn_logvar``: the state's ``logvar``
     receives gradients; otherwise a static buffer of ``logvar_init`` (None
     when 0)."""
     dev = resolve_device(device)
@@ -154,7 +155,8 @@ def make_train_step(model: torch.nn.Module, schedule: DiffusionSchedule, tx: Opt
         noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
 
         def eps_fn(z_noisy, t_):
-            return model.eps(z_noisy, t_, seg_cond, style)
+            # the U-Net's dropout draws from the generator after the set-ViT's
+            return model.eps(z_noisy, t_, seg_cond, style, train=True, generator=generator)
 
         logvar = state.logvar if learn_logvar else static_logvar
         loss, aux = p_losses(eps_fn, schedule, z, t, noise, loss_type=loss_type,
@@ -241,7 +243,7 @@ def plan_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> Samp
     if cfg_interval is not None and cfg.method != "ddim":
         raise ValueError("cfg_interval is only supported for method='ddim'")
     caching = cfg.cache_interval > 1 or cfg.cache_schedule is not None
-    shared_enc = use_cfg and cfg.batched_cfg and model.conditioning_key == "hybrid"
+    shared_enc = use_cfg and cfg.batched_cfg and model.bottleneck_only
     if caching:
         if cfg.cache_interval > 1 and cfg.cache_schedule is not None:
             raise ValueError("cache_interval > 1 and cache_schedule are mutually "

@@ -47,7 +47,8 @@ Not ported, and refused: a mesh axis other than ``data`` or more than one
 device in a process (parallel/dist.py:mesh_size), a HER2 or CATCH tree
 that is not staged (ROADMAP §1: the pull from an EXACT server), a JAX
 orbax directory as a warm start
-(ROADMAP §1: reading a JAX orbax directory) and ``+adamw_m_bf16``.
+(ROADMAP §1: reading a JAX orbax directory). ``+adamw_m_bf16`` stores
+AdamW's first moment in bf16 (train/optim.py), ``+fused_adamw`` or not.
 """
 
 from __future__ import annotations
@@ -137,9 +138,6 @@ def main(argv: list[str], device=None) -> dict:
     the scale factor; the warm starts' (loaded, left at init) counts."""
     cfg = compose("config_diff", argv)
     dev = dist.maybe_initialize_distributed(resolve_device(device))
-    if cfg.get("adamw_m_bf16"):
-        raise NotImplementedError("+adamw_m_bf16 (a bf16 first moment) has no counterpart "
-                                  "in torch.optim.AdamW")
 
     if cfg.data.batch_size is None:
         cfg.data.batch_size = cfg.data.batch_base * cfg.location.batch_mul
@@ -205,7 +203,8 @@ def main(argv: list[str], device=None) -> dict:
         lr, style_encoder_trainable=cfg.diffusion.get("style_encoder_trainable", True),
         accumulate_grad_batches=cfg.get("accumulate_grad_batches", 4),
         clip_grad_norm=cfg.get("clip_grad_norm"),
-        fused=bool(cfg.get("fused_adamw", False)))
+        fused=bool(cfg.get("fused_adamw", False)),
+        m_dtype=torch.bfloat16 if cfg.get("adamw_m_bf16") else None)
     state = create_train_state(model, tx, logvar)
 
     # preemption-safe resume: resume=true reloads the last epoch's checkpoint

@@ -71,6 +71,8 @@ def _unet_parts(parts: list[str], tree: Mapping) -> list[str]:
         return [f"time_embed.{m[1]}"]
     if head in ("out_norm", "out_conv"):
         return ["out.0" if head == "out_norm" else "out.2"]
+    if head == "label_emb":
+        return [head]
     if m := re.fullmatch(r"middle_block_(\d)", head):
         base = "middle_block.1.block" if m[1] == "1" else f"middle_block.{m[1]}"
     elif m := re.fullmatch(r"(input|output)_blocks_(\d+)_(\d+|up)", head):
@@ -113,18 +115,31 @@ def _agg_parts(parts: list[str], tree: Mapping) -> list[str]:
     return parts
 
 
+def _node(tree: Mapping, keys) -> Mapping:
+    for key in keys:
+        tree = tree[key]
+    return tree
+
+
 def _convert(tree: Mapping, key_fn, conv1d: bool = False) -> dict[str, torch.Tensor]:
     sd = {}
     for path, arr in _flatten(tree):
         parts = key_fn(list(path[:-1]), tree) if len(path) > 1 else []
-        conv = conv1d and bool(parts) and parts[-1] in ("qkv", "proj_out")
+        # the attention block's qkv / proj_out (not a spatial transformer's)
+        conv = (conv1d and bool(parts) and parts[-1] in ("qkv", "proj_out")
+                and "qkv" in _node(tree, path[:-2]))
         names, val = _leaf(parts, path[-1], arr, conv)
         sd[".".join(names)] = torch.from_numpy(np.ascontiguousarray(val))
     return sd
 
 
 def unet_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
-    return _convert(tree, _unet_parts, conv1d=True)
+    """The U-Net's state_dict; the class embedding ``label_emb/embedding``
+    becomes the reference's ``label_emb.weight``."""
+    sd = _convert(tree, _unet_parts, conv1d=True)
+    if "label_emb.embedding.weight" in sd:
+        sd["label_emb.weight"] = sd.pop("label_emb.embedding.weight")
+    return sd
 
 
 def vq_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -328,6 +343,8 @@ def _unet_flax(path: str, model: torch.nn.Module) -> str:
         return f"time_embed_{m[1]}"
     if path in ("out.0", "out.2"):
         return "out_norm" if path == "out.0" else "out_conv"
+    if path == "label_emb":
+        return "label_emb/embedding"
     if m := re.fullmatch(r"middle_block\.1\.block(\..+)?", path):
         head, rest = "middle_block_1", m[1] or ""
     elif m := re.fullmatch(r"middle_block\.(\d)(\..+)?", path):
@@ -335,7 +352,8 @@ def _unet_flax(path: str, model: torch.nn.Module) -> str:
     elif m := re.fullmatch(r"(input|output)_blocks\.(\d+)\.(\d+)(\..+)?", path):
         kind, i, j, rest = m[1], m[2], m[3], m[4] or ""
         block = model.get_submodule(f"{kind}_blocks.{i}.{j}")
-        up = type(block).__name__ == "Upsample"
+        # a decoder level's last layer: an Upsample, or a ResBlock with up
+        up = type(block).__name__ == "Upsample" or getattr(block, "up", False)
         head = f"{kind}_blocks_{i}_{'up' if up else j}"
     else:
         raise KeyError(f"unknown U-Net module {path!r}")

@@ -8,7 +8,7 @@ go through the port's plain backward ``attention_backward_reference`` and
 through ``FlashAttentionFunction`` on the CPU, fed strided views of one packed
 ``[B, T, H, 3, Dh]`` projection as the U-Net's AttentionBlock feeds it; Dh
 512 at one head is the codec's AttnBlockVQ, whose gradient codec
-fine-tuning takes.
+fine-tuning takes; Dh 32 the AttentionBlock at ``num_head_channels: 32``.
 """
 
 import jax
@@ -45,7 +45,8 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,h,t,dh", [(1, 2, 256, 128), (2, 2, 128, 64), (1, 1, 256, 512)])
+@pytest.mark.parametrize("b,h,t,dh", [(1, 2, 256, 128), (2, 2, 128, 64), (1, 1, 256, 512),
+                                      (2, 4, 128, 32)])
 def test_backward_matches_stock_tpu_kernels(b, h, t, dh, dtype):
     jdt, tdt = DTYPES[dtype]
     r = np.random.default_rng(t + dh)

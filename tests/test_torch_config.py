@@ -130,21 +130,23 @@ def test_build_stedm_svit_shipped_widths_by_shape(monkeypatch):
 UNET = "diffusion.unet_config.params."
 VQ = "diffusion.first_stage_config.params."
 NON_SHIPPED = {
-    "unet_dropout": (UNET + "dropout=0.1", NotImplementedError),
-    "use_scale_shift_norm": (UNET + "use_scale_shift_norm=true", NotImplementedError),
-    "resblock_updown": (UNET + "resblock_updown=true", NotImplementedError),
-    "use_spatial_transformer": (UNET + "use_spatial_transformer=true", NotImplementedError),
-    "transformer_depth": (UNET + "transformer_depth=2", NotImplementedError),
-    "num_head_channels": ("+" + UNET + "num_head_channels=32", NotImplementedError),
-    "num_classes": ("+" + UNET + "num_classes=10", NotImplementedError),
     "attn_impl": (UNET + "attn_impl=fast", ValueError),
     "unknown_unet_key": ("+" + UNET + "legacy=false", TypeError),
     "double_z": (VQ + "ddconfig.double_z=true", ValueError),
-    "vq_dropout": (VQ + "ddconfig.dropout=0.1", NotImplementedError),
     # once refused, now built: build_stedm drops the first stage's ckpt_path
-    # as JAX's does (train_diff loads it), and builds the set-ViT
+    # as JAX's does (train_diff loads it), and builds the set-ViT and every
+    # option of the U-Net and the codec (tests/test_torch_model_options.py
+    # holds each against JAX)
     "vq_ckpt_path": (VQ + "ckpt_path=vq-f4.ckpt", None),
     "svit": ("style_agg=svit", None),
+    "unet_dropout": (UNET + "dropout=0.1", None),
+    "use_scale_shift_norm": (UNET + "use_scale_shift_norm=true", None),
+    "resblock_updown": (UNET + "resblock_updown=true", None),
+    "use_spatial_transformer": (UNET + "use_spatial_transformer=true", None),
+    "transformer_depth": (UNET + "transformer_depth=2", None),
+    "num_head_channels": ("+" + UNET + "num_head_channels=32", None),
+    "num_classes": ("+" + UNET + "num_classes=10", None),
+    "vq_dropout": (VQ + "ddconfig.dropout=0.1", None),
 }
 
 

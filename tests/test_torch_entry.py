@@ -236,7 +236,7 @@ def _write_compvis(path, groups):
 @pytest.mark.parametrize("extra,match", [
     (["diffusion.ckpt_path=unet.ckpt"], None),
     (["diffusion.first_stage_config.params.ckpt_path=vq.ckpt"], None),
-    (["+adamw_m_bf16=true"], "AdamW"),
+    (["+adamw_m_bf16=true"], None),
     (["location.mesh.data=4"], "torch.distributed"),
     (["location.loader=grain", "location.n_workers=2"], None),
     (["style_agg=svit"], None),

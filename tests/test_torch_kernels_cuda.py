@@ -142,7 +142,7 @@ def test_gn_silu_kernel_refusals(cuda):
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 256, 128), (1, 1, 200, 512), (1, 3, 70, 64),
-                                   (2, 1, 130, 192), (1, 2, 65, 256)])
+                                   (2, 1, 130, 192), (1, 2, 65, 256), (2, 32, 256, 32)])
 def test_flash_attention_kernel(cuda, shape):
     from stedm_tpu_torch.ops import blocked_attention as a
 
@@ -172,7 +172,8 @@ def _attention_tolerance(q, k, v, s, ref):
 
 @pytest.mark.parametrize("shape", [(2, 3, 40, 64), (1, 2, 200, 64), (2, 2, 200, 128),
                                    (1, 2, 200, 256), (1, 1, 40, 512), (1, 1, 4096 + 8, 512),
-                                   (1, 2, 333, 320), (1, 2, 333, 448)])
+                                   (1, 2, 333, 320), (1, 2, 333, 448), (2, 3, 40, 32),
+                                   (1, 4, 1030, 32)])
 def test_flash_attention_forward_ragged_and_lse(cuda, shape):
     """Every head-dimension class at ragged T (below a tile, between tiles,
     long): O against the plain version, the LSE against torch.logsumexp, and
@@ -195,6 +196,7 @@ def test_flash_attention_forward_ragged_and_lse(cuda, shape):
 
 
 @pytest.mark.parametrize("shape", [(4, 8, 1100, 64), (3, 16, 700, 128), (6, 30, 100, 192),
+                                   (8, 32, 1024, 32),
                                    (8, 4, 1000, 256), (5, 40, 60, 128)])
 def test_flash_attention_more_work_items_than_blocks(cuda, shape):
     """Up to Dh 256 the kernel is persistent: more (head, query tile) items
@@ -217,7 +219,8 @@ def test_flash_attention_more_work_items_than_blocks(cuda, shape):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("b,t,h,dh", [(2, 256, 8, 128), (1, 200, 4, 64), (2, 70, 1, 512)])
+@pytest.mark.parametrize("b,t,h,dh", [(2, 256, 8, 128), (1, 200, 4, 64), (2, 70, 1, 512),
+                                     (2, 256, 32, 32)])
 def test_flash_attention_strided_equals_contiguous(cuda, b, t, h, dh):
     """q, k, v as views of a packed [B, T, H, 3, Dh] projection and a
     token-major output: bit for bit the contiguous launch."""
@@ -344,7 +347,8 @@ def _backward_tolerance(q, k, v, o, do, s, ref):
                                    (2, 4, 4, 64), (1, 2, 40, 128), (2, 2, 200, 64),
                                    (1, 2, 1100, 128), (3, 48, 130, 64), (2, 40, 256, 128),
                                    (1, 1, 256, 512), (1, 1, 100, 512), (2, 1, 1000, 512),
-                                   (1, 2, 300, 256), (2, 1, 5120, 512)])
+                                   (1, 2, 300, 256), (2, 1, 5120, 512), (1, 3, 70, 32),
+                                   (1, 2, 130, 32), (2, 32, 1024, 32)])
 def test_flash_attention_backward_kernels(cuda, shape):
     from stedm_tpu_torch.ops import blocked_attention as a
 
@@ -368,7 +372,7 @@ def test_flash_attention_backward_kernels(cuda, shape):
 
 
 @pytest.mark.parametrize("b,t,h,dh", [(2, 256, 8, 128), (1, 200, 4, 64), (2, 1030, 2, 128),
-                                      (2, 700, 1, 512)])
+                                      (2, 700, 1, 512), (2, 1030, 4, 32)])
 def test_flash_attention_backward_strided_equals_contiguous(cuda, b, t, h, dh):
     """q, k, v as views of a packed [B, T, H, 3, Dh] projection and a
     token-major output gradient: bit for bit the launch on contiguous copies."""
@@ -389,7 +393,8 @@ def test_flash_attention_backward_strided_equals_contiguous(cuda, b, t, h, dh):
         assert torch.equal(g, r), name
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 70, 64), (1, 2, 300, 128), (1, 1, 200, 512)])
+@pytest.mark.parametrize("shape", [(2, 3, 70, 64), (1, 2, 300, 128), (1, 1, 200, 512),
+                                   (2, 3, 70, 32)])
 def test_flash_attention_backward_di_pass(cuda, shape):
     """The Di pass's output at the head of the workspace: LSE * log2(e) and
     Di = rowsum(dO o O) per 64-row query tile, +inf and 0 past T."""
@@ -590,7 +595,8 @@ def _f32_forward_tolerance(q, k, v, s, ref):
 @pytest.mark.parametrize("shape", [(2, 3, 40, 64), (1, 2, 200, 128), (1, 1, 130, 192),
                                    (1, 2, 300, 256), (1, 1, 100, 320), (1, 1, 333, 448),
                                    (1, 1, 2500, 512), (3, 16, 300, 128), (2, 2, 97, 384),
-                                   (1, 2, 40, 512), (2, 1, 1, 512), (1, 3, 129, 64)])
+                                   (1, 2, 40, 512), (2, 1, 1, 512), (1, 3, 129, 64),
+                                   (2, 3, 40, 32), (2, 8, 1024, 32)])
 def test_flash_attention_f32_forward(cuda, shape):
     """Every head-dimension class at ragged T: O within 2^-16 (P|V| + |ref|)
     of the plain version (TF32 off), the LSE against torch.logsumexp, two
@@ -599,9 +605,10 @@ def test_flash_attention_f32_forward(cuda, shape):
 
     q, k, v = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(3))
     s = shape[-1] ** -0.5
-    before = LAUNCHES["flash_attention_f32"]
+    counter = a.launch_counter("flash_attention_f32", shape[-1])
+    before = LAUNCHES[counter]
     got, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
-    assert LAUNCHES["flash_attention_f32"] == before + 1
+    assert LAUNCHES[counter] == before + 1
     ref = a.attention_reference(q, k, v, s)
     assert bool(((got - ref).abs() <= _f32_forward_tolerance(q, k, v, s, ref)).all())
     lse_ref = torch.logsumexp((q @ k.transpose(-1, -2)) * s, -1)
@@ -609,7 +616,8 @@ def test_flash_attention_f32_forward(cuda, shape):
     assert torch.equal(got, a.flash_attention_cuda(q, k, v, s))
 
 
-@pytest.mark.parametrize("b,t,h,dh", [(2, 256, 8, 128), (1, 200, 4, 64), (2, 70, 1, 512)])
+@pytest.mark.parametrize("b,t,h,dh", [(2, 256, 8, 128), (1, 200, 4, 64), (2, 70, 1, 512),
+                                     (2, 256, 8, 32)])
 def test_flash_attention_f32_strided_equals_contiguous(cuda, b, t, h, dh):
     from stedm_tpu_torch.ops import blocked_attention as a
 
@@ -642,7 +650,8 @@ def _f64_backward(q, k, v, o, lse, do, s):
 @pytest.mark.parametrize("shape", [(2, 3, 40, 64), (1, 2, 200, 128), (1, 1, 130, 192),
                                    (1, 2, 300, 256), (1, 1, 100, 320), (1, 1, 257, 512),
                                    (3, 8, 130, 64), (2, 1, 1000, 512), (2, 2, 97, 384),
-                                   (1, 2, 20, 512), (1, 1, 333, 448), (2, 1, 33, 128)])
+                                   (1, 2, 20, 512), (1, 1, 333, 448), (2, 1, 33, 128),
+                                   (2, 3, 40, 32), (2, 4, 1030, 32)])
 def test_flash_attention_f32_backward(cuda, shape):
     """dq, dk, dv within 2^-16 (sqrt(sum terms^2) + |ref|) of the plain
     version's steps in float64; two launches give the same bits."""
@@ -651,9 +660,10 @@ def test_flash_attention_f32_backward(cuda, shape):
     q, k, v, do = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(4))
     s = shape[-1] ** -0.5
     o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
-    before = LAUNCHES["flash_attention_bwd_f32"]
+    counter = a.launch_counter("flash_attention_bwd_f32", shape[-1])
+    before = LAUNCHES[counter]
     got = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
-    assert LAUNCHES["flash_attention_bwd_f32"] == before + 1
+    assert LAUNCHES[counter] == before + 1
     ref, bounds = _f64_backward(q, k, v, o, lse, do, s)
     for name, g, r, bd in zip(("dq", "dk", "dv"), got, ref, bounds):
         d = (g.double() - r).abs()

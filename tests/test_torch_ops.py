@@ -151,7 +151,9 @@ def test_cpu_wrappers_launch_nothing():
     pq.nearest_code(torch.randn(16, 3), torch.randn(32, 3))
     assert set(LAUNCHES) == {"gn_silu", "flash_attention", "flash_attention_bwd",
                              "nearest_code", "flash_attention_f32", "flash_attention_bwd_f32",
-                             "nearest_code_stream"}
+                             "nearest_code_stream", "flash_attention_dh32",
+                             "flash_attention_bwd_dh32", "flash_attention_f32_dh32",
+                             "flash_attention_bwd_f32_dh32", "gn_silu_film"}
     assert not any(LAUNCHES.values()), LAUNCHES
 
 

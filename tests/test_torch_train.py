@@ -263,8 +263,12 @@ def test_make_optimizer_matches_optax(style_trainable, clip):
 
 
 def test_make_optimizer_refuses_m_dtype():
-    with pytest.raises(NotImplementedError):
-        poptim.make_optimizer(1e-4, m_dtype=torch.bfloat16)
+    """Once refused, now built: ``m_dtype`` stores AdamW's first moment in
+    bf16 (tests/test_torch_model_options.py holds it against optax and the
+    JAX package's fused_adamw)."""
+    opt = poptim.make_optimizer(1e-4, m_dtype=torch.bfloat16)
+    state = opt.init({"unet": [torch.nn.Parameter(torch.zeros(2))]})
+    assert isinstance(state.adamw, poptim.AdamWLowFirstMoment)
     assert poptim.scaled_lr(1e-6, 4, 2, 8) == joptim.scaled_lr(1e-6, 4, 2, 8)
 
 
