@@ -203,11 +203,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    loader: samples/s, the data lap's share of the epoch, the host ms of an
    item; phase 8's tree is removed at the end;
 12. the diffusion model's options, on phase 6's tree (removed at its end):
-   12a. the four flash kernels at Dh 32 (``num_head_channels: 32``: the
-   bf16 forward's own instance, the others' Dh-64 instances on a padded
-   head dimension; launches counted as ``<kernel>_dh32``) against their
-   plain versions with phase 2b's and 10a's tolerances, and GroupNorm with
-   FiLM at the scale-shift ResBlocks' shapes, forward and backward; 12b.
+   12a. the bf16 forward and the fp32 kernels at Dh 32
+   (``num_head_channels: 32``: the bf16 forward's own instance, the fp32
+   kernels' Dh-64 instances on a padded head dimension; launches counted
+   as ``<kernel>_dh32``; the bf16 backward's own Dh-32 instance is checked
+   in 13a) against their plain versions with phase 2b's and 10a's
+   tolerances, and GroupNorm with FiLM at the scale-shift ResBlocks'
+   shapes, forward and backward; 12b.
    tiny STEDMs with the options (``OPTIONS_12B`` under the cosine schedule
    sampled in bf16, sampled and trained at fp32; the spatial transformer
    under crossattn, sampled) on the card against the CPU; 12c. the
@@ -222,7 +224,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    points with 12c's U-Net (the Dh-32 kernels at batch 2, and 4 under
    predict's CFG), since the spatial transformer replaces every flash
    launch of the U-Net;
-13. a ``kernels`` JSON line, the card line, and as the last line
+13. every head dimension up to 512 (``ops/blocked_attention.py``:
+   ``head_dim_plan``), on phase 6's tree: 13a. the bf16 backward's Dh-32
+   instance (``flash_bwd_small<32>``, 256 keys a block) at 12c's and
+   train_diff's micro-step shapes, and the four flash kernels at Dh 16
+   (``num_head_channels: 16``, on the Dh-32 instance or the fp32 kernels'
+   Dh-64 one; launches counted as ``<kernel>_dh16``) at the sampling and
+   512^2 micro-step shapes, timed beside their plain versions, SDPA and
+   their bounds, with phase 2b's and 10a's tolerances; then correctness,
+   each timed once: Dh 20 (bf16: zero-padded copies of width 24), 48, 96
+   and 160 through all four kernels, 192, 320, 384 and 448 through the
+   bf16 backward (padded instances: a cluster rank's whole column slice
+   may be zero fill); 13b. the tiny STEDM at ``num_head_channels: 16``
+   card against CPU: a bf16 sample (phase 3's tolerance) and, at fp32,
+   a sample and three micro-steps (10b's); 13c. ``train_diff.main`` (2
+   micro-steps) and ``predict_diff.main`` (8 pairs, DDIM-20) with phase
+   6's config and ``+diffusion.unet_config.params.num_head_channels=16``
+   (64 heads of 16 at the bottleneck), samples/s and pairs/s; 13d.
+   ``predict_diff.main`` with ``num_heads=1`` (Dh 1024, above every
+   kernel: the plain attention on the card, counted as
+   ``attention_plain``), 4 pairs at DDIM-4, on 13c's checkpoint, and the
+   same model under ``attn_impl=flash``, whose ``sdpa`` must raise the
+   ValueError that names ROADMAP.md §2. Every other path must count no
+   ``attention_plain``;
+14. a ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 fp32 matrix products and convolutions run without TF32 here (both backend
@@ -314,6 +339,11 @@ PATHS_WIDE = ("wide4_entry_ae", "wide8_entry_ae")
 PATHS_12 = ("opt_sample_batch", "opt_train_micro_step", "opt_entry_train", "opt_entry_predict",
             "opt_entry_ae", "opt_dh32_entry_train", "opt_dh32_entry_predict")
 PATHS_12_F32 = ("opt_f32_train_micro_step",)
+# phase 13's paths: the entry points at num_head_channels 16 (13c), the
+# tiny fp32 sample and micro-steps at Dh 16 (13b), predict at Dh 1024 (13d)
+PATHS_13 = ("dh16_entry_train", "dh16_entry_predict")
+PATH_13_F32 = "dh16_f32_tiny"
+PATH_13_PLAIN = "dh1024_entry_predict"
 
 
 # ptxas's notes that wgmma instructions were serialised
@@ -334,7 +364,8 @@ class KernelRecord:
                   "her2_predict_serving", "her2_seg", "catch_train", "catch_seg", "plms_batch",
                   "dpm_batch", "canvas_predict", "svit_train", "svit_predict", "handoff_ae",
                   "handoff_train", "handoff_predict", "dist_train", "dist_predict")
-    PATHS = PATHS_BF16 + PATHS_F32 + PATHS_WIDE + PATHS_12 + PATHS_12_F32
+    PATHS = (PATHS_BF16 + PATHS_F32 + PATHS_WIDE + PATHS_12 + PATHS_12_F32 + PATHS_13
+             + (PATH_13_F32, PATH_13_PLAIN))
 
     def __init__(self, name, route, source, replaces, counter=None, paths=PATHS_BF16):
         # the launch counter the kernel's wrapper adds to, and the main paths
@@ -436,6 +467,25 @@ def kernel_records() -> dict:
             "(_flash_attention_bwd_dq)", paths=PATHS_12_F32),
         "gn_silu_film": KernelRecord("gn_silu_film", "cuda", "stedm_tpu_torch/csrc/gn_silu.cu",
                                      "stedm_tpu/ops/gn_silu.py:125", paths=PATHS_12),
+        # phase 13's: each flash kernel at Dh 16 (num_head_channels 16, on
+        # the bf16 kernels' Dh-32 instances and the fp32 kernels' Dh-64
+        # ones; counted apart: "<name>_dh16")
+        "flash_attention_dh16": KernelRecord(
+            "flash_attention_dh16", "cuda", "stedm_tpu_torch/csrc/flash_attention.cu",
+            "stedm_tpu/ops/blocked_attention.py:99", paths=PATHS_13),
+        "flash_attention_bwd_dh16": KernelRecord(
+            "flash_attention_bwd_dh16", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
+            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
+            "(_flash_attention_bwd_dq)", paths=PATHS_13),
+        "flash_attention_f32_dh16": KernelRecord(
+            "flash_attention_f32_dh16", "cuda", "stedm_tpu_torch/csrc/flash_attention_f32.cu",
+            f"{stock_flash}:589 (_flash_attention_impl), reached through "
+            "stedm_tpu/ops/blocked_attention.py:99", paths=(PATH_13_F32,)),
+        "flash_attention_bwd_f32_dh16": KernelRecord(
+            "flash_attention_bwd_f32_dh16", "cuda",
+            "stedm_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
+            "(_flash_attention_bwd_dq)", paths=(PATH_13_F32,)),
     }
 
 
@@ -3193,9 +3243,10 @@ def _tiny_rel(torch, got, ref) -> float:
 def f32_tiny_parity(torch, unet_options=None, suffix: str = "", schedule: str = "linear"):
     """10b: the tiny STEDM at fp32, DDIM-4 with rescaled CFG, then three
     micro-steps at accumulation 2, card (kernels) against CPU (plain
-    versions), same weights, x_T, t and noise (phase 12b: with
+    versions), same weights, x_T, t and noise (phases 12b and 13b: with
     ``unet_options`` and ``schedule``, the flash kernels counted under their
-    names + ``suffix``)."""
+    names + ``suffix``). Returns the launches of the sample and the
+    micro-steps together."""
     from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
 
@@ -3209,7 +3260,7 @@ def f32_tiny_parity(torch, unet_options=None, suffix: str = "", schedule: str = 
     reset_launch_counts()
     got = make_sample_fn(gpu, sched, cfg, device="cuda")(gpu, batch, x_T=x_T)
     torch.cuda.synchronize()
-    counts = dict(LAUNCHES)
+    counts = sampled = dict(LAUNCHES)
     rel = _tiny_rel(torch, got, ref)
     log(f"  tiny STEDM sampling at fp32, card vs CPU: relative L2 {rel:.3e}, max |diff| "
         f"{float((got.cpu() - ref).abs().max()):.3e}; launches {counts}")
@@ -3236,6 +3287,7 @@ def f32_tiny_parity(torch, unet_options=None, suffix: str = "", schedule: str = 
         ok &= g_err <= F32_TINY_TOL and d_err <= F32_TINY_UPDATE_TOL
     log(f"  launches on the card {counts}")
     require(ok, "tiny fp32 training on the card disagrees with the CPU")
+    return {k: sampled[k] + counts[k] for k in counts}
 
 
 def f32_full_width(torch, out_dir: Path, card: str) -> tuple:
@@ -3935,8 +3987,9 @@ FILM_CASES = (((8, 64, 64, 128), "film", 1e-5), ((8, 32, 32, 512), "film", 1e-5)
 
 
 def options_kernels(torch, recs):
-    """12a: the four flash kernels at Dh 32 against their plain versions
-    (phase 2b's and 10a's tolerance forms), and GroupNorm with FiLM at the
+    """12a: the bf16 forward and the fp32 kernels at Dh 32 against their
+    plain versions (phase 2b's and 10a's tolerance forms; the bf16
+    backward's Dh-32 instance: 13a), and GroupNorm with FiLM at the
     scale-shift ResBlocks' shapes, forward and backward."""
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # the L2 flush
     flush = scratch.zero_
@@ -3945,10 +3998,6 @@ def options_kernels(torch, recs):
     check_attention(torch, recs["flash_attention_dh32"], flush,
                     shapes=((16, 32, 256, 32), (8, 32, 1024, 32), (2, 32, 1024, 32),
                             (4, 32, 1024, 32)), strided=False)
-    log("  -- bf16 backward (and the forward with its LSE): 12c's 512^2 micro-step (batch 8) "
-        "and train_diff's (batch 2)")
-    check_attention_backward(torch, recs["flash_attention_bwd_dh32"], flush,
-                             ((8, 32, 1024, 32), (2, 32, 1024, 32)), 31)
     log("  -- fp32 forward and backward: the sampling bottleneck and 12c's fp32 micro-step")
     f32_forward_checks(torch, recs["flash_attention_f32_dh32"], flush,
                        shapes=((16, 32, 256, 32), (8, 32, 1024, 32)), strided=False)
@@ -4162,8 +4211,8 @@ def model_options(torch, entry_root: Path, out_dir: Path, card: str, recs: dict,
     from stedm_tpu_torch.ops import LAUNCHES
 
     t0 = time.time()
-    log("== phase 12a: the flash kernels at Dh 32 and GroupNorm with FiLM against their "
-        "plain versions")
+    log("== phase 12a: the bf16 forward and the fp32 flash kernels at Dh 32 and GroupNorm "
+        "with FiLM against their plain versions")
     options_kernels(torch, recs)
     t_a = time.time() - t0
     log(f"  phase 12a took {t_a:.1f} s")
@@ -4195,6 +4244,226 @@ def model_options(torch, entry_root: Path, out_dir: Path, card: str, recs: dict,
         f"12b {t_b:.1f}, 12c {t_c:.1f})")
     return ({"phase12_flagship": flagship, "phase12_entry": entry,
              "phase12_seconds": seconds}, counts)
+
+
+# ---- phase 13: every head dimension up to 512 ----
+
+DH16 = dict(num_head_channels=16)
+HEAD16 = "+" + UNET_KEY + "num_head_channels=16"
+# 13a's correctness widths: through every kernel (Dh 20: the bf16 kernels'
+# zero-padded copies of width 24), and through the bf16 backward alone (its
+# padded instances <256> and <512>); at a ragged T
+PAD_WIDTHS = (20, 48, 96, 160)
+PAD_BWD_WIDTHS = (192, 320, 384, 448)
+PAD_SHAPE = (2, 4, 320)
+
+
+def _padded_width_check(torch, flush, kernel: str, d: int) -> dict:
+    """One 13a correctness case: ``kernel`` ("fwd", "bwd", "f32_fwd",
+    "f32_bwd") at [2, 4, 320, d] against its plain version with phase 2b's
+    (bf16) or 10a's (fp32, against float64 steps) tolerance, timed once
+    beside the plain version and SDPA; its ratio to the tolerance and its
+    bound."""
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    shape = PAD_SHAPE + (d,)
+    f32 = kernel.startswith("f32")
+    dtype = torch.float32 if f32 else torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(1300 + d)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    s = d ** -0.5
+    bh, t = shape[0] * shape[1], shape[2]
+    if kernel.endswith("fwd"):
+        got = a.flash_attention_cuda(q, k, v, s)
+        ref = a.attention_reference(q, k, v, s)
+        pv = torch.softmax((q.float() @ k.float().transpose(-1, -2)) * s, -1) @ v.float().abs()
+        tol = (F32_REL if f32 else 2 ** -7) * (pv + ref.float().abs())
+        ratio = float(((got.float() - ref.float()).abs() / tol).max())
+        fn = lambda: a.flash_attention_cuda(q, k, v, s)
+        plain = lambda: a.attention_reference(q, k, v, s)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=s)
+        nbytes, ops = 4 * bh * t * d * q.element_size(), 4 * bh * t * t * d
+    else:
+        o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+        got = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+        if f32:
+            ref, bounds = _f64_backward(torch, q, k, v, o, lse, do, s)
+            ratio = max(_ratio(torch, g, r, F32_REL * (bd + r.abs()))
+                        for g, r, bd in zip(got, ref, bounds))
+        else:
+            ratio = max(r for _, r in backward_errors(torch, q, k, v, o, lse, do, s, got)[0].values())
+        fn = lambda: a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+        plain = lambda: a.attention_backward_reference(q, k, v, o, lse, do, s)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=s)
+        library = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+        n = bh * t * d
+        nbytes, ops = 8 * n * q.element_size() + bh * t * 4, 10 * bh * t * t * d
+    peak = TF32_FLOPS / 3 if f32 else BF16_FLOPS      # 3xTF32: three products a product
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    plan = a.head_dim_plan(d, dtype, kernel.endswith("bwd"))
+    row = dict(kernel=kernel, shape=list(shape), instance=plan.instance, width=plan.width,
+               ratio=ratio, ms=time_ms(fn, 1, flush), plain_ms=time_ms(plain, 1, flush),
+               library_ms=time_ms(library, 1, flush), bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"  {kernel} Dh {d} {list(shape)} on the Dh-{plan.instance} instance"
+        + (f" (copies of width {plan.width})" if plan.width != d else "")
+        + f": {ratio:.3f} of its tolerance {'ok' if ratio <= 1 else 'OUT OF TOLERANCE'}; "
+        f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+        f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+    require(ratio <= 1, f"{kernel} at Dh {d} disagrees with its plain version")
+    return row
+
+
+def head_dim_kernels(torch, recs) -> list:
+    """13a: the bf16 backward's Dh-32 instance at the micro-step shapes, the
+    four kernels at Dh 16, timed; then the padded widths, each timed once."""
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # the L2 flush
+    flush = scratch.zero_
+    log("  -- bf16 backward at Dh 32 (flash_bwd_small<32>, and the forward with its LSE): "
+        "12c's 512^2 micro-step (batch 8) and train_diff's (batch 2)")
+    check_attention_backward(torch, recs["flash_attention_bwd_dh32"], flush,
+                             ((8, 32, 1024, 32), (2, 32, 1024, 32)), 31)
+    log("  -- Dh 16 (num_head_channels 16): the sampling bottleneck (CFG batch 16), a 512^2 "
+        "micro-step (batch 8); bf16, then fp32")
+    check_attention(torch, recs["flash_attention_dh16"], flush,
+                    shapes=((16, 64, 256, 16), (8, 64, 1024, 16)), strided=False)
+    check_attention_backward(torch, recs["flash_attention_bwd_dh16"], flush,
+                             ((8, 64, 1024, 16),), 41)
+    f32_forward_checks(torch, recs["flash_attention_f32_dh16"], flush,
+                       shapes=((16, 64, 256, 16), (8, 64, 1024, 16)), strided=False)
+    f32_backward_checks(torch, recs["flash_attention_bwd_f32_dh16"], flush,
+                        shapes=((8, 64, 1024, 16),))
+    log(f"  -- the padded widths at {list(PAD_SHAPE)} + [Dh], correctness, each timed once")
+    rows = [_padded_width_check(torch, flush, kernel, d) for d in PAD_WIDTHS
+            for kernel in ("fwd", "bwd", "f32_fwd", "f32_bwd")]
+    rows += [_padded_width_check(torch, flush, "bwd", d) for d in PAD_BWD_WIDTHS]
+    del scratch, flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def head_dim_tiny_parity(torch) -> dict:
+    """13b: the tiny STEDM at num_head_channels 16 (Dh 16 at every attention
+    block) card against CPU: a bf16 sample, then fp32 sampling and three
+    micro-steps; returns the fp32 runs' launches."""
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.train.steps import SamplerConfig, make_sample_fn
+
+    cfg = SamplerConfig(ddim_steps=4, eta=0.0, cfg_scale=1.5, rescale_phi=0.7,
+                        batched_cfg=True, downsample=4)
+    cpu, gpu, batch, x_T, sched = _tiny_sampling_models(torch, torch.bfloat16, DH16)
+    ref = make_sample_fn(cpu, sched, cfg, device="cpu")(cpu, batch, x_T=x_T)
+    reset_launch_counts()
+    got = make_sample_fn(gpu, sched, cfg, device="cuda")(gpu, batch, x_T=x_T)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    _tiny_close(torch, got, ref, f"tiny STEDM {DH16} card vs CPU")
+    log(f"    launches {counts}")
+    require(counts["flash_attention_dh16"] > 0 and counts["attention_plain"] == 0,
+            f"the tiny sampler at Dh 16 did not run the Dh-16 forward: {counts}")
+    del cpu, gpu
+    return f32_tiny_parity(torch, DH16, "_dh16")
+
+
+def head_dim_entry_points(torch, entry_root: Path) -> tuple:
+    """13c: train_diff (2 micro-steps) and predict_diff (8 pairs, DDIM-20)
+    with phase 6's config at num_head_channels 16; 13d: predict_diff at
+    num_heads 1 (Dh 1024: the plain attention) on 13c's checkpoint, and the
+    same model's sdpa under attn_impl=flash, which must raise."""
+    from stedm_tpu_torch import predict_diff, train_diff
+    from stedm_tpu_torch.config import compose
+    from stedm_tpu_torch.models.attention import AttentionBlock
+    from stedm_tpu_torch.models.stedm import build_stedm
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from stedm_tpu_torch.ops.blocked_attention import sdpa
+
+    data, patch = entry_root / "data", 512
+    where = [f"location.data_dir={data}", f"location.result_dir={entry_root / 'dh16'}"]
+    style = ["data=flowers", "style_sampling=augmented", "style_agg=mean", *where]
+    counts, out = {}, {}
+
+    def run(name: str, main, args: list):
+        log(f"  {main.__module__}.main({args})")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        res = main(args)
+        torch.cuda.synchronize()
+        counts[name] = dict(LAUNCHES)
+        log(f"    launches {counts[name]}")
+        torch.cuda.empty_cache()
+        return res
+
+    tr = run("dh16_entry_train", train_diff.main, style + [
+        HEAD16, "+diffusion.scale_by_std=true", "data.samples=4", "num_epochs=1",
+        "+preview_ddim_steps=4", "accumulate_grad_batches=1"])
+    ep = tr["epochs"][0]
+    c = counts["dh16_entry_train"]
+    out["train_samples_per_s"] = ep["samples"] / ep["seconds"]
+    log(f"  13c train_diff: {ep['micro_steps']} micro-steps, loss {ep['loss']:.5f}, "
+        f"{out['train_samples_per_s']:.4f} samples/s over the epoch ({ep['seconds']:.2f} s, "
+        "the first micro-step included)")
+    require(tr["step"] == 2 and math.isfinite(ep["loss"]),
+            f"train_diff at Dh 16: {tr['step']} steps, loss {ep['loss']}")
+    require(c["flash_attention_dh16"] > 0 and c["flash_attention_bwd_dh16"] > 0,
+            f"train_diff at Dh 16 did not run the Dh-16 kernels: {c}")
+    readme = ["data=flowers", "data/dataset=[flowers_anno,flowers_unanno]",
+              "data.ratios=[1.0,1.0]", "cfg_scale=1.5", "style_sampling=augmented",
+              "style_agg=mean", *where]
+    pred = run("dh16_entry_predict", predict_diff.main, readme + [
+        HEAD16, "data.samples=4", "ddim_steps=20", "+predict_name=dh16"])
+    check_pairs(Path(pred["predict_dir"]), 8, patch)
+    out["predict"] = {k: v for k, v in predict_rates(pred).items() if k != "predict_dir"}
+    require(counts["dh16_entry_predict"]["flash_attention_dh16"] > 0,
+            f"predict at Dh 16 did not run the Dh-16 forward: {counts['dh16_entry_predict']}")
+
+    heads1 = UNET_KEY + "num_heads=1"
+    pred = run(PATH_13_PLAIN, predict_diff.main, readme + [
+        heads1, "data.samples=2", "ddim_steps=4", "+predict_name=dh1024"])
+    check_pairs(Path(pred["predict_dir"]), 4, patch)
+    out["predict_dh1024"] = {k: v for k, v in predict_rates(pred).items() if k != "predict_dir"}
+    c = counts[PATH_13_PLAIN]
+    require(c["attention_plain"] > 0, f"predict at Dh 1024 ran no plain attention: {c}")
+    cfg = compose("config_predict", readme + [heads1, UNET_KEY + "attn_impl=flash"])
+    blocks = [m for m in build_stedm(cfg, "meta").unet.modules() if isinstance(m, AttentionBlock)]
+    require(blocks and all(b.attn_impl == "flash" and b.num_heads == 1 for b in blocks),
+            "the flash override did not reach the AttentionBlocks")
+    q = torch.randn((4, 1, 1024, 1024), device="cuda", dtype=torch.bfloat16)
+    try:
+        sdpa(q, q, q, 1024 ** -0.25, impl=blocks[0].attn_impl)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    log(f"  13d: the model's sdpa at Dh 1024 under attn_impl=flash raises: {raised!r}")
+    require("ROADMAP.md §2" in raised, "sdpa(impl='flash') at Dh 1024 did not name ROADMAP §2")
+    return out, counts
+
+
+def head_dims(torch, entry_root: Path, recs: dict) -> tuple:
+    """Phase 13, on phase 6's tree; returns its numbers and each path's
+    launches (zeroed just before each path and read just after)."""
+    t0 = time.time()
+    log("== phase 13a: the bf16 backward's Dh-32 instance, the flash kernels at Dh 16, and "
+        "the padded head dimensions against their plain versions")
+    padded = head_dim_kernels(torch, recs)
+    t_a = time.time() - t0
+    log(f"  phase 13a took {t_a:.1f} s")
+    log(f"== phase 13b: the tiny STEDM at {DH16}, card against CPU (bf16 sample; fp32 "
+        "sample and micro-steps)")
+    t1 = time.time()
+    f32_counts = head_dim_tiny_parity(torch)
+    t_b = time.time() - t1
+    log(f"  phase 13b took {t_b:.1f} s")
+    log("== phase 13c: train_diff / predict_diff at num_head_channels 16; 13d: predict_diff "
+        "at num_heads 1 (Dh 1024, the plain attention) and its flash refusal")
+    t1 = time.time()
+    entry, counts = head_dim_entry_points(torch, entry_root)
+    counts[PATH_13_F32] = f32_counts
+    seconds = time.time() - t0
+    log(f"  phase 13c/13d took {time.time() - t1:.1f} s; phase 13 took {seconds:.1f} s (13a "
+        f"{t_a:.1f}, 13b {t_b:.1f})")
+    return {"phase13_padded_widths": padded, "phase13_entry": entry,
+            "phase13_seconds": seconds}, counts
 
 
 def main() -> int:
@@ -4378,6 +4647,7 @@ def main() -> int:
     phase11, phase11_counts = several_processes(torch, entry_root, her2.pop("her2_keep"), card)
     phase12, phase12_counts = model_options(torch, entry_root, out_dir, card, recs,
                                             sum(ms for _, _, ms in kernels))
+    phase13, phase13_counts = head_dims(torch, entry_root, recs)
     shutil.rmtree(entry_root, ignore_errors=True)
     # launches: each kernel's count on each main path it runs on, zeroed just
     # before and read just after (the sampler's batch, the serving batch, one
@@ -4388,7 +4658,13 @@ def main() -> int:
                    "codec_step": codec["codec_launches_per_step"], **entry["entry_counts"],
                    "seg_train_step": seg["seg_launches_per_micro_step"],
                    "seg_entry": seg_entry["seg_entry_counts"], **her2.pop("her2_counts"),
-                   **workflow_counts, **phase10_counts, **phase11_counts, **phase12_counts}
+                   **workflow_counts, **phase10_counts, **phase11_counts, **phase12_counts,
+                   **phase13_counts}
+    # the plain attention runs on the card only above the kernels' head dims
+    plain = {p: c.get("attention_plain", 0) for p, c in path_counts.items()}
+    log(f"  attention_plain on each path: {plain}")
+    for p, n in plain.items():
+        require((n > 0) == (p == PATH_13_PLAIN), f"{p} ran the plain attention {n} times")
     not_run = her2.pop("paths_not_run")
     if not_run:
         log(f"  launches on {', '.join(not_run)}: null, those paths did not run")
@@ -4408,7 +4684,8 @@ def main() -> int:
                       "gn_bound_ms_sample_batch": gn_bound_ms, "gn_ms_sample_batch": gn_ms,
                       "host_us_per_call": host_us, **serving, **train, **codec, **entry,
                       **seg_parity, **seg, **seg_entry, "seg_seconds": seg_seconds,
-                      **her2, **workflow, **phase10, **phase11, **phase12, "card": card}))
+                      **her2, **workflow, **phase10, **phase11, **phase12, **phase13,
+                      "card": card}))
     # the line holds each kernel's summary; its shapes and its launches on
     # every path (tens of kB) go to <out>/kernels.json
     (out_dir / "kernels.json").write_text(json.dumps([r.entry for r in recs.values()], indent=1))

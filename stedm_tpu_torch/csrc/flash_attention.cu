@@ -75,7 +75,15 @@
 //     tensor maps' boxes and every wgmma descriptor, descriptor<64>): Q K^T
 //     is two k-steps of 32 bytes within the row, P V one m64n32k16 a key
 //     step. A K or V tile is 8 KB, so the ring holds six stages, not
-//     three.
+//     three;
+//   * any other head dimension that is a multiple of 8 (16-byte rows) runs
+//     on the smallest instance at or above it (Dh 16 on flash_fwd_small<32>,
+//     96 on <128>, 160 on <192>, 264 on flash_fwd_wide<320>): the tensor
+//     maps declare the true columns, so TMA fills the rest of every box with
+//     zeros, which add nothing to S and give O zero columns, and O's columns
+//     past the head dimension are not stored. The wrapper copies a head
+//     dimension whose rows are not 16 bytes apart into zero-padded tensors
+//     first (ops/blocked_attention.py: head_dim_plan).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -110,6 +118,7 @@ struct Params {
   float* lse;             // [B, H, T] or null
   int64_t o_sb, o_sh, o_st;  // element strides of o (last dimension contiguous)
   int t, h, nbh;          // tokens, heads, batch * heads
+  int dcols;              // the head dimension of q, k, v and o: the instance's, or fewer
   float scale_log2;       // sm_scale * log2(e): the softmax runs on exp2
 };
 
@@ -158,7 +167,9 @@ __device__ __forceinline__ void rescale(float (&o)[OREG], const float (&alpha)[2
   for (int i = 0; i < OREG; ++i) o[i] *= alpha[(i >> 1) & 1];
 }
 
-// Rows row0 + {0, 8} of this lane, columns col0 + 8 j + 2 tg + {0, 1}.
+// Rows row0 + {0, 8} of this lane, columns col0 + 8 j + 2 tg + {0, 1}; the
+// columns at or past dcols (zeros of a narrower head dimension) are not
+// stored.
 template <int OREG>
 __device__ __forceinline__ void store_rows(const Params& p, const float (&o)[OREG],
                                            const float (&inv)[2], int b, int h, int row0,
@@ -169,9 +180,11 @@ __device__ __forceinline__ void store_rows(const Params& p, const float (&o)[ORE
     if (row >= p.t) continue;
     bf16* out = p.o + b * p.o_sb + h * p.o_sh + row * p.o_st + col0 + 2 * tg;
 #pragma unroll
-    for (int j = 0; j < OREG / 4; ++j)
+    for (int j = 0; j < OREG / 4; ++j) {
+      if (col0 + 8 * j >= p.dcols) break;
       *reinterpret_cast<uint32_t*>(out + j * 8) =
           pack_bf16x2(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+    }
   }
 }
 
@@ -619,20 +632,24 @@ extern "C" {
 
 // q, k, v, o: bf16 [B, H, T, D] on the device, last dimension contiguous;
 // strides: the element strides {batch, head, token} of q, k, v and o (12
-// values), each a multiple of 8 (16 bytes), bases 16-byte aligned. D 32, or
-// a multiple of 64 up to 512. lse: contiguous fp32 [B, H, T], or null when
-// the caller needs no LSE. Returns the cudaError_t of the launch.
+// values), each a multiple of 8 (16 bytes), bases 16-byte aligned. D a
+// multiple of 8 up to 512: it runs on the smallest instance at or above it
+// (32, then the multiples of 64), whose tensor maps declare D columns, so
+// the columns past D arrive as zeros and O's are not stored. lse:
+// contiguous fp32 [B, H, T], or null when the caller needs no LSE. Returns
+// the cudaError_t of the launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b,
                         int h, int t, int d, const int64_t* strides, float sm_scale,
                         void* stream) {
-  if ((d % 64 != 0 && d != 32) || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0)
+  if (d % 8 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const Params p = {(bf16*)o, (float*)lse, strides[9], strides[10], strides[11], t, h, b * h,
+  const Params p = {(bf16*)o, (float*)lse, strides[9], strides[10], strides[11], t, h, b * h, d,
                     sm_scale * 1.4426950408889634f};
+  const int instance = d <= 32 ? 32 : (d + 63) / 64 * 64;
 #define SMALL(D) case D: return launch<Small<D>>(flash_fwd_small<D>, q, k, v, p, b, d, strides, s)
 #define WIDE(D) case D: return launch<Wide<D>>(flash_fwd_wide<D>, q, k, v, p, b, d, strides, s)
-  switch (d) {
+  switch (instance) {
     SMALL(32); SMALL(64); SMALL(128); SMALL(192); SMALL(256);
     WIDE(320); WIDE(384); WIDE(448); WIDE(512);
   }

@@ -69,11 +69,12 @@
 //     each added to its fp32 sum in registers with one rounding to nearest
 //     while the next chain runs;
 //   * keys past T get P = 0, and no gradient row past T is stored;
-//   * Dh 32 (the U-Net's AttentionBlock at num_head_channels 32) runs the
-//     Dh-64 instantiation: the split pass writes 64-column copies whose
-//     columns 32 .. 63 are zeros (they add nothing to S^T and dP^T, and give
-//     dQ, dK and dV zero columns there), and only the 32 real columns of
-//     each gradient are stored.
+//   * a head dimension that is not a multiple of 64 (a multiple of 4: Dh
+//     32 at num_head_channels 32, 16, 96, 160, ...) runs the instantiation
+//     of the next multiple of 64 (run_columns): the split pass writes copies
+//     of that width whose columns past the head dimension are zeros (they
+//     add nothing to S^T and dP^T, and give dQ, dK and dV zero columns
+//     there), and only the real columns of each gradient are stored.
 // All products are m64n32k8: S^T and dP^T are 64 keys x 32 queries, and dK,
 // dV and dQ^T are kept as 32-column accumulators.
 
@@ -127,7 +128,7 @@ struct Params {
   int* turn;            // [BH, nq, cl, NC]
   float* dk;            // [BH, T, D] contiguous, as dv
   float* dv;
-  int t, d, nq, nk;     // d: the columns the kernel runs at (64 for a Dh-32 head)
+  int t, d, nq, nk;     // d: the columns the kernel runs at (the instance, run_columns)
   int dcols;            // the head dimension of dk, dv
   float scale_log2, sm_scale;
 };
@@ -425,7 +426,7 @@ __device__ __forceinline__ void bwd_consumer(const Params& p, unsigned char* sme
     for (int c = 0; c < 2 * NC; ++c)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
-        if (col0 + 32 * c + 8 * jj < p.dcols)
+        if (col0 + 32 * c + 8 * jj + 2 * tg < p.dcols)
           *reinterpret_cast<float2*>(o + 32 * c + 8 * jj) =
               make_float2(dg[c][4 * jj + 2 * r], dg[c][4 * jj + 2 * r + 1]);
   }
@@ -666,17 +667,19 @@ size_t flash_attention_bwd_f32_workspace(int bh, int t, int d) {
 // strides: their element strides {batch, head, token} (15 values), each a
 // multiple of 4 (16 bytes), bases 16-byte aligned. lse: contiguous fp32
 // [B, H, T]; dq, dk, dv: contiguous fp32 [B, H, T, D]; workspace:
-// flash_attention_bwd_f32_workspace bytes, 256-byte aligned. D 32, or a
-// multiple of 64 up to 512; `cluster` the blocks that split it (D / 128 when
-// D is 128, 256 or 512, 1 at D 32, else D / 64; anything else is refused). Launches the
-// stats and split passes, the kernel and the dQ pass on `stream`; returns
-// the first cudaError_t of the launches.
+// flash_attention_bwd_f32_workspace bytes, 256-byte aligned. D a multiple
+// of 4 up to 512, run on the instance run_columns(D); `cluster` the blocks
+// that split it (instance / 128 at 128, 256 and 512, else instance / 64;
+// anything else is refused). Launches the stats and split passes, the
+// kernel and the dQ pass on `stream`; returns the first cudaError_t of the
+// launches.
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                             const void* d_o, const void* lse, void* dq, void* dk, void* dv,
                             void* workspace, int b, int h, int t, int d, int cluster,
                             const int64_t* strides, float sm_scale, void* stream) {
-  if ((d % 64 != 0 && d != 32) || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0 ||
-      b * h > 65535 || cluster != run_columns(d) / block_columns(d))
+  const int run = run_columns(d);
+  if (d % 4 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0 || b * h > 65535 ||
+      cluster != run / block_columns(run))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
@@ -684,10 +687,7 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const v
   case D:                                                                                    \
     return launch<DL, D / DL>(q, k, v, o, d_o, l, dq, dk, dv, workspace, b, h, t, d, strides, \
                               sm_scale, s)
-  if (d == 32)
-    return launch<64, 1>(q, k, v, o, d_o, l, dq, dk, dv, workspace, b, h, t, d, strides, sm_scale,
-                         s);
-  switch (d) {
+  switch (run) {
     BWD(64, 64); BWD(128, 128); BWD(192, 64); BWD(256, 128);
     BWD(320, 64); BWD(384, 64); BWD(448, 64); BWD(512, 128);
   }

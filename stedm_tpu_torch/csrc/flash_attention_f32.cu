@@ -57,11 +57,12 @@
 //   * the softmax runs on exp2 with the scale folded into one fused
 //     multiply-add an element; keys >= T are masked to -inf in the last tile
 //     only; rows >= T are not stored;
-//   * Dh 32 (the U-Net's AttentionBlock at num_head_channels 32) runs the
-//     Dh-64 instantiation: the split pass writes 64-column copies whose
-//     columns 32 .. 63 are zeros (they add nothing to S, and O gets zero
-//     columns there), and only O's 32 real columns are stored; the chains
-//     keep their 4-k-step cap.
+//   * a head dimension that is not a multiple of 64 (a multiple of 4: Dh
+//     32 at num_head_channels 32, 16, 96, 160, ...) runs the instantiation
+//     of the next multiple of 64 (run_columns): the split pass writes copies
+//     of that width whose columns past the head dimension are zeros (they add
+//     nothing to S, and O gets zero columns there), and only O's real
+//     columns are stored; the chains keep their 4-k-step cap.
 // S is m64n32k8 (64 rows x a consumer's 32 keys), P V m64n64k8 (one
 // accumulator per 64 columns of O, one V^T item each).
 
@@ -108,7 +109,7 @@ struct Params {
   float* lse;                 // [B, H, T] or null
   int64_t o_sb, o_sh, o_st;   // element strides of o
   int t, h;                   // tokens, heads
-  int dcols;                  // O's columns: the head dimension (32 when run at 64)
+  int dcols;                  // O's columns: the head dimension (the instance's, or fewer)
   float scale_log2;           // sm_scale * log2(e): the softmax runs on exp2
 };
 
@@ -336,7 +337,7 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, unsigned char* sme
     constexpr int mine = CW * HALF;
     const int c = (mine + f) / 32, e = (mine + f) % 32, r = (e >> 1) & 1;
     const int row = row0 + 8 * r;
-    if (row >= p.t || col0 + 64 * c + 8 * (e / 4) >= p.dcols) continue;
+    if (row >= p.t || col0 + 64 * c + 8 * (e / 4) + 2 * tg >= p.dcols) continue;
     const float* po = part + ((1 - CW) * HALF + f) * WG + lt;
     const float x0 = fmaf(o[c][e], sc_me[r], po[0] * sc_other[r]);
     const float x1 = fmaf(o[c][e + 1], sc_me[r], po[WG] * sc_other[r]);
@@ -494,17 +495,19 @@ size_t flash_attention_f32_workspace(int bh, int t, int d) {
 
 // q, k, v, o: fp32 [B, H, T, D] on the device, last dimension contiguous;
 // strides: the element strides {batch, head, token} of q, k, v and o (12
-// values). D 32, or a multiple of 64 up to 512; `cluster` the blocks that
-// split it, D / 128 when D is 128, 256 or 512, 1 at D 32, else D / 64 (the
-// wrapper's plan; anything else is refused). lse: contiguous fp32 [B, H, T], or null when
-// the caller needs no LSE. workspace: flash_attention_f32_workspace bytes,
-// 256-byte aligned. Launches the split pass and the kernel on `stream`;
-// returns the cudaError_t of the launches.
+// values). D a multiple of 4 up to 512, run on the instance run_columns(D);
+// `cluster` the blocks that split it, instance / 128 at 128, 256 and 512,
+// else instance / 64 (the wrapper's plan; anything else is refused). lse:
+// contiguous fp32 [B, H, T], or null when the caller needs no LSE.
+// workspace: flash_attention_f32_workspace bytes, 256-byte aligned.
+// Launches the split pass and the kernel on `stream`; returns the
+// cudaError_t of the launches.
 int flash_attention_f32_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             void* workspace, int b, int h, int t, int d, int cluster,
                             const int64_t* strides, float sm_scale, void* stream) {
-  if ((d % 64 != 0 && d != 32) || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0 ||
-      b * h > 65535 || cluster != run_columns(d) / block_columns(d))
+  const int run = run_columns(d);
+  if (d % 4 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0 || b * h > 65535 ||
+      cluster != run / block_columns(run))
     return (int)cudaErrorInvalidValue;
   const Params p = {(float*)o, (float*)lse, strides[9], strides[10], strides[11], t, h, d,
                     sm_scale * 1.4426950408889634f};
@@ -512,8 +515,7 @@ int flash_attention_f32_fwd(const void* q, const void* k, const void* v, void* o
   unsigned char* ws = (unsigned char*)workspace;
 #define FWD(D, DL) \
   case D: return launch<DL, D / DL>(q, k, v, p, b, d, strides, ws, s)
-  if (d == 32) return launch<64, 1>(q, k, v, p, b, d, strides, ws, s);
-  switch (d) {
+  switch (run) {
     FWD(64, 64); FWD(128, 128); FWD(192, 64); FWD(256, 128);
     FWD(320, 64); FWD(384, 64); FWD(448, 64); FWD(512, 128);
   }

@@ -297,8 +297,9 @@ inline bool make_split_map(CUtensorMap* map, const float* ptr, int bh, int rows,
 // TP = T rounded up to 8; tokens in [T, TP) are written as zeros), the
 // tokens of each group of 8 in the order pi when `perm` is set. A block
 // takes a 32-token x 32-column tile of every job. The inputs have `dx`
-// columns and the copies `d`: with dx 32 and d 64 (the kernels run a Dh-32
-// head padded to 64) columns 32 .. 63 of the copies are written as zeros.
+// columns and the copies `d`: with dx below d (the kernels run a head
+// dimension padded to their instance, dx 32 or 96 in copies of 64 or 128)
+// the columns from dx on are written as zeros.
 // ---------------------------------------------------------------------------
 
 struct SplitJob {
@@ -366,15 +367,17 @@ inline cudaError_t launch_split(const SplitParams& p, cudaStream_t stream) {
 
 inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
-// The head-dimension split of both kernels: the columns a block, 128 at Dh
-// 128, 256 and 512, else 64 (the backward's 3-block instance of 128 columns,
-// Dh 384, spilled), and Dh / columns blocks a cluster (ops/blocked_attention.
-// py: fp32_plan passes that cluster size, which the entry points check).
-inline int block_columns(int d) { return d == 128 || d == 256 || d == 512 ? 128 : 64; }
+// The head-dimension split of both kernels over the instance they run (run
+// below): the columns a block, 128 at 128, 256 and 512, else 64 (the
+// backward's 3-block instance of 128 columns, Dh 384, spilled), and
+// instance / columns blocks a cluster (ops/blocked_attention.py: fp32_plan
+// passes that cluster size, which the entry points check).
+inline int block_columns(int run) { return run == 128 || run == 256 || run == 512 ? 128 : 64; }
 
-// The head dimension the kernels run at: Dh 32 runs padded to 64 (the split
-// copies carry zeros in columns 32 .. 63, and only the real columns of the
-// outputs are stored).
-inline int run_columns(int d) { return d == 32 ? 64 : d; }
+// The instance (head dimension) the kernels run a head dimension d (a
+// multiple of 4 up to 512) at: the smallest multiple of 64 at or above it.
+// The split copies carry zeros in the columns past d, and only the real
+// columns of the outputs are stored.
+inline int run_columns(int d) { return (d + 63) / 64 * 64; }
 
 }  // namespace tf32w

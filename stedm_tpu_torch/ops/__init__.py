@@ -6,8 +6,13 @@ a run can show that its main path went through the kernels. The flash
 kernels count by dtype: ``flash_attention`` and ``flash_attention_bwd`` the
 bf16 kernels, ``flash_attention_f32`` and ``flash_attention_bwd_f32`` the fp32
 ones; a backward call's launches (the Di pass and its kernels) count once.
-Each flash kernel's launches at Dh 32 (``num_head_channels: 32``) count
-under its name with ``_dh32`` appended, and not under its own;
+Each flash kernel's launches at a head dimension that is not one of its
+compiled multiples of 64 count under its name with ``_dh<Dh>`` appended
+(``_dh32`` at ``num_head_channels: 32``, ``_dh16`` at 16), and not under its
+own (``blocked_attention.launch_counter``; the keys of other head dimensions
+appear at their first launch); ``attention_plain`` counts the ``sdpa`` calls
+that run the plain attention on the card, above the kernels' largest head
+dimension;
 GroupNorm launches with FiLM (``use_scale_shift_norm``) count under
 ``gn_silu_film``, the others under ``gn_silu``.
 ``nearest_code`` counts the width-3 kernel with the codebook slice resident,
@@ -24,7 +29,9 @@ LAUNCHES = {"gn_silu": 0, "flash_attention": 0, "flash_attention_bwd": 0, "neare
             "flash_attention_f32": 0, "flash_attention_bwd_f32": 0, "nearest_code_stream": 0,
             "flash_attention_dh32": 0, "flash_attention_bwd_dh32": 0,
             "flash_attention_f32_dh32": 0, "flash_attention_bwd_f32_dh32": 0,
-            "gn_silu_film": 0}
+            "gn_silu_film": 0, "flash_attention_dh16": 0, "flash_attention_bwd_dh16": 0,
+            "flash_attention_f32_dh16": 0, "flash_attention_bwd_f32_dh16": 0,
+            "attention_plain": 0}
 PLAIN_CALLS = {"gn_silu_bwd": 0}
 
 

@@ -18,35 +18,44 @@ forward takes (``KERNELS``), the head dimension split across a cluster of
 and dV: the port of the stock kernel's ``dkv`` and ``dq`` Pallas kernels,
 flash_attention.py:941 and :1287) on CUDA tensors, reading the same strided
 views, and ``attention_backward_reference`` on CPU tensors. The backward
-takes head dimensions 32 (the AttentionBlock at ``num_head_channels: 32``),
-64, 128 (the U-Net's AttentionBlock in diffusion training), 256 and 512 (the
-codec's AttnBlockVQ in codec fine-tuning, where a thread-block cluster
-splits the head dimension). At Dh 32 (``HEAD_DIMS``) the bf16 forward has
-an instance of its own (tiles in the 64-byte swizzle); the backward and the
-fp32 kernels run their Dh-64 instances on the head dimension padded to 64
-with zeros.
+runs on compiled instances (``INSTANCES``): the forwards at Dh 32 and the
+multiples of 64 up to 512, the bf16 backward at 32 (an instance of its own,
+256 keys a block), 64, 128 (the U-Net's AttentionBlock in diffusion
+training), 256 and 512 (the codec's AttnBlockVQ in codec fine-tuning,
+where a thread-block cluster splits the head dimension), the fp32 kernels
+at the multiples of 64. ``head_dim_plan`` maps every head dimension from 1
+to ``MAX_HEAD_DIM`` onto the smallest instance at or above it, whose tensor
+maps (or split copies) declare the true columns, so the columns past them
+arrive as zeros and are never stored; a head dimension whose rows are not
+16 bytes apart first goes into zero-padded copies of the next such width.
 
 ``sdpa`` keeps the JAX dispatch by name. ``exact``, ``chunked``, ``flash`` and
 ``auto`` name TPU memory strategies for one function, so on a CUDA tensor all
 four launch the kernel; on the CPU ``exact`` and ``chunked`` run their plain
 versions (``_exact`` / ``chunked_sdpa``, stedm_tpu/ops/blocked_attention.py
 :73-84 and :50-70) under autograd, ``flash`` the wrapper's plain versions and
-``auto`` resolves to ``chunked``. The kernels' only gate is the head dimension.
+``auto`` resolves to ``chunked``. Above ``MAX_HEAD_DIM`` no kernel exists
+(ROADMAP.md §2): there ``exact``, ``chunked`` and ``auto`` run those plain
+versions on the card too, as the JAX package's jnp path does off the TPU
+(counted as ``LAUNCHES["attention_plain"]``), and ``flash`` raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from stedm_tpu_torch._device import check_cuda_tensor, load_library
 from stedm_tpu_torch.ops import LAUNCHES
 
 MAX_HEAD_DIM = 512
-# the forward kernels' and the fp32 backward's head dims: 32 and the multiples
-# of 64 up to MAX_HEAD_DIM; the bf16 backward takes BWD_HEAD_DIMS
+# the compiled instances of the bf16 forward: 32 and the multiples of 64 up
+# to MAX_HEAD_DIM (the fp32 kernels': the multiples of 64); the bf16
+# backward's: BWD_HEAD_DIMS
 HEAD_DIMS = (32,) + tuple(range(64, MAX_HEAD_DIM + 1, 64))
 BWD_HEAD_DIMS = (32, 64, 128, 256, 512)
 FP32_WIDE_HEAD_DIMS = (128, 256, 512)    # the fp32 kernels' head dims split 128 columns a block
@@ -55,12 +64,52 @@ _LOG2E = 1.0 / math.log(2.0)
 # also the name of its LAUNCHES count
 KERNELS = {torch.bfloat16: ("flash_attention", "flash_attention_bwd"),
            torch.float32: ("flash_attention_f32", "flash_attention_bwd_f32")}
+# each kernel's compiled instances, by head dim (the fp32 kernels run Dh 32
+# on their Dh-64 instance)
+INSTANCES = {"flash_attention": HEAD_DIMS, "flash_attention_bwd": BWD_HEAD_DIMS,
+             "flash_attention_f32": HEAD_DIMS[1:], "flash_attention_bwd_f32": HEAD_DIMS[1:]}
+ABOVE_MAX = (f"the flash kernels take head dims up to {MAX_HEAD_DIM} (ROADMAP.md §2: a kernel "
+             "above it is still to be written); sdpa's exact, chunked and auto run the plain "
+             "path there")
+
+
+class HeadDimPlan(NamedTuple):
+    """How a kernel runs a head dimension: on its compiled ``instance``,
+    reading ``width`` columns (the head dimension itself, or the width of
+    the zero-padded copies that the wrapper makes when the rows are not 16
+    bytes apart)."""
+
+    instance: int
+    width: int
+
+
+def head_dim_plan(d: int, dtype, backward: bool) -> HeadDimPlan | None:
+    """The plan of the ``dtype`` forward (or ``backward``) kernel at head dim
+    ``d``: the smallest instance at or above the width, where the width is
+    ``d`` rounded up to 16 bytes (8 bf16 or 4 fp32 values: TMA and the
+    16-byte copies step rows so); None above ``MAX_HEAD_DIM``."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        return None
+    per_row = 16 // torch.empty((), dtype=dtype).element_size()
+    width = -(-d // per_row) * per_row
+    stem = KERNELS[dtype][int(backward)]
+    return HeadDimPlan(next(i for i in INSTANCES[stem] if i >= width), width)
 
 
 def launch_counter(stem: str, d: int) -> str:
-    """The ``LAUNCHES`` key of a launch of ``stem`` at head dim ``d``: Dh 32
-    counts apart."""
-    return f"{stem}_dh32" if d == 32 else stem
+    """The ``LAUNCHES`` key of a launch of ``stem`` at head dim ``d``: a head
+    dim that is not one of the kernel's compiled multiples of 64 counts
+    apart, as ``<stem>_dh<d>`` (Dh 32: ``<stem>_dh32``)."""
+    return stem if d % 64 == 0 and d in INSTANCES[stem] else f"{stem}_dh{d}"
+
+
+def _count(key: str) -> None:
+    LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+
+
+def _padded(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` copied into a contiguous tensor of ``width`` columns, zeros past its own."""
+    return F.pad(x, (0, width - x.shape[-1]))
 
 
 def _largest_divisor_at_most(n: int, cap: int) -> int:
@@ -167,14 +216,16 @@ def fwd_workspace_bytes(bh: int, t: int, d: int) -> int:
 
 
 def fp32_plan(b: int, h: int, t: int, d: int) -> dict:
-    """The fp32 kernels' launch plan for ``[B, H, T, Dh]``: the head
-    dimension split into ``columns`` a block (``FP32_WIDE_HEAD_DIMS`` take
-    128, the others 64; Dh 32 runs as one block of 64, padded) over a
-    thread-block ``cluster`` of Dh / columns blocks, the C entry points
-    (``fwd``, ``bwd``) and the workspace bytes each asks for. The C side
-    refuses any other cluster size."""
-    cols = 128 if d in FP32_WIDE_HEAD_DIMS else 64
-    return {"columns": cols, "cluster": max(1, d // cols),
+    """The fp32 kernels' launch plan for ``[B, H, T, Dh]`` (``d`` a multiple
+    of 4 up to ``MAX_HEAD_DIM``): the instance that runs it
+    (``head_dim_plan``) split into ``columns`` a block
+    (``FP32_WIDE_HEAD_DIMS`` take 128, the others 64) over a thread-block
+    ``cluster`` of instance / columns blocks, the C entry points (``fwd``,
+    ``bwd``) and the workspace bytes each asks for. The C side refuses any
+    other cluster size."""
+    run = head_dim_plan(d, torch.float32, True).instance
+    cols = 128 if run in FP32_WIDE_HEAD_DIMS else 64
+    return {"columns": cols, "cluster": run // cols,
             "fwd": _fwd_lib(torch.float32), "bwd": _bwd_lib(torch.float32),
             "fwd_workspace": fwd_workspace_bytes(b * h, t, d),
             "bwd_workspace": bwd_workspace_bytes(b * h, t, d, torch.float32)}
@@ -216,45 +267,65 @@ def _check_dtypes(named) -> torch.dtype:
     return dtype
 
 
+def _check_launchable(named, strided: bool = True) -> list:
+    """Each ``(name, tensor)`` on the first one's CUDA device, and (``strided``)
+    the element strides of each (``check_strided``)."""
+    strides = []
+    for name, x in named:
+        if not x.is_cuda or x.device != named[0][1].device:
+            raise ValueError(f"{name} must be a CUDA tensor on q's device")
+        if strided:
+            strides += check_strided(x, name)
+    return strides
+
+
+def _plan_or_raise(d: int, dtype, backward: bool) -> HeadDimPlan:
+    plan = head_dim_plan(d, dtype, backward)
+    if plan is None:
+        raise ValueError(f"{ABOVE_MAX}; got head dim {d}")
+    return plan
+
+
 def flash_attention_cuda(q, k, v, sm_scale: float, return_lse: bool = False, out=None):
     """Launch the forward kernel of q's dtype (bf16 or fp32, ``KERNELS``) on
     ``[B, H, T, Dh]`` CUDA tensors whose last dimension is contiguous (any
-    16-byte-aligned batch, head and token strides). ``out`` is where O is
-    written, in any such layout (default: a new contiguous tensor); with
-    ``return_lse`` also returns the fp32 ``[B, H, T]`` LSE."""
+    16-byte-aligned batch, head and token strides), at any Dh up to
+    ``MAX_HEAD_DIM`` (``head_dim_plan``). ``out`` is where O is written, in
+    any such layout (default: a new contiguous tensor); with ``return_lse``
+    also returns the fp32 ``[B, H, T]`` LSE."""
     if not (q.shape == k.shape == v.shape):
         raise ValueError(f"q, k, v shapes differ: {q.shape}, {k.shape}, {v.shape}")
     b, h, t, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the flash-attention forward kernels ({KERNELS[torch.bfloat16][0]}, "
-                         f"{KERNELS[torch.float32][0]}) take head dims 32 and the multiples "
-                         f"of 64 up to {MAX_HEAD_DIM}, got {d}")
+    if out is not None and out.shape != q.shape:
+        raise ValueError(f"out must have q's shape {tuple(q.shape)}, got {tuple(out.shape)}")
+    named = (("q", q), ("k", k), ("v", v)) + ((("out", out),) if out is not None else ())
+    dtype = _check_dtypes(named)
+    plan = _plan_or_raise(d, dtype, backward=False)
     if out is None:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    elif out.shape != q.shape:
-        raise ValueError(f"out must have q's shape {tuple(q.shape)}, got {tuple(out.shape)}")
-    named = (("q", q), ("k", k), ("v", v), ("out", out))
-    dtype = _check_dtypes(named)
-    strides = []
-    for name, x in named:
-        if not x.is_cuda or x.device != q.device:
-            raise ValueError(f"{name} must be a CUDA tensor on q's device")
-        strides += check_strided(x, name)
+    if plan.width != d:                 # rows not 16 bytes apart: zero-padded copies
+        _check_launchable((("q", q), ("k", k), ("v", v), ("out", out)), strided=False)
+        run = [_padded(x, plan.width) for x in (q, k, v)]
+        run.append(torch.empty_like(run[0]))
+    else:
+        run = [q, k, v, out]
+    strides = _check_launchable(tuple(zip(("q", "k", "v", "out"), run)))
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32) if return_lse else None
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr())
+    ptrs = tuple(x.data_ptr() for x in run) + (None if lse is None else lse.data_ptr(),)
     tail = ((ctypes.c_int64 * 12)(*strides), float(sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if dtype == torch.float32:
-        plan = fp32_plan(b, h, t, d)
-        ws = torch.empty(plan["fwd_workspace"], device=q.device, dtype=torch.uint8)
-        err = plan["fwd"](*ptrs, ws.data_ptr(), b, h, t, d, plan["cluster"], *tail)
+        fplan = fp32_plan(b, h, t, plan.width)
+        ws = torch.empty(fplan["fwd_workspace"], device=q.device, dtype=torch.uint8)
+        err = fplan["fwd"](*ptrs, ws.data_ptr(), b, h, t, plan.width, fplan["cluster"], *tail)
     else:
-        err = _fwd_lib(dtype)(*ptrs, b, h, t, d, *tail)
+        err = _fwd_lib(dtype)(*ptrs, b, h, t, plan.width, *tail)
     stem = KERNELS[dtype][0]
     if err:
         raise RuntimeError(f"{stem} launch failed: cudaError {err}")
-    LAUNCHES[launch_counter(stem, d)] += 1
+    if run[3] is not out:
+        out.copy_(run[3][..., :d])
+    _count(launch_counter(stem, d))
     return (out, lse) if return_lse else out
 
 
@@ -268,17 +339,17 @@ def _row_dot(do, o):
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=None):
     """Launch the backward of q's dtype on the forward's inputs, its output
     ``o`` and LSE (fp32 ``[B, H, T]``, contiguous) and the output gradient
-    ``do``. bf16 (``csrc/flash_attention_bwd.cu``): a small pass computes
-    Di = rowsum(do * o) on the card, then one fused kernel computes all three
-    gradients, at Dh 32, 64, 128, 256 or 512. fp32
-    (``csrc/flash_attention_bwd_f32.cu``): a stats pass (LSE * log2(e), Di),
-    a split pass (TF32 hi and lo copies), one fused kernel computing each of
-    the five products once (the head dimension split across a cluster,
-    ``fp32_plan``) and a pass that writes dQ, at any Dh the forward takes.
+    ``do``, at any Dh up to ``MAX_HEAD_DIM`` (``head_dim_plan``). bf16
+    (``csrc/flash_attention_bwd.cu``): a small pass computes Di = rowsum(do
+    * o) on the card, then one fused kernel computes all three gradients.
+    fp32 (``csrc/flash_attention_bwd_f32.cu``): a stats pass (LSE * log2(e),
+    Di), a split pass (TF32 hi and lo copies), one fused kernel computing
+    each of the five products once (the head dimension split across a
+    cluster, ``fp32_plan``) and a pass that writes dQ.
     q, k, v, o and do are ``[B, H, T, Dh]`` CUDA tensors of one dtype in any
     layout ``check_strided`` takes.
     Returns contiguous ``(dq, dk, dv)``; ``LAUNCHES`` counts the call's
-    launches once, under the backward's name (``KERNELS``).
+    launches once, under the backward's name (``KERNELS``, ``launch_counter``).
     ``workspace``, a uint8 CUDA tensor of at least
     ``bwd_workspace_bytes(B * H, T, Dh, dtype)`` bytes, is used instead of a
     new one when given; bf16: it starts with the Di pass's output, fp32
@@ -289,45 +360,44 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=Non
         raise ValueError(f"q, k, v, o, do shapes differ: {q.shape}, {k.shape}, {v.shape}, "
                          f"{o.shape}, {do.shape}")
     b, h, t, d = q.shape
-    named = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
+    names = ("q", "k", "v", "o", "do")
+    named = tuple(zip(names, (q, k, v, o, do)))
     dtype = _check_dtypes(named)
-    if dtype == torch.bfloat16 and d not in BWD_HEAD_DIMS:
-        raise ValueError(f"the bf16 flash-attention backward kernel takes head dims "
-                         f"{BWD_HEAD_DIMS} ({KERNELS[dtype][1]}), got {d}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the fp32 flash-attention backward kernel ({KERNELS[dtype][1]}) "
-                         f"takes head dims 32 and the multiples of 64 up to {MAX_HEAD_DIM}, "
-                         f"got {d}")
-    strides = []
-    for name, x in named:
-        if not x.is_cuda or x.device != q.device:
-            raise ValueError(f"{name} must be a CUDA tensor on q's device")
-        strides += check_strided(x, name)
+    plan = _plan_or_raise(d, dtype, backward=True)
+    if plan.width != d:                 # rows not 16 bytes apart: zero-padded copies
+        _check_launchable(named, strided=False)
+        named = tuple((n, _padded(x, plan.width)) for n, x in named)
+    strides = _check_launchable(named)
     check_cuda_tensor(lse, "lse", torch.float32, 3)
     if tuple(lse.shape) != (b, h, t) or lse.device != q.device:
         raise ValueError(f"lse must be [B, H, T] = {(b, h, t)} on q's device, got "
                          f"{tuple(lse.shape)}")
-    dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(3))
-    plan = fp32_plan(b, h, t, d) if dtype == torch.float32 else None
-    nbytes = plan["bwd_workspace"] if plan else bwd_workspace_bytes(b * h, t, d, dtype)
+    shape = (b, h, t, plan.width)
+    dq, dk, dv = (torch.empty(shape, device=q.device, dtype=q.dtype) for _ in range(3))
+    fplan = fp32_plan(b, h, t, plan.width) if dtype == torch.float32 else None
+    nbytes = (fplan["bwd_workspace"] if fplan
+              else bwd_workspace_bytes(b * h, t, plan.width, dtype))
     if workspace is None:
         workspace = torch.empty(nbytes, device=q.device, dtype=torch.uint8)
     elif (workspace.device != q.device or workspace.dtype != torch.uint8
           or workspace.numel() < nbytes or workspace.data_ptr() % 256):
         raise ValueError(f"workspace must be {nbytes} bytes (uint8) on q's device, "
                          "256-byte aligned")
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), workspace.data_ptr())
+    ptrs = tuple(x.data_ptr() for _, x in named[:5])
+    ptrs = ptrs + (lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                   workspace.data_ptr())
     tail = ((ctypes.c_int64 * 15)(*strides), float(sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream)
-    if plan:
-        err = plan["bwd"](*ptrs, b, h, t, d, plan["cluster"], *tail)
+    if fplan:
+        err = fplan["bwd"](*ptrs, b, h, t, plan.width, fplan["cluster"], *tail)
     else:
-        err = _bwd_lib(dtype)(*ptrs, b, h, t, d, *tail)
+        err = _bwd_lib(dtype)(*ptrs, b, h, t, plan.width, *tail)
     stem = KERNELS[dtype][1]
     if err:
         raise RuntimeError(f"{stem} launch failed: cudaError {err}")
-    LAUNCHES[launch_counter(stem, d)] += 1
+    _count(launch_counter(stem, d))
+    if plan.width != d:
+        dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -391,10 +461,13 @@ def flash_attention(q, k, v, sm_scale: float):
 
 def sdpa(q, k, v, scale, *, impl: str = "exact", q_chunk: int = 256):
     """Dispatch by implementation name; ``scale`` is the reference's
-    per-operand ``dh ** -0.25`` (the kernel takes its square)."""
+    per-operand ``dh ** -0.25`` (the kernel takes its square). On the card
+    above ``MAX_HEAD_DIM`` the plain versions run (``flash`` raises)."""
     if impl not in ("exact", "chunked", "flash", "auto"):
         raise ValueError(f"unknown attn impl {impl!r}")
-    if q.is_cuda or impl == "flash":
+    if q.is_cuda and impl != "flash" and q.shape[-1] > MAX_HEAD_DIM:
+        _count("attention_plain")
+    elif q.is_cuda or impl == "flash":
         return flash_attention(q, k, v, float(scale) ** 2)
     if impl == "exact":
         return _exact(q, k, v, scale)

@@ -60,16 +60,19 @@ def test_kernels_take_bf16_and_fp32_only():
 
 
 @pytest.mark.parametrize("dtype,dh,match", [
-    (torch.bfloat16, 192, "bf16 flash-attention backward kernel takes head dims"),
+    (torch.bfloat16, 192, "CUDA tensor"),        # on the Dh-256 instance
     (torch.bfloat16, 128, "CUDA tensor"),
-    (torch.float32, 192, "CUDA tensor"),         # every Dh of the forward
+    (torch.float32, 192, "CUDA tensor"),
     (torch.float32, 448, "CUDA tensor"),
-    (torch.float32, 96, "multiples of 64"),
+    (torch.float32, 96, "CUDA tensor"),          # on the Dh-128 instance
+    (torch.bfloat16, 640, "ROADMAP.md §2"),
+    (torch.float32, 1024, "ROADMAP.md §2"),
 ])
 def test_backward_head_dims_by_dtype(dtype, dh, match):
-    """The bf16 backward takes Dh 64, 128, 256 and 512; the fp32 one every
-    multiple of 64 up to 512. Past the gates, a CPU tensor is refused before
-    any launch."""
+    """Both backwards take every head dimension up to 512 (head_dim_plan:
+    the bf16 one on its instances 32, 64, 128, 256 and 512, the fp32 one on
+    the multiples of 64) and refuse the larger ones; past the gates, a CPU
+    tensor is refused before any launch."""
     q = torch.zeros(1, 1, 64, dh, dtype=dtype)
     lse = torch.zeros(1, 1, 64)
     with pytest.raises(ValueError, match=match):

@@ -157,11 +157,15 @@ def test_flash_attention_kernel(cuda, shape):
 
 
 def test_flash_attention_gates_head_dim(cuda):
+    """Every head dimension up to 512 runs; above it the kernels raise the
+    ValueError that names ROADMAP.md §2."""
     from stedm_tpu_torch.ops import blocked_attention as a
 
-    q = torch.zeros(1, 1, 64, 96, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError):
+    q = torch.zeros(1, 1, 64, 640, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="ROADMAP.md §2"):
         a.flash_attention(q, q, q, 0.1)
+    with pytest.raises(ValueError, match="ROADMAP.md §2"):
+        a.sdpa(q, q, q, 0.2, impl="flash")
 
 
 def _attention_tolerance(q, k, v, s, ref):
@@ -469,14 +473,75 @@ def test_flash_attention_launches_from_another_thread(cuda, shape):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("dh", [192, 320])
+@pytest.mark.parametrize("dh", [640, 1024])
 def test_flash_attention_backward_gates_head_dim(cuda, dh):
+    """Above 512 the backward raises before any launch (the forward too)."""
     from stedm_tpu_torch.ops import blocked_attention as a
 
     q = torch.randn(1, 1, 64, dh, generator=cuda, device="cuda").to(torch.bfloat16)
-    o, lse = a.flash_attention_cuda(q, q, q, 0.05, return_lse=True)
-    with pytest.raises(ValueError, match="head dims"):
-        a.flash_attention_bwd_cuda(q, q, q, o, lse, o, 0.05)
+    lse = torch.zeros(1, 1, 64, device="cuda")
+    with pytest.raises(ValueError, match="ROADMAP.md §2"):
+        a.flash_attention_bwd_cuda(q, q, q, q, lse, q, 0.05)
+
+
+# every head dimension up to 512 on the smallest instance at or above it:
+# the bf16 backward's Dh-32 instance (256 keys a block: one key tile, two,
+# ragged, many), Dh 16 on it, the copy route (Dh 20, 8 and 4: rows not 16
+# bytes apart), the padded instances (the backward's 192-448 on its cluster
+# instances, whose last ranks hold only zero columns); bf16 and fp32
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(1, 2, 100, 32), (2, 3, 300, 32), (1, 2, 256, 32),
+                                   (2, 8, 1100, 32), (2, 4, 300, 16), (1, 3, 200, 20),
+                                   (1, 2, 70, 4), (2, 2, 130, 8), (1, 2, 300, 48),
+                                   (1, 2, 300, 96), (1, 2, 300, 160), (1, 2, 300, 192),
+                                   (1, 2, 300, 320), (1, 1, 300, 448)])
+def test_flash_attention_every_head_dim(cuda, dtype, shape):
+    from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
+
+    q, k, v, do = (torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+                   for _ in range(4))
+    d = shape[-1]
+    s = d ** -0.5
+    before = dict(LAUNCHES)
+    o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+    ref_o = a.attention_reference(q, k, v, s)
+    rel = 2 ** -16 if dtype == torch.float32 else 2 ** -7
+    p = torch.softmax((q.float() @ k.float().transpose(-1, -2)) * s, dim=-1)
+    tol_o = rel * (p @ v.float().abs() + ref_o.float().abs())
+    assert bool(((o.float() - ref_o.float()).abs() <= tol_o).all())
+    got = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+    if dtype == torch.bfloat16:     # phase 2b's test
+        ref = a.attention_backward_reference(q, k, v, o, lse, do, s)
+        tols = _backward_tolerance(q, k, v, o, do, s, ref)
+    else:                           # 10a's: the plain steps in float64
+        ref, bounds = _f64_backward(q, k, v, o, lse, do, s)
+        tols = [2 ** -16 * (bd + r.abs()) for bd, r in zip(bounds, ref)]
+    for name, g, r, tol in zip(("dq", "dk", "dv"), got, ref, tols):
+        err = (g.double() - r.double()).abs()
+        assert bool((err <= tol).all()), (name, float(err.max()))
+    again = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for launches, stem in zip((1, 2), a.KERNELS[dtype]):     # the forward once, the backward twice
+        key = a.launch_counter(stem, d)
+        assert LAUNCHES[key] - before.get(key, 0) == launches, key
+
+
+def test_sdpa_runs_the_plain_attention_above_512(cuda):
+    """Dh 1024 (the landscape bottleneck at num_heads 1): exact, chunked and
+    auto run the plain attention on the card, counted as attention_plain,
+    with its gradient; flash raises."""
+    from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
+
+    q, k, v = (torch.randn((2, 1, 256, 1024), generator=cuda, device="cuda")
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    for impl in ("exact", "chunked", "auto"):
+        before = LAUNCHES["attention_plain"]
+        out = a.sdpa(q, k, v, 1024 ** -0.25, impl=impl, q_chunk=64)
+        torch.testing.assert_close(out, a._exact(q, k, v, 1024 ** -0.25))
+        out.float().sum().backward()
+        assert LAUNCHES["attention_plain"] == before + 1
+    with pytest.raises(ValueError, match="ROADMAP.md §2"):
+        a.sdpa(q, k, v, 1024 ** -0.25, impl="flash")
 
 
 @pytest.mark.parametrize("shape,mode", [((2, 16, 16, 128), "add"), ((2, 8, 8, 640), "plain"),

@@ -153,7 +153,10 @@ def test_cpu_wrappers_launch_nothing():
                              "nearest_code", "flash_attention_f32", "flash_attention_bwd_f32",
                              "nearest_code_stream", "flash_attention_dh32",
                              "flash_attention_bwd_dh32", "flash_attention_f32_dh32",
-                             "flash_attention_bwd_f32_dh32", "gn_silu_film"}
+                             "flash_attention_bwd_f32_dh32", "gn_silu_film",
+                             "flash_attention_dh16", "flash_attention_bwd_dh16",
+                             "flash_attention_f32_dh16", "flash_attention_bwd_f32_dh16",
+                             "attention_plain"}
     assert not any(LAUNCHES.values()), LAUNCHES
 
 

@@ -100,7 +100,7 @@ def launcher(name: str):
     from stedm_tpu_torch.ops import blocked_attention as a
 
     fn = build_variant(name).flash_attention_bwd
-    fn.argtypes, fn.restype = a._bwd_lib().argtypes, ctypes.c_int
+    fn.argtypes, fn.restype = a._bwd_lib(torch.bfloat16).argtypes, ctypes.c_int
 
     def run(q, k, v, o, lse, do, s):
         b, h, t, d = q.shape
