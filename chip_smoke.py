@@ -241,13 +241,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    micro-steps) and ``predict_diff.main`` (8 pairs, DDIM-20) with phase
    6's config and ``+diffusion.unet_config.params.num_head_channels=16``
    (64 heads of 16 at the bottleneck), samples/s and pairs/s; 13d.
-   ``predict_diff.main`` with ``num_heads=1`` (Dh 1024, above every
-   kernel: the plain attention on the card, counted as
-   ``attention_plain``), 4 pairs at DDIM-4, on 13c's checkpoint, and the
-   same model under ``attn_impl=flash``, whose ``sdpa`` must raise the
-   ValueError that names ROADMAP.md §2. Every other path must count no
-   ``attention_plain``;
-14. a ``kernels`` JSON line, the card line, and as the last line
+   ``predict_diff.main`` with ``num_heads=1`` (Dh 1024: the forward's
+   cluster instance, counted as ``flash_attention_dh1024``), 4 pairs at
+   DDIM-4, on 13c's checkpoint, the same model's flash override reaching
+   its AttentionBlocks, and above every kernel, on tiny tensors: the
+   codec's AttnBlockVQ at 1152 channels runs the plain attention on the
+   card (counted as ``attention_plain``) and matches the CPU, and the
+   flash wrappers and ``sdpa(impl='flash')`` raise the ValueError that
+   names ROADMAP.md §2. No path counts ``attention_plain``;
+14. the flash kernels above Dh 512 (thread-block clusters of Dh / 128, up
+   to 8), on phase 6's tree: 14a. the clusters each instance holds at
+   once; the Dh-1024 instances against their plain versions with phase 2's,
+   2b's and 10a's checks at the one-head U-Net's sampling and 512^2
+   training shapes and the 1024-wide codec's 512^2 mid-block (the bf16
+   forward at ``[16, 1, 256, 1024]``, ``[8, 1, 1024, 1024]``, ``[2, 1,
+   16384, 1024]``, the backward at the last two, fp32 at ``[8, 1, 1024,
+   1024]`` and ``[2, 1, 4096, 1024]``), timed beside the plain versions,
+   SDPA (its backend named) and the bound; Dh 520, 576, 640, 768 and 896
+   at ``[2, 4, 320, Dh]`` through all four kernels, each timed once; 14b.
+   ``train_diff.main`` (2 micro-steps at 512^2) and ``predict_diff.main``
+   (4 pairs, DDIM-4) at ``num_heads=1``, bf16; 14c. the same at fp32 (one
+   micro-step); 14d. ``train_ae.main`` (2 steps and the val decode) with
+   ``ddconfig.ch_mult=[1,2,8]`` (the mid-block 1024 wide, T 16384 at
+   512^2). Each path must launch its Dh-1024 kernels
+   (``<kernel>_dh1024``) and no plain attention;
+15. a ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 fp32 matrix products and convolutions run without TF32 here (both backend
@@ -301,6 +319,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def prune_results(entry_root: Path, keep=("data",)) -> None:
+    """Removes the result directories under phase 6's tree that no later run
+    reads (everything but ``keep``), so that the checkpoints the next runs
+    write reuse their blocks: the card machine's disk takes a bounded total
+    of writes (45 GiB), and phase 14's checkpoints took it past that while
+    phases 6-12's 37 GiB of results stayed."""
+    gone = 0
+    for d in sorted(entry_root.iterdir()):
+        if d.name not in keep and d.is_dir():
+            gone += sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+            shutil.rmtree(d)
+    log(f"  removed the earlier runs' result directories under {entry_root.name}/ "
+        f"({gone / 2 ** 30:.2f} GiB)")
+
+
 def time_ms(fn, iters: int, flush=None) -> float:
     """Mean device time of ``fn()`` in ms over ``iters`` launches, each timed
     with CUDA events after the L2 was flushed (``flush``), after 2 warm-ups.
@@ -343,7 +376,12 @@ PATHS_12_F32 = ("opt_f32_train_micro_step",)
 # tiny fp32 sample and micro-steps at Dh 16 (13b), predict at Dh 1024 (13d)
 PATHS_13 = ("dh16_entry_train", "dh16_entry_predict")
 PATH_13_F32 = "dh16_f32_tiny"
-PATH_13_PLAIN = "dh1024_entry_predict"
+PATH_13D = "dh1024_entry_predict"
+# phase 14's: the entry points at num_heads 1 (14b), at fp32 (14c), and
+# train_ae with a 1024-wide codec mid-block (14d)
+PATHS_14 = ("dh1024_train", "dh1024_predict")
+PATHS_14_F32 = ("dh1024_f32_train", "dh1024_f32_predict")
+PATH_14_AE = "dh1024_entry_ae"
 
 
 # ptxas's notes that wgmma instructions were serialised
@@ -365,7 +403,7 @@ class KernelRecord:
                   "dpm_batch", "canvas_predict", "svit_train", "svit_predict", "handoff_ae",
                   "handoff_train", "handoff_predict", "dist_train", "dist_predict")
     PATHS = (PATHS_BF16 + PATHS_F32 + PATHS_WIDE + PATHS_12 + PATHS_12_F32 + PATHS_13
-             + (PATH_13_F32, PATH_13_PLAIN))
+             + (PATH_13_F32, PATH_13D) + PATHS_14 + PATHS_14_F32 + (PATH_14_AE,))
 
     def __init__(self, name, route, source, replaces, counter=None, paths=PATHS_BF16):
         # the launch counter the kernel's wrapper adds to, and the main paths
@@ -486,6 +524,26 @@ def kernel_records() -> dict:
             "stedm_tpu_torch/csrc/flash_attention_bwd_f32.cu",
             f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
             "(_flash_attention_bwd_dq)", paths=(PATH_13_F32,)),
+        # phase 14's: each flash kernel at Dh 1024 (the landscape U-Net at
+        # num_heads 1, a codec whose mid-block is 1024 wide), on a cluster of
+        # eight 128-column blocks; counted apart: "<name>_dh1024"
+        "flash_attention_dh1024": KernelRecord(
+            "flash_attention_dh1024", "cuda", "stedm_tpu_torch/csrc/flash_attention.cu",
+            "stedm_tpu/ops/blocked_attention.py:99 and stedm_tpu/models/vq.py:89",
+            paths=(PATH_13D,) + PATHS_14 + (PATH_14_AE,)),
+        "flash_attention_bwd_dh1024": KernelRecord(
+            "flash_attention_bwd_dh1024", "cuda", "stedm_tpu_torch/csrc/flash_attention_bwd.cu",
+            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
+            "(_flash_attention_bwd_dq)", paths=("dh1024_train", PATH_14_AE)),
+        "flash_attention_f32_dh1024": KernelRecord(
+            "flash_attention_f32_dh1024", "cuda", "stedm_tpu_torch/csrc/flash_attention_f32.cu",
+            f"{stock_flash}:589 (_flash_attention_impl), reached through "
+            "stedm_tpu/ops/blocked_attention.py:99", paths=PATHS_14_F32),
+        "flash_attention_bwd_f32_dh1024": KernelRecord(
+            "flash_attention_bwd_f32_dh1024", "cuda",
+            "stedm_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
+            "(_flash_attention_bwd_dq)", paths=("dh1024_f32_train",)),
     }
 
 
@@ -4250,6 +4308,7 @@ def model_options(torch, entry_root: Path, out_dir: Path, card: str, recs: dict,
 
 DH16 = dict(num_head_channels=16)
 HEAD16 = "+" + UNET_KEY + "num_head_channels=16"
+HEADS1 = UNET_KEY + "num_heads=1"       # the landscape U-Net's bottleneck in one head of 1024
 # 13a's correctness widths: through every kernel (Dh 20: the bf16 kernels'
 # zero-padded copies of width 24), and through the bf16 backward alone (its
 # padded instances <256> and <512>); at a ragged T
@@ -4369,16 +4428,16 @@ def head_dim_tiny_parity(torch) -> dict:
 def head_dim_entry_points(torch, entry_root: Path) -> tuple:
     """13c: train_diff (2 micro-steps) and predict_diff (8 pairs, DDIM-20)
     with phase 6's config at num_head_channels 16; 13d: predict_diff at
-    num_heads 1 (Dh 1024: the plain attention) on 13c's checkpoint, and the
-    same model's sdpa under attn_impl=flash, which must raise."""
+    num_heads 1 (Dh 1024: the forward's cluster instance) on 13c's
+    checkpoint, and the flash override reaching the model."""
     from stedm_tpu_torch import predict_diff, train_diff
     from stedm_tpu_torch.config import compose
     from stedm_tpu_torch.models.attention import AttentionBlock
     from stedm_tpu_torch.models.stedm import build_stedm
     from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
-    from stedm_tpu_torch.ops.blocked_attention import sdpa
 
     data, patch = entry_root / "data", 512
+    prune_results(entry_root)
     where = [f"location.data_dir={data}", f"location.result_dir={entry_root / 'dh16'}"]
     style = ["data=flowers", "style_sampling=augmented", "style_agg=mean", *where]
     counts, out = {}, {}
@@ -4417,26 +4476,61 @@ def head_dim_entry_points(torch, entry_root: Path) -> tuple:
     require(counts["dh16_entry_predict"]["flash_attention_dh16"] > 0,
             f"predict at Dh 16 did not run the Dh-16 forward: {counts['dh16_entry_predict']}")
 
-    heads1 = UNET_KEY + "num_heads=1"
-    pred = run(PATH_13_PLAIN, predict_diff.main, readme + [
-        heads1, "data.samples=2", "ddim_steps=4", "+predict_name=dh1024"])
+    pred = run(PATH_13D, predict_diff.main, readme + [
+        HEADS1, "data.samples=2", "ddim_steps=4", "+predict_name=dh1024"])
     check_pairs(Path(pred["predict_dir"]), 4, patch)
     out["predict_dh1024"] = {k: v for k, v in predict_rates(pred).items() if k != "predict_dir"}
-    c = counts[PATH_13_PLAIN]
-    require(c["attention_plain"] > 0, f"predict at Dh 1024 ran no plain attention: {c}")
-    cfg = compose("config_predict", readme + [heads1, UNET_KEY + "attn_impl=flash"])
+    c = counts[PATH_13D]
+    require(c.get("flash_attention_dh1024", 0) > 0 and c["attention_plain"] == 0,
+            f"predict at Dh 1024 did not run the Dh-1024 forward: {c}")
+    cfg = compose("config_predict", readme + [HEADS1, UNET_KEY + "attn_impl=flash"])
     blocks = [m for m in build_stedm(cfg, "meta").unet.modules() if isinstance(m, AttentionBlock)]
     require(blocks and all(b.attn_impl == "flash" and b.num_heads == 1 for b in blocks),
             "the flash override did not reach the AttentionBlocks")
-    q = torch.randn((4, 1, 1024, 1024), device="cuda", dtype=torch.bfloat16)
-    try:
-        sdpa(q, q, q, 1024 ** -0.25, impl=blocks[0].attn_impl)
-        raised = ""
-    except ValueError as e:
-        raised = str(e)
-    log(f"  13d: the model's sdpa at Dh 1024 under attn_impl=flash raises: {raised!r}")
-    require("ROADMAP.md §2" in raised, "sdpa(impl='flash') at Dh 1024 did not name ROADMAP §2")
     return out, counts
+
+
+def above_the_kernels(torch) -> dict:
+    """13d: above Dh 1024, on tiny tensors: the codec's AttnBlockVQ at 1152
+    channels runs the plain attention on the card (counted as
+    attention_plain) and matches its CPU copy, sdpa under exact runs it too,
+    and the flash wrappers and sdpa(impl='flash') raise the ValueError that
+    names ROADMAP.md §2."""
+    from stedm_tpu_torch.models.vq import AttnBlockVQ
+    from stedm_tpu_torch.ops import LAUNCHES
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    torch.manual_seed(14)
+    block = AttnBlockVQ(1152).eval()
+    x = torch.randn(1, 1152, 8, 8)
+    with torch.no_grad():
+        ref = block(x)
+        before = LAUNCHES["attention_plain"]
+        got = block.cuda()(x.cuda())
+        torch.cuda.synchronize()
+    plain = LAUNCHES["attention_plain"] - before
+    err = _tiny_rel(torch, got, ref)
+    q = torch.randn((1, 1, 64, 1152), device="cuda", dtype=torch.bfloat16)
+    before = LAUNCHES["attention_plain"]
+    a.sdpa(q, q, q, 1152 ** -0.25, impl="exact")
+    sdpa_plain = LAUNCHES["attention_plain"] - before
+    raised = []
+    for call in (lambda: a.flash_attention_cuda(q, q, q, 0.05),
+                 lambda: a.flash_attention_bwd_cuda(q, q, q, q, q[..., 0].float(), q, 0.05),
+                 lambda: a.sdpa(q, q, q, 1152 ** -0.25, impl="flash")):
+        try:
+            call()
+            raised.append("")
+        except ValueError as e:
+            raised.append(str(e))
+    log(f"  13d: AttnBlockVQ at 1152 channels on the card: {plain} plain attention call(s), "
+        f"relative L2 {err:.3e} against the CPU (fp32); sdpa(exact) at Dh 1152: {sdpa_plain}; "
+        f"the forward, backward and sdpa(flash) raise: {raised[0]!r}")
+    require(plain == 1 and sdpa_plain == 1, "above Dh 1024 the plain attention was not counted")
+    require(err <= 1e-4, f"AttnBlockVQ at 1152 channels, card against CPU: {err}")
+    require(all("ROADMAP.md §2" in r for r in raised),
+            f"a flash route at Dh 1152 did not raise naming ROADMAP §2: {raised}")
+    return {"above_1024_rel_err": err}
 
 
 def head_dims(torch, entry_root: Path, recs: dict) -> tuple:
@@ -4455,15 +4549,169 @@ def head_dims(torch, entry_root: Path, recs: dict) -> tuple:
     t_b = time.time() - t1
     log(f"  phase 13b took {t_b:.1f} s")
     log("== phase 13c: train_diff / predict_diff at num_head_channels 16; 13d: predict_diff "
-        "at num_heads 1 (Dh 1024, the plain attention) and its flash refusal")
+        "at num_heads 1 (Dh 1024: the cluster kernels), and above 1024 the plain attention "
+        "and the flash refusal on tiny tensors")
     t1 = time.time()
     entry, counts = head_dim_entry_points(torch, entry_root)
+    entry.update(above_the_kernels(torch))
     counts[PATH_13_F32] = f32_counts
     seconds = time.time() - t0
     log(f"  phase 13c/13d took {time.time() - t1:.1f} s; phase 13 took {seconds:.1f} s (13a "
         f"{t_a:.1f}, 13b {t_b:.1f})")
     return {"phase13_padded_widths": padded, "phase13_entry": entry,
             "phase13_seconds": seconds}, counts
+
+
+# ---- phase 14: the flash kernels above Dh 512, up to 1024 ----
+
+# 14a's shapes: the bf16 forward at the one-head U-Net's sampling (256^2,
+# CFG batch 16) and 512^2 training shapes and at the 1024-wide codec's
+# 512^2 mid-block (batch 2); the backwards at the training and codec
+# shapes; fp32 at the training shape and the codec's at 256^2; then every
+# other cluster instance and partial slices, each timed once
+WIDE_FWD_SHAPES = ((16, 1, 256, 1024), (8, 1, 1024, 1024), (2, 1, 16384, 1024))
+WIDE_BWD_SHAPES = ((8, 1, 1024, 1024), (2, 1, 16384, 1024))
+WIDE_F32_SHAPES = ((8, 1, 1024, 1024), (2, 1, 4096, 1024))
+WIDE_WIDTHS = (520, 576, 640, 768, 896)
+# 14d: the codec with a 1024-wide last level and mid-block
+WIDE_CODEC = "diffusion.first_stage_config.params.ddconfig.ch_mult=[1,2,8]"
+
+
+def wide_head_kernels(torch, recs) -> list:
+    """14a: the Dh-1024 instances of the four kernels against their plain
+    versions at the main paths' shapes (phase 2's, 2b's and 10a's checks
+    and tolerances), timed beside them, SDPA (its backend named) and the
+    bound; the clusters each instance holds at once; then Dh 520 to 896 at
+    [2, 4, 320, Dh], each timed once."""
+    import ctypes
+
+    from stedm_tpu_torch._device import load_library
+    from stedm_tpu_torch.ops import blocked_attention as a
+
+    for stem, name in (("flash_attention", "flash_attention_fwd"),
+                       ("flash_attention_bwd", "flash_attention_bwd"),
+                       ("flash_attention_f32", "flash_attention_f32"),
+                       ("flash_attention_bwd_f32", "flash_attention_bwd_f32")):
+        fn = getattr(load_library(stem), f"{name}_max_active_clusters")
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        held = {d: fn(d) for d in a.CLUSTER_HEAD_DIMS}
+        log(f"  {stem}: clusters held at once (cudaOccupancyMaxActiveClusters, one block an SM), "
+            f"by instance: {held}")
+        require(min(held.values()) >= 1, f"{stem}: a cluster instance fits nowhere: {held}")
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # the L2 flush
+    flush = scratch.zero_
+    log("  -- bf16 forward at Dh 1024 (flash_fwd_cluster<1024>, a cluster of 8): the one-head "
+        "U-Net sampling at 256^2 and training at 512^2, the 1024-wide codec mid-block at 512^2")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for shape in WIDE_FWD_SHAPES:
+        q = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        log(f"  SDPA at {list(shape)} runs {sdpa_backend(torch, q, q, q, shape[-1] ** -0.5)}")
+    check_attention(torch, recs["flash_attention_dh1024"], flush, shapes=WIDE_FWD_SHAPES,
+                    strided=False)
+    log("  -- bf16 backward at Dh 1024 (flash_bwd<1024>, a cluster of 8)")
+    check_attention_backward(torch, recs["flash_attention_bwd_dh1024"], flush, WIDE_BWD_SHAPES,
+                             140)
+    log("  -- fp32 forward and backward at Dh 1024 (clusters of 8 blocks of 128 columns)")
+    f32_forward_checks(torch, recs["flash_attention_f32_dh1024"], flush, shapes=WIDE_F32_SHAPES,
+                       strided=False)
+    f32_backward_checks(torch, recs["flash_attention_bwd_f32_dh1024"], flush,
+                        shapes=WIDE_F32_SHAPES)
+    log(f"  -- Dh {', '.join(map(str, WIDE_WIDTHS))} at {list(PAD_SHAPE)} + [Dh] (the cluster "
+        "instances 640, 768 and 896; 520 and 576 on 640, rank 4 of 5 holding 8 or 64 real "
+        "columns), correctness, each timed once")
+    rows = [_padded_width_check(torch, flush, kernel, d) for d in WIDE_WIDTHS
+            for kernel in ("fwd", "bwd", "f32_fwd", "f32_bwd")]
+    del scratch, flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def wide_head_entry_points(torch, entry_root: Path) -> tuple:
+    """14b: train_diff (2 micro-steps at 512^2) and predict_diff (4 pairs,
+    DDIM-4) with phase 6's config at num_heads 1 (the bottleneck in one
+    head of 1024), bf16; 14c: the same at fp32, one micro-step; 14d:
+    train_ae (2 steps and the val decode) with the codec at ch_mult [1, 2,
+    8] (mid-block 1024 wide, T 16384 at 512^2). Each path must launch a
+    Dh-1024 kernel and no plain attention."""
+    from stedm_tpu_torch import predict_diff, train_ae, train_diff
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    data = entry_root / "data"
+    counts, out = {}, {}
+    prune_results(entry_root)
+
+    def run(name: str, main, args: list):
+        log(f"  {main.__module__}.main({args})")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        with PlainOnCard() as guard:
+            res = main(args)
+            torch.cuda.synchronize()
+        counts[name] = dict(LAUNCHES)
+        log(f"    {time.time() - t1:.1f} s; launches {counts[name]}")
+        require(guard.calls == 0 and counts[name]["attention_plain"] == 0,
+                f"{name}: the plain attention ran on the card")
+        torch.cuda.empty_cache()
+        return res
+
+    for dtype, (tr_path, pr_path) in (("bfloat16", PATHS_14), ("float32", PATHS_14_F32)):
+        f32 = dtype == "float32"
+        where = [f"location.data_dir={data}", f"location.result_dir={entry_root / tr_path}"]
+        extra = ["diffusion.compute_dtype=float32"] if f32 else []
+        tr = run(tr_path, train_diff.main, [
+            "data=flowers", "style_sampling=augmented", "style_agg=mean", *where, HEADS1, *extra,
+            "+diffusion.scale_by_std=true", "data.samples=2" if f32 else "data.samples=4",
+            "num_epochs=1", "+preview_ddim_steps=4", "accumulate_grad_batches=1"])
+        ep = tr["epochs"][0]
+        out[tr_path] = ep["samples"] / ep["seconds"]
+        log(f"  {tr_path}: {ep['micro_steps']} micro-step(s) at num_heads 1 ({dtype}), loss "
+            f"{ep['loss']:.5f}, {out[tr_path]:.4f} samples/s over the epoch")
+        require(tr["step"] == (1 if f32 else 2) and math.isfinite(ep["loss"]),
+                f"{tr_path}: {tr['step']} steps, loss {ep['loss']}")
+        pred = run(pr_path, predict_diff.main, [
+            "data=flowers", "data/dataset=[flowers_anno,flowers_unanno]", "data.ratios=[1.0,1.0]",
+            "cfg_scale=1.5", "style_sampling=augmented", "style_agg=mean", *where, HEADS1, *extra,
+            "data.samples=2", "ddim_steps=4", "+host_loop=false", f"+predict_name={pr_path}"])
+        check_pairs(Path(pred["predict_dir"]), 4, ENTRY_PATCH)
+        out[pr_path] = {k: v for k, v in predict_rates(pred).items() if k != "predict_dir"}
+        fwd, bwd = (("flash_attention_f32_dh1024", "flash_attention_bwd_f32_dh1024") if f32 else
+                    ("flash_attention_dh1024", "flash_attention_bwd_dh1024"))
+        _launch_check(counts[tr_path], (fwd, bwd), tr_path)
+        _launch_check(counts[pr_path], (fwd,), pr_path)
+        prune_results(entry_root)
+    ae = run(PATH_14_AE, train_ae.main, [
+        "data=flowers", "style_sampling=augmented", f"location.data_dir={data}",
+        f"location.result_dir={entry_root / PATH_14_AE}", "data.samples=4", "num_epochs=1",
+        "loss.disc_start=0", f"run_name={PATH_14_AE}", WIDE_CODEC])
+    ep = ae["epochs"][0]
+    require(ae["step"] == 2 and all(math.isfinite(v) for v in {**ep["train"], **ep["val"]}.values()),
+            f"train_ae with a 1024-wide mid-block: {ae['step']} steps, {ep}")
+    _launch_check(counts[PATH_14_AE], ("flash_attention_dh1024", "flash_attention_bwd_dh1024"),
+                  PATH_14_AE)
+    out[PATH_14_AE] = dict(samples_per_s=ep["steps"] * 2 / ep["seconds"], seconds=ep["seconds"],
+                           val_rec_loss=ep["val"]["val/rec_loss"])
+    log(f"  {PATH_14_AE}: 2 steps and the val decode at ch_mult [1, 2, 8] (mid-block 1024 wide, "
+        f"T 16384), {out[PATH_14_AE]['samples_per_s']:.4f} samples/s over the epoch, val rec_loss "
+        f"{ep['val']['val/rec_loss']:.5f}")
+    return out, counts
+
+
+def wide_heads(torch, entry_root: Path, recs: dict) -> tuple:
+    """Phase 14, on phase 6's tree; returns its numbers and each path's
+    launches (zeroed just before each path and read just after)."""
+    t0 = time.time()
+    log("== phase 14a: the flash kernels at Dh 1024 (clusters of 8) and the other cluster "
+        "instances against their plain versions")
+    rows = wide_head_kernels(torch, recs)
+    t_a = time.time() - t0
+    log(f"  phase 14a took {t_a:.1f} s")
+    log("== phase 14b/14c: train_diff / predict_diff at num_heads 1 (Dh 1024), bf16 and fp32; "
+        "14d: train_ae with a 1024-wide codec mid-block")
+    entry, counts = wide_head_entry_points(torch, entry_root)
+    seconds = time.time() - t0
+    log(f"  phase 14 took {seconds:.1f} s (14a {t_a:.1f})")
+    return {"phase14_widths": rows, "phase14_entry": entry, "phase14_seconds": seconds}, counts
 
 
 def main() -> int:
@@ -4648,6 +4896,7 @@ def main() -> int:
     phase12, phase12_counts = model_options(torch, entry_root, out_dir, card, recs,
                                             sum(ms for _, _, ms in kernels))
     phase13, phase13_counts = head_dims(torch, entry_root, recs)
+    phase14, phase14_counts = wide_heads(torch, entry_root, recs)
     shutil.rmtree(entry_root, ignore_errors=True)
     # launches: each kernel's count on each main path it runs on, zeroed just
     # before and read just after (the sampler's batch, the serving batch, one
@@ -4659,12 +4908,13 @@ def main() -> int:
                    "seg_train_step": seg["seg_launches_per_micro_step"],
                    "seg_entry": seg_entry["seg_entry_counts"], **her2.pop("her2_counts"),
                    **workflow_counts, **phase10_counts, **phase11_counts, **phase12_counts,
-                   **phase13_counts}
+                   **phase13_counts, **phase14_counts}
     # the plain attention runs on the card only above the kernels' head dims
+    # (Dh 1024): on no main path
     plain = {p: c.get("attention_plain", 0) for p, c in path_counts.items()}
     log(f"  attention_plain on each path: {plain}")
     for p, n in plain.items():
-        require((n > 0) == (p == PATH_13_PLAIN), f"{p} ran the plain attention {n} times")
+        require(n == 0, f"{p} ran the plain attention {n} times")
     not_run = her2.pop("paths_not_run")
     if not_run:
         log(f"  launches on {', '.join(not_run)}: null, those paths did not run")
@@ -4672,7 +4922,7 @@ def main() -> int:
         # null on a path that did not run; 0 on one where the kernel's counter
         # counts the other instance of its kernel (the backward's Dh)
         per_path = {f"launches_{p}": None if p in not_run else
-                    path_counts[p][rec.counter] if p in rec.paths else 0
+                    path_counts[p].get(rec.counter, 0) if p in rec.paths else 0
                     for p in KernelRecord.PATHS}
         rec.entry["launches"] = next((n for n in per_path.values() if n), 0)
         rec.entry.update(per_path)
@@ -4685,7 +4935,7 @@ def main() -> int:
                       "host_us_per_call": host_us, **serving, **train, **codec, **entry,
                       **seg_parity, **seg, **seg_entry, "seg_seconds": seg_seconds,
                       **her2, **workflow, **phase10, **phase11, **phase12, **phase13,
-                      "card": card}))
+                      **phase14, "card": card}))
     # the line holds each kernel's summary; its shapes and its launches on
     # every path (tens of kB) go to <out>/kernels.json
     (out_dir / "kernels.json").write_text(json.dumps([r.entry for r in recs.values()], indent=1))

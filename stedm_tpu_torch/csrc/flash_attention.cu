@@ -50,7 +50,7 @@
 //     over (head, query tile) items, with a second Q buffer where it fits:
 //     the producer loads the next item's Q, K and V while this item's last
 //     products and its epilogue run;
-//   * Dh > 256 (flash_fwd_wide): the two consumers share one 64-row query tile,
+//   * 256 < Dh <= 512 (flash_fwd_wide): the two consumers share one 64-row query tile,
 //     each owning half of O's columns. S is computed once: each takes half
 //     of the key tile's columns over the full Dh, the row maxima are
 //     combined through shared memory, and P (bf16, 64 x 64, 8 KB) goes
@@ -65,6 +65,32 @@
 //     through distributed shared memory) is the other way to one Q K^T; two
 //     warpgroups of one block were taken because their exchange needs only
 //     named barriers and the block's own shared memory;
+//   * Dh > 512 (flash_fwd_cluster, the instances 640, 768, 896 and 1024:
+//     the landscape U-Net at num_heads 1, [2B, 1, 256, 1024] sampling and
+//     [B, 1, 1024, 1024] training at 512^2, and a codec whose mid-block is
+//     1024 wide, [B, 1, 4096, 1024] and [B, 1, 16384, 1024]): Q of 64 rows
+//     over 1024 columns alone is 128 KB, so no block holds a whole row of
+//     Q and K. The head dimension is split across a thread-block cluster
+//     of Dh / 128 blocks (5 to 8, the portable maximum), each holding its
+//     128 columns of Q, K, V and O, the design of the fp32 forward
+//     (flash_attention_f32.cu) on bf16 operands: each consumer computes its
+//     32 keys' partial S over the rank's columns, the ranks sum the
+//     partials in rank order through distributed shared memory, so every
+//     rank has the same bits of S and makes the same softmax, P goes from
+//     the sums' registers into the A operand of P V over the rank's
+//     columns, and the two key-split consumers combine their softmax
+//     states through shared memory at the end. The sum is a reduce-scatter
+//     and a gather: each rank sums an eighth of the elements over the
+//     cluster and every thread reads its sums back from their owners, 28 KB
+//     of other blocks' shared memory a 64-key tile at Dh 1024. Every rank
+//     summing every partial read 112 KB a tile and took 49.5 ms at [2, 1,
+//     16384, 1024], 6.4 of it without the exchange (NVIDIA H100 80GB HBM3,
+//     700 W): DSMEM's rate, not the products, bounds this kernel. A tile's
+//     partials are posted three tiles ahead of its softmax, reduced two
+//     ahead and gathered one ahead, so each round trip runs under a tile's
+//     work, and two producer threads load K and V, so that K runs three
+//     tiles ahead while V waits for its slot (one thread loading both kept
+//     K behind V's slot: 27.9 ms against 20.7);
 //   * the softmax runs on exp2 with the scale folded into one fused
 //     multiply-add an element; keys >= T are masked to -inf in the last tile
 //     only; rows >= T are not stored;
@@ -78,7 +104,9 @@
 //     three;
 //   * any other head dimension that is a multiple of 8 (16-byte rows) runs
 //     on the smallest instance at or above it (Dh 16 on flash_fwd_small<32>,
-//     96 on <128>, 160 on <192>, 264 on flash_fwd_wide<320>): the tensor
+//     96 on <128>, 160 on <192>, 264 on flash_fwd_wide<320>, 520 and 576
+//     on flash_fwd_cluster<640>, where rank 4 holds 8 real columns or
+//     none): the tensor
 //     maps declare the true columns, so TMA fills the rest of every box with
 //     zeros, which add nothing to S and give O zero columns, and O's columns
 //     past the head dimension are not stored. The wrapper copies a head
@@ -102,16 +130,6 @@ using bf16 = __nv_bfloat16;
 constexpr int THREADS = 3 * WG;     // two consumer warpgroups, then the producer's
 // registers a thread after setmaxnreg: (24 + 2 * 240) * 128 = 64512 of the SM's 65536
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 struct Params {
   bf16* o;
@@ -195,6 +213,7 @@ __device__ __forceinline__ void store_rows(const Params& p, const float (&o)[ORE
 
 template <int D>
 struct Small {
+  static constexpr int CL = 1;                             // a plain launch
   static constexpr int BM = 128;
   static constexpr int BK = D <= 128 ? 128 : 64;
   // sub-tiles of SC columns, rows of RB bytes: 64 columns in the 128-byte
@@ -411,6 +430,7 @@ flash_fwd_small(const __grid_constant__ CUtensorMap map_q, const __grid_constant
 
 template <int D>
 struct Wide {
+  static constexpr int CL = 1;
   static constexpr int BM = 64, BK = 64, SC = SUB;
   static constexpr int NSUB = D / SUB;
   static constexpr int N0 = (NSUB + 1) / 2;                // sub-tiles of consumer 0
@@ -606,6 +626,329 @@ flash_fwd_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
 }
 
 // ---------------------------------------------------------------------------
+// 512 < Dh <= 1024: the head dimension split across a cluster of Dh / 128
+// blocks. Rank r holds columns 128 r .. 128 r + 127 of Q, K, V and O for 64
+// query rows; consumer c takes keys 32 c .. 32 c + 31 of every 64-key tile,
+// with a running max, sum and O of its own (split-K within the block),
+// combined with the other consumer's at the end.
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct Cluster {
+  static constexpr int CL = D / 128;                  // blocks of a cluster
+  static constexpr int BM = 64, BK = 64, SC = SUB;
+  static constexpr int NSUB = 2;                      // 64-column sub-tiles of a rank's slice
+  static constexpr int SUB_BYTES = 64 * ROW_BYTES;    // 64 rows x 64 columns
+  static constexpr int TILE_BYTES = NSUB * SUB_BYTES; // Q, a K or a V slice: 16 KB
+  static constexpr int STAGES = 3;                    // K and V slices of a tile a stage
+  static constexpr int RING_OFF = TILE_BYTES;
+  static constexpr int XCH_BYTES = 4 * WG * 16;       // a consumer's S partials, [4 float4][128 threads]
+  static constexpr int NBUF = 3;                      // tiles in flight through the exchange
+  static constexpr int XCH_OFF = RING_OFF + STAGES * 2 * TILE_BYTES;
+  // the exchange: partials, then sums, [NBUF][consumer] each
+  static constexpr int BARS = XCH_OFF + 2 * NBUF * 2 * XCH_BYTES;
+  static constexpr int SMEM = BARS + 8 * (1 + 4 * STAGES + 4 * NBUF) + 1024;   // + alignment slack
+  static_assert(SMEM <= 232448, "shared memory");
+  // the end: both consumers' running max and sum ([2][4][128]) and the half
+  // of O that the other consumer finishes ([2][32][128]), over the ring
+  static_assert(2 * (4 * WG + 32 * WG) * 4 <= STAGES * 2 * TILE_BYTES, "the combine's buffers");
+  static dim3 grid(const Params& p) { return dim3((p.t + BM - 1) / BM * CL, p.nbh); }
+};
+
+template <int D, int CW>
+__device__ __forceinline__ void cluster_consumer(const Params& p, unsigned char* smem,
+                                                 uint32_t base, uint32_t bars, int rank, int q0,
+                                                 int bh, int ntiles) {
+  using C = Cluster<D>;
+  constexpr int CL = C::CL, S = C::STAGES;
+  // wgmma descriptors take the offset in the block's 256 KB window: in a
+  // cluster launch the window's address carries the rank from bit 24
+  const uint32_t dbase = base & 0x3FFFFu;
+  auto k_full = [&](int i) { return bars + 8 + 8 * (i % S); };
+  auto v_full = [&](int i) { return bars + 8 + 8 * (S + i % S); };
+  auto k_empty = [&](int i) { return bars + 8 + 8 * (2 * S + i % S); };
+  auto v_empty = [&](int i) { return bars + 8 + 8 * (3 * S + i % S); };
+  // tile j's exchange: this consumer's partials (x_full: written by every
+  // rank) and its sums (y_full: written by every rank), in buffer j % NBUF
+  constexpr int NBUF = C::NBUF;
+  auto x_full = [&](int j) { return bars + 8 + 32 * S + 8 * (2 * (j % NBUF) + CW); };
+  auto y_full = [&](int j) { return bars + 8 + 32 * S + 8 * (2 * (NBUF + j % NBUF) + CW); };
+  auto k_at = [&](int i) { return dbase + C::RING_OFF + (i % S) * 2 * C::TILE_BYTES; };
+  const int col0 = rank * 128;
+  const int lt = threadIdx.x % WG, warp = lt / 32, lane = lt % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  // this thread's slot 0 of tile j's partials and of its sums (slot f at +
+  // f * WG * 16)
+  auto part_at = [&](int j) {
+    return base + C::XCH_OFF + (2 * (j % NBUF) + CW) * C::XCH_BYTES + lt * 16;
+  };
+  auto sum_at = [&](int j) {
+    return base + C::XCH_OFF + (2 * (NBUF + j % NBUF) + CW) * C::XCH_BYTES + lt * 16;
+  };
+  // the rank that sums slot f of this thread: the 4 x 128 (slot, thread)
+  // units of a consumer dealt out in order, 512 / CL a rank
+  auto owner = [&](int f) { return ((f * WG + lt) * CL) >> 9; };
+
+  float o[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) o[e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};   // running max (scaled, log2 units) of rows g, g + 8
+  float l[2] = {0.f, 0.f};               // this lane's share of the running sum
+
+  // ---- S = Q K^T of tile i for this consumer's 32 keys over the rank's 128
+  // columns: 8 k-steps, going to two accumulators in turn (a chain on one
+  // accumulator runs at the wgmma's latency, not its rate) ----
+  auto s_tile = [&](int i, float (&s)[16]) {
+    float sa[16], sb[16];
+    mbar_wait(k_full(i), (i / S) & 1);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int sub = kk / 4, off = (kk % 4) * 32;
+      const uint64_t da = wgmma::descriptor((dbase + sub * C::SUB_BYTES + off) / 16, 16);
+      const uint64_t db = wgmma::descriptor(
+          (k_at(i) + sub * C::SUB_BYTES + CW * 32 * ROW_BYTES + off) / 16, 16);
+      if (kk % 2 == 0) wgmma::ss<0>(sa, da, db, kk >= 2);
+      if (kk % 2 == 1) wgmma::ss<0>(sb, da, db, kk >= 2);
+    }
+    wgmma::commit();
+    wgmma::wait<0>();
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s[e] = sa[e] + sb[e];
+    mbar_arrive(k_empty(i));
+  };
+  // ---- the ranks' partials of tile j summed in rank order: post (write
+  // the partials, one arrival on every rank), reduce (each rank sums the
+  // units it owns over the cluster, writes the sums, one arrival on every
+  // rank), gather (each thread reads its sums from their owners). A rank
+  // reads 1/8 of the partials and 7/8 of the sums at Dh 1024: 28 KB of
+  // other blocks' shared memory a 64-key tile, a quarter of what summing
+  // every partial itself read. Tile j is posted three tiles ahead, reduced
+  // two ahead and gathered one ahead of its softmax, so each round trip has
+  // a tile's work to complete under. No barrier says that a buffer was
+  // read: a rank posts tile j after it gathered tile j - 3, which waited
+  // for every rank's reduce of j - 3 (its reads of the partials), and
+  // reduces tile j after every rank posted j, which each did after it
+  // gathered j - 3 (its reads of the sums); for the same reasons no rank
+  // arrives a phase ahead ----
+  auto post = [&](int j, const float (&s)[16]) {
+    unsigned char* at = smem + (part_at(j) - base);
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      *reinterpret_cast<float4*>(at + f * WG * 16) =
+          make_float4(s[4 * f], s[4 * f + 1], s[4 * f + 2], s[4 * f + 3]);
+    group_sync(1 + CW, WG);
+    if (warp == 0) signal_ranks<CL>(x_full(j), lane);
+  };
+  auto reduce = [&](int j) {
+    mbar_wait_cluster(x_full(j), (j / NBUF) & 1);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      if (owner(f) != rank) continue;
+      float4 v[1];
+      sum_ranks<1, CL>(v, part_at(j) + f * WG * 16);
+      *reinterpret_cast<float4*>(smem + (sum_at(j) - base) + f * WG * 16) = v[0];
+    }
+    group_sync(1 + CW, WG);
+    if (warp == 0) signal_ranks<CL>(y_full(j), lane);
+  };
+  auto gather = [&](int j, float (&s)[16]) {
+    mbar_wait_cluster(y_full(j), (j / NBUF) & 1);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const float4 v = ld_cluster_f4(map_rank(sum_at(j) + f * WG * 16, owner(f)));
+      s[4 * f] = v.x;
+      s[4 * f + 1] = v.y;
+      s[4 * f + 2] = v.z;
+      s[4 * f + 3] = v.w;
+    }
+  };
+
+  mbar_wait(bars, 0);                    // Q
+  float s[16], part[16];
+  for (int j = 0; j < 3 && j < ntiles; ++j) {
+    s_tile(j, part);
+    post(j, part);
+  }
+  for (int j = 0; j < 2 && j < ntiles; ++j) reduce(j);
+  gather(0, s);
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 3 < ntiles) {
+      s_tile(i + 3, part);
+      post(i + 3, part);
+    }
+    if (i + 2 < ntiles) reduce(i + 2);
+
+    // ---- the online softmax: keys i BK + 32 CW + 8 j + 2 tg + (e & 1) ----
+    const int key0 = i * C::BK + 32 * CW;
+    if (key0 + 32 > p.t) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if (key0 + (e / 4) * 8 + 2 * tg + (e & 1) >= p.t) s[e] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, alpha[2];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // consumer 1 may have seen no key yet (T <= 32): its max stays -inf
+      // and 0 stands in for it, so that nothing becomes NaN
+      const float m_new = fmaxf(m[r], quad_max(mx[r]) * p.scale_log2);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = exp2f(m[r] - m_use);    // 0 on the first tile (m = -inf)
+      m[r] = m_new;
+      l[r] *= alpha[r];
+      mx[r] = m_use;
+    }
+    uint32_t pa[2][4];                   // P (bf16) as the A operand: k-step kk holds keys 16 kk ..
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int r = (e >> 1) & 1;
+      s[e] = exp2f(fmaf(s[e], p.scale_log2, -mx[r]));
+      l[r] += s[e];
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) pa[kk][w] = pack_bf16x2(s[8 * kk + 2 * w], s[8 * kk + 2 * w + 1]);
+    rescale(o, alpha);
+
+    // ---- O[:, the rank's columns] += P V over this consumer's 32 keys (V
+    // MN-major: [keys][columns], 64-column sub-tiles 8 KB apart) ----
+    const uint32_t v_s = k_at(i) + C::TILE_BYTES;
+    mbar_wait(v_full(i), (i / S) & 1);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      wgmma::rs(o, pa[kk], wgmma::descriptor(v_s / 16 + (2 * CW + kk) * ROW_BYTES, C::SUB_BYTES),
+                1);
+    wgmma::commit();
+    wgmma::wait<0>();
+    mbar_arrive(v_empty(i));
+    if (i + 1 < ntiles) gather(i + 1, s);
+  }
+
+  // ---- combine the two consumers' softmax states (split-K) and store:
+  // consumer CW finishes O's columns 64 CW .. 64 CW + 63 of the rank's
+  // slice (flat elements 32 CW ..), the other consumer's share of them
+  // going through the ring's memory ----
+  float* stat = reinterpret_cast<float*>(smem + C::RING_OFF);          // [2][4][128]
+  float* half = stat + 2 * 4 * WG;                                     // [2][32][128]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+  group_sync(3, 2 * WG);                 // both consumers are done with the ring's tiles
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    stat[(CW * 4 + r) * WG + lt] = m[r];
+    stat[(CW * 4 + 2 + r) * WG + lt] = l[r];
+  }
+#pragma unroll
+  for (int f = 0; f < 32; ++f) half[(CW * 32 + f) * WG + lt] = o[(1 - CW) * 32 + f];
+  group_sync(3, 2 * WG);
+  const int b = bh / p.h, h = bh % p.h;
+  const int row0 = q0 + warp * 16 + g;
+  float sc_me[2], sc_other[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mo = stat[((1 - CW) * 4 + r) * WG + lt];
+    const float lo = stat[((1 - CW) * 4 + 2 + r) * WG + lt];
+    const float mm = fmaxf(m[r], mo);     // finite: consumer 0 always holds key 0
+    sc_me[r] = exp2f(m[r] - mm);
+    sc_other[r] = exp2f(mo - mm);
+    const float total = l[r] * sc_me[r] + lo * sc_other[r];
+    inv[r] = 1.f / total;
+    const int row = row0 + 8 * r;
+    if (CW == 0 && rank == 0 && p.lse != nullptr && tg == 0 && row < p.t)
+      p.lse[(int64_t)bh * p.t + row] = (mm + log2f(total)) * 0.6931471805599453f;
+  }
+#pragma unroll
+  for (int f = 0; f < 32; f += 2) {
+    const int e = CW * 32 + f, r = (e >> 1) & 1;
+    const int row = row0 + 8 * r, col = col0 + 8 * (e / 4) + 2 * tg;
+    if (row >= p.t || col0 + 8 * (e / 4) >= p.dcols) continue;
+    const float* po = half + ((1 - CW) * 32 + f) * WG + lt;
+    const float x0 = fmaf(o[e], sc_me[r], po[0] * sc_other[r]);
+    const float x1 = fmaf(o[e + 1], sc_me[r], po[WG] * sc_other[r]);
+    *reinterpret_cast<uint32_t*>(p.o + b * p.o_sb + h * p.o_sh + row * p.o_st + col) =
+        pack_bf16x2(x0 * inv[r], x1 * inv[r]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_cluster(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, const Params p) {
+  using C = Cluster<D>;
+  constexpr int CL = C::CL, S = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  // barriers: Q full, k_full[S], v_full[S], k_empty[S], v_empty[S],
+  // x_full[NBUF][2] and y_full[NBUF][2] (consumer c's partials, then its
+  // sums, of the tile in buffer u written on every rank)
+  const uint32_t bars = base + C::BARS;
+  auto k_full = [&](int s) { return bars + 8 + 8 * s; };
+  auto v_full = [&](int s) { return bars + 8 + 8 * (S + s); };
+  auto k_empty = [&](int s) { return bars + 8 + 8 * (2 * S + s); };
+  auto v_empty = [&](int s) { return bars + 8 + 8 * (3 * S + s); };
+
+  const int rank = blockIdx.x % CL, q0 = blockIdx.x / CL * C::BM, bh = blockIdx.y;
+  const int b = bh / p.h, h = bh % p.h;
+  const int col0 = rank * 128;
+  const int ntiles = (p.t + C::BK - 1) / C::BK;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 2 * WG);
+      mbar_init(v_empty(s), 2 * WG);
+    }
+    for (int x = 0; x < 4 * C::NBUF; ++x) mbar_init(bars + 8 + 32 * S + 8 * x, CL);   // x/y_full
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  cluster_sync_all();   // every rank's barriers are initialised before any remote arrival
+
+  if (wg == 2) {
+    reg_dealloc<PRODUCER_REGS>();
+    const int loader = threadIdx.x == 2 * WG ? 0 : threadIdx.x == 2 * WG + 32 ? 1 : -1;
+    if (loader >= 0) {
+      // ---- loads: the rank's slice of Q once, then of K (one thread) and
+      // V (another, so that K runs three tiles ahead of the softmax while V
+      // waits for its slot) a tile at a time (columns past the head
+      // dimension arrive as zeros) ----
+      if (loader == 0) {
+        mbar_expect_tx(bars, C::TILE_BYTES);
+        for (int sub = 0; sub < C::NSUB; ++sub)
+          tma_load(base + sub * C::SUB_BYTES, &map_q, bars, col0 + sub * SUB, q0, h, b);
+      }
+      const CUtensorMap* map = loader == 0 ? &map_k : &map_v;
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % S;
+        const uint32_t at = base + C::RING_OFF + s * 2 * C::TILE_BYTES + loader * C::TILE_BYTES;
+        const uint32_t full = loader == 0 ? k_full(s) : v_full(s);
+        mbar_wait(loader == 0 ? k_empty(s) : v_empty(s), ((i / S) & 1) ^ 1);
+        mbar_expect_tx(full, C::TILE_BYTES);
+        for (int sub = 0; sub < C::NSUB; ++sub)
+          tma_load(at + sub * C::SUB_BYTES, map, full, col0 + sub * SUB, i * C::BK, h, b);
+      }
+    }
+  } else {
+    reg_alloc<CONSUMER_REGS>();
+    if (wg == 0)
+      cluster_consumer<D, 0>(p, smem, base, bars, rank, q0, bh, ntiles);
+    else
+      cluster_consumer<D, 1>(p, smem, base, bars, rank, q0, bh, ntiles);
+  }
+  // no block leaves while another rank may still read its partials or
+  // arrive on its barriers
+  cluster_sync_all();
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -622,6 +965,12 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v, const Par
       !make_map(&map_k, k, b, p.h, p.t, d, strides + 3, Cfg::BK, Cfg::SC) ||
       !make_map(&map_v, v, b, p.h, p.t, d, strides + 6, Cfg::BK, Cfg::SC))
     return (int)cudaErrorInvalidValue;
+  if constexpr (Cfg::CL > 1) {   // clusters of CL blocks along x
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = cluster_launch(&attr, 0, THREADS, Cfg::CL, Cfg::SMEM, stream);
+    cfg.gridDim = Cfg::grid(p);
+    return (int)cudaLaunchKernelEx(&cfg, kernel, map_q, map_k, map_v, p);
+  }
   kernel<<<Cfg::grid(p), THREADS, Cfg::SMEM, stream>>>(map_q, map_k, map_v, p);
   return (int)cudaGetLastError();
 }
@@ -633,29 +982,46 @@ extern "C" {
 // q, k, v, o: bf16 [B, H, T, D] on the device, last dimension contiguous;
 // strides: the element strides {batch, head, token} of q, k, v and o (12
 // values), each a multiple of 8 (16 bytes), bases 16-byte aligned. D a
-// multiple of 8 up to 512: it runs on the smallest instance at or above it
-// (32, then the multiples of 64), whose tensor maps declare D columns, so
-// the columns past D arrive as zeros and O's are not stored. lse:
+// multiple of 8 up to 1024: it runs on the smallest instance at or above it
+// (32, the multiples of 64 up to 512, then of 128), whose tensor maps
+// declare D columns, so the columns past D arrive as zeros and O's are not
+// stored. lse:
 // contiguous fp32 [B, H, T], or null when the caller needs no LSE. Returns
 // the cudaError_t of the launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b,
                         int h, int t, int d, const int64_t* strides, float sm_scale,
                         void* stream) {
-  if (d % 8 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0)
+  if (d % 8 != 0 || d > 1024 || d <= 0 || t <= 0 || b <= 0 || h <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Params p = {(bf16*)o, (float*)lse, strides[9], strides[10], strides[11], t, h, b * h, d,
                     sm_scale * 1.4426950408889634f};
-  const int instance = d <= 32 ? 32 : (d + 63) / 64 * 64;
+  const int instance = d <= 32 ? 32 : d <= 512 ? (d + 63) / 64 * 64 : (d + 127) / 128 * 128;
 #define SMALL(D) case D: return launch<Small<D>>(flash_fwd_small<D>, q, k, v, p, b, d, strides, s)
 #define WIDE(D) case D: return launch<Wide<D>>(flash_fwd_wide<D>, q, k, v, p, b, d, strides, s)
+#define CLUSTER(D) \
+  case D: return launch<Cluster<D>>(flash_fwd_cluster<D>, q, k, v, p, b, d, strides, s)
   switch (instance) {
     SMALL(32); SMALL(64); SMALL(128); SMALL(192); SMALL(256);
     WIDE(320); WIDE(384); WIDE(448); WIDE(512);
+    CLUSTER(640); CLUSTER(768); CLUSTER(896); CLUSTER(1024);
   }
 #undef SMALL
 #undef WIDE
+#undef CLUSTER
   return (int)cudaErrorInvalidValue;
+}
+
+// Clusters of the instance that runs head dimension d (512 < d <= 1024, a
+// cluster of d / 128 rounded up) that the device holds at once
+// (cudaOccupancyMaxActiveClusters at one block an SM), or a negative
+// cudaError_t.
+int flash_attention_fwd_max_active_clusters(int d) {
+#define CLUSTER(D) \
+  case D: return max_active_clusters(flash_fwd_cluster<D>, THREADS, D / 128, Cluster<D>::SMEM)
+  switch ((d + 127) / 128 * 128) { CLUSTER(640); CLUSTER(768); CLUSTER(896); CLUSTER(1024); }
+#undef CLUSTER
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -48,24 +48,31 @@
 //     through shared memory, read MN-major by the transposed-A wgmma; K
 //     MN-major), 64 columns at a time. Keys past T get P = 0 and are never
 //     written; queries past T arrive as zero rows with LSE +inf;
-//   * Dh 256 and 512 (the codec's attention): dK and dV of 64 keys over 512
-//     columns would take the whole register file, and K and V of 64 keys half
-//     the shared memory, so the head dimension is split across a thread-block
-//     cluster of Dh / 128 blocks, each the Dh-128 block above on its own 128
-//     columns of Q, K, V, dO, dK, dV and dQ. S^T and dP^T are sums over all
-//     columns: each block computes its 128-column partials (64 x 64 fp32 a
-//     consumer) and writes them to its shared memory; rank r sums a quarter
-//     of the elements over the cluster through distributed shared memory, in
-//     rank order, makes their bf16 P^T and dS^T and writes them back over
-//     its own partials of that quarter, and every block gathers all four
-//     quarters as its A fragments: each element is summed and rounded once,
-//     so every block uses the same bits of P and dS (mbarriers at cluster
-//     scope: partials written, P and dS written, and read, on every rank).
-//     A block reads 72 KB of other blocks' shared memory a tile (192 KB when
-//     every block summed all partials itself: that first version took
-//     30.1 ms at [2, 1, 16384, 512] on an NVIDIA H100 80GB HBM3 at 700 W,
-//     against 22.8 ms). The 64 KB of partials
-//     leave room for one stage of Q and dO, not two;
+//   * Dh 256 and above (the codec's attention; the landscape U-Net at
+//     num_heads 1, Dh 1024): dK and dV of 64 keys over 512 columns would
+//     take the whole register file, and K and V of 64 keys half the shared
+//     memory, so the head dimension is split across a thread-block cluster
+//     of Dh / 128 blocks (2 at Dh 256, 4 at 512, 5 to 8 at the instances
+//     640 to 1024), each the Dh-128 block above on its own 128 columns of
+//     Q, K, V, dO, dK, dV and dQ. S^T and dP^T are sums over all columns:
+//     each block computes its 128-column partials (64 x 64 fp32 a consumer)
+//     and writes them to its shared memory; the eight 8-query column pairs
+//     of a tile are dealt out to the ranks (rank jj * CL / 8 takes pair jj:
+//     two pairs a rank at Dh 512, one at 1024, one or two at 640 to 896),
+//     and a rank sums its pairs over the cluster through distributed shared
+//     memory, in rank order, makes their bf16 P^T and dS^T and writes them
+//     back over its own partials of those pairs, and every block gathers
+//     all eight as its A fragments: each element is summed and rounded
+//     once, so every block uses the same bits of P and dS (mbarriers at
+//     cluster scope: partials written, P and dS written, and read, on every
+//     rank; after a named barrier of the consumer, lane r of its first warp
+//     arrives on rank r: with every thread arriving on every rank's
+//     barrier the backward took 1.6x as long at Dh 512 and 2.2x at 1024).
+//     A block reads 72 KB of other blocks' shared memory a tile at Dh 512,
+//     84 KB at 1024 (192 KB at 512 when every block summed all partials
+//     itself: that first version took 30.1 ms at [2, 1, 16384, 512] on an
+//     NVIDIA H100 80GB HBM3 at 700 W, against 22.8 ms). The 64 KB of
+//     partials leave room for one stage of Q and dO, not two;
 //   * the two consumers take turns at issuing their products (two named
 //     barriers), so one's exponentials run under the other's products; they
 //     are coupled only where consumer 0's dQ part goes to shared memory and
@@ -84,12 +91,13 @@
 //     (T <= 128) consumer 1 writes dQ itself and the adder and the
 //     conversion have nothing to do.
 //
-// Head dimensions: instances at 64, 128, 256 and 512 (flash_bwd), and at 32
-// (flash_bwd_small below); every other multiple of 8 up to 512 runs on the
-// smallest instance at or above it (Dh 16 on <32>, 48 on <64>, 96 on <128>,
-// 160 and 192 on <256>, 320, 384 and 448 on <512>): the tensor maps declare
-// the true columns, so TMA fills the rest of every Q, K, V and dO box with
-// zeros (a whole 128-column slice of a cluster rank at Dh 160 or 320: its
+// Head dimensions: instances at 64, 128, 256, 512, 640, 768, 896 and 1024
+// (flash_bwd), and at 32 (flash_bwd_small below); every other multiple of
+// 8 up to 1024 runs on the smallest instance at or above it (Dh 16 on
+// <32>, 48 on <64>, 96 on <128>, 160 and 192 on <256>, 320, 384 and 448 on
+// <512>, 520 and 576 on <640>, ...): the tensor maps declare the true
+// columns, so TMA fills the rest of every Q, K, V and dO box with zeros (a
+// whole 128-column slice of a cluster rank at Dh 160, 320 or 520: its
 // partials of S^T and dP^T are zeros, and the exchange sums them as any
 // other), they add nothing to S^T and dP^T and give dQ, dK and dV zero
 // columns, which are not stored. The wrapper copies a head dimension whose
@@ -151,11 +159,13 @@ constexpr int PREP_THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // dQ is summed over key tiles in column groups of GC columns: 64, or the
-// whole head dimension of the Dh-32 instance.
+// whole head dimension of the Dh-32 instance; the conversion pass takes CT
+// of them at once (a block holds at most 1024 threads).
 template <int D>
 struct Groups {
   static constexpr int GC = D < SUB ? D : SUB;
   static constexpr int NG = D / GC;
+  static constexpr int CT = NG < 8 ? NG : 8;
 };
 
 template <int D>
@@ -199,47 +209,6 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
   return v;
 }
 
-// Distributed shared memory: `addr` (this block's shared memory) as the
-// same offset in cluster rank `rank`'s ...
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-// ... a 16-byte load from there, an arrival on an mbarrier there (release at
-// cluster scope), and a wait on this block's mbarrier that acquires at
-// cluster scope what the arrivals released.
-__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ uint4 ld_cluster_u4(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
-               :: "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
 // 2^x on the MUFU alone: results below 2^-126 flush to zero.
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
@@ -252,12 +221,6 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 __device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
   asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
                :: "r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
-}
-
-// Every thread of the cluster (not warp-aligned: the producer's threads
-// arrive from diverged paths).
-__device__ __forceinline__ void cluster_sync_all() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // Di, LSE * log2(e) and the turn counters for query tile blockIdx.x of head
@@ -307,26 +270,29 @@ flash_bwd_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 
 // dQ's fp32 sums, kept in the consumers' register order (thread lt's pair
 // (jj, r) at float2 (2 jj + r) * 128 + lt of a column group's part), to bf16
-// [BH, T, dcols]; one block a (query tile, head), 128 threads a column group.
+// [BH, T, dcols]; one block a (query tile, head), 128 threads a column group
+// (CT groups at once).
 template <int D>
-__global__ void __launch_bounds__(Groups<D>::NG * WG)
+__global__ void __launch_bounds__(Groups<D>::CT * WG)
 flash_bwd_dq_convert(const float2* __restrict__ acc, bf16* __restrict__ dq, int t, int nq,
                      int dcols) {
-  constexpr int GC = Groups<D>::GC, NG = Groups<D>::NG;
+  constexpr int GC = Groups<D>::GC, NG = Groups<D>::NG, CT = Groups<D>::CT;
   const int j = blockIdx.x, bh = blockIdx.y;
-  const int c = threadIdx.x / WG, lt = threadIdx.x % WG;
+  const int lt = threadIdx.x % WG;
   const int warp = lt / 32, g = (lt % 32) >> 2, tg = lt & 3;
-  const float2* part = acc + (((int64_t)bh * nq + j) * NG + c) * (BQ * GC / 2);
+  for (int c = threadIdx.x / WG; c < NG; c += CT) {
+    const float2* part = acc + (((int64_t)bh * nq + j) * NG + c) * (BQ * GC / 2);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = j * BQ + warp * 16 + g + 8 * r;
-    if (row >= t) continue;
-    bf16* out = dq + ((int64_t)bh * t + row) * dcols + c * GC + 2 * tg;
+    for (int r = 0; r < 2; ++r) {
+      const int row = j * BQ + warp * 16 + g + 8 * r;
+      if (row >= t) continue;
+      bf16* out = dq + ((int64_t)bh * t + row) * dcols + c * GC + 2 * tg;
 #pragma unroll
-    for (int jj = 0; jj < GC / 8; ++jj) {
-      if (c * GC + 8 * jj >= dcols) break;
-      const float2 v = part[(2 * jj + r) * WG + lt];
-      *reinterpret_cast<uint32_t*>(out + 8 * jj) = pack_bf16x2(v.x, v.y);
+      for (int jj = 0; jj < GC / 8; ++jj) {
+        if (c * GC + 8 * jj >= dcols) break;
+        const float2 v = part[(2 * jj + r) * WG + lt];
+        *reinterpret_cast<uint32_t*>(out + 8 * jj) = pack_bf16x2(v.x, v.y);
+      }
     }
   }
 }
@@ -375,9 +341,9 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
       mbar_init(dq_empty(c), 1);
     }
     for (int c = 0; c < 2; ++c) {
-      mbar_init(x_full(c), CL * WG);
-      mbar_init(x_empty(c), CL * WG);
-      mbar_init(y_full(c), CL * WG);
+      mbar_init(x_full(c), CL);
+      mbar_init(x_empty(c), CL);
+      mbar_init(y_full(c), CL);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -474,13 +440,13 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
     // S^T and dP^T: every thread writes its partials to its slots of the
     // block's exchange buffer ([16 float4][128 threads] a consumer: S^T's 8
     // column pairs jj, then dP^T's; thread lt of consumer c holds the same
-    // elements on every rank). Rank r then sums the partials of the column
-    // pairs jj = r JJ .. r JJ + JJ - 1 over the cluster, in rank order, makes
-    // their P^T and dS^T (bf16, packed as the A fragments) and writes them
-    // over its own S^T slots of those jj (which no other rank reads), and
-    // every rank gathers all of them: each element is summed and rounded
-    // once, by one rank, and the cluster reads 3/8 of what an all-to-all of
-    // the partials would.
+    // elements on every rank). Rank jj * CL / 8 then sums the partials of
+    // column pair jj over the cluster, in rank order, makes its P^T and dS^T
+    // (bf16, the pair's halves of the A fragments: 16 bytes) and writes
+    // them over its own S^T slot of that jj (which no other rank reads),
+    // and every rank gathers all eight pairs: each element is summed and
+    // rounded once, by one rank, and the cluster reads 3 / (2 CL) of what
+    // an all-to-all of the partials would (3/8 at Dh 512, 3/16 at 1024).
     // P^T (keys past T: 0) and dS^T = P^T o (dP^T - Di) * s of this thread's
     // four elements of column pair jj (S^T and dP^T summed), as bf16 pairs:
     // P^T's two rows, then dS^T's
@@ -502,7 +468,9 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
       w[3] = pack_bf16x2(ds[2], ds[3]);
     };
 
-    constexpr int JJ = 8 / CL;                     // column pairs a rank finishes
+    // the column pairs of rank r: jj = first(r) .. first(r + 1) - 1, where
+    // the owner of pair jj is jj * CL / 8
+    auto first = [](int r) { return (8 * r + CL - 1) / CL; };
     const uint32_t x_mine = base + C::X_OFF + (cw * 16 * WG + lt) * 16;
     auto exchange = [&](int i, const float (&st)[32], const float (&dp)[32], const float* lse2,
                         const float* di, uint32_t (&pa)[4][4], uint32_t (&dsa)[4][4]) {
@@ -517,7 +485,8 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
             make_float4(dp[4 * f], dp[4 * f + 1], dp[4 * f + 2], dp[4 * f + 3]);
       }
 #pragma unroll
-      for (int r = 0; r < CL; ++r) mbar_arrive_cluster(map_rank(x_full(cw), r));
+      group_sync(4 + cw, WG);
+      if (warp == 0) signal_ranks<CL>(x_full(cw), lane);
       mbar_wait_cluster(x_full(cw), i & 1);
       auto sum = [&](int f) {
         float4 a = ld_cluster_f4(map_rank(slot(f), 0));
@@ -531,42 +500,31 @@ flash_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
         }
         return a;
       };
-      uint32_t w[JJ][4];
-#pragma unroll
-      for (int m = 0; m < JJ; ++m) {
-        const int jj = rank * JJ + m;
+      // this rank's pairs: P^T's two rows, then dS^T's, in slot jj
+#pragma unroll 1
+      for (int jj = first(rank); jj < first(rank + 1); ++jj) {
         const float4 s4 = sum(jj), d4 = sum(8 + jj);
         const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, dpv[4] = {d4.x, d4.y, d4.z, d4.w};
-        p_ds(jj, lse2, di, sv, dpv, w[m]);
-      }
-      // the A fragments of k-steps rank * JJ / 2 ..: P^T's, then dS^T's
-#pragma unroll
-      for (int m = 0; m < JJ / 2; ++m) {
-        const int f = rank * JJ + 2 * m;
-        *reinterpret_cast<uint4*>(mine + f * WG * 16) =
-            make_uint4(w[2 * m][0], w[2 * m][1], w[2 * m + 1][0], w[2 * m + 1][1]);
-        *reinterpret_cast<uint4*>(mine + (f + 1) * WG * 16) =
-            make_uint4(w[2 * m][2], w[2 * m][3], w[2 * m + 1][2], w[2 * m + 1][3]);
+        uint32_t w[4];
+        p_ds(jj, lse2, di, sv, dpv, w);
+        *reinterpret_cast<uint4*>(mine + jj * WG * 16) = make_uint4(w[0], w[1], w[2], w[3]);
       }
 #pragma unroll
-      for (int r = 0; r < CL; ++r) mbar_arrive_cluster(map_rank(y_full(cw), r));
+      group_sync(4 + cw, WG);
+      if (warp == 0) signal_ranks<CL>(y_full(cw), lane);
       mbar_wait_cluster(y_full(cw), i & 1);
+      // columns 8 jj .. 8 jj + 7 are half of the A fragment of k-step jj / 2
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int q = k / (JJ / 2), f = q * JJ + 2 * (k % (JJ / 2));
-        const uint4 a = ld_cluster_u4(map_rank(slot(f), q));
-        const uint4 b = ld_cluster_u4(map_rank(slot(f + 1), q));
-        pa[k][0] = a.x;
-        pa[k][1] = a.y;
-        pa[k][2] = a.z;
-        pa[k][3] = a.w;
-        dsa[k][0] = b.x;
-        dsa[k][1] = b.y;
-        dsa[k][2] = b.z;
-        dsa[k][3] = b.w;
+      for (int jj = 0; jj < 8; ++jj) {
+        const uint4 a = ld_cluster_u4(map_rank(slot(jj), jj * CL / 8));
+        pa[jj / 2][2 * (jj & 1)] = a.x;
+        pa[jj / 2][2 * (jj & 1) + 1] = a.y;
+        dsa[jj / 2][2 * (jj & 1)] = a.z;
+        dsa[jj / 2][2 * (jj & 1) + 1] = a.w;
       }
 #pragma unroll
-      for (int r = 0; r < CL; ++r) mbar_arrive_cluster(map_rank(x_empty(cw), r));
+      group_sync(4 + cw, WG);
+      if (warp == 0) signal_ranks<CL>(x_empty(cw), lane);
     };
 
     mbar_wait(kv_full, 0);
@@ -1034,9 +992,12 @@ flash_bwd_small(const __grid_constant__ CUtensorMap map_q, const __grid_constant
 // Host side
 // ---------------------------------------------------------------------------
 
-// The instance that runs head dimension d (a multiple of 8 up to 512), and
+// The instance that runs head dimension d (a multiple of 8 up to 1024), and
 // the keys a block of it owns.
-inline int instance_of(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : 512; }
+inline int instance_of(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : d <= 512 ? 512
+                                                                         : (d + 127) / 128 * 128;
+}
 inline int block_keys(int d) { return instance_of(d) == 32 ? Small<32>::BKEYS : BKEYS; }
 
 struct Layout {   // the workspace: stats, turn counters, dQ sums (more than one key tile)
@@ -1102,7 +1063,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
     if (err != cudaSuccess) return (int)err;
   }
   if (l.nk > 1)
-    flash_bwd_dq_convert<D><<<tiles, Groups<D>::NG * WG, 0, stream>>>((const float2*)acc,
+    flash_bwd_dq_convert<D><<<tiles, Groups<D>::CT * WG, 0, stream>>>((const float2*)acc,
                                                                       (bf16*)dq, t, l.nq, dcols);
   return (int)cudaGetLastError();
 }
@@ -1120,15 +1081,15 @@ size_t flash_attention_bwd_workspace(int bh, int t, int d) { return layout(bh, t
 // bases 16-byte aligned. lse: the forward's fp32 [B, H, T] (natural log),
 // contiguous. dq, dk, dv: contiguous bf16 [B, H, T, D] outputs. workspace:
 // flash_attention_bwd_workspace(B * H, T, D) bytes, 256-byte aligned. D a
-// multiple of 8 up to 512, run on the instance instance_of(D) (32, 64, 128,
-// 256 or 512). Launches the prep pass, the fused kernel and (more than one
+// multiple of 8 up to 1024, run on the instance instance_of(D) (32, 64,
+// 128, 256, 512, 640, 768, 896 or 1024). Launches the prep pass, the fused kernel and (more than one
 // key tile) the dQ conversion on `stream`; returns the cudaError_t of the
 // launches.
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const void* lse, void* dq, void* dk, void* dv,
                         void* workspace, int b, int h, int t, int d, const int64_t* strides,
                         float sm_scale, void* stream) {
-  if (d % 8 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0)
+  if (d % 8 != 0 || d > 1024 || d <= 0 || t <= 0 || b <= 0 || h <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
@@ -1136,10 +1097,21 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
   case D:                                                                                     \
     return launch<D>(q, k, v, o, dout, l, dq, dk, dv, workspace, b, h, t, d, strides, sm_scale, s)
   switch (instance_of(d)) {
-    BWD(32); BWD(64); BWD(128); BWD(256); BWD(512);
+    BWD(32); BWD(64); BWD(128); BWD(256); BWD(512); BWD(640); BWD(768); BWD(896); BWD(1024);
   }
 #undef BWD
   return (int)cudaErrorInvalidValue;
+}
+
+// Clusters of the instance that runs head dimension d (512 < d <= 1024, a
+// cluster of d / 128 rounded up) that the device holds at once
+// (cudaOccupancyMaxActiveClusters at one block an SM), or a negative
+// cudaError_t.
+int flash_attention_bwd_max_active_clusters(int d) {
+#define CLUSTER(D) case D: return max_active_clusters(flash_bwd<D>, THREADS, D / 128, Bwd<D>::SMEM)
+  switch ((d + 127) / 128 * 128) { CLUSTER(640); CLUSTER(768); CLUSTER(896); CLUSTER(1024); }
+#undef CLUSTER
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -30,8 +30,9 @@
 //     order pi, so P^T and dS^T go from their accumulators into the A
 //     operand as they are;
 //   * flash_bwd_f32: a block owns 64 keys and DL columns of the head
-//     dimension (DL = 128 at Dh 128, 256 and 512, else 64); Dh / DL
-//     blocks form a thread-block cluster. K and V (hi and lo, 128 KB at 128
+//     dimension (DL = 128 at Dh 128, 256, 512 and the instances above 512,
+//     else 64); Dh / DL blocks form a thread-block cluster (5 to 8 at Dh
+//     640 to 1024). K and V (hi and lo, 128 KB at 128
 //     columns) stay in shared memory, and K^T, the A operand of dQ^T =
 //     K^T dS^T, in registers (each consumer its 64 head columns x 64 keys,
 //     hi and lo, 64 a thread, read once from the split K: streamed with
@@ -71,7 +72,8 @@
 //   * keys past T get P = 0, and no gradient row past T is stored;
 //   * a head dimension that is not a multiple of 64 (a multiple of 4: Dh
 //     32 at num_head_channels 32, 16, 96, 160, ...) runs the instantiation
-//     of the next multiple of 64 (run_columns): the split pass writes copies
+//     of the next multiple of 64 (above 512: of 128; run_columns): the
+//     split pass writes copies
 //     of that width whose columns past the head dimension are zeros (they
 //     add nothing to S^T and dP^T, and give dQ, dK and dV zero columns
 //     there), and only the real columns of each gradient are stored.
@@ -195,9 +197,12 @@ flash_bwd_f32_dq(const float4* __restrict__ acc, float* __restrict__ dq, int t, 
 // dP^T, dS^T, dK and dQ^T's others.
 template <int DL, int CL, int CW>
 __device__ __forceinline__ void bwd_consumer(const Params& p, unsigned char* smem, uint32_t base,
-                                             uint32_t bars, int rank, int kt, int bh) {
+                                             uint32_t bars, int bh) {
   using C = Bwd<DL>;
   constexpr int NC = C::NC, ITEMS = C::ITEMS;
+  // remote loads in flight a slot when the ranks' partials are summed: two
+  // above four ranks (four spilled the consumers at Dh 1024)
+  constexpr int SUM_LOADS = CL <= 4 ? CL : 2;
   // wgmma descriptors take the offset in the block's 256 KB window: in a
   // cluster launch the window's address carries the rank from bit 24
   const uint32_t dbase = base & 0x3FFFFu;
@@ -208,7 +213,8 @@ __device__ __forceinline__ void bwd_consumer(const Params& p, unsigned char* sme
   auto empty = [&](int s) { return bars + 56 + 8 * (NSLOT + s); };
   // this consumer's dQ^T part staged for the adder / read by the adder
   const uint32_t staged = bars + 56 + 16 * NSLOT + 8 * CW, freed = bars + 72 + 16 * NSLOT + 8 * CW;
-  const int col0 = rank * DL, key0 = kt * BKV;
+  // the block's columns and keys (re-read for the stores at the end)
+  const int col0 = cluster_rank() * DL, key0 = cluster_index_x() * BKV;
   const int lt = threadIdx.x % WG, warp = lt / 32, lane = lt % 32;
   const int g = lane >> 2, tg = lane & 3;
   const int key_w = 16 * warp + g;               // this lane's keys: key_w, key_w + 8 of the block
@@ -302,7 +308,7 @@ __device__ __forceinline__ void bwd_consumer(const Params& p, unsigned char* sme
       const float* stat = reinterpret_cast<const float*>(smem + C::STAT_OFF + (j % 2) * STAT_BYTES);
       mbar_wait_cluster(x_full, j & 1);
       float4 v[4];
-      sum_ranks<4, CL>(v, xch);
+      sum_ranks<4, CL, SUM_LOADS>(v, xch);
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
         const float st = (&v[e / 4].x)[e % 4];
@@ -311,7 +317,7 @@ __device__ __forceinline__ void bwd_consumer(const Params& p, unsigned char* sme
         x[e] = ok ? exp2f(fmaf(st, p.scale_log2, -stat[q])) : 0.f;
       }
       if constexpr (CW == 1) {
-        sum_ranks<4, CL>(v, xch + XCH_BYTES);
+        sum_ranks<4, CL, SUM_LOADS>(v, xch + XCH_BYTES);
 #pragma unroll
         for (int e = 0; e < 16; ++e) {
           const int q = 8 * (e / 4) + 2 * tg + (e & 1);
@@ -417,16 +423,17 @@ __device__ __forceinline__ void bwd_consumer(const Params& p, unsigned char* sme
   // ---- consumer 0's dV, consumer 1's dK for this block's keys (keys past
   // T are not written) ----
   float* out = CW == 0 ? p.dv : p.dk;
+  const int col0_ = cluster_rank() * DL, key0_ = cluster_index_x() * BKV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = key0 + key_w + 8 * r;
+    const int key = key0_ + key_w + 8 * r;
     if (key >= p.t) continue;
-    float* o = out + ((int64_t)bh * p.t + key) * p.dcols + col0 + 2 * tg;
+    float* o = out + ((int64_t)bh * p.t + key) * p.dcols + col0_ + 2 * tg;
 #pragma unroll
     for (int c = 0; c < 2 * NC; ++c)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
-        if (col0 + 32 * c + 8 * jj + 2 * tg < p.dcols)
+        if (col0_ + 32 * c + 8 * jj + 2 * tg < p.dcols)
           *reinterpret_cast<float2*>(o + 32 * c + 8 * jj) =
               make_float2(dg[c][4 * jj + 2 * r], dg[c][4 * jj + 2 * r + 1]);
   }
@@ -450,8 +457,7 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
   auto full = [&](int s) { return bars + 56 + 8 * s; };
   auto empty = [&](int s) { return bars + 56 + 8 * (NSLOT + s); };
 
-  const int rank = blockIdx.x % CL, kt = blockIdx.x / CL, bh = blockIdx.y;
-  const int col0 = rank * DL, key0 = kt * BKV;
+  const int bh = blockIdx.y;
   const int wg = threadIdx.x / WG;
 
   if (threadIdx.x == 0) {
@@ -478,6 +484,7 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
   if (wg == 2) {
     reg_dealloc<PRODUCER_REGS>();
     if (threadIdx.x == 2 * WG) {
+      const int col0 = cluster_rank() * DL, key0 = cluster_index_x() * BKV;
       // ---- loads: K and V once, then a query tile's LSE and Di and its
       // items in the order the consumers take them: Q, dO, dO^T, Q^T (NC
       // items each, 64 columns an item) ----
@@ -520,6 +527,7 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
       const uint32_t staged = bars + 56 + 16 * NSLOT + 8 * c, freed = bars + 72 + 16 * NSLOT + 8 * c;
       const uint32_t src = base + Bwd<DL>::XCH_OFF + c * XCH_BYTES;
       for (int j = 0; j < p.nq; ++j) {
+        const int rank = cluster_rank(), kt = cluster_index_x();
         int* turn = p.turn + (((int64_t)bh * p.nq + j) * CL + rank) * NC + c;
         float* acc = p.acc + (((int64_t)bh * p.nq + j) * (p.d / 64) + rank * NC + c) * (64 * BQ);
         mbar_wait(staged, j & 1);
@@ -545,9 +553,9 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
   } else {
     reg_alloc<CONSUMER_REGS>();
     if (wg == 0)
-      bwd_consumer<DL, CL, 0>(p, smem, base, bars, rank, kt, bh);
+      bwd_consumer<DL, CL, 0>(p, smem, base, bars, bh);
     else
-      bwd_consumer<DL, CL, 1>(p, smem, base, bars, rank, kt, bh);
+      bwd_consumer<DL, CL, 1>(p, smem, base, bars, bh);
   }
   // no block leaves while another rank may still read its partials or
   // arrive on its barriers
@@ -668,9 +676,9 @@ size_t flash_attention_bwd_f32_workspace(int bh, int t, int d) {
 // multiple of 4 (16 bytes), bases 16-byte aligned. lse: contiguous fp32
 // [B, H, T]; dq, dk, dv: contiguous fp32 [B, H, T, D]; workspace:
 // flash_attention_bwd_f32_workspace bytes, 256-byte aligned. D a multiple
-// of 4 up to 512, run on the instance run_columns(D); `cluster` the blocks
-// that split it (instance / 128 at 128, 256 and 512, else instance / 64;
-// anything else is refused). Launches the stats and split passes, the
+// of 4 up to 1024, run on the instance run_columns(D); `cluster` the blocks
+// that split it (instance / 128 at 128, 256, 512 and above 512, else
+// instance / 64; anything else is refused). Launches the stats and split passes, the
 // kernel and the dQ pass on `stream`; returns the first cudaError_t of the
 // launches.
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
@@ -678,7 +686,7 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const v
                             void* workspace, int b, int h, int t, int d, int cluster,
                             const int64_t* strides, float sm_scale, void* stream) {
   const int run = run_columns(d);
-  if (d % 4 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0 || b * h > 65535 ||
+  if (d % 4 != 0 || d > 1024 || d <= 0 || t <= 0 || b <= 0 || h <= 0 || b * h > 65535 ||
       cluster != run / block_columns(run))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -690,9 +698,22 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const v
   switch (run) {
     BWD(64, 64); BWD(128, 128); BWD(192, 64); BWD(256, 128);
     BWD(320, 64); BWD(384, 64); BWD(448, 64); BWD(512, 128);
+    BWD(640, 128); BWD(768, 128); BWD(896, 128); BWD(1024, 128);
   }
 #undef BWD
   return (int)cudaErrorInvalidValue;
+}
+
+// Clusters of the instance that runs head dimension d (512 < d <= 1024, a
+// cluster of d / 128 rounded up) that the device holds at once
+// (cudaOccupancyMaxActiveClusters at one block an SM), or a negative
+// cudaError_t.
+int flash_attention_bwd_f32_max_active_clusters(int d) {
+#define CLUSTER(D) \
+  case D: return max_active_clusters(flash_bwd_f32<128, D / 128>, THREADS, D / 128, Bwd<128>::SMEM)
+  switch ((d + 127) / 128 * 128) { CLUSTER(640); CLUSTER(768); CLUSTER(896); CLUSTER(1024); }
+#undef CLUSTER
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -26,7 +26,8 @@
 //     accumulator into the A operand of P V as it is; the workspace holds
 //     them (flash_attention_f32_workspace);
 //   * the head dimension is split across a thread-block cluster of CL =
-//     Dh / DL blocks (DL = 128 columns at Dh 128, 256 and 512, else 64):
+//     Dh / DL blocks (DL = 128 columns at Dh 128, 256, 512 and the
+//     instances above 512, 640 to 1024 in clusters of 5 to 8, else 64):
 //     Q, one K tile and one V tile of 64 keys as hi and lo take 192 KB at
 //     128 columns, and O of 64 rows 64 registers a thread. Rank r holds
 //     columns r DL .. r DL + DL - 1 of Q and O; each rank computes its
@@ -59,7 +60,8 @@
 //     only; rows >= T are not stored;
 //   * a head dimension that is not a multiple of 64 (a multiple of 4: Dh
 //     32 at num_head_channels 32, 16, 96, 160, ...) runs the instantiation
-//     of the next multiple of 64 (run_columns): the split pass writes copies
+//     of the next multiple of 64 (above 512: of 128; run_columns): the
+//     split pass writes copies
 //     of that width whose columns past the head dimension are zeros (they add
 //     nothing to S, and O gets zero columns there), and only O's real
 //     columns are stored; the chains keep their 4-k-step cap.
@@ -495,9 +497,10 @@ size_t flash_attention_f32_workspace(int bh, int t, int d) {
 
 // q, k, v, o: fp32 [B, H, T, D] on the device, last dimension contiguous;
 // strides: the element strides {batch, head, token} of q, k, v and o (12
-// values). D a multiple of 4 up to 512, run on the instance run_columns(D);
-// `cluster` the blocks that split it, instance / 128 at 128, 256 and 512,
-// else instance / 64 (the wrapper's plan; anything else is refused). lse:
+// values). D a multiple of 4 up to 1024, run on the instance run_columns(D);
+// `cluster` the blocks that split it, instance / 128 at 128, 256, 512 and
+// above 512 (clusters of 5 to 8), else instance / 64 (the wrapper's plan;
+// anything else is refused). lse:
 // contiguous fp32 [B, H, T], or null when the caller needs no LSE.
 // workspace: flash_attention_f32_workspace bytes, 256-byte aligned.
 // Launches the split pass and the kernel on `stream`; returns the
@@ -506,7 +509,7 @@ int flash_attention_f32_fwd(const void* q, const void* k, const void* v, void* o
                             void* workspace, int b, int h, int t, int d, int cluster,
                             const int64_t* strides, float sm_scale, void* stream) {
   const int run = run_columns(d);
-  if (d % 4 != 0 || d > 512 || d <= 0 || t <= 0 || b <= 0 || h <= 0 || b * h > 65535 ||
+  if (d % 4 != 0 || d > 1024 || d <= 0 || t <= 0 || b <= 0 || h <= 0 || b * h > 65535 ||
       cluster != run / block_columns(run))
     return (int)cudaErrorInvalidValue;
   const Params p = {(float*)o, (float*)lse, strides[9], strides[10], strides[11], t, h, d,
@@ -518,9 +521,22 @@ int flash_attention_f32_fwd(const void* q, const void* k, const void* v, void* o
   switch (run) {
     FWD(64, 64); FWD(128, 128); FWD(192, 64); FWD(256, 128);
     FWD(320, 64); FWD(384, 64); FWD(448, 64); FWD(512, 128);
+    FWD(640, 128); FWD(768, 128); FWD(896, 128); FWD(1024, 128);
   }
 #undef FWD
   return (int)cudaErrorInvalidValue;
+}
+
+// Clusters of the instance that runs head dimension d (512 < d <= 1024, a
+// cluster of d / 128 rounded up) that the device holds at once
+// (cudaOccupancyMaxActiveClusters at one block an SM), or a negative
+// cudaError_t.
+int flash_attention_f32_max_active_clusters(int d) {
+#define CLUSTER(D) \
+  case D: return max_active_clusters(flash_fwd_f32<128, D / 128>, THREADS, D / 128, Fwd<128>::SMEM)
+  switch ((d + 127) / 128 * 128) { CLUSTER(640); CLUSTER(768); CLUSTER(896); CLUSTER(1024); }
+#undef CLUSTER
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

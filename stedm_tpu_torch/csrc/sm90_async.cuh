@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the kernels of csrc/: register
 // reallocation between warpgroups, mbarriers, TMA tile loads and bulk copies,
-// named barriers, the host-side tensor maps built from a tensor's strides,
-// and the launch and occupancy query of a thread-block cluster kernel
-// (gn_silu.cu, nearest_code.cu).
+// named barriers, quad reductions, distributed shared memory (the flash
+// kernels' exchanges across a cluster), the host-side tensor maps built
+// from a tensor's strides, and the launch and occupancy query of a
+// thread-block cluster kernel.
 //
 // Shared-memory tiles are kept as sub-tiles of 64 bf16 columns (128 bytes, one
 // row of the 128-byte swizzle; the bf16 flash forward at Dh 32: 32 columns in
@@ -116,6 +117,136 @@ __device__ __forceinline__ void consumer_sync(int id) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---------------------------------------------------------------------------
+// Distributed shared memory, for the flash kernels' head-dimension split
+// across a cluster: an address of this block's shared memory as the same
+// offset in rank `rank`'s, 16-byte loads from there, arrivals on an
+// mbarrier there (release at cluster scope), and a wait on this block's
+// mbarrier that acquires at cluster scope what the arrivals released.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint4 ld_cluster_u4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// This block's rank in its cluster and the cluster's index along x, read
+// where they are needed: a value derived from blockIdx at the start of a
+// kernel (blockIdx.x % 5, say) is held in a register through the whole
+// kernel, which a consumer at its register budget spills.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_index_x() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return (int)r;
+}
+
+// Every thread of the cluster (not warp-aligned: the producer's idle lanes
+// arrive from another path than its loading lane).
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// A named barrier among the `n` threads of a consumer group (id > 0; 0 is
+// __syncthreads).
+__device__ __forceinline__ void group_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void group_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// One arrival on mbarrier `bar` of every rank of the cluster after a
+// group_sync of the signalling group: lane r of its first warp (`lane` < CL)
+// arrives on rank r. The release is cumulative, so it publishes what the
+// whole group wrote, or read, before the barrier. A release waits until the
+// thread's earlier memory operations have been performed, so one thread
+// arriving on every rank in turn pays a round trip per rank; an arrival
+// from every thread contends on each barrier's word.
+template <int CL>
+__device__ __forceinline__ void signal_ranks(uint32_t bar, int lane) {
+  if (lane < CL) mbar_arrive_cluster(map_rank(bar, lane));
+}
+
+// The sum over the cluster's CL ranks, in rank order, of N float4 a thread
+// kept in the exchange buffer at `xch` (slot f at xch + f * 128 * 16, this
+// thread's first slot): every rank gets the same bits. A slot's loads are
+// issued before its first add, at most G at a time (clusters of 5 to 8 at
+// Dh 640 to 1024: eight in flight hold 32 registers beside the consumers'
+// accumulators).
+template <int N, int CL, int G = (CL < 4 ? CL : 4)>
+__device__ __forceinline__ void sum_ranks(float4 (&v)[N], uint32_t xch) {
+#pragma unroll
+  for (int f = 0; f < N; ++f) {
+#pragma unroll
+    for (int r0 = 0; r0 < CL; r0 += G) {
+      float4 t[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        if (r0 + i < CL) t[i] = ld_cluster_f4(map_rank(xch + f * 128 * 16, r0 + i));
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        if (r0 + i >= CL) continue;
+        if (r0 + i == 0) {
+          v[f] = t[0];
+        } else {
+          v[f].x += t[i].x;
+          v[f].y += t[i].y;
+          v[f].z += t[i].z;
+          v[f].w += t[i].w;
+        }
+      }
+    }
+  }
 }
 
 // SMs of the current device, asked once (the cards of one host are alike).

@@ -171,103 +171,6 @@ __device__ __forceinline__ void rs3(float (&d)[N], const uint32_t (&ah)[4], cons
   rs(d, ah, bh, 1);
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// ---------------------------------------------------------------------------
-// Distributed shared memory, for the head-dimension split across a cluster:
-// an address of this block's shared memory as the same offset in rank
-// `rank`'s, 16-byte loads from there, arrivals on an mbarrier there (release
-// at cluster scope), and a wait on this block's mbarrier that acquires at
-// cluster scope what the arrivals released.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
-               :: "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// Every thread of the cluster (not warp-aligned: the producer's idle lanes
-// arrive from another path than its loading lane).
-__device__ __forceinline__ void cluster_sync_all() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// A named barrier among the `n` threads of a consumer group (id > 0; 0 is
-// __syncthreads).
-__device__ __forceinline__ void group_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void group_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-// One arrival on mbarrier `bar` of every rank of the cluster after a
-// group_sync of the signalling group: lane r of its first warp (`lane` < CL)
-// arrives on rank r. The release is cumulative, so it publishes what the
-// whole group wrote, or read, before the barrier. A release waits until the
-// thread's earlier memory operations have been performed, so one thread
-// arriving on every rank in turn pays a round trip per rank; an arrival
-// from every thread contends on each barrier's word.
-template <int CL>
-__device__ __forceinline__ void signal_ranks(uint32_t bar, int lane) {
-  if (lane < CL) mbar_arrive_cluster(map_rank(bar, lane));
-}
-
-// The sum over the cluster's CL ranks, in rank order, of N float4 a thread
-// kept in the exchange buffer at `xch` (slot f at xch + f * 128 * 16, this
-// thread's first slot): every rank gets the same bits. A slot's CL loads
-// are issued before its first add.
-template <int N, int CL>
-__device__ __forceinline__ void sum_ranks(float4 (&v)[N], uint32_t xch) {
-#pragma unroll
-  for (int f = 0; f < N; ++f) {
-    float4 t[CL];
-#pragma unroll
-    for (int r = 0; r < CL; ++r) t[r] = ld_cluster_f4(map_rank(xch + f * 128 * 16, r));
-    v[f] = t[0];
-#pragma unroll
-    for (int r = 1; r < CL; ++r) {
-      v[f].x += t[r].x;
-      v[f].y += t[r].y;
-      v[f].z += t[r].z;
-      v[f].w += t[r].w;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Host side: tensor maps over the split copies, the cluster launch.
 // ---------------------------------------------------------------------------
@@ -368,16 +271,20 @@ inline cudaError_t launch_split(const SplitParams& p, cudaStream_t stream) {
 inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
 // The head-dimension split of both kernels over the instance they run (run
-// below): the columns a block, 128 at 128, 256 and 512, else 64 (the
-// backward's 3-block instance of 128 columns, Dh 384, spilled), and
-// instance / columns blocks a cluster (ops/blocked_attention.py: fp32_plan
+// below): the columns a block, 128 at 128, 256, 512 and every instance
+// above 512, else 64 (the backward's 3-block instance of 128 columns, Dh
+// 384, spilled), and instance / columns blocks a cluster, at most 8, the
+// portable cluster size, at Dh 1024 (ops/blocked_attention.py: fp32_plan
 // passes that cluster size, which the entry points check).
-inline int block_columns(int run) { return run == 128 || run == 256 || run == 512 ? 128 : 64; }
+inline int block_columns(int run) {
+  return run == 128 || run == 256 || run >= 512 ? 128 : 64;
+}
 
 // The instance (head dimension) the kernels run a head dimension d (a
-// multiple of 4 up to 512) at: the smallest multiple of 64 at or above it.
-// The split copies carry zeros in the columns past d, and only the real
-// columns of the outputs are stored.
-inline int run_columns(int d) { return (d + 63) / 64 * 64; }
+// multiple of 4 up to 1024) at: the smallest multiple of 64 at or above it
+// up to 512, of 128 above (one 128-column slice a cluster rank). The split
+// copies carry zeros in the columns past d, and only the real columns of
+// the outputs are stored.
+inline int run_columns(int d) { return d <= 512 ? (d + 63) / 64 * 64 : (d + 127) / 128 * 128; }
 
 }  // namespace tf32w

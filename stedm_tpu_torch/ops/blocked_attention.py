@@ -23,11 +23,15 @@ multiples of 64 up to 512, the bf16 backward at 32 (an instance of its own,
 256 keys a block), 64, 128 (the U-Net's AttentionBlock in diffusion
 training), 256 and 512 (the codec's AttnBlockVQ in codec fine-tuning,
 where a thread-block cluster splits the head dimension), the fp32 kernels
-at the multiples of 64. ``head_dim_plan`` maps every head dimension from 1
-to ``MAX_HEAD_DIM`` onto the smallest instance at or above it, whose tensor
-maps (or split copies) declare the true columns, so the columns past them
-arrive as zeros and are never stored; a head dimension whose rows are not
-16 bytes apart first goes into zero-padded copies of the next such width.
+at the multiples of 64; above 512 every kernel at the multiples of 128 up
+to 1024 (``CLUSTER_HEAD_DIMS``: one 128-column slice of the head dimension
+a block, over a cluster of 5 to 8 blocks; the landscape U-Net at
+``num_heads: 1`` and a codec whose mid-block is 1024 wide).
+``head_dim_plan`` maps every head dimension from 1 to ``MAX_HEAD_DIM``
+onto the smallest instance at or above it, whose tensor maps (or split
+copies) declare the true columns, so the columns past them arrive as zeros
+and are never stored; a head dimension whose rows are not 16 bytes apart
+first goes into zero-padded copies of the next such width.
 
 ``sdpa`` keeps the JAX dispatch by name. ``exact``, ``chunked``, ``flash`` and
 ``auto`` name TPU memory strategies for one function, so on a CUDA tensor all
@@ -37,7 +41,8 @@ versions (``_exact`` / ``chunked_sdpa``, stedm_tpu/ops/blocked_attention.py
 ``auto`` resolves to ``chunked``. Above ``MAX_HEAD_DIM`` no kernel exists
 (ROADMAP.md §2): there ``exact``, ``chunked`` and ``auto`` run those plain
 versions on the card too, as the JAX package's jnp path does off the TPU
-(counted as ``LAUNCHES["attention_plain"]``), and ``flash`` raises.
+(counted as ``LAUNCHES["attention_plain"]``), and ``flash`` raises;
+``attention_or_plain`` does the same for the codec's AttnBlockVQ.
 """
 
 from __future__ import annotations
@@ -52,13 +57,16 @@ import torch.nn.functional as F
 from stedm_tpu_torch._device import check_cuda_tensor, load_library
 from stedm_tpu_torch.ops import LAUNCHES
 
-MAX_HEAD_DIM = 512
-# the compiled instances of the bf16 forward: 32 and the multiples of 64 up
-# to MAX_HEAD_DIM (the fp32 kernels': the multiples of 64); the bf16
+MAX_HEAD_DIM = 1024
+# above 512, every kernel's instances: one 128-column slice a cluster rank
+CLUSTER_HEAD_DIMS = (640, 768, 896, 1024)
+# the compiled instances of the bf16 forward: 32, the multiples of 64 up to
+# 512, then CLUSTER_HEAD_DIMS (the fp32 kernels': the same but 32); the bf16
 # backward's: BWD_HEAD_DIMS
-HEAD_DIMS = (32,) + tuple(range(64, MAX_HEAD_DIM + 1, 64))
-BWD_HEAD_DIMS = (32, 64, 128, 256, 512)
-FP32_WIDE_HEAD_DIMS = (128, 256, 512)    # the fp32 kernels' head dims split 128 columns a block
+HEAD_DIMS = (32,) + tuple(range(64, 513, 64)) + CLUSTER_HEAD_DIMS
+BWD_HEAD_DIMS = (32, 64, 128, 256, 512) + CLUSTER_HEAD_DIMS
+# the fp32 kernels' head dims split 128 columns a block (the others: 64)
+FP32_WIDE_HEAD_DIMS = (128, 256, 512) + CLUSTER_HEAD_DIMS
 _LOG2E = 1.0 / math.log(2.0)
 # the kernels of each dtype: (forward, backward) sources under csrc/, each
 # also the name of its LAUNCHES count
@@ -69,8 +77,8 @@ KERNELS = {torch.bfloat16: ("flash_attention", "flash_attention_bwd"),
 INSTANCES = {"flash_attention": HEAD_DIMS, "flash_attention_bwd": BWD_HEAD_DIMS,
              "flash_attention_f32": HEAD_DIMS[1:], "flash_attention_bwd_f32": HEAD_DIMS[1:]}
 ABOVE_MAX = (f"the flash kernels take head dims up to {MAX_HEAD_DIM} (ROADMAP.md §2: a kernel "
-             "above it is still to be written); sdpa's exact, chunked and auto run the plain "
-             "path there")
+             "above it is still to be written); sdpa's exact, chunked and auto, and the "
+             "codec's AttnBlockVQ, run the plain path there")
 
 
 class HeadDimPlan(NamedTuple):
@@ -98,9 +106,11 @@ def head_dim_plan(d: int, dtype, backward: bool) -> HeadDimPlan | None:
 
 def launch_counter(stem: str, d: int) -> str:
     """The ``LAUNCHES`` key of a launch of ``stem`` at head dim ``d``: a head
-    dim that is not one of the kernel's compiled multiples of 64 counts
-    apart, as ``<stem>_dh<d>`` (Dh 32: ``<stem>_dh32``)."""
-    return stem if d % 64 == 0 and d in INSTANCES[stem] else f"{stem}_dh{d}"
+    dim that is not one of the kernel's compiled multiples of 64 up to 512
+    counts apart, as ``<stem>_dh<d>`` (Dh 32: ``<stem>_dh32``; the cluster
+    instances above 512: ``<stem>_dh1024`` and so on)."""
+    own = d % 64 == 0 and d <= 512 and d in INSTANCES[stem]
+    return stem if own else f"{stem}_dh{d}"
 
 
 def _count(key: str) -> None:
@@ -220,9 +230,10 @@ def fp32_plan(b: int, h: int, t: int, d: int) -> dict:
     of 4 up to ``MAX_HEAD_DIM``): the instance that runs it
     (``head_dim_plan``) split into ``columns`` a block
     (``FP32_WIDE_HEAD_DIMS`` take 128, the others 64) over a thread-block
-    ``cluster`` of instance / columns blocks, the C entry points (``fwd``,
-    ``bwd``) and the workspace bytes each asks for. The C side refuses any
-    other cluster size."""
+    ``cluster`` of instance / columns blocks (at most 8, the portable
+    cluster size: Dh 1024), the C entry points (``fwd``, ``bwd``) and the
+    workspace bytes each asks for. The C side refuses any other cluster
+    size."""
     run = head_dim_plan(d, torch.float32, True).instance
     cols = 128 if run in FP32_WIDE_HEAD_DIMS else 64
     return {"columns": cols, "cluster": run // cols,
@@ -457,6 +468,17 @@ def flash_attention(q, k, v, sm_scale: float):
         out = torch.empty((b, t, h, d), device=q.device, dtype=q.dtype).permute(0, 2, 1, 3)
         return flash_attention_cuda(q, k, v, sm_scale, out=out)
     return attention_reference(q, k, v, sm_scale)
+
+
+def attention_or_plain(q, k, v, sm_scale: float):
+    """``flash_attention`` where a kernel takes the head dimension; above
+    ``MAX_HEAD_DIM`` on the card the plain version under autograd, counted
+    as ``LAUNCHES["attention_plain"]`` (the JAX codec's einsum path, which
+    it takes wherever Pallas does not run)."""
+    if q.is_cuda and q.shape[-1] > MAX_HEAD_DIM:
+        _count("attention_plain")
+        return attention_reference(q, k, v, sm_scale)
+    return flash_attention(q, k, v, sm_scale)
 
 
 def sdpa(q, k, v, scale, *, impl: str = "exact", q_chunk: int = 256):

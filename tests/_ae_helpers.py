@@ -35,16 +35,21 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(lambda a: np.array(a, dtype=np.float32), tree)
 
 
-def run_steps(variant: str, perceptual_weight: float) -> dict:
-    img = np.random.default_rng(11).uniform(-1, 1, (B, P, P, 3)).astype(np.float32)
+def run_steps(variant: str, perceptual_weight: float, ddconfig: dict | None = None,
+              steps: int = STEPS, patch: int = P) -> dict:
+    """``steps`` steps of both packages' codec fine-tuning on the tiny codec
+    (``ddconfig``, default ``DD``) at ``patch``, from the same weights
+    (``gen0``: the JAX tree)."""
+    dd = DD if ddconfig is None else ddconfig
+    img = np.random.default_rng(11).uniform(-1, 1, (B, patch, patch, 3)).astype(np.float32)
     jcfg = JL.VAELossConfig(perceptual_weight=perceptual_weight, **LOSS)
     pcfg = PL.VAELossConfig(perceptual_weight=perceptual_weight, **LOSS)
     if variant == "vq":
-        jm = jvq.VQModelInterface(embed_dim=3, n_embed=64, ddconfig=dict(DD, double_z=False))
-        pm = pvq.VQModelInterface(embed_dim=3, n_embed=64, ddconfig=dict(DD, double_z=False))
+        jm = jvq.VQModelInterface(embed_dim=3, n_embed=64, ddconfig=dict(dd, double_z=False))
+        pm = pvq.VQModelInterface(embed_dim=3, n_embed=64, ddconfig=dict(dd, double_z=False))
     else:
-        jm = jkl.AutoencoderKL(embed_dim=3, ddconfig=dict(DD, double_z=True))
-        pm = pkl.AutoencoderKL(embed_dim=3, ddconfig=dict(DD, double_z=True))
+        jm = jkl.AutoencoderKL(embed_dim=3, ddconfig=dict(dd, double_z=True))
+        pm = pkl.AutoencoderKL(embed_dim=3, ddconfig=dict(dd, double_z=True))
     gen = dict(random_params(jm, 1, jnp.asarray(img)))
     if variant == "kl":
         gen["lossvar"] = {"logvar": jnp.zeros((), jnp.float32)}
@@ -64,7 +69,7 @@ def run_steps(variant: str, perceptual_weight: float) -> dict:
                                            seed=SEED)).lower(
         jstate, jnp.asarray(img), lparams).compile(compiler_options=_QUICK_COMPILE)
     jlogs, jrecs = [], []
-    for _ in range(STEPS):
+    for _ in range(steps):
         jstate, log, rec = jstep(jstate, jnp.asarray(img), lparams)
         jlogs.append({k: float(v) for k, v in log.items()})
         jrecs.append(np.asarray(rec))
@@ -83,7 +88,7 @@ def run_steps(variant: str, perceptual_weight: float) -> dict:
     pstate = pae.create_ae_state(pm, pd, ptx, pdtx, logvar=logvar)
     pstep = pae.make_ae_train_step(pm, pcfg, lpips=pl, variant=variant, seed=SEED, device="cpu")
     plogs, precs = [], []
-    for i in range(STEPS):
+    for i in range(steps):
         noise = None
         if variant == "kl":   # as the JAX step draws it (ae_steps.py:112)
             key = jax.random.fold_in(jax.random.PRNGKey(SEED), i)
@@ -99,7 +104,7 @@ def run_steps(variant: str, perceptual_weight: float) -> dict:
         j_logvar=(float(jstate.gen_params["lossvar"]["logvar"]) if variant == "kl" else None),
         p_gen=pm.state_dict(), p_disc=pd.state_dict(), p_logvar=logvar, p_before=p_before,
         d_before=d_before, pstate=pstate, pm=pm, pd=pd, img=img, jstate=jstate,
-        jm=jm, jcfg=jcfg, pcfg=pcfg, jlp=jlp, lparams=lparams, pl=pl)
+        jm=jm, jcfg=jcfg, pcfg=pcfg, jlp=jlp, lparams=lparams, pl=pl, gen0=gen)
 
 
 def check_logs(run):
@@ -112,7 +117,7 @@ def check_logs(run):
             np.testing.assert_allclose(plog[k], jlog[k], rtol=1e-4, atol=1e-6, err_msg=k)
 
 
-def check_updates(run):
+def check_updates(run, discriminator: bool = True):
     """The generator's and the discriminator's updates over both steps.
     Adam's first steps are about lr * sign(g), so an element whose gradient
     is within rounding of zero (the key bias of the attention, which the
@@ -120,9 +125,13 @@ def check_updates(run):
     a group removes) steps either way on either side: the updates agree as
     a whole to 10 % in norm (each flipped element costs twice its step, so
     that is at most a quarter of a percent of them flipped), every element
-    within two steps; the running statistics agree to fp32 rounding."""
-    for want, got, before in ((run["j_gen"], run["p_gen"], run["p_before"]),
-                              (run["j_disc"], run["p_disc"], run["d_before"])):
+    within two steps; the running statistics agree to fp32 rounding.
+    ``discriminator`` False: the generator's only (a run that stops before
+    the discriminator first moves)."""
+    pairs = [(run["j_gen"], run["p_gen"], run["p_before"])]
+    if discriminator:
+        pairs.append((run["j_disc"], run["p_disc"], run["d_before"]))
+    for want, got, before in pairs:
         keys = [k for k in got if "running" not in k
                 and not k.endswith(("num_batches_tracked", "initialized"))]
         dj = torch.cat([(want[k].float() - before[k].float()).flatten() for k in keys])

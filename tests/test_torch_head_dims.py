@@ -1,17 +1,21 @@
-"""Every head dimension up to 512 on the flash kernels, and the plain path above.
+"""Every head dimension up to 1024 on the flash kernels, and the plain path above.
 
 ``head_dim_plan`` maps a head dimension onto the compiled instance that runs
-it (the smallest at or above it, reading the true columns) and, where a
-row is not 16 bytes long, onto zero-padded copies of the next such width;
-above 512 there is no plan, and on the card ``sdpa`` runs the plain
-attention there (``flash`` raises). On the CPU the wrappers take their
-plain versions, so the tests hold those: the padding identity the kernels
-rely on, the stock Pallas TPU kernels in interpret mode at the widths the
-port now runs padded (the forward, and the backward through ``jax.vjp``,
-with ``tests/test_torch_attention_bwd.py``'s tolerances), JAX's jnp
-``sdpa`` at Dh 20 and 1024 with ``jax.grad``, and a tiny STEDM at
-``num_head_channels: 16`` against JAX's. The kernels themselves run in
-``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py`` phase 13.
+it (the smallest at or above it, reading the true columns; above 512 the
+multiples of 128, a cluster of Dh / 128 blocks) and, where a row is not 16
+bytes long, onto zero-padded copies of the next such width; above 1024
+there is no plan, and on the card ``sdpa`` and the codec's AttnBlockVQ run
+the plain attention there (``flash`` raises). On the CPU the wrappers take
+their plain versions, so the tests hold those: the padding identity the
+kernels rely on, the stock Pallas TPU kernels in interpret mode at the
+widths the port now runs padded and at Dh 640 and 1024 (the forward, and
+the backward through ``jax.vjp``, with ``tests/test_torch_attention_bwd.py``'s
+tolerances), JAX's jnp ``sdpa`` at Dh 20, 1024 and 1152 with ``jax.grad``,
+a tiny STEDM at ``num_head_channels: 16`` and one whose bottleneck attends
+in one head of 640, and a tiny codec whose mid-block is 640 wide (its
+forward and one ``make_ae_train_step``), against JAX's. The kernels
+themselves run in ``tests/test_torch_kernels_cuda.py`` and
+``chip_smoke.py`` phases 13 and 14.
 """
 
 import jax
@@ -27,11 +31,14 @@ from stedm_tpu_torch.ops import blocked_attention as pattn
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # the compiled instances, by head dim, as the C entry points switch on them
-INSTANCES = {(torch.bfloat16, False): (32, 64, 128, 192, 256, 320, 384, 448, 512),
-             (torch.bfloat16, True): (32, 64, 128, 256, 512),
-             (torch.float32, False): (64, 128, 192, 256, 320, 384, 448, 512),
-             (torch.float32, True): (64, 128, 192, 256, 320, 384, 448, 512)}
-PLAN_DIMS = (8, 16, 20, 32, 40, 48, 64, 96, 160, 192, 320, 384, 448, 512, 640, 1024)
+# (above 512 every kernel's: one 128-column slice a cluster rank)
+CLUSTERED = (640, 768, 896, 1024)
+INSTANCES = {(torch.bfloat16, False): (32, 64, 128, 192, 256, 320, 384, 448, 512) + CLUSTERED,
+             (torch.bfloat16, True): (32, 64, 128, 256, 512) + CLUSTERED,
+             (torch.float32, False): (64, 128, 192, 256, 320, 384, 448, 512) + CLUSTERED,
+             (torch.float32, True): (64, 128, 192, 256, 320, 384, 448, 512) + CLUSTERED}
+PLAN_DIMS = (8, 16, 20, 32, 40, 48, 64, 96, 160, 192, 320, 384, 448, 512, 640, 1024, 516, 520,
+             576, 700, 768, 1000, 1028, 1152)
 
 
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
@@ -39,13 +46,13 @@ PLAN_DIMS = (8, 16, 20, 32, 40, 48, 64, 96, 160, 192, 320, 384, 448, 512, 640, 1
 @pytest.mark.parametrize("d", PLAN_DIMS)
 def test_head_dim_plan(d, dtype, backward):
     """The width is Dh rounded up to 16 bytes (8 bf16, 4 fp32 values), the
-    instance the smallest compiled one at or above it; none above 512. A
+    instance the smallest compiled one at or above it; none above 1024. A
     launch counts under the kernel's own name only at its compiled
-    multiples of 64."""
+    multiples of 64 up to 512."""
     tdt = DTYPES[dtype][1]
     plan = pattn.head_dim_plan(d, tdt, backward)
     stem = pattn.KERNELS[tdt][int(backward)]
-    if d > 512:
+    if d > 1024:
         assert plan is None
         return
     per_row = 8 if tdt == torch.bfloat16 else 4
@@ -53,15 +60,15 @@ def test_head_dim_plan(d, dtype, backward):
     instances = INSTANCES[(tdt, backward)]
     assert plan == (min(i for i in instances if i >= width), width)
     assert pattn.INSTANCES[stem] == instances
-    own = d % 64 == 0 and d in instances
+    own = d % 64 == 0 and d <= 512 and d in instances
     assert pattn.launch_counter(stem, d) == (stem if own else f"{stem}_dh{d}")
 
 
 def test_every_head_dim_up_to_512_has_a_kernel():
     """Dh 1 .. 512 in both dtypes and directions: a compiled instance that
-    holds the width; Dh 16 runs the bf16 kernels' Dh-32 instances, 160 the
-    bf16 backward's Dh-256 one; the counters of Dh 16 and 32 exist before
-    any launch."""
+    holds the width, at most 512; Dh 16 runs the bf16 kernels' Dh-32
+    instances, 160 the bf16 backward's Dh-256 one, 513 the smallest cluster
+    instance (640); the counters of Dh 16 and 32 exist before any launch."""
     from stedm_tpu_torch.ops import LAUNCHES
 
     for tdt in (torch.bfloat16, torch.float32):
@@ -69,12 +76,62 @@ def test_every_head_dim_up_to_512_has_a_kernel():
             stem = pattn.KERNELS[tdt][int(backward)]
             for d in range(1, 513):
                 plan = pattn.head_dim_plan(d, tdt, backward)
-                assert plan.instance in pattn.INSTANCES[stem] and plan.instance >= plan.width >= d
-            assert pattn.head_dim_plan(513, tdt, backward) is None
+                assert plan.instance in pattn.INSTANCES[stem] and 512 >= plan.instance >= plan.width >= d
+            assert pattn.head_dim_plan(513, tdt, backward).instance == 640
             assert {f"{stem}_dh16", f"{stem}_dh32"} <= set(LAUNCHES)
     assert pattn.head_dim_plan(16, torch.bfloat16, True).instance == 32
     assert pattn.head_dim_plan(160, torch.bfloat16, True).instance == 256
     assert "attention_plain" in LAUNCHES
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_every_head_dim_up_to_1024_has_a_kernel(dtype, backward):
+    """Dh 513 .. 1024: the smallest of the cluster instances (640, 768, 896,
+    1024) at or above the width, so one 128-column slice a rank over 5 to 8
+    ranks, counted apart as ``<kernel>_dh<Dh>``; none from 1025 on. fp32
+    plans the same split (``fp32_plan``'s columns and cluster)."""
+    stem = pattn.KERNELS[dtype][int(backward)]
+    for d in range(513, 1025):
+        plan = pattn.head_dim_plan(d, dtype, backward)
+        assert plan.instance == next(i for i in CLUSTERED if i >= plan.width) and plan.width >= d
+        assert pattn.launch_counter(stem, d) == f"{stem}_dh{d}"
+        assert plan.instance // 128 <= 8
+    assert pattn.head_dim_plan(1025, dtype, backward) is None
+    assert pattn.MAX_HEAD_DIM == 1024 and pattn.CLUSTER_HEAD_DIMS == CLUSTERED
+
+
+WORKSPACE_DIMS = (520, 576, 640, 700, 768, 1000, 1024)
+
+
+@pytest.mark.parametrize("d", WORKSPACE_DIMS)
+def test_launch_plans_above_512(monkeypatch, d):
+    """What the wrappers ask of the C side above 512, in both dtypes and
+    directions: fp32's plan splits the instance 128 columns a block over a
+    cluster of instance / 128 (5 to 8), and every workspace size is asked
+    at the width the kernel reads (Dh rounded up to 16 bytes), as
+    ``*_workspace(B * H, T, width)``."""
+    asked = []
+
+    def fake(stem, name, argtypes, restype=None):
+        def fn(*args):
+            asked.append((name, args))
+            return 1000 + len(asked)
+        return fn
+
+    monkeypatch.setattr(pattn, "_kernel_fn", fake)
+    b, h, t = 2, 3, 100
+    for dtype in (torch.bfloat16, torch.float32):
+        width = pattn.head_dim_plan(d, dtype, True).width
+        assert width == pattn.head_dim_plan(d, dtype, False).width
+        assert pattn.bwd_workspace_bytes(b * h, t, width, dtype) > 0
+        assert asked[-1] == (pattn.KERNELS[dtype][1] + "_workspace", (b * h, t, width))
+    plan = pattn.fp32_plan(b, h, t, pattn.head_dim_plan(d, torch.float32, True).width)
+    run = pattn.head_dim_plan(d, torch.float32, True).instance
+    assert (plan["columns"], plan["cluster"]) == (128, run // 128) and 5 <= plan["cluster"] <= 8
+    width = pattn.head_dim_plan(d, torch.float32, True).width
+    assert ("flash_attention_f32_workspace", (b * h, t, width)) in asked
+    assert ("flash_attention_bwd_f32_workspace", (b * h, t, width)) in asked
 
 
 @pytest.mark.parametrize("d,width", [(16, 32), (96, 128), (20, 24)])
@@ -129,16 +186,20 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("t,dh", [(1024, 16), (1024, 96), (256, 160)])
+@pytest.mark.parametrize("t,dh", [(1024, 16), (1024, 96), (256, 160), (256, 640), (256, 1024)])
 def test_plain_attention_matches_the_stock_kernels(t, dh, dtype):
     """The port's plain forward and ``FlashAttentionFunction``'s backward
     (the plain one on the CPU) against the stock kernels at widths the
     card runs padded: Dh 16 (``num_head_channels: 16``) and 96 at T 1024
     (the kernels' multi-step body), and Dh 160 at T 256, where the stock
-    kernel takes it in one step (it refuses 160 past its block)."""
+    kernel takes it in one step (it refuses 160 past its block); and at
+    the cluster instances' Dh 640 (a 640-wide codec mid-block) and 1024
+    (the landscape U-Net at ``num_heads: 1`` sampling at 256^2, T 256), one
+    head."""
     jdt, tdt = DTYPES[dtype]
     r = np.random.default_rng(t + dh)
-    q, k, v, do = (r.normal(size=(1, 2, t, dh)).astype(np.float32) for _ in range(4))
+    heads = 1 if dh > 512 else 2
+    q, k, v, do = (r.normal(size=(1, heads, t, dh)).astype(np.float32) for _ in range(4))
     scale = dh ** -0.25                      # per operand, as the AttentionBlock passes it
     want = _stock_forward_and_grads(q, k, v, do, scale, jdt)
     leaves = [torch.from_numpy(x).to(tdt).requires_grad_() for x in (q, k, v)]
@@ -150,11 +211,12 @@ def test_plain_attention_matches_the_stock_kernels(t, dh, dtype):
 
 
 @pytest.mark.parametrize("impl", ["exact", "chunked"])
-@pytest.mark.parametrize("dh", [20, 1024])
+@pytest.mark.parametrize("dh", [20, 1024, 1152])
 def test_sdpa_matches_jax_at_any_head_dim(dh, impl):
-    """``sdpa`` at Dh 20 (the kernels' copy route on the card) and Dh 1024
-    (above every kernel: the plain path on the card too) against JAX's
-    jnp ``sdpa``, the output and ``jax.grad`` of sum(out * w), fp32."""
+    """``sdpa`` at Dh 20 (the kernels' copy route on the card), 1024 (the
+    largest cluster instance) and 1152 (above every kernel: the plain path
+    on the card too) against JAX's jnp ``sdpa``, the output and
+    ``jax.grad`` of sum(out * w), fp32."""
     r = np.random.default_rng(dh)
     q, k, v, w = (r.normal(size=(2, 2, 64, dh)).astype(np.float32) for _ in range(4))
     scale = dh ** -0.25
@@ -173,17 +235,27 @@ def test_sdpa_matches_jax_at_any_head_dim(dh, impl):
 
 
 def test_wrappers_refuse_head_dims_above_512():
-    """Above 512 the kernel wrappers raise the ValueError that names
-    ROADMAP.md §2 before looking at the device; ``sdpa`` on the CPU keeps
-    JAX's plain path for every impl but flash's plain version."""
-    q = torch.zeros(1, 1, 64, 640)
+    """Above the largest kernel (Dh 1152, past 1024) the kernel wrappers
+    raise the ValueError that names ROADMAP.md §2 and "up to 1024" before
+    looking at the device, while at Dh 640 they pass the head dimension and
+    refuse the CPU tensor; ``sdpa`` and ``attention_or_plain`` on the CPU
+    keep the plain path (no count)."""
+    from stedm_tpu_torch.ops import LAUNCHES
+
+    q = torch.zeros(1, 1, 64, 1152)
     lse = torch.zeros(1, 1, 64)
-    with pytest.raises(ValueError, match="ROADMAP.md §2"):
+    with pytest.raises(ValueError, match="up to 1024 \\(ROADMAP.md §2"):
         pattn.flash_attention_cuda(q, q, q, 0.1)
     with pytest.raises(ValueError, match="ROADMAP.md §2"):
         pattn.flash_attention_bwd_cuda(q, q, q, q, lse, q, 0.1)
+    q640 = torch.zeros(1, 1, 64, 640)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pattn.flash_attention_cuda(q640, q640, q640, 0.1)
+    before = LAUNCHES["attention_plain"]
     for impl in ("exact", "chunked", "auto", "flash"):
         assert pattn.sdpa(q, q, q, 0.2, impl=impl).shape == q.shape
+    assert pattn.attention_or_plain(q, q, q, 0.1).shape == q.shape
+    assert LAUNCHES["attention_plain"] == before
 
 
 def test_tiny_stedm_at_16_wide_heads_matches_jax():
@@ -206,3 +278,58 @@ def test_tiny_stedm_at_16_wide_heads_matches_jax():
     with torch.no_grad():
         got = pm.eps(*map(torch.from_numpy, (z, t, seg, style))).numpy()
     assert _rel(got, want) <= REL, _rel(got, want)
+
+
+def test_tiny_stedm_at_one_640_wide_head_matches_jax():
+    """A tiny STEDM whose U-Net attends in one head of 640 at its second
+    level and in the middle block (``model_channels`` 64 x ``channel_mult``
+    (1, 10), ``num_heads: 1``; the landscape U-Net at ``num_heads: 1``
+    attends in one head of 1024): eps at two timesteps against JAX's, fp32
+    on the CPU (tests/test_torch_model_options.py's pair and tolerance)."""
+    from test_torch_model_options import REL, _rel, _stedm_pair
+
+    jm, params, pm = _stedm_pair("hybrid", dict(model_channels=64, channel_mult=(1, 10),
+                                                num_heads=1), seed=17)
+    blocks = [m for m in pm.unet.modules() if type(m).__name__ == "AttentionBlock"]
+    assert blocks and all(b.num_heads == 1 and b.qkv.weight.shape[1] == 640 for b in blocks)
+    r = np.random.default_rng(17)
+    z = r.normal(size=(2, 16, 16, 3)).astype(np.float32)
+    seg = r.normal(size=(2, 16, 16, 3)).astype(np.float32)
+    style = r.normal(size=(2, 512)).astype(np.float32)
+    t = np.array([10, 600], np.int32)
+    want = np.asarray(jm.apply({"params": params}, *map(jnp.asarray, (z, t, seg, style)),
+                               method=jm.eps))
+    with torch.no_grad():
+        got = pm.eps(*map(torch.from_numpy, (z, t, seg, style))).numpy()
+    assert _rel(got, want) <= REL, _rel(got, want)
+
+
+# a tiny VQ codec whose mid-block (and second level) is 640 wide: 64 x (1, 10)
+# channels; at a 16^2 patch the mid-block attends over 64 tokens in one head
+WIDE_DD = dict(z_channels=3, resolution=16, in_channels=3, out_ch=3, ch=64, ch_mult=[1, 10],
+               num_res_blocks=1, attn_resolutions=[], dropout=0.0)
+
+
+def test_codec_with_a_640_wide_mid_block_matches_jax():
+    """The codec's AttnBlockVQ at 640 channels (the Dh-640 kernels on the
+    card; ``ddconfig.ch_mult=[1,2,8]`` gives the shipped codec a 1024-wide
+    one): the fine-tuning forward of the initial weights against JAX's
+    ``training_recon``, then one ``make_ae_train_step`` of both packages
+    (no LPIPS, before ``disc_start``): the logs, the update and the
+    reconstruction by the updated codec (tests/_ae_helpers.py's tolerances)."""
+    from _ae_helpers import check_logs, check_reconstruction, check_updates, run_steps
+
+    run = run_steps("vq", 0.0, ddconfig=WIDE_DD, steps=1, patch=16)
+    attn = run["pm"].decoder.mid.attn_1
+    assert attn.q.weight.shape[:2] == (640, 640)
+    want = run["jm"].apply({"params": run["gen0"]}, jnp.asarray(run["img"]),
+                           method=run["jm"].training_recon)[0]
+    np.testing.assert_allclose(run["rec0"], np.asarray(want), rtol=1e-4, atol=1e-5)
+    check_logs(run)
+    check_updates(run, discriminator=False)
+    check_reconstruction(run["precs"][0], run["jrecs"][0], run["rec0"])
+    # before disc_start neither discriminator moves
+    for k, v in run["p_disc"].items():
+        if "running" not in k:
+            assert torch.equal(v, run["d_before"][k]), k
+            np.testing.assert_array_equal(run["j_disc"][k].numpy(), v.numpy())

@@ -142,7 +142,8 @@ def test_gn_silu_kernel_refusals(cuda):
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 256, 128), (1, 1, 200, 512), (1, 3, 70, 64),
-                                   (2, 1, 130, 192), (1, 2, 65, 256), (2, 32, 256, 32)])
+                                   (2, 1, 130, 192), (1, 2, 65, 256), (2, 32, 256, 32),
+                                   (2, 1, 256, 1024), (1, 2, 100, 640)])
 def test_flash_attention_kernel(cuda, shape):
     from stedm_tpu_torch.ops import blocked_attention as a
 
@@ -157,11 +158,11 @@ def test_flash_attention_kernel(cuda, shape):
 
 
 def test_flash_attention_gates_head_dim(cuda):
-    """Every head dimension up to 512 runs; above it the kernels raise the
+    """Every head dimension up to 1024 runs; above it the kernels raise the
     ValueError that names ROADMAP.md §2."""
     from stedm_tpu_torch.ops import blocked_attention as a
 
-    q = torch.zeros(1, 1, 64, 640, dtype=torch.bfloat16, device="cuda")
+    q = torch.zeros(1, 1, 64, 1152, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="ROADMAP.md §2"):
         a.flash_attention(q, q, q, 0.1)
     with pytest.raises(ValueError, match="ROADMAP.md §2"):
@@ -473,9 +474,9 @@ def test_flash_attention_launches_from_another_thread(cuda, shape):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("dh", [640, 1024])
+@pytest.mark.parametrize("dh", [1152, 2048])
 def test_flash_attention_backward_gates_head_dim(cuda, dh):
-    """Above 512 the backward raises before any launch (the forward too)."""
+    """Above 1024 the backward raises before any launch (the forward too)."""
     from stedm_tpu_torch.ops import blocked_attention as a
 
     q = torch.randn(1, 1, 64, dh, generator=cuda, device="cuda").to(torch.bfloat16)
@@ -484,17 +485,20 @@ def test_flash_attention_backward_gates_head_dim(cuda, dh):
         a.flash_attention_bwd_cuda(q, q, q, q, lse, q, 0.05)
 
 
-# every head dimension up to 512 on the smallest instance at or above it:
+# every head dimension up to 1024 on the smallest instance at or above it:
 # the bf16 backward's Dh-32 instance (256 keys a block: one key tile, two,
 # ragged, many), Dh 16 on it, the copy route (Dh 20, 8 and 4: rows not 16
 # bytes apart), the padded instances (the backward's 192-448 on its cluster
-# instances, whose last ranks hold only zero columns); bf16 and fp32
+# instances, whose last ranks hold only zero columns), the cluster instances
+# above 512 (520 on 640: rank 4 of 5 holds 8 real columns; 768 and 1024
+# ragged); bf16 and fp32
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape", [(1, 2, 100, 32), (2, 3, 300, 32), (1, 2, 256, 32),
                                    (2, 8, 1100, 32), (2, 4, 300, 16), (1, 3, 200, 20),
                                    (1, 2, 70, 4), (2, 2, 130, 8), (1, 2, 300, 48),
                                    (1, 2, 300, 96), (1, 2, 300, 160), (1, 2, 300, 192),
-                                   (1, 2, 300, 320), (1, 1, 300, 448)])
+                                   (1, 2, 300, 320), (1, 1, 300, 448), (1, 2, 300, 520),
+                                   (1, 1, 200, 768), (2, 1, 140, 1024)])
 def test_flash_attention_every_head_dim(cuda, dtype, shape):
     from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
 
@@ -527,21 +531,49 @@ def test_flash_attention_every_head_dim(cuda, dtype, shape):
 
 
 def test_sdpa_runs_the_plain_attention_above_512(cuda):
-    """Dh 1024 (the landscape bottleneck at num_heads 1): exact, chunked and
-    auto run the plain attention on the card, counted as attention_plain,
-    with its gradient; flash raises."""
+    """Above 1024 (Dh 1152): exact, chunked and auto run the plain attention
+    on the card, counted as attention_plain, with its gradient; flash
+    raises. At Dh 1024 (the landscape bottleneck at num_heads 1) every impl
+    launches the cluster kernels, counted as ``<kernel>_dh1024``."""
     from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
 
-    q, k, v = (torch.randn((2, 1, 256, 1024), generator=cuda, device="cuda")
+    q, k, v = (torch.randn((2, 1, 256, 1152), generator=cuda, device="cuda")
                .to(torch.bfloat16).requires_grad_() for _ in range(3))
     for impl in ("exact", "chunked", "auto"):
         before = LAUNCHES["attention_plain"]
-        out = a.sdpa(q, k, v, 1024 ** -0.25, impl=impl, q_chunk=64)
-        torch.testing.assert_close(out, a._exact(q, k, v, 1024 ** -0.25))
+        out = a.sdpa(q, k, v, 1152 ** -0.25, impl=impl, q_chunk=64)
+        torch.testing.assert_close(out, a._exact(q, k, v, 1152 ** -0.25))
         out.float().sum().backward()
         assert LAUNCHES["attention_plain"] == before + 1
     with pytest.raises(ValueError, match="ROADMAP.md §2"):
-        a.sdpa(q, k, v, 1024 ** -0.25, impl="flash")
+        a.sdpa(q, k, v, 1152 ** -0.25, impl="flash")
+    q, k, v = (x[..., :1024].detach().contiguous().requires_grad_() for x in (q, k, v))
+    before = dict(LAUNCHES)
+    for impl in ("exact", "chunked", "auto", "flash"):
+        a.sdpa(q, k, v, 1024 ** -0.25, impl=impl).float().sum().backward()
+    assert LAUNCHES["flash_attention_dh1024"] - before.get("flash_attention_dh1024", 0) == 4
+    assert LAUNCHES["flash_attention_bwd_dh1024"] - before.get("flash_attention_bwd_dh1024", 0) == 4
+    assert LAUNCHES["attention_plain"] == before["attention_plain"]
+
+
+def test_codec_attention_above_1024_runs_the_plain_attention(cuda):
+    """AttnBlockVQ above 1024 channels runs the plain attention on the card
+    (counted as attention_plain) and matches its CPU copy; at 1024 it
+    launches the Dh-1024 forward (fp32 here)."""
+    from stedm_tpu_torch.models.vq import AttnBlockVQ
+    from stedm_tpu_torch.ops import LAUNCHES
+
+    for c, key in ((1152, "attention_plain"), (1024, "flash_attention_f32_dh1024")):
+        torch.manual_seed(c)
+        block = AttnBlockVQ(c).eval()
+        x = torch.randn(1, c, 8, 8)
+        with torch.no_grad():
+            ref = block(x)
+            before = LAUNCHES.get(key, 0)
+            got = block.cuda()(x.cuda()).cpu()
+        assert LAUNCHES[key] == before + 1
+        if key == "attention_plain":
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("shape,mode", [((2, 16, 16, 128), "add"), ((2, 8, 8, 640), "plain"),

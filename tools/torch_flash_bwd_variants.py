@@ -10,8 +10,8 @@ text substitution, held by phase 2b's test and timed against the shipped kernel.
   workspace cleared by a memset, with no turns: what the fixed order that
   keeps dQ the same bits on every run costs. Its gradients are right (its
   dQ's bits vary run to run);
-* ``local``: at Dh 256 and 512 each block of the cluster makes P and dS from
-  its own 128-column partials of S and dP, with no exchange through
+* ``local``: at Dh 256, 512 and 1024 each block of the cluster makes P and
+  dS from its own 128-column partials of S and dP, with no exchange through
   distributed shared memory: what the exchange costs. Its gradients are
   wrong, and phase 2b's test (``chip_smoke.backward_errors``) must reject them.
 
@@ -72,7 +72,8 @@ VARIANTS = {
       } else {
 """, """      {
 """),
-    ], False, ((2, 1, 4096, 512), (1, 1, 2500, 512), (2, 1, 16384, 512), (2, 2, 4096, 256))),
+    ], False, ((2, 1, 4096, 512), (1, 1, 2500, 512), (2, 1, 16384, 512), (2, 2, 4096, 256),
+               (2, 1, 16384, 1024))),
 }
 
 
