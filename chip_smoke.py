@@ -3603,6 +3603,7 @@ def fp32_and_wide(torch, entry_root: Path, out_dir: Path, card: str, recs: dict)
     flush = scratch.zero_
     log("== phase 10a: the fp32 kernels and nearest code at every width, against their plain "
         "versions (TF32 off)")
+    log(f"  card: {card}")
     f32_forward_checks(torch, recs["flash_attention_f32"], flush)
     f32_backward_checks(torch, recs["flash_attention_bwd_f32"], flush)
     f32_gn_checks(torch, recs["gn_silu_f32"], flush)
@@ -4703,6 +4704,7 @@ def wide_heads(torch, entry_root: Path, recs: dict) -> tuple:
     t0 = time.time()
     log("== phase 14a: the flash kernels at Dh 1024 (clusters of 8) and the other cluster "
         "instances against their plain versions")
+    log(f"  card: {card_line()}")
     rows = wide_head_kernels(torch, recs)
     t_a = time.time() - t0
     log(f"  phase 14a took {t_a:.1f} s")

@@ -48,11 +48,23 @@
 //     consumer 1 dP^T, dS^T, dK and dQ^T's others, each holding one of dV
 //     and dK in fp32 registers (64 a thread at 128 columns);
 //   * S^T and dP^T over the cluster: each rank computes its partials over
-//     its columns, and every rank sums all ranks' partials through
-//     distributed shared memory in rank order, so all ranks (and both
-//     consumers, which each make P^T) have the same bits of P^T and dS^T;
-//     after a named barrier of the warpgroup, lane r of its first warp
-//     signals rank r's barrier (signal_ranks);
+//     its columns, and the ranks sum them through distributed shared memory
+//     in rank order, so all ranks (and both consumers, which each make P^T)
+//     have the same bits of P^T and dS^T. From clusters of 4 the sum is a
+//     reduce-scatter and a gather (as in flash_attention_f32.cu): each rank
+//     sums 1/CL of S^T's partials (consumer 0) and of dP^T's (consumer 1)
+//     over the cluster and writes the sums over its own partials, and
+//     consumer 0 reads S^T's sums back from their owners, consumer 1 S^T's
+//     and dP^T's: 35 KB of other blocks' shared memory a rank a 32-query
+//     tile at Dh 1024, where every consumer summing every partial read 168
+//     KB. In clusters of 2 and 3 (Dh 256 and the Dh-192 instance) every
+//     consumer still sums every rank's partials itself, which measured
+//     faster there (tools/torch_flash_f32_variants.py). One exchange
+//     section a consumer, 8 KB, holds a tile's partials and sums and then
+//     its dQ^T part for the adder, so a tile's round trips run one after
+//     another (no second section fits beside K, V, the ring and dS); after
+//     a named barrier of the warpgroup, lane r of its first warp signals
+//     rank r's barrier (signal_ranks);
 //   * consumer 1 writes dS transposed ([32 queries][64 keys], hi and lo) as
 //     the B operand of dQ^T (named barriers hand it to consumer 0 and back);
 //     each consumer stages its part of dQ^T in its exchange section, and a
@@ -200,13 +212,17 @@ __device__ __forceinline__ void bwd_consumer(const Params& p, unsigned char* sme
                                              uint32_t bars, int bh) {
   using C = Bwd<DL>;
   constexpr int NC = C::NC, ITEMS = C::ITEMS;
-  // remote loads in flight a slot when the ranks' partials are summed: two
-  // above four ranks (four spilled the consumers at Dh 1024)
-  constexpr int SUM_LOADS = CL <= 4 ? CL : 2;
+  // the partials reduce-scattered from clusters of 4 (below, every rank
+  // summing every partial measured faster: tools/torch_flash_f32_variants.py)
+  constexpr bool SCATTER = CL >= 4;
+  // remote loads in flight when an owner sums its unit: two above four
+  // ranks (four spilled the consumers at Dh 1024)
+  constexpr int REDUCE_LOADS = CL <= 4 ? CL : 2;
   // wgmma descriptors take the offset in the block's 256 KB window: in a
   // cluster launch the window's address carries the rank from bit 24
   const uint32_t dbase = base & 0x3FFFFu;
   const uint32_t kv_full = bars, x_full = bars + 8, x_empty = bars + 16;
+  const uint32_t y_full = bars + 88 + 16 * NSLOT;
   auto st_full = [&](int u) { return bars + 24 + 8 * u; };
   auto st_empty = [&](int u) { return bars + 40 + 8 * u; };
   auto full = [&](int s) { return bars + 56 + 8 * s; };
@@ -225,6 +241,11 @@ __device__ __forceinline__ void bwd_consumer(const Params& p, unsigned char* sme
   const uint32_t ds_s = dbase + C::DS_OFF;
   const uint32_t xch = base + C::XCH_OFF + lt * 16;          // S^T's section; dP^T's + XCH_BYTES
   unsigned char* xch_p = smem + C::XCH_OFF + CW * XCH_BYTES + lt * 16;
+  // the rank that sums slot f of this thread's partials: the 4 x 128 (slot,
+  // thread) units of a section dealt out in order, 512 / CL a rank; from
+  // clusters of 4 at most one of a thread's slots, 128 units apart, is this
+  // rank's (the reduce sums that one; a loop over the four spilled)
+  auto owner = [&](int f) { return ((f * WG + lt) * CL) >> 9; };
   // named barriers: 1 + CW within a consumer; 4 "dS written" (consumer 1
   // arrives, 0 waits); 5 "dS read" (consumer 0 arrives after its dQ^T
   // products of tiles 0 .. nq - 2, consumer 1 waits before writing tiles
@@ -292,7 +313,19 @@ __device__ __forceinline__ void bwd_consumer(const Params& p, unsigned char* sme
     x_fold(NX - 1, pb);
 
     // ---- the full S^T (both consumers) and dP^T (consumer 1): the ranks'
-    // partials summed in rank order; P^T (keys past T: 0) and, in consumer
+    // partials summed in rank order. From clusters of 4 a reduce-scatter
+    // and a gather through the consumers' sections: post (write the
+    // partials, one arrival on every rank), reduce (each rank sums the
+    // units it owns over the cluster and writes the sums over its own
+    // partials, which no other rank reads; one arrival on every rank),
+    // gather (each thread reads its sums from their owners: consumer 0
+    // S^T's, consumer 1 S^T's and dP^T's). At Dh 1024 a rank reads 7 KB of
+    // other ranks' partials of each section and 21 KB of their sums, 35 KB
+    // of other blocks' shared memory a 32-query tile, not the 168 KB of
+    // every consumer summing every partial itself. A rank posts tile j
+    // after every rank gathered j - 1 (x_empty), and reduces it after every
+    // rank posted it. Below 4, each consumer sums every rank's partials of
+    // S^T (and consumer 1 of dP^T) itself. P^T (keys past T: 0) and, in consumer
     // 1, dS^T = P^T o (dP^T - Di) * s; element e: key key_w + 8 ((e >> 1) &
     // 1), query 8 (e / 4) + 2 tg + (e & 1) ----
     {
@@ -304,24 +337,63 @@ __device__ __forceinline__ void bwd_consumer(const Params& p, unsigned char* sme
             make_float4(x[4 * f], x[4 * f + 1], x[4 * f + 2], x[4 * f + 3]);
       group_sync(1 + CW, WG);
       if (warp == 0) signal_ranks<CL>(x_full, lane);
+      if constexpr (SCATTER) {
+        const int rank = cluster_rank();
+        mbar_wait_cluster(x_full, j & 1);
+        int mine = -1;
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          if (owner(f) == rank) mine = f;
+        if (mine >= 0) {
+          float4 v[1];
+          sum_ranks<1, CL, REDUCE_LOADS>(v, xch + CW * XCH_BYTES + mine * WG * 16);
+          *reinterpret_cast<float4*>(xch_p + mine * WG * 16) = v[0];
+        }
+        group_sync(1 + CW, WG);
+        if (warp == 0) signal_ranks<CL>(y_full, lane);
+      }
       mbar_wait(st_full(j % 2), (j / 2) & 1);
       const float* stat = reinterpret_cast<const float*>(smem + C::STAT_OFF + (j % 2) * STAT_BYTES);
-      mbar_wait_cluster(x_full, j & 1);
-      float4 v[4];
-      sum_ranks<4, CL, SUM_LOADS>(v, xch);
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const float st = (&v[e / 4].x)[e % 4];
-        const int q = 8 * (e / 4) + 2 * tg + (e & 1);
+      // P^T from S^T's sums; in consumer 1 dS^T from P^T and dP^T's sums.
+      // Element e: slot e / 4, key key_w + 8 ((e >> 1) & 1), query q(e)
+      auto q_of = [&](int e) { return 8 * (e / 4) + 2 * tg + (e & 1); };
+      auto p_of = [&](int e, float st) {
         const bool ok = (e & 2) ? key_ok1 : key_ok0;
-        x[e] = ok ? exp2f(fmaf(st, p.scale_log2, -stat[q])) : 0.f;
-      }
-      if constexpr (CW == 1) {
-        sum_ranks<4, CL, SUM_LOADS>(v, xch + XCH_BYTES);
+        return ok ? exp2f(fmaf(st, p.scale_log2, -stat[q_of(e)])) : 0.f;
+      };
+      auto ds_of = [&](int e, float pt, float dpt) {
+        return pt * (dpt - stat[BQ + q_of(e)]) * p.sm_scale;
+      };
+      if constexpr (SCATTER) {
+        // the sums gathered GATHER slots at a time: 16 registers of loads
+        // in flight in either consumer
+        constexpr int GATHER = CW == 0 ? 4 : 2;
+        mbar_wait_cluster(y_full, j & 1);
 #pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const int q = 8 * (e / 4) + 2 * tg + (e & 1);
-          x[e] = x[e] * ((&v[e / 4].x)[e % 4] - stat[BQ + q]) * p.sm_scale;
+        for (int f0 = 0; f0 < 4; f0 += GATHER) {
+          float4 v[GATHER], w[GATHER];
+#pragma unroll
+          for (int f = 0; f < GATHER; ++f) {
+            v[f] = ld_cluster_f4(map_rank(xch + (f0 + f) * WG * 16, owner(f0 + f)));
+            if constexpr (CW == 1)
+              w[f] = ld_cluster_f4(map_rank(xch + XCH_BYTES + (f0 + f) * WG * 16, owner(f0 + f)));
+          }
+#pragma unroll
+          for (int e = 4 * f0; e < 4 * (f0 + GATHER); ++e) {
+            x[e] = p_of(e, (&v[e / 4 - f0].x)[e % 4]);
+            if constexpr (CW == 1) x[e] = ds_of(e, x[e], (&w[e / 4 - f0].x)[e % 4]);
+          }
+        }
+      } else {
+        float4 v[4];
+        mbar_wait_cluster(x_full, j & 1);
+        sum_ranks<4, CL>(v, xch);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) x[e] = p_of(e, (&v[e / 4].x)[e % 4]);
+        if constexpr (CW == 1) {
+          sum_ranks<4, CL>(v, xch + XCH_BYTES);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) x[e] = ds_of(e, x[e], (&v[e / 4].x)[e % 4]);
         }
       }
       group_sync(1 + CW, WG);
@@ -473,6 +545,7 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
       mbar_init(empty(s), WG);
     }
     for (int c = 0; c < 4; ++c) mbar_init(bars + 56 + 16 * NSLOT + 8 * c, 1);   // staged[2], freed[2]
+    mbar_init(bars + 88 + 16 * NSLOT, 2 * CL);                                   // y_full
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }

@@ -33,17 +33,32 @@
 //     columns r DL .. r DL + DL - 1 of Q and O; each rank computes its
 //     partial S = Q K^T over its columns, and the ranks sum the partials
 //     through distributed shared memory in rank order, so every rank has the
-//     same bits of S (and of the softmax, which each computes). After a
-//     named barrier of the warpgroup, lane r of its first warp signals rank
-//     r's barrier (signal_ranks). With a cluster, S of tile i + 1 is
-//     computed and its partials posted (two exchange buffers) before tile
-//     i's softmax and P V, so the exchange's round trip runs under them;
+//     same bits of S (and of the softmax, which each computes). From
+//     clusters of 4 the sum is a reduce-scatter and a gather, as in the
+//     bf16 forward's cluster kernel (flash_attention.cu): each rank sums
+//     1/CL of the partials over the cluster, its own term from its
+//     registers, writes the sums over its own partials, and every thread
+//     reads its sums back from their owners, 28 KB of other blocks' shared
+//     memory a rank a 64-key tile at Dh 1024, where every rank summing
+//     every partial read 112 KB; tile j's partials are posted two tiles
+//     ahead of its softmax, reduced one ahead and gathered after the P V
+//     of the tile before (two exchange buffers a consumer, 8 KB each: the
+//     ring takes the rest of the shared memory), so each round trip runs
+//     under a tile's softmax and P V. In clusters of 2 and 3 (Dh 256 and
+//     the Dh-192 instance) every rank still sums every partial, posted one
+//     tile ahead, which measured faster there
+//     (tools/torch_flash_f32_variants.py). After a named barrier of the
+//     warpgroup, lane r of its first warp signals rank r's barrier
+//     (signal_ranks);
 //   * a block owns 64 query rows and is three warpgroups: a producer, one
 //     thread of which loads Q once and then streams 64-key tiles of K and
 //     V^T as 64 x 64 items (hi and lo, 32 KB) through a ring of four slots
 //     with full/empty mbarriers, TMA from 4-D tensor maps over the split
 //     copies, so the next tile's K loads while this tile's softmax and P V
-//     run; and two consumers under setmaxnreg, consumer c taking keys 32 c
+//     run (with the reduce-scatter, K and V^T have rings of two slots and a
+//     thread each, so that S of tile i + 2 loads and runs before tile i's P V
+//     frees V^T's slots: one thread loading both in turn kept K behind V^T's
+//     slot); and two consumers under setmaxnreg, consumer c taking keys 32 c
 //     .. 32 c + 31 of every tile with a running max, sum and O of its own
 //     (split-K within the block: their wgmma streams and exchanges overlap),
 //     the two combined through shared memory at the end;
@@ -92,18 +107,33 @@ constexpr int ITEM_PART = 2 * SUBB;
 constexpr int NSLOT = 4;
 constexpr int XCH_BYTES = 4 * WG * 16;     // a consumer's S partials, [4 float4][128 threads]
 
-template <int DL>
+template <int DL, int CL>
 struct Fwd {
   static constexpr int NC = DL / 64;                 // 64-column items a tile of K or V^T
   static constexpr int Q_PART = BM * DL * 4;
   static constexpr int RING_OFF = 2 * Q_PART;
   static constexpr int XCH_OFF = RING_OFF + NSLOT * ITEM;
   static constexpr int BAR_OFF = XCH_OFF + 4 * XCH_BYTES;   // [consumer][buffer]
+  // the S partials reduce-scattered from clusters of 4 (at 2, every rank
+  // summing every partial measured faster: tools/torch_flash_f32_variants.py)
+  static constexpr bool SCATTER = CL >= 4;
+  static constexpr int RS = SCATTER ? NSLOT / 2 : NSLOT;   // slots a ring
   static constexpr int SMEM = BAR_OFF + 8 * (9 + 2 * NSLOT) + 1024;   // + alignment slack
   static_assert(SMEM <= 232448, "shared memory");
   // the end: a consumer's running max and sum ([2][128]) and the half of O
   // the other consumer combines ([NC * 16][128]), over the ring
   static_assert(2 * (4 * WG + NC * 16 * WG) * 4 <= NSLOT * ITEM, "the combine's buffers");
+  // K item c (kind 0) or V^T item c (kind 1) of tile i: its place in the
+  // order its ring is loaded in, and its slot. One ring takes the tile's K
+  // items, then its V^T items; with the reduce-scatter, K and V^T have
+  // rings of their own, loaded by two producer threads, so that K runs two
+  // tiles ahead of the softmax while V^T waits for its slot
+  __device__ static int seq(int kind, int i, int c) {
+    return SCATTER ? NC * i + c : 2 * NC * i + kind * NC + c;
+  }
+  __device__ static int slot(int kind, int i, int c) {
+    return (SCATTER ? kind * RS : 0) + seq(kind, i, c) % RS;
+  }
 };
 
 struct Params {
@@ -121,21 +151,36 @@ template <int DL, int CL, int CW>
 __device__ __forceinline__ void fwd_consumer(const Params& p, unsigned char* smem, uint32_t base,
                                              uint32_t bars, int rank, int q0, int bh,
                                              int ntiles) {
-  using C = Fwd<DL>;
+  using C = Fwd<DL, CL>;
   constexpr int NC = C::NC, NCH = DL / 32;
   const uint32_t dbase = base & 0x3FFFFu;   // wgmma descriptors' addresses (see the kernel)
-  // this consumer's exchange buffers u = 0, 1: partials written by every
-  // rank (x_full) and read by every rank (x_empty)
-  auto x_full = [&](int u) { return bars + 8 + 8 * (2 * CW + u); };
-  auto x_empty = [&](int u) { return bars + 40 + 8 * (2 * CW + u); };
+  // remote loads in flight when an owner sums a unit: the most that spilled
+  // no consumer (ptxas -v: tools/torch_flash_f32_variants.py)
+  constexpr int REDUCE_LOADS = CL == 4 ? 1 : 2;
+  // tile j's exchange, in this consumer's buffer j % 2: the partials
+  // (x_full: written by every rank), then the sums (y_full: written by
+  // every rank); with every rank summing every partial, the second
+  // barrier says that every rank read them (x_empty)
+  auto x_full = [&](int j) { return bars + 8 + 8 * (2 * CW + j % 2); };
+  auto y_full = [&](int j) { return bars + 40 + 8 * (2 * CW + j % 2); };
+  auto x_empty = y_full;
   auto full = [&](int s) { return bars + 72 + 8 * s; };
   auto empty = [&](int s) { return bars + 72 + 8 * (NSLOT + s); };
   const int col0 = rank * DL;
   const int lt = threadIdx.x % WG, warp = lt / 32, lane = lt % 32;
   const int g = lane >> 2, tg = lane & 3;
-  auto xch = [&](int u) { return base + C::XCH_OFF + (2 * CW + u) * XCH_BYTES + lt * 16; };
-  auto slot_addr = [&](int item) { return dbase + C::RING_OFF + (item % NSLOT) * ITEM; };
-  auto wait_item = [&](int item) { mbar_wait(full(item % NSLOT), (item / NSLOT) & 1); };
+  // this thread's slot 0 of tile j's exchange buffer (slot f at + f * WG * 16)
+  auto xch = [&](int j) { return base + C::XCH_OFF + (2 * CW + j % 2) * XCH_BYTES + lt * 16; };
+  // the rank that sums slot f of this thread: the 4 x 128 (slot, thread)
+  // units of a consumer dealt out in order, 512 / CL a rank
+  auto owner = [&](int f) { return ((f * WG + lt) * CL) >> 9; };
+  auto slot_addr = [&](int kind, int i, int c) {
+    return dbase + C::RING_OFF + C::slot(kind, i, c) * ITEM;
+  };
+  auto wait_item = [&](int kind, int i, int c) {
+    mbar_wait(full(C::slot(kind, i, c)), (C::seq(kind, i, c) / C::RS) & 1);
+  };
+  auto free_item = [&](int kind, int i, int c) { mbar_arrive(empty(C::slot(kind, i, c))); };
 
   float o[NC][32];
 #pragma unroll
@@ -147,15 +192,13 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, unsigned char* sme
 
   // ---- S = Q K^T of tile i for this consumer's 32 keys over the rank's
   // columns: chain ch covers columns 32 ch .. (K item ch / 2 of the tile,
-  // sub-tile ch % 2); the tile's K items are items 2 NC i .. ----
+  // sub-tile ch % 2) ----
   auto s_tile = [&](int i, float (&s)[16]) {
-    const int it = 2 * NC * i;
     float pa[16], pb[16];
     auto s_chain = [&](int ch, float (&acc)[16]) {
-      const int item = it + ch / 2;
-      if (ch % 2 == 0) wait_item(item);
+      if (ch % 2 == 0) wait_item(0, i, ch / 2);
       const uint32_t a = dbase + ch * SUBB;
-      const uint32_t b = slot_addr(item) + (ch % 2) * SUBB + CW * 32 * 128;
+      const uint32_t b = slot_addr(0, i, ch / 2) + (ch % 2) * SUBB + CW * 32 * 128;
       fresh(acc);
       wgmma::fence();
 #pragma unroll
@@ -167,7 +210,7 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, unsigned char* sme
       fence_operand(acc);
 #pragma unroll
       for (int e = 0; e < 16; ++e) s[e] = ch == 0 ? acc[e] : s[e] + acc[e];
-      if (ch % 2 == 1) mbar_arrive(empty((it + ch / 2) % NSLOT));
+      if (ch % 2 == 1) free_item(0, i, ch / 2);
     };
     s_chain(0, pa);
 #pragma unroll
@@ -179,28 +222,79 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, unsigned char* sme
     wgmma::wait<0>();
     s_fold(NCH - 1, pb);
   };
-  // ---- the ranks' partials of tile i summed in rank order through buffer
-  // i % 2: post (write, one arrival on every rank), collect (wait, sum,
-  // release); tile i + 1 is posted before tile i's softmax and P V, so the
-  // round trip runs under them ----
-  auto post = [&](int i, const float (&s)[16]) {
-    const int u = i % 2;
-    if (i >= 2) mbar_wait_cluster(x_empty(u), ((i - 2) / 2) & 1);
-    unsigned char* at = smem + (xch(u) - base);
+  // ---- the ranks' partials of tile j summed in rank order, a
+  // reduce-scatter and a gather through buffer j % 2: post (write the
+  // partials of the units other ranks own, one arrival on every rank),
+  // reduce (each rank sums the units it owns over the cluster, its own
+  // term from its registers, and writes the sums over its own partials,
+  // which no other rank reads; one arrival on every rank), gather (each
+  // thread reads its sums from their owners). At Dh 1024 a consumer reads
+  // 7 KB of other ranks' partials and 7 KB of their sums, so a rank reads 28
+  // KB of other blocks' shared memory a 64-key tile, not the 112 KB of
+  // every consumer summing every partial itself.
+  // Tile j is posted two tiles ahead of its softmax, reduced one ahead and
+  // gathered after the P V of the tile before, so each round trip has a
+  // tile's work to complete under. No barrier says that a buffer was read:
+  // a rank posts tile j after it gathered tile j - 2, which waited for
+  // every rank's reduce of j - 2 (its reads of the partials), and reduces
+  // tile j after every rank posted j, which each did after it gathered
+  // j - 2 (its reads of the sums); for the same reasons no rank arrives a
+  // phase ahead ----
+  auto post = [&](int j, const float (&x)[16]) {
+    unsigned char* at = smem + (xch(j) - base);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      if (owner(f) == rank) continue;
+      *reinterpret_cast<float4*>(at + f * WG * 16) =
+          make_float4(x[4 * f], x[4 * f + 1], x[4 * f + 2], x[4 * f + 3]);
+    }
+    group_sync(1 + CW, WG);
+    if (warp == 0) signal_ranks<CL>(x_full(j), lane);
+  };
+  auto reduce = [&](int j, const float (&x)[16]) {
+    mbar_wait_cluster(x_full(j), (j / 2) & 1);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      if (owner(f) != rank) continue;
+      const float4 own = make_float4(x[4 * f], x[4 * f + 1], x[4 * f + 2], x[4 * f + 3]);
+      *reinterpret_cast<float4*>(smem + (xch(j) - base) + f * WG * 16) =
+          sum_ranks_own<CL, REDUCE_LOADS>(xch(j) + f * WG * 16, rank, own);
+    }
+    group_sync(1 + CW, WG);
+    if (warp == 0) signal_ranks<CL>(y_full(j), lane);
+  };
+  auto gather = [&](int j, float (&s)[16]) {
+    mbar_wait_cluster(y_full(j), (j / 2) & 1);
+    float4 v[4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) v[f] = ld_cluster_f4(map_rank(xch(j) + f * WG * 16, owner(f)));
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      s[4 * f] = v[f].x;
+      s[4 * f + 1] = v[f].y;
+      s[4 * f + 2] = v[f].z;
+      s[4 * f + 3] = v[f].w;
+    }
+  };
+  // ---- clusters of 2 and 3: every rank sums every partial of tile j,
+  // posted before tile j - 1's softmax and P V (post_all: write, one arrival
+  // on every rank; collect: wait, sum, release) ----
+  auto post_all = [&](int j, const float (&x)[16]) {
+    if (j >= 2) mbar_wait_cluster(x_empty(j), ((j - 2) / 2) & 1);
+    unsigned char* at = smem + (xch(j) - base);
 #pragma unroll
     for (int f = 0; f < 4; ++f)
       *reinterpret_cast<float4*>(at + f * WG * 16) =
-          make_float4(s[4 * f], s[4 * f + 1], s[4 * f + 2], s[4 * f + 3]);
+          make_float4(x[4 * f], x[4 * f + 1], x[4 * f + 2], x[4 * f + 3]);
     group_sync(1 + CW, WG);
-    if (warp == 0) signal_ranks<CL>(x_full(u), lane);
+    if (warp == 0) signal_ranks<CL>(x_full(j), lane);
   };
-  auto collect = [&](int i, float (&s)[16]) {
-    const int u = i % 2;
+  auto collect = [&](int j, float (&s)[16]) {
     float4 v[4];
-    mbar_wait_cluster(x_full(u), (i / 2) & 1);
-    sum_ranks<4, CL>(v, xch(u));
+    mbar_wait_cluster(x_full(j), (j / 2) & 1);
+    sum_ranks<4, CL>(v, xch(j));
     group_sync(1 + CW, WG);
-    if (warp == 0) signal_ranks<CL>(x_empty(u), lane);
+    if (warp == 0) signal_ranks<CL>(x_empty(j), lane);
 #pragma unroll
     for (int f = 0; f < 4; ++f) {
       s[4 * f] = v[f].x;
@@ -211,19 +305,34 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, unsigned char* sme
   };
 
   mbar_wait(bars, 0);                    // Q
-  float s[16], s_next[16];
+  // s: tile i's S; x: this rank's partials of tile i + 1 until its reduce
+  // (with every rank summing every partial: until they are collected)
+  float s[16], x[16];
   s_tile(0, s);
-  if constexpr (CL > 1) {
+  if constexpr (C::SCATTER) {
     post(0, s);
+    if (ntiles > 1) {
+      s_tile(1, x);
+      post(1, x);
+    }
+    reduce(0, s);
+    gather(0, s);
+  } else if constexpr (CL > 1) {
+    post_all(0, s);
     collect(0, s);
   }
   for (int i = 0; i < ntiles; ++i) {
-    const int it = 2 * NC * i + NC;      // this tile's first V^T item
     const bool more = i + 1 < ntiles;
-    if constexpr (CL > 1) {              // (with no exchange, S of the next tile after P V)
+    if constexpr (C::SCATTER) {
+      if (more) reduce(i + 1, x);
+      if (i + 2 < ntiles) {
+        s_tile(i + 2, x);
+        post(i + 2, x);
+      }
+    } else if constexpr (CL > 1) {       // (with no exchange, S of the next tile after P V)
       if (more) {
-        s_tile(i + 1, s_next);
-        post(i + 1, s_next);
+        s_tile(i + 1, x);
+        post_all(i + 1, x);
       }
     }
 
@@ -263,9 +372,8 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, unsigned char* sme
     // item c, this consumer's sub-tile of keys) ----
     float qa[32], qb[32];
     auto pv_chain = [&](int c, float (&acc)[32]) {
-      const int item = it + c;
-      wait_item(item);
-      const uint32_t b = slot_addr(item) + CW * SUBB;
+      wait_item(1, i, c);
+      const uint32_t b = slot_addr(1, i, c) + CW * SUBB;
       fresh(acc);
       wgmma::fence();
 #pragma unroll
@@ -276,7 +384,7 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, unsigned char* sme
       fence_operand(acc);
 #pragma unroll
       for (int e = 0; e < 32; ++e) o[c][e] = fmaf(o[c][e], alpha[(e >> 1) & 1], acc[e]);
-      mbar_arrive(empty((it + c) % NSLOT));
+      free_item(1, i, c);
     };
     pv_chain(0, qa);
 #pragma unroll
@@ -288,10 +396,12 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, unsigned char* sme
     wgmma::wait<0>();
     if (NC % 2) pv_fold(NC - 1, qa); else pv_fold(NC - 1, qb);
     if (more) {
-      if constexpr (CL > 1) {
-        collect(i + 1, s_next);
+      if constexpr (C::SCATTER) {
+        gather(i + 1, s);
+      } else if constexpr (CL > 1) {
+        collect(i + 1, x);
 #pragma unroll
-        for (int e = 0; e < 16; ++e) s[e] = s_next[e];
+        for (int e = 0; e < 16; ++e) s[e] = x[e];
       } else {
         s_tile(i + 1, s);
       }
@@ -353,14 +463,14 @@ template <int DL, int CL>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_f32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_vt, const Params p) {
-  using C = Fwd<DL>;
+  using C = Fwd<DL, CL>;
   constexpr int NC = C::NC;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
-  // barriers: Q full, x_full[2][2] and x_empty[2][2] (consumer c's
-  // partials in buffer u written and read on every rank), full[NSLOT],
-  // empty[NSLOT]
+  // barriers: Q full, x_full[2][2] and y_full[2][2] (consumer c's
+  // partials, then its sums, in buffer u written on every rank),
+  // full[NSLOT], empty[NSLOT]
   const uint32_t bars = base + C::BAR_OFF;
   auto full = [&](int s) { return bars + 72 + 8 * s; };
   auto empty = [&](int s) { return bars + 72 + 8 * (NSLOT + s); };
@@ -372,7 +482,7 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
 
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);
-    for (int x = 0; x < 8; ++x) mbar_init(bars + 8 + 8 * x, CL);   // x_full[2][2], x_empty[2][2]
+    for (int x = 0; x < 8; ++x) mbar_init(bars + 8 + 8 * x, CL);   // x_full[2][2], y_full[2][2]
     for (int s = 0; s < NSLOT; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), 2 * WG);
@@ -387,32 +497,37 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
 
   if (wg == 2) {
     reg_dealloc<PRODUCER_REGS>();
+    // ---- loads: Q once, then K and V^T a 64-column item at a time (kind 0,
+    // 1), by thread 0 of the warpgroup; with the reduce-scatter thread 32
+    // takes the V^T items, which have a ring of their own (C::slot) ----
+    auto load = [&](int kind, int i, int c) {
+      const int s = C::slot(kind, i, c);
+      const uint32_t dst = base + C::RING_OFF + s * ITEM;
+      mbar_wait(empty(s), ((C::seq(kind, i, c) / C::RS) & 1) ^ 1);
+      mbar_expect_tx(full(s), ITEM);
+      for (int part = 0; part < 2; ++part)
+        for (int sub = 0; sub < 2; ++sub) {
+          const uint32_t at = dst + part * ITEM_PART + sub * SUBB;
+          if (kind == 0)   // K: 64 keys x columns 64 c ..
+            tma_load(at, &map_k, full(s), col0 + 64 * c + 32 * sub, i * BK, bh, part);
+          else             // V^T: columns 64 c .. x 64 keys
+            tma_load(at, &map_vt, full(s), i * BK + 32 * sub, col0 + 64 * c, bh, part);
+        }
+    };
     if (threadIdx.x == 2 * WG) {
-      // ---- loads: Q once, then K and V^T a 64-column item at a time ----
       mbar_expect_tx(bars, 2 * C::Q_PART);
       for (int part = 0; part < 2; ++part)
         for (int sub = 0; sub < DL / 32; ++sub)
           tma_load(base + part * C::Q_PART + sub * SUBB, &map_q, bars, col0 + 32 * sub, q0, bh,
                    part);
-      int it = 0;
       for (int i = 0; i < ntiles; ++i) {
-        for (int kind = 0; kind < 2; ++kind) {
-          for (int c = 0; c < NC; ++c, ++it) {
-            const int s = it % NSLOT;
-            const uint32_t dst = base + C::RING_OFF + s * ITEM;
-            mbar_wait(empty(s), ((it / NSLOT) & 1) ^ 1);
-            mbar_expect_tx(full(s), ITEM);
-            for (int part = 0; part < 2; ++part)
-              for (int sub = 0; sub < 2; ++sub) {
-                const uint32_t at = dst + part * ITEM_PART + sub * SUBB;
-                if (kind == 0)   // K: 64 keys x columns 64 c ..
-                  tma_load(at, &map_k, full(s), col0 + 64 * c + 32 * sub, i * BK, bh, part);
-                else             // V^T: columns 64 c .. x 64 keys
-                  tma_load(at, &map_vt, full(s), i * BK + 32 * sub, col0 + 64 * c, bh, part);
-              }
-          }
-        }
+        for (int c = 0; c < NC; ++c) load(0, i, c);
+        if constexpr (!C::SCATTER)
+          for (int c = 0; c < NC; ++c) load(1, i, c);
       }
+    } else if (C::SCATTER && threadIdx.x == 2 * WG + 32) {
+      for (int i = 0; i < ntiles; ++i)
+        for (int c = 0; c < NC; ++c) load(1, i, c);
     }
   } else {
     reg_alloc<CONSUMER_REGS>();
@@ -449,7 +564,7 @@ Layout layout(int bh, int t, int d) {
 template <int DL, int CL>
 int launch(const void* q, const void* k, const void* v, const Params& p, int b, int d,
            const int64_t* s, unsigned char* ws, cudaStream_t stream) {
-  using C = Fwd<DL>;
+  using C = Fwd<DL, CL>;
   // set before every launch, so that a launch from another host thread
   // (autograd's worker, when a checkpointed block recomputes) sees it
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<DL, CL>,
@@ -532,8 +647,10 @@ int flash_attention_f32_fwd(const void* q, const void* k, const void* v, void* o
 // (cudaOccupancyMaxActiveClusters at one block an SM), or a negative
 // cudaError_t.
 int flash_attention_f32_max_active_clusters(int d) {
-#define CLUSTER(D) \
-  case D: return max_active_clusters(flash_fwd_f32<128, D / 128>, THREADS, D / 128, Fwd<128>::SMEM)
+#define CLUSTER(D)                                                                  \
+  case D:                                                                           \
+    return max_active_clusters(flash_fwd_f32<128, D / 128>, THREADS, D / 128,       \
+                               Fwd<128, D / 128>::SMEM)
   switch ((d + 127) / 128 * 128) { CLUSTER(640); CLUSTER(768); CLUSTER(896); CLUSTER(1024); }
 #undef CLUSTER
   return -(int)cudaErrorInvalidValue;

@@ -249,6 +249,36 @@ __device__ __forceinline__ void sum_ranks(float4 (&v)[N], uint32_t xch) {
   }
 }
 
+// sum_ranks's sum of one slot at `at` for its owner in a reduce-scatter:
+// rank `rank`'s own term is `own`, kept in registers (its slot of the
+// exchange buffer holds the sums), the other ranks' are read from their
+// buffers; the same adds in the same order, so the same bits.
+template <int CL, int G = (CL < 4 ? CL : 4)>
+__device__ __forceinline__ float4 sum_ranks_own(uint32_t at, int rank, float4 own) {
+  float4 v;
+#pragma unroll
+  for (int r0 = 0; r0 < CL; r0 += G) {
+    float4 t[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      if (r0 + i < CL && r0 + i != rank) t[i] = ld_cluster_f4(map_rank(at, r0 + i));
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      if (r0 + i >= CL) continue;
+      const float4 x = r0 + i == rank ? own : t[i];
+      if (r0 + i == 0) {
+        v = x;
+      } else {
+        v.x += x.x;
+        v.y += x.y;
+        v.z += x.z;
+        v.w += x.w;
+      }
+    }
+  }
+  return v;
+}
+
 // SMs of the current device, asked once (the cards of one host are alike).
 inline int sm_count() {
   static int n = 0;

@@ -243,7 +243,9 @@ def _write_compvis(path, groups):
 ], ids=["unet_warm_start", "codec_warm_start", "adamw_m_bf16", "mesh", "grain", "svit"])
 def test_train_refusals(tree, extra, match):
     data, results = tree
-    args = run_overrides(data, results / "refused") + extra
+    # (the epoch-end previews at 4 DDIM steps, not 128: these runs check the
+    # steps and the warm starts, not the previews)
+    args = run_overrides(data, results / "refused") + ["+preview_ddim_steps=4"] + extra
     if "location.loader=grain" in extra:   # now the worker-process loader
         dm = DataModule(compose("config_diff", args))
         dm.prepare_data()

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _port_helpers import quick_jit
 from jax.experimental.pallas import tpu as pltpu
 
 from stedm_tpu.ops import blocked_attention as jattn
@@ -273,8 +274,8 @@ def test_tiny_stedm_at_16_wide_heads_matches_jax():
     seg = r.normal(size=(2, 16, 16, 3)).astype(np.float32)
     style = r.normal(size=(2, 512)).astype(np.float32)
     t = np.array([10, 600], np.int32)
-    want = np.asarray(jm.apply({"params": params}, *map(jnp.asarray, (z, t, seg, style)),
-                               method=jm.eps))
+    want = np.asarray(quick_jit(lambda p_, *a: jm.apply({"params": p_}, *a, method=jm.eps))(
+        params, *map(jnp.asarray, (z, t, seg, style))))
     with torch.no_grad():
         got = pm.eps(*map(torch.from_numpy, (z, t, seg, style))).numpy()
     assert _rel(got, want) <= REL, _rel(got, want)
@@ -297,8 +298,8 @@ def test_tiny_stedm_at_one_640_wide_head_matches_jax():
     seg = r.normal(size=(2, 16, 16, 3)).astype(np.float32)
     style = r.normal(size=(2, 512)).astype(np.float32)
     t = np.array([10, 600], np.int32)
-    want = np.asarray(jm.apply({"params": params}, *map(jnp.asarray, (z, t, seg, style)),
-                               method=jm.eps))
+    want = np.asarray(quick_jit(lambda p_, *a: jm.apply({"params": p_}, *a, method=jm.eps))(
+        params, *map(jnp.asarray, (z, t, seg, style))))
     with torch.no_grad():
         got = pm.eps(*map(torch.from_numpy, (z, t, seg, style))).numpy()
     assert _rel(got, want) <= REL, _rel(got, want)
@@ -322,8 +323,9 @@ def test_codec_with_a_640_wide_mid_block_matches_jax():
     run = run_steps("vq", 0.0, ddconfig=WIDE_DD, steps=1, patch=16)
     attn = run["pm"].decoder.mid.attn_1
     assert attn.q.weight.shape[:2] == (640, 640)
-    want = run["jm"].apply({"params": run["gen0"]}, jnp.asarray(run["img"]),
-                           method=run["jm"].training_recon)[0]
+    want = quick_jit(lambda p_, a: run["jm"].apply({"params": p_}, a,
+                                                   method=run["jm"].training_recon)[0])(
+        run["gen0"], jnp.asarray(run["img"]))
     np.testing.assert_allclose(run["rec0"], np.asarray(want), rtol=1e-4, atol=1e-5)
     check_logs(run)
     check_updates(run, discriminator=False)

@@ -770,7 +770,38 @@ def test_flash_attention_f32_backward(cuda, shape):
         assert torch.equal(g, g2), name
 
 
-@pytest.mark.parametrize("shape", [(2, 2, 700, 512), (2, 4, 333, 128), (1, 2, 650, 192)])
+# every cluster instance above 512 (clusters of 5 to 8 blocks of 128
+# columns), T ragged over several 64-key and 32-query tiles
+@pytest.mark.parametrize("shape", [(1, 1, 700, 640), (1, 1, 130, 768), (2, 1, 333, 896),
+                                   (1, 2, 257, 1024)])
+def test_flash_attention_f32_cluster_instances(cuda, shape):
+    """The forward's O within 2^-16 (P|V| + |ref|) and each gradient within
+    2^-16 (sqrt(sum terms^2) + |ref|) of the plain version's steps in
+    float64 (the S and dP partials summed across the cluster by a
+    reduce-scatter and a gather), each launch counted under its instance."""
+    from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
+
+    q, k, v, do = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(4))
+    s = shape[-1] ** -0.5
+    fwd, bwd = (a.launch_counter(stem, shape[-1])
+                for stem in ("flash_attention_f32", "flash_attention_bwd_f32"))
+    before = dict(LAUNCHES)
+    o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+    got = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+    assert LAUNCHES[fwd] == before.get(fwd, 0) + 1
+    assert LAUNCHES[bwd] == before.get(bwd, 0) + 1
+    Q, K, V = (x.double() for x in (q, k, v))
+    p = torch.softmax((Q @ K.transpose(-1, -2)) * s, -1)
+    ref = p @ V
+    assert bool(((o.double() - ref).abs() <= 2 ** -16 * (p @ V.abs() + ref.abs())).all())
+    ref, bounds = _f64_backward(q, k, v, o, lse, do, s)
+    for name, g, r, bd in zip(("dq", "dk", "dv"), got, ref, bounds):
+        d = (g.double() - r).abs()
+        assert bool((d <= 2 ** -16 * (bd + r.abs())).all()), (name, float(d.max()))
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 700, 512), (2, 4, 333, 128), (1, 2, 650, 192),
+                                   (1, 1, 700, 1024)])
 def test_flash_attention_f32_backward_is_deterministic(cuda, shape):
     """Many 64-key blocks add their parts of dQ into the sums in key-block
     order behind turn counters (one per head, query tile and cluster rank):
