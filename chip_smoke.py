@@ -204,12 +204,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    item; phase 8's tree is removed at the end;
 12. the diffusion model's options, on phase 6's tree (removed at its end):
    12a. the bf16 forward and the fp32 kernels at Dh 32
-   (``num_head_channels: 32``: the bf16 forward's own instance, the fp32
-   kernels' Dh-64 instances on a padded head dimension; launches counted
-   as ``<kernel>_dh32``; the bf16 backward's own Dh-32 instance is checked
-   in 13a) against their plain versions with phase 2b's and 10a's
-   tolerances, and GroupNorm with FiLM at the scale-shift ResBlocks'
-   shapes, forward and backward; 12b.
+   (``num_head_channels: 32``: the bf16 forward's own instance and the
+   fp32 kernels' own Dh-32 instances, the forward persistent over 128-row
+   work items, the backward 128 keys a block, both on split copies of the
+   true columns; launches counted as ``<kernel>_dh32``; the bf16
+   backward's own Dh-32 instance is checked in 13a) at 12c's sampling and
+   micro-step shapes and the entry points' batch 2 against their plain
+   versions with phase 2b's and 10a's tolerances, and GroupNorm with FiLM
+   at the scale-shift ResBlocks' shapes, forward and backward; 12b.
    tiny STEDMs with the options (``OPTIONS_12B`` under the cosine schedule
    sampled in bf16, sampled and trained at fp32; the spatial transformer
    under crossattn, sampled) on the card against the CPU; 12c. the
@@ -228,8 +230,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``head_dim_plan``), on phase 6's tree: 13a. the bf16 backward's Dh-32
    instance (``flash_bwd_small<32>``, 256 keys a block) at 12c's and
    train_diff's micro-step shapes, and the four flash kernels at Dh 16
-   (``num_head_channels: 16``, on the Dh-32 instance or the fp32 kernels'
-   Dh-64 one; launches counted as ``<kernel>_dh16``) at the sampling and
+   (``num_head_channels: 16``, on each kernel's Dh-32 instance; launches
+   counted as ``<kernel>_dh16``) at the sampling and
    512^2 micro-step shapes, timed beside their plain versions, SDPA and
    their bounds, with phase 2b's and 10a's tolerances; then correctness,
    each timed once: Dh 20 (bf16: zero-padded copies of width 24), 48, 96
@@ -483,8 +485,7 @@ def kernel_records() -> dict:
             "nearest_code_stream", "cuda", "stedm_tpu_torch/csrc/nearest_code.cu",
             "stedm_tpu/ops/quantize.py:62", paths=wide),
         # phase 12's kernels: each flash kernel at Dh 32 (num_head_channels
-        # 32; the bf16 forward's own instance, the others' Dh-64 instances
-        # on a padded head dimension; counted apart: ops.LAUNCHES
+        # 32; each kernel's own Dh-32 instance; counted apart: ops.LAUNCHES
         # "<name>_dh32") and GroupNorm with FiLM (use_scale_shift_norm,
         # counted apart: "gn_silu_film")
         "flash_attention_dh32": KernelRecord(
@@ -506,8 +507,8 @@ def kernel_records() -> dict:
         "gn_silu_film": KernelRecord("gn_silu_film", "cuda", "stedm_tpu_torch/csrc/gn_silu.cu",
                                      "stedm_tpu/ops/gn_silu.py:125", paths=PATHS_12),
         # phase 13's: each flash kernel at Dh 16 (num_head_channels 16, on
-        # the bf16 kernels' Dh-32 instances and the fp32 kernels' Dh-64
-        # ones; counted apart: "<name>_dh16")
+        # each kernel's Dh-32 instance, reading 16 columns; counted apart:
+        # "<name>_dh16")
         "flash_attention_dh16": KernelRecord(
             "flash_attention_dh16", "cuda", "stedm_tpu_torch/csrc/flash_attention.cu",
             "stedm_tpu/ops/blocked_attention.py:99", paths=PATHS_13),
@@ -4057,11 +4058,13 @@ def options_kernels(torch, recs):
     check_attention(torch, recs["flash_attention_dh32"], flush,
                     shapes=((16, 32, 256, 32), (8, 32, 1024, 32), (2, 32, 1024, 32),
                             (4, 32, 1024, 32)), strided=False)
-    log("  -- fp32 forward and backward: the sampling bottleneck and 12c's fp32 micro-step")
+    log("  -- fp32 forward and backward (the Dh-32 instances): the sampling bottleneck, 12c's "
+        "fp32 micro-step and the entry points' batch 2")
     f32_forward_checks(torch, recs["flash_attention_f32_dh32"], flush,
-                       shapes=((16, 32, 256, 32), (8, 32, 1024, 32)), strided=False)
+                       shapes=((16, 32, 256, 32), (8, 32, 1024, 32), (2, 32, 1024, 32)),
+                       strided=False)
     f32_backward_checks(torch, recs["flash_attention_bwd_f32_dh32"], flush,
-                        shapes=((8, 32, 1024, 32),))
+                        shapes=((8, 32, 1024, 32), (2, 32, 1024, 32)))
     log("  -- GroupNorm + FiLM + SiLU at the scale-shift ResBlocks' shapes, forward and "
         "backward")
     check_gn(torch, recs["gn_silu_film"], flush, cases=FILM_CASES)

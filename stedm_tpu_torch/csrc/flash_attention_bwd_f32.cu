@@ -82,15 +82,38 @@
 //     each added to its fp32 sum in registers with one rounding to nearest
 //     while the next chain runs;
 //   * keys past T get P = 0, and no gradient row past T is stored;
-//   * a head dimension that is not a multiple of 64 (a multiple of 4: Dh
-//     32 at num_head_channels 32, 16, 96, 160, ...) runs the instantiation
-//     of the next multiple of 64 (above 512: of 128; run_columns): the
-//     split pass writes copies
+//   * a head dimension above 32 that is not a multiple of 64 (a multiple
+//     of 4: 48, 96, 160, ...) runs the instantiation of the next multiple
+//     of 64 (above 512: of 128; run_columns): the split pass writes copies
 //     of that width whose columns past the head dimension are zeros (they
 //     add nothing to S^T and dP^T, and give dQ, dK and dV zero columns
 //     there), and only the real columns of each gradient are stored.
 // All products are m64n32k8: S^T and dP^T are 64 keys x 32 queries, and dK,
 // dV and dQ^T are kept as 32-column accumulators.
+//
+// Head dimensions 4 to 32 (num_head_channels 32 and 16) run an instance of
+// their own, flash_bwd_f32_small below (the Dh-64 instance on copies
+// zero-padded to 64 columns spent half of S^T, dP^T, dV and dK on zeros,
+// passed S^T from one consumer to the other through shared memory every
+// query tile and rebuilt P^T in both):
+//   * the split copies have the head dimension's own columns (the tensor
+//     maps declare them; TMA fills each 32-column box with zeros);
+//   * a block owns 128 keys, and each consumer 64 of them with every
+//     product of its keys: S^T = K Q^T and dP^T = V dO^T (one chain of 4
+//     k-steps each), P^T and dS^T once, dV += P^T dO and dK += dS^T Q, and
+//     its part of dQ^T = K^T dS^T over its 64 keys (K^T in registers; the
+//     m64 tile's rows 32..63 are zero, the one product at half use), with
+//     no exchange between the consumers;
+//   * its dS ([32 queries][64 keys], hi and lo) goes into shared memory as
+//     the B operand of its dQ^T, written from the A fragments of dK's
+//     product (no second split);
+//   * the dQ^T parts (32 rows, 4 KB) go to the adder in the order of the
+//     64-key units, as the Dh-64 instance's blocks added theirs: unit 2 kb
+//     + c is block kb's consumer c, one turn counter a (head, query tile),
+//     so dQ, dK and dV are that route's bits.
+// On the H100 it runs at 3.7x its 3xTF32 bound at [8, 32, 1024, 32]; the
+// per-score work (exp2, the hi/lo splits) is at most 13 % of it
+// (tools/torch_flash_f32_variants.py --variant noexp, nosplit).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -182,18 +205,21 @@ flash_bwd_f32_stats(const float* __restrict__ o, const float* __restrict__ dout,
 }
 
 // dQ^T's sums into dQ, [BH, T, D]: the sums of (head, query tile j, head
-// columns 64 c ..) are 8 KB in the consumers' register order (thread lt's
-// accumulator element 4 f + k at float4 f * 128 + lt, component k); one
-// block a (query tile, column group, head), a thread a register set.
-__global__ void __launch_bounds__(WG)
-flash_bwd_f32_dq(const float4* __restrict__ acc, float* __restrict__ dq, int t, int d, int nq,
+// columns 64 c ..) are NT / 2 rows of dQ^T in the consumers' register order
+// (thread lt's accumulator element 4 f + k at float4 f * NT + lt, component
+// k): 8 KB by 128 threads, or at the Dh-32 instance 4 KB by the 64 threads
+// of a consumer's first two warps (its rows 0..31); one block a (query
+// tile, column group, head), a thread a register set.
+template <int NT>
+__global__ void __launch_bounds__(NT)
+flash_bwd_f32_dq(const float4* __restrict__ acc, float* __restrict__ dq, int t, int nq,
                  int dcols) {
   const int j = blockIdx.x, c = blockIdx.y, bh = blockIdx.z;
   const int lt = threadIdx.x, warp = lt / 32, g = (lt % 32) >> 2, tg = lt & 3;
-  const float4* part = acc + (((int64_t)bh * nq + j) * (d / 64) + c) * (4 * WG) + lt;
+  const float4* part = acc + (((int64_t)bh * nq + j) * gridDim.y + c) * (4 * NT) + lt;
 #pragma unroll
   for (int f = 0; f < 4; ++f) {
-    const float4 v = part[f * WG];
+    const float4 v = part[f * NT];
     const float x[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -636,6 +662,332 @@ flash_bwd_f32(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
 }
 
 // ---------------------------------------------------------------------------
+// The Dh-32 instance (head dimensions 4 .. 32): 128 keys a block, each
+// consumer 64 keys and every product of them.
+// ---------------------------------------------------------------------------
+
+namespace dh32 {
+constexpr int BKV = 128;                   // keys a block
+constexpr int KV_PART = BKV * 128;         // K or V, hi or lo: 128 keys x 32 columns
+constexpr int V_OFF = 2 * KV_PART;
+constexpr int ITEM_PART = BQ * 128;        // a streamed item's hi or lo: 32 x 32
+constexpr int ITEM = 2 * ITEM_PART;
+constexpr int NSLOT = 8;
+constexpr int RING_OFF = 4 * KV_PART;
+constexpr int DS_PART = BQ * 64 * 4;       // a consumer's dS [32 queries][64 keys], hi or lo
+constexpr int DS_OFF = RING_OFF + NSLOT * ITEM;
+constexpr int STG_BYTES = 4 * 64 * 16;     // a consumer's dQ^T rows 0..31: [4 float4][64 threads]
+constexpr int STG_OFF = DS_OFF + 4 * DS_PART;
+constexpr int STAT_OFF = STG_OFF + 2 * STG_BYTES;
+constexpr int BAR_OFF = STAT_OFF + 2 * STAT_BYTES;
+constexpr int SMEM = BAR_OFF + 8 * (5 + 2 * NSLOT + 4) + 1024;   // + alignment slack
+static_assert(SMEM <= 232448, "shared memory");
+}  // namespace dh32
+
+// Consumer CW: keys 64 CW .. 64 CW + 63 of the block, every product of them.
+template <int CW>
+__device__ __forceinline__ void small_consumer(const Params& p, unsigned char* smem, uint32_t base,
+                                               uint32_t bars, int bh) {
+  using dh32::BKV, dh32::KV_PART, dh32::V_OFF, dh32::ITEM_PART, dh32::ITEM, dh32::NSLOT, dh32::RING_OFF, dh32::DS_PART, dh32::DS_OFF, dh32::STG_BYTES, dh32::STG_OFF,
+      dh32::STAT_OFF;
+  const uint32_t dbase = base & 0x3FFFFu;
+  const uint32_t kv_full = bars;
+  auto st_full = [&](int u) { return bars + 8 + 8 * u; };
+  auto st_empty = [&](int u) { return bars + 24 + 8 * u; };
+  auto full = [&](int s) { return bars + 40 + 8 * s; };
+  auto empty = [&](int s) { return bars + 40 + 8 * (NSLOT + s); };
+  const uint32_t staged = bars + 40 + 16 * NSLOT + 8 * CW, freed = bars + 56 + 16 * NSLOT + 8 * CW;
+  const int lt = threadIdx.x % WG, warp = lt / 32, lane = lt % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  const int key0 = blockIdx.x * BKV + 64 * CW;
+  const int key_w = 16 * warp + g;               // this lane's keys: key_w, key_w + 8 of the 64
+  const bool key_ok0 = key0 + key_w < p.t, key_ok1 = key0 + key_w + 8 < p.t;
+  auto slot_addr = [&](int item) { return dbase + RING_OFF + (item % NSLOT) * ITEM; };
+  auto wait_item = [&](int item) { mbar_wait(full(item % NSLOT), (item / NSLOT) & 1); };
+  auto free_item = [&](int item) { mbar_arrive(empty(item % NSLOT)); };
+  const uint32_t ka = dbase + CW * 64 * 128, va = dbase + V_OFF + CW * 64 * 128;
+  const uint32_t ds_s = dbase + DS_OFF + CW * 2 * DS_PART;
+  unsigned char* ds_p = smem + DS_OFF + CW * 2 * DS_PART;
+
+  float dv[16], dk[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) dv[e] = dk[e] = 0.f;
+
+  // K^T's A fragments for dQ^T's rows (head columns r = 16 warp + g (+ 8);
+  // rows from d on, warps 2 and 3 whole, are 0) over this consumer's keys
+  // (k-step kk: keys 8 kk + tg (+ 4)); keys past T are 0
+  uint32_t kth[8][4], ktl[8][4];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int key = key0 + 8 * kk + tg + 4 * (v >> 1), col = key_w + 8 * (v & 1);
+      const int64_t at = ((int64_t)bh * p.t + key) * p.d + col;
+      const bool ok = key < p.t && col < p.d;
+      kth[kk][v] = ok ? __float_as_uint(p.ks[at]) : 0u;
+      ktl[kk][v] = ok ? __float_as_uint(p.ks[p.ks_part + at]) : 0u;
+    }
+
+  mbar_wait(kv_full, 0);
+  for (int j = 0; j < p.nq; ++j) {
+    const int it = 4 * j;                        // Q, dO, dO^T, Q^T of query tile j
+    // ---- S^T = K Q^T and dP^T = V dO^T over the 32 columns, one chain each ----
+    float x[16], y[16];
+    wait_item(it);
+    wait_item(it + 1);
+    fresh(x);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ss3(x, ka + kk * 32, KV_PART, slot_addr(it) + kk * 32, ITEM_PART, kk == 0);
+    wgmma::commit();
+    fresh(y);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ss3(y, va + kk * 32, KV_PART, slot_addr(it + 1) + kk * 32, ITEM_PART, kk == 0);
+    wgmma::commit();
+    wgmma::wait<0>();
+    fence_operand(x);
+    fence_operand(y);
+    free_item(it);
+    free_item(it + 1);
+
+    // ---- P^T (keys past T: 0) and dS^T = P^T o (dP^T - Di) * s; element e:
+    // key key_w + 8 ((e >> 1) & 1), query 8 (e / 4) + 2 tg + (e & 1) ----
+    mbar_wait(st_full(j % 2), (j / 2) & 1);
+    const float* stat = reinterpret_cast<const float*>(smem + STAT_OFF + (j % 2) * STAT_BYTES);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int q = 8 * (e / 4) + 2 * tg + (e & 1);
+      const bool ok = (e & 2) ? key_ok1 : key_ok0;
+      x[e] = ok ? exp2f(fmaf(x[e], p.scale_log2, -stat[q])) : 0.f;
+      y[e] = x[e] * (y[e] - stat[BQ + q]) * p.sm_scale;
+    }
+
+    // ---- dV += P^T dO (dO^T item) ----
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(x + 4 * kk, ah[kk], al[kk]);
+    float ga[16], gb[16];
+    wait_item(it + 2);
+    fresh(ga);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) rs3(ga, ah[kk], al[kk], slot_addr(it + 2) + kk * 32, ITEM_PART, kk == 0);
+    wgmma::commit();
+
+    // ---- dS^T's A fragments; dS as dQ^T's B operand: [32 queries][64
+    // keys], hi then lo, in the 128-byte swizzle (row q's 16-byte chunk c at
+    // chunk c ^ (q & 7)), from the fragments (element 4 kk + m is fragment
+    // value m of k-step kk, m = 1 and 2 swapped) ----
+    uint32_t sh[4][4], sl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(y + 4 * kk, sh[kk], sl[kk]);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int q = 8 * (e / 4) + 2 * tg + (e & 1), key = key_w + 8 * ((e >> 1) & 1);
+      const int at = (key / 32) * BQ * 128 + q * 128 + ((((key % 32) / 4) ^ (q & 7)) * 16) +
+                     (key % 4) * 4;
+      const int v = (e & 3) == 1 ? 2 : (e & 3) == 2 ? 1 : e & 3;
+      *reinterpret_cast<uint32_t*>(ds_p + at) = sh[e / 4][v];
+      *reinterpret_cast<uint32_t*>(ds_p + DS_PART + at) = sl[e / 4][v];
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    group_sync(1 + CW, WG);                      // the warpgroup's products read it
+
+    // ---- dK += dS^T Q (Q^T item) ----
+    wait_item(it + 3);
+    fresh(gb);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) rs3(gb, sh[kk], sl[kk], slot_addr(it + 3) + kk * 32, ITEM_PART, kk == 0);
+    wgmma::commit();
+    wgmma::wait<1>();
+    fence_frags(ah);
+    fence_frags(al);
+    fence_operand(ga);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) dv[e] += ga[e];
+    free_item(it + 2);
+
+    // ---- dQ^T = K^T dS^T over this consumer's 64 keys: chain kh covers
+    // keys 32 kh .. ----
+    float da[16], db[16];
+    fresh(da);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) rs3(da, kth[kk], ktl[kk], ds_s + kk * 32, DS_PART, kk == 0);
+    wgmma::commit();
+    fresh(db);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      rs3(db, kth[4 + kk], ktl[4 + kk], ds_s + BQ * 128 + kk * 32, DS_PART, kk == 0);
+    wgmma::commit();
+    wgmma::wait<2>();
+    fence_frags(sh);
+    fence_frags(sl);
+    fence_operand(gb);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) dk[e] += gb[e];
+    free_item(it + 3);
+    wgmma::wait<0>();
+    fence_operand(da);
+    fence_operand(db);
+
+    // ---- dQ^T's rows 0..31 (warps 0 and 1) to the adder, staged in
+    // register order once it has read the previous tile's ----
+    if (j > 0) mbar_wait(freed, (j - 1) & 1);
+    if (warp < 2) {
+      float4* stg = reinterpret_cast<float4*>(smem + STG_OFF + CW * STG_BYTES) + lt;
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        stg[f * 64] = make_float4(da[4 * f] + db[4 * f], da[4 * f + 1] + db[4 * f + 1],
+                                  da[4 * f + 2] + db[4 * f + 2], da[4 * f + 3] + db[4 * f + 3]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    group_sync(1 + CW, WG);
+    if (lt == 0) mbar_arrive(staged);
+    // the tile's LSE and Di slot is released only here, after the warpgroup's
+    // barrier: released right after the reads, its reload for tile j + 2
+    // corrupted dS^T in some blocks of large grids (consumers skewed by the
+    // adder's turns), which the barrier-separated release does not
+    mbar_arrive(st_empty(j % 2));
+  }
+
+  // ---- dV and dK of this consumer's keys (keys past T, columns past dcols
+  // not written) ----
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + key_w + 8 * r;
+    if (key >= p.t) continue;
+    const int64_t row = ((int64_t)bh * p.t + key) * p.dcols + 2 * tg;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      if (8 * jj + 2 * tg >= p.dcols) continue;
+      *reinterpret_cast<float2*>(p.dv + row + 8 * jj) =
+          make_float2(dv[4 * jj + 2 * r], dv[4 * jj + 2 * r + 1]);
+      *reinterpret_cast<float2*>(p.dk + row + 8 * jj) =
+          make_float2(dk[4 * jj + 2 * r], dk[4 * jj + 2 * r + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_f32_small(const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const __grid_constant__ CUtensorMap map_qt,
+                    const __grid_constant__ CUtensorMap map_dot, const Params p) {
+  using dh32::BKV, dh32::KV_PART, dh32::V_OFF, dh32::ITEM_PART, dh32::ITEM, dh32::NSLOT, dh32::RING_OFF, dh32::DS_PART, dh32::DS_OFF, dh32::STG_BYTES, dh32::STG_OFF,
+      dh32::STAT_OFF, dh32::BAR_OFF;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  // barriers: kv_full, st_full[2], st_empty[2], full[NSLOT], empty[NSLOT],
+  // staged[2], freed[2]
+  const uint32_t bars = base + BAR_OFF;
+  const uint32_t kv_full = bars;
+  auto st_full = [&](int u) { return bars + 8 + 8 * u; };
+  auto st_empty = [&](int u) { return bars + 24 + 8 * u; };
+  auto full = [&](int s) { return bars + 40 + 8 * s; };
+  auto empty = [&](int s) { return bars + 40 + 8 * (NSLOT + s); };
+  const int bh = blockIdx.y, wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int u = 0; u < 2; ++u) {
+      mbar_init(st_full(u), 1);
+      mbar_init(st_empty(u), 2 * WG);
+    }
+    for (int s = 0; s < NSLOT; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * WG);
+    }
+    for (int c = 0; c < 4; ++c) mbar_init(bars + 40 + 16 * NSLOT + 8 * c, 1);   // staged, freed
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 2 * WG) {
+      // ---- loads: K and V of the block's 128 keys once, then a query
+      // tile's LSE and Di and its items in the order the consumers take
+      // them: Q, dO, dO^T, Q^T ----
+      const int key0 = blockIdx.x * BKV;
+      mbar_expect_tx(kv_full, 4 * KV_PART);
+      for (int part = 0; part < 2; ++part) {
+        tma_load(base + part * KV_PART, &map_k, kv_full, 0, key0, bh, part);
+        tma_load(base + V_OFF + part * KV_PART, &map_v, kv_full, 0, key0, bh, part);
+      }
+      int it = 0;
+      for (int j = 0; j < p.nq; ++j) {
+        mbar_wait(st_empty(j % 2), ((j / 2) & 1) ^ 1);
+        mbar_expect_tx(st_full(j % 2), STAT_BYTES);
+        bulk_load(base + STAT_OFF + (j % 2) * STAT_BYTES,
+                  p.stats + ((int64_t)bh * p.nq + j) * 2 * BQ, STAT_BYTES, st_full(j % 2));
+        for (int kind = 0; kind < 4; ++kind, ++it) {
+          const int s = it % NSLOT;
+          const uint32_t dst = base + RING_OFF + s * ITEM;
+          mbar_wait(empty(s), ((it / NSLOT) & 1) ^ 1);
+          mbar_expect_tx(full(s), ITEM);
+          for (int part = 0; part < 2; ++part) {
+            const uint32_t at = dst + part * ITEM_PART;
+            if (kind <= 1)        // Q, dO: 32 queries x 32 columns
+              tma_load(at, kind == 0 ? &map_q : &map_do, full(s), 0, j * BQ, bh, part);
+            else                  // dO^T, Q^T: 32 columns x 32 queries
+              tma_load(at, kind == 2 ? &map_dot : &map_qt, full(s), j * BQ, 0, bh, part);
+          }
+        }
+      }
+    } else if (threadIdx.x == 2 * WG + 32 || threadIdx.x == 2 * WG + 64) {
+      // ---- the adder of consumer c: its dQ^T part of each query tile into
+      // the sums with one 4 KB bulk reduction at the L2, in the order of the
+      // 64-key units (unit 0 stores), behind one turn counter a (head,
+      // query tile); a unit wholly past T adds nothing ----
+      const int c = threadIdx.x / 32 - 9, u = 2 * blockIdx.x + c;
+      const uint32_t staged = bars + 40 + 16 * NSLOT + 8 * c, freed = bars + 56 + 16 * NSLOT + 8 * c;
+      const uint32_t src = base + STG_OFF + c * STG_BYTES;
+      for (int j = 0; j < p.nq; ++j) {
+        mbar_wait(staged, j & 1);
+        if (u >= p.nk) {
+          mbar_arrive(freed);
+          continue;
+        }
+        int* turn = p.turn + (int64_t)bh * p.nq + j;
+        float* acc = p.acc + ((int64_t)bh * p.nq + j) * (32 * BQ);
+        if (u > 0) {
+          while (ld_acquire(turn) < u) {
+          }
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");
+          bulk_reduce_add_f32(acc, src, STG_BYTES);
+        } else {
+          bulk_store(acc, src, STG_BYTES);
+        }
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(freed);                        // the section may be written again
+        bulk_wait();                               // the sums are written: pass the turn on
+        if (u + 1 < p.nk) {
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");
+          __threadfence();
+          atomicAdd(turn, 1);
+        }
+      }
+    }
+  } else {
+    reg_alloc<CONSUMER_REGS>();
+    if (wg == 0)
+      small_consumer<0>(p, smem, base, bars, bh);
+    else
+      small_consumer<1>(p, smem, base, bars, bh);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -647,6 +999,9 @@ struct Layout {
   size_t nat[4], tr[2], stats_off, turn_off, acc_off, bytes;
 };
 
+// d: the copies' columns (copy_columns); at the Dh-32 instance (d <= 32)
+// one turn counter and one 32-row part of dQ^T's sums a (head, query tile),
+// else D / 64 of each, of 64 rows.
 Layout layout(int bh, int t, int d) {
   Layout l;
   l.nq = (t + BQ - 1) / BQ;
@@ -654,16 +1009,80 @@ Layout layout(int bh, int t, int d) {
   l.tp = (t + 7) / 8 * 8;
   const size_t nat = align256((size_t)2 * bh * t * d * 4);
   const size_t tr = align256((size_t)2 * bh * d * l.tp * 4);
+  const size_t groups = d <= 32 ? 1 : d / 64, rows = d <= 32 ? 32 : 64;   // cl * NC = D / 64
   size_t off = 0;
   for (int i = 0; i < 4; ++i, off += nat) l.nat[i] = off;
   for (int i = 0; i < 2; ++i, off += tr) l.tr[i] = off;
   l.stats_off = off;
   off += align256((size_t)bh * l.nq * 2 * BQ * 4);
   l.turn_off = off;
-  off += align256((size_t)bh * l.nq * (d / 64) * 4);   // cl * NC = D / 64
+  off += align256((size_t)bh * l.nq * groups * 4);
   l.acc_off = off;
-  l.bytes = off + align256((size_t)bh * d * l.nq * BQ * 4);
+  l.bytes = off + align256((size_t)bh * l.nq * groups * rows * BQ * 4);
   return l;
+}
+
+// The stats pass, then the split pass (Q, K, V, dO as they are; Q and dO
+// transposed in the order pi): copies of `d` columns, the inputs' `dx`.
+cudaError_t prepare(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                    const float* lse, const Layout& l, unsigned char* ws, int bh, int h, int t,
+                    int d, int dx, const int64_t* s, cudaStream_t stream) {
+  flash_bwd_f32_stats<<<dim3(l.nq, bh), STATS_THREADS, 0, stream>>>(
+      (const float*)o, (const float*)dout, lse, (float*)(ws + l.stats_off), s[9], s[10], s[11],
+      s[12], s[13], s[14], t, h, dx, l.nq);
+  float* nat[4];
+  float* tr[2];
+  for (int i = 0; i < 4; ++i) nat[i] = (float*)(ws + l.nat[i]);   // Q, K, V, dO
+  for (int i = 0; i < 2; ++i) tr[i] = (float*)(ws + l.tr[i]);     // Q^T, dO^T (pi)
+  SplitParams sp = {};
+  sp.job[0] = {(const float*)q, s[0], s[1], s[2], nat[0], tr[0], 1};
+  sp.job[1] = {(const float*)k, s[3], s[4], s[5], nat[1], nullptr, 0};
+  sp.job[2] = {(const float*)v, s[6], s[7], s[8], nat[2], nullptr, 0};
+  sp.job[3] = {(const float*)dout, s[12], s[13], s[14], nat[3], tr[1], 1};
+  sp.njobs = 4;
+  sp.h = h;
+  sp.t = t;
+  sp.d = d;
+  sp.dx = dx;
+  sp.tp = l.tp;
+  sp.bh = bh;
+  return launch_split(sp, stream);
+}
+
+// The Dh-32 instance: copies of the head dimension's own d columns.
+int launch_small(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                 const float* lse, void* dq, void* dk, void* dv, void* workspace, int b, int h,
+                 int t, int d, const int64_t* s, float sm_scale, cudaStream_t stream) {
+  // set before every launch (see launch below)
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_f32_small,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dh32::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int bh = b * h;
+  const Layout l = layout(bh, t, d);
+  unsigned char* ws = (unsigned char*)workspace;
+  float* acc = (float*)(ws + l.acc_off);
+  int* turn = (int*)(ws + l.turn_off);
+  err = cudaMemsetAsync(turn, 0, (size_t)bh * l.nq * 4, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = prepare(q, k, v, o, dout, lse, l, ws, bh, h, t, d, d, s, stream);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_k, map_v, map_q, map_do, map_qt, map_dot;
+  if (!make_split_map(&map_k, (float*)(ws + l.nat[1]), bh, t, d, dh32::BKV) ||
+      !make_split_map(&map_v, (float*)(ws + l.nat[2]), bh, t, d, dh32::BKV) ||
+      !make_split_map(&map_q, (float*)(ws + l.nat[0]), bh, t, d, BQ) ||
+      !make_split_map(&map_do, (float*)(ws + l.nat[3]), bh, t, d, BQ) ||
+      !make_split_map(&map_qt, (float*)(ws + l.tr[0]), bh, d, l.tp, 32) ||
+      !make_split_map(&map_dot, (float*)(ws + l.tr[1]), bh, d, l.tp, 32))
+    return (int)cudaErrorInvalidValue;
+  const Params p = {(float*)(ws + l.nat[1]), (int64_t)bh * t * d, (float*)(ws + l.stats_off), acc,
+                    turn, (float*)dk, (float*)dv, t, d, l.nq, l.nk, d, sm_scale * LOG2E, sm_scale};
+  flash_bwd_f32_small<<<dim3((t + dh32::BKV - 1) / dh32::BKV, bh), THREADS, dh32::SMEM, stream>>>(
+      map_k, map_v, map_q, map_do, map_qt, map_dot, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_f32_dq<64><<<dim3(l.nq, 1, bh), 64, 0, stream>>>((const float4*)acc, (float*)dq, t,
+                                                              l.nq, d);
+  return (int)cudaGetLastError();
 }
 
 template <int DL, int CL>
@@ -690,22 +1109,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 
   err = cudaMemsetAsync(turn, 0, (size_t)bh * l.nq * (d / 64) * 4, stream);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_f32_stats<<<dim3(l.nq, bh), STATS_THREADS, 0, stream>>>(
-      (const float*)o, (const float*)dout, lse, stats, s[9], s[10], s[11], s[12], s[13], s[14], t,
-      h, dx, l.nq);
-  SplitParams sp = {};
-  sp.job[0] = {(const float*)q, s[0], s[1], s[2], nat[0], tr[0], 1};
-  sp.job[1] = {(const float*)k, s[3], s[4], s[5], nat[1], nullptr, 0};
-  sp.job[2] = {(const float*)v, s[6], s[7], s[8], nat[2], nullptr, 0};
-  sp.job[3] = {(const float*)dout, s[12], s[13], s[14], nat[3], tr[1], 1};
-  sp.njobs = 4;
-  sp.h = h;
-  sp.t = t;
-  sp.d = d;
-  sp.dx = dx;
-  sp.tp = l.tp;
-  sp.bh = bh;
-  err = launch_split(sp, stream);
+  err = prepare(q, k, v, o, dout, lse, l, ws, bh, h, t, d, dx, s, stream);
   if (err != cudaSuccess) return (int)err;
 
   CUtensorMap map_k, map_v, map_q, map_do, map_qt, map_dot;
@@ -724,8 +1128,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   err = cudaLaunchKernelEx(&cfg, flash_bwd_f32<DL, CL>, map_k, map_v, map_q, map_do, map_qt, map_dot,
                            p);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_f32_dq<<<dim3(l.nq, d / 64, bh), WG, 0, stream>>>((const float4*)acc, (float*)dq, t,
-                                                               d, l.nq, dx);
+  flash_bwd_f32_dq<WG><<<dim3(l.nq, d / 64, bh), WG, 0, stream>>>((const float4*)acc, (float*)dq,
+                                                                   t, l.nq, dx);
   return (int)cudaGetLastError();
 }
 
@@ -734,14 +1138,14 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 extern "C" {
 
 // Device bytes of the backward's workspace for [B * H = bh, T, D]: Q, K, V
-// and dO split, [2, bh, T, D] fp32 each; Q and dO split and transposed,
-// [2, bh, D, T rounded up to 8] each; LSE * log2(e) and Di, [bh, nq, 2, 32];
-// the turn counters, [bh, nq, D / 64] int32; dQ^T's sums, [bh, nq, D / 64,
-// 64 * 32] in the consumers' register order;
-// nq = ceil(T / 32); each
-// region 256-byte aligned.
+// and dO split, [2, bh, T, C] fp32 each (C = copy_columns(D)); Q and dO
+// split and transposed, [2, bh, C, T rounded up to 8] each; LSE * log2(e)
+// and Di, [bh, nq, 2, 32]; the turn counters, [bh, nq, C / 64] int32 (at
+// the Dh-32 instance [bh, nq]); dQ^T's sums, [bh, nq, C / 64, 64 * 32] (at
+// the Dh-32 instance [bh, nq, 32 * 32]) in the consumers' register order;
+// nq = ceil(T / 32); each region 256-byte aligned.
 size_t flash_attention_bwd_f32_workspace(int bh, int t, int d) {
-  return layout(bh, t, run_columns(d)).bytes;
+  return layout(bh, t, copy_columns(d)).bytes;
 }
 
 // q, k, v, o, d_o: fp32 [B, H, T, D] on the device, last dimension contiguous;
@@ -750,8 +1154,8 @@ size_t flash_attention_bwd_f32_workspace(int bh, int t, int d) {
 // [B, H, T]; dq, dk, dv: contiguous fp32 [B, H, T, D]; workspace:
 // flash_attention_bwd_f32_workspace bytes, 256-byte aligned. D a multiple
 // of 4 up to 1024, run on the instance run_columns(D); `cluster` the blocks
-// that split it (instance / 128 at 128, 256, 512 and above 512, else
-// instance / 64; anything else is refused). Launches the stats and split passes, the
+// that split it (1 at the Dh-32 instance, instance / 128 at 128, 256, 512
+// and above 512, else instance / 64; anything else is refused). Launches the stats and split passes, the
 // kernel and the dQ pass on `stream`; returns the first cudaError_t of the
 // launches.
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
@@ -768,6 +1172,9 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const v
   case D:                                                                                    \
     return launch<DL, D / DL>(q, k, v, o, d_o, l, dq, dk, dv, workspace, b, h, t, d, strides, \
                               sm_scale, s)
+  if (run == 32)
+    return launch_small(q, k, v, o, d_o, l, dq, dk, dv, workspace, b, h, t, d, strides, sm_scale,
+                        s);
   switch (run) {
     BWD(64, 64); BWD(128, 128); BWD(192, 64); BWD(256, 128);
     BWD(320, 64); BWD(384, 64); BWD(448, 64); BWD(512, 128);

@@ -73,15 +73,43 @@
 //   * the softmax runs on exp2 with the scale folded into one fused
 //     multiply-add an element; keys >= T are masked to -inf in the last tile
 //     only; rows >= T are not stored;
-//   * a head dimension that is not a multiple of 64 (a multiple of 4: Dh
-//     32 at num_head_channels 32, 16, 96, 160, ...) runs the instantiation
-//     of the next multiple of 64 (above 512: of 128; run_columns): the
-//     split pass writes copies
-//     of that width whose columns past the head dimension are zeros (they add
-//     nothing to S, and O gets zero columns there), and only O's real
+//   * a head dimension above 32 that is not a multiple of 64 (a multiple
+//     of 4: 48, 96, 160, ...) runs the instantiation of the next multiple
+//     of 64 (above 512: of 128; run_columns): the split pass writes copies
+//     of that width whose columns past the head dimension are zeros (they
+//     add nothing to S, and O gets zero columns there), and only O's real
 //     columns are stored; the chains keep their 4-k-step cap.
 // S is m64n32k8 (64 rows x a consumer's 32 keys), P V m64n64k8 (one
 // accumulator per 64 columns of O, one V^T item each).
+//
+// Head dimensions 4 to 32 (num_head_channels 32 and 16) run an instance of
+// their own, flash_fwd_f32_small below (the Dh-64 instance on copies
+// zero-padded to 64 columns spent half of every product on zeros, wrote
+// twice the split bytes, and at T 256 paid a block's prologue and its two
+// consumers' combine every 4 key tiles):
+//   * the split copies have the head dimension's own columns; the tensor
+//     maps declare them, and TMA fills the rest of each 32-column box (one
+//     128-byte row of the swizzle) with zeros, which add nothing to S;
+//   * a work item is 128 query rows of one head, and the two consumers
+//     take 64 rows each of every 64-key tile (no split-K, so no combine at
+//     the end): S = Q K^T is one m64n64k8 chain of 4 k-steps, inside the
+//     cap, and P V two m64n32k8 chains of 4 k-steps (keys 0..31, 32..63)
+//     into O's 16 registers a thread;
+//   * the grid is persistent, one block an SM walking the work items
+//     (head-major, so a head's two or more query tiles run side by side
+//     and share K and V^T in the L2): the producer loads the next item's Q
+//     into the second of two Q slots and its first K and V^T tiles into an
+//     eight-slot ring (16 KB items) while the consumers finish this one, so
+//     the prologue is paid once an SM;
+//   * O and the LSE follow the same softmax as above, but each row's max
+//     and sum run over all 64 keys of a tile where the Dh-64 instance kept
+//     one per 32-key half and combined them at the end, so O and the LSE
+//     differ from that route in the last bits (tools/torch_flash_f32_variants.py
+//     `padded` runs it and compares).
+// On the H100 it runs at 3-6x its 3xTF32 bound (T 1024 and 256); the
+// per-score work is at most 13 % of it, the split pass half of it at T 256
+// and a quarter at T 1024 (tools/torch_flash_f32_variants.py --variant
+// noexp, nosplit, nocopy).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -542,6 +570,213 @@ flash_fwd_f32(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
 }
 
 // ---------------------------------------------------------------------------
+// The Dh-32 instance (head dimensions 4 .. 32): persistent blocks, a work
+// item 128 query rows of one head, the two consumers 64 rows each.
+// ---------------------------------------------------------------------------
+
+namespace dh32 {
+constexpr int BM = 128;                    // query rows a work item
+constexpr int Q_PART = BM * 128;           // Q's hi or lo: 128 rows x 32 columns
+constexpr int KV_PART = 64 * 128;          // a K tile's (64 keys) or V^T tile's (32 x 64) hi or lo
+constexpr int KV_ITEM = 2 * KV_PART;       // hi, then lo
+constexpr int VSUB = 32 * 128;             // V^T's sub-tile of 32 keys
+constexpr int NSLOT = 8;
+constexpr int RING_OFF = 4 * Q_PART;       // after two Q slots (hi, lo each)
+constexpr int BAR_OFF = RING_OFF + NSLOT * KV_ITEM;
+constexpr int SMEM = BAR_OFF + 8 * (4 + 2 * NSLOT) + 1024;   // + alignment slack
+static_assert(SMEM <= 232448, "shared memory");
+}  // namespace dh32
+
+// Consumer CW: rows 64 CW .. 64 CW + 63 of every work item of this block.
+// Work item n of the block (w = blockIdx.x + n gridDim.x: head w / nqt,
+// query tile w % nqt) has its Q in slot n % 2 and its tile i's K and V^T at
+// ring positions 2 (n ntiles + i) and 2 (n ntiles + i) + 1.
+template <int CW>
+__device__ __forceinline__ void small_consumer(const Params& p, uint32_t base, uint32_t bars,
+                                               int items, int nqt, int ntiles) {
+  using dh32::BM, dh32::Q_PART, dh32::KV_PART, dh32::KV_ITEM, dh32::VSUB, dh32::NSLOT, dh32::RING_OFF;
+  const uint32_t dbase = base & 0x3FFFFu;
+  auto q_full = [&](int u) { return bars + 8 * u; };
+  auto q_empty = [&](int u) { return bars + 16 + 8 * u; };
+  auto full = [&](int s) { return bars + 32 + 8 * s; };
+  auto empty = [&](int s) { return bars + 32 + 8 * (NSLOT + s); };
+  const int lt = threadIdx.x % WG, warp = lt / 32, lane = lt % 32;
+  const int g = lane >> 2, tg = lane & 3;
+  int n = 0;
+  for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+    const int bh = w / nqt, q0 = (w % nqt) * BM, qs = n % 2;
+    float o[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) o[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};   // running max (scaled, log2 units) of rows g, g + 8
+    float l[2] = {0.f, 0.f};               // this lane's share of the running sum
+    const uint32_t qa = dbase + 2 * qs * Q_PART + CW * 64 * 128;
+    mbar_wait(q_full(qs), (n / 2) & 1);
+    for (int i = 0; i < ntiles; ++i) {
+      const int seq = 2 * (n * ntiles + i), sk = seq % NSLOT, sv = (seq + 1) % NSLOT;
+      // ---- S = Q K^T over the 32 columns: one chain of 4 k-steps ----
+      float s[32];
+      mbar_wait(full(sk), (seq / NSLOT) & 1);
+      const uint32_t kb = dbase + RING_OFF + sk * KV_ITEM;
+      fresh(s);
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) ss3(s, qa + kk * 32, Q_PART, kb + kk * 32, KV_PART, kk == 0);
+      wgmma::commit();
+      wgmma::wait<0>();
+      fence_operand(s);
+      mbar_arrive(empty(sk));
+      if (i == ntiles - 1) mbar_arrive(q_empty(qs));   // Q read for the last time
+
+      // ---- the online softmax: element e holds key i BK + 8 (e / 4) + 2 tg +
+      // (e & 1) of row g + 8 ((e >> 1) & 1); tile i's first key is < T, so
+      // every row's max is finite ----
+      const int key0 = i * BK;
+      if (key0 + BK > p.t) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          if (key0 + (e / 4) * 8 + 2 * tg + (e & 1) >= p.t) s[e] = -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY}, alpha[2];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]) * p.scale_log2);
+        alpha[r] = exp2f(m[r] - m_new);    // 0 on the first tile (m = -inf)
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e >> 1) & 1;
+        s[e] = exp2f(fmaf(s[e], p.scale_log2, -m[r]));
+        l[r] += s[e];
+      }
+      // P as the A operand of P V, split: k-step kk holds keys 8 kk + 2 tg, + 1
+      uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) acc_to_a(s + 4 * kk, ph[kk], pl[kk]);
+
+      // ---- O = O * alpha + P V: a chain a 32-key sub-tile of V^T ----
+      float pa[16], pb[16];
+      mbar_wait(full(sv), ((seq + 1) / NSLOT) & 1);
+      const uint32_t vb = dbase + RING_OFF + sv * KV_ITEM;
+      fresh(pa);
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) rs3(pa, ph[kk], pl[kk], vb + kk * 32, KV_PART, kk == 0);
+      wgmma::commit();
+      fresh(pb);
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        rs3(pb, ph[4 + kk], pl[4 + kk], vb + VSUB + kk * 32, KV_PART, kk == 0);
+      wgmma::commit();
+      wgmma::wait<1>();
+      fence_operand(pa);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) o[e] = fmaf(o[e], alpha[(e >> 1) & 1], pa[e]);
+      wgmma::wait<0>();
+      fence_frags(ph);
+      fence_frags(pl);
+      fence_operand(pb);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) o[e] += pb[e];
+      mbar_arrive(empty(sv));
+    }
+
+    // ---- this consumer's 64 rows of O (rows >= T and columns >= dcols not
+    // stored) and their LSE ----
+    const int b = bh / p.h, h = bh % p.h;
+    const int row0 = q0 + CW * 64 + warp * 16 + g;
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float total = quad_sum(l[r]);
+      inv[r] = 1.f / total;
+      const int row = row0 + 8 * r;
+      if (p.lse != nullptr && tg == 0 && row < p.t)
+        p.lse[(int64_t)bh * p.t + row] = (m[r] + log2f(total)) * 0.6931471805599453f;
+    }
+#pragma unroll
+    for (int e = 0; e < 16; e += 2) {
+      const int r = (e >> 1) & 1, row = row0 + 8 * r, col = 8 * (e / 4) + 2 * tg;
+      if (row >= p.t || col >= p.dcols) continue;
+      float* out = p.o + b * p.o_sb + h * p.o_sh + row * p.o_st + col;
+      *reinterpret_cast<float2*>(out) = make_float2(o[e] * inv[r], o[e + 1] * inv[r]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_f32_small(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_vt, const Params p, int bh_total) {
+  using dh32::BM, dh32::Q_PART, dh32::KV_PART, dh32::KV_ITEM, dh32::VSUB, dh32::NSLOT, dh32::RING_OFF, dh32::BAR_OFF;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  // barriers: q_full[2], q_empty[2] (Q's two slots), full[NSLOT], empty[NSLOT]
+  const uint32_t bars = base + BAR_OFF;
+  auto q_full = [&](int u) { return bars + 8 * u; };
+  auto q_empty = [&](int u) { return bars + 16 + 8 * u; };
+  auto full = [&](int s) { return bars + 32 + 8 * s; };
+  auto empty = [&](int s) { return bars + 32 + 8 * (NSLOT + s); };
+  const int nqt = (p.t + BM - 1) / BM, items = bh_total * nqt, ntiles = (p.t + BK - 1) / BK;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    for (int u = 0; u < 2; ++u) {
+      mbar_init(q_full(u), 1);
+      mbar_init(q_empty(u), 2 * WG);
+    }
+    for (int s = 0; s < NSLOT; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x != 2 * WG) return;
+    // ---- loads, by one thread: each work item's Q (128 rows, hi and lo),
+    // then its K and V^T tiles in turn through the ring ----
+    int n = 0;
+    for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+      const int bh = w / nqt, q0 = (w % nqt) * BM, qs = n % 2;
+      mbar_wait(q_empty(qs), ((n / 2) & 1) ^ 1);
+      mbar_expect_tx(q_full(qs), 2 * Q_PART);
+      for (int part = 0; part < 2; ++part)
+        tma_load(base + (2 * qs + part) * Q_PART, &map_q, q_full(qs), 0, q0, bh, part);
+      for (int i = 0; i < ntiles; ++i)
+        for (int kind = 0; kind < 2; ++kind) {
+          const int seq = 2 * (n * ntiles + i) + kind, s = seq % NSLOT;
+          const uint32_t dst = base + RING_OFF + s * KV_ITEM;
+          mbar_wait(empty(s), ((seq / NSLOT) & 1) ^ 1);
+          mbar_expect_tx(full(s), KV_ITEM);
+          for (int part = 0; part < 2; ++part) {
+            if (kind == 0)   // K: 64 keys x 32 columns
+              tma_load(dst + part * KV_PART, &map_k, full(s), 0, i * BK, bh, part);
+            else             // V^T: 32 columns x 64 keys, two sub-tiles of 32 keys
+              for (int sub = 0; sub < 2; ++sub)
+                tma_load(dst + part * KV_PART + sub * VSUB, &map_vt, full(s), i * BK + 32 * sub,
+                         0, bh, part);
+          }
+        }
+    }
+  } else {
+    reg_alloc<CONSUMER_REGS>();
+    if (wg == 0)
+      small_consumer<0>(p, base, bars, items, nqt, ntiles);
+    else
+      small_consumer<1>(p, base, bars, items, nqt, ntiles);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -561,6 +796,48 @@ Layout layout(int bh, int t, int d) {
   return l;
 }
 
+// The split pass over q, k and v into the workspace: Q and K as they are,
+// V transposed in the order pi; copies of `d` columns, the inputs' `dx`.
+cudaError_t split_inputs(const void* q, const void* k, const void* v, const Layout& l, int bh,
+                         int h, int t, int d, int dx, const int64_t* s, unsigned char* ws,
+                         cudaStream_t stream) {
+  SplitParams sp = {};
+  sp.job[0] = {(const float*)q, s[0], s[1], s[2], (float*)(ws + l.q_off), nullptr, 0};
+  sp.job[1] = {(const float*)k, s[3], s[4], s[5], (float*)(ws + l.k_off), nullptr, 0};
+  sp.job[2] = {(const float*)v, s[6], s[7], s[8], nullptr, (float*)(ws + l.vt_off), 1};
+  sp.njobs = 3;
+  sp.h = h;
+  sp.t = t;
+  sp.d = d;
+  sp.dx = dx;
+  sp.tp = l.tp;
+  sp.bh = bh;
+  return launch_split(sp, stream);
+}
+
+// The Dh-32 instance: copies of the head dimension's own d columns, one
+// block an SM over the work items.
+int launch_small(const void* q, const void* k, const void* v, const Params& p, int b, int d,
+                 const int64_t* s, unsigned char* ws, cudaStream_t stream) {
+  // set before every launch (see launch below)
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_small,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dh32::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int bh = b * p.h;
+  const Layout l = layout(bh, p.t, d);
+  err = split_inputs(q, k, v, l, bh, p.h, p.t, d, d, s, ws, stream);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_q, map_k, map_vt;
+  if (!make_split_map(&map_q, (float*)(ws + l.q_off), bh, p.t, d, dh32::BM) ||
+      !make_split_map(&map_k, (float*)(ws + l.k_off), bh, p.t, d, BK) ||
+      !make_split_map(&map_vt, (float*)(ws + l.vt_off), bh, d, l.tp, 32))
+    return (int)cudaErrorInvalidValue;
+  const int items = bh * ((p.t + dh32::BM - 1) / dh32::BM);
+  const int grid = items < sm_count() ? items : sm_count();
+  flash_fwd_f32_small<<<grid, THREADS, dh32::SMEM, stream>>>(map_q, map_k, map_vt, p, bh);
+  return (int)cudaGetLastError();
+}
+
 template <int DL, int CL>
 int launch(const void* q, const void* k, const void* v, const Params& p, int b, int d,
            const int64_t* s, unsigned char* ws, cudaStream_t stream) {
@@ -576,18 +853,7 @@ int launch(const void* q, const void* k, const void* v, const Params& p, int b, 
   float* qs = (float*)(ws + l.q_off);
   float* ks = (float*)(ws + l.k_off);
   float* vt = (float*)(ws + l.vt_off);
-  SplitParams sp = {};
-  sp.job[0] = {(const float*)q, s[0], s[1], s[2], qs, nullptr, 0};
-  sp.job[1] = {(const float*)k, s[3], s[4], s[5], ks, nullptr, 0};
-  sp.job[2] = {(const float*)v, s[6], s[7], s[8], nullptr, vt, 1};
-  sp.njobs = 3;
-  sp.h = p.h;
-  sp.t = p.t;
-  sp.d = d;
-  sp.dx = dx;
-  sp.tp = l.tp;
-  sp.bh = bh;
-  err = launch_split(sp, stream);
+  err = split_inputs(q, k, v, l, bh, p.h, p.t, d, dx, s, ws, stream);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap map_q, map_k, map_vt;
   if (!make_split_map(&map_q, qs, bh, p.t, d, BM) || !make_split_map(&map_k, ks, bh, p.t, d, BK) ||
@@ -604,18 +870,18 @@ int launch(const void* q, const void* k, const void* v, const Params& p, int b, 
 extern "C" {
 
 // Device bytes of the forward's workspace for [B * H = bh, T, D]: Q and K
-// split, [2, bh, T, D] fp32 each, and V split and transposed, [2, bh, D, T
-// rounded up to 8], each region 256-byte aligned.
+// split, [2, bh, T, C] fp32 each, and V split and transposed, [2, bh, C, T
+// rounded up to 8], C = copy_columns(D), each region 256-byte aligned.
 size_t flash_attention_f32_workspace(int bh, int t, int d) {
-  return layout(bh, t, run_columns(d)).bytes;
+  return layout(bh, t, copy_columns(d)).bytes;
 }
 
 // q, k, v, o: fp32 [B, H, T, D] on the device, last dimension contiguous;
 // strides: the element strides {batch, head, token} of q, k, v and o (12
 // values). D a multiple of 4 up to 1024, run on the instance run_columns(D);
-// `cluster` the blocks that split it, instance / 128 at 128, 256, 512 and
-// above 512 (clusters of 5 to 8), else instance / 64 (the wrapper's plan;
-// anything else is refused). lse:
+// `cluster` the blocks that split it, 1 at the Dh-32 instance, instance /
+// 128 at 128, 256, 512 and above 512 (clusters of 5 to 8), else instance /
+// 64 (the wrapper's plan; anything else is refused). lse:
 // contiguous fp32 [B, H, T], or null when the caller needs no LSE.
 // workspace: flash_attention_f32_workspace bytes, 256-byte aligned.
 // Launches the split pass and the kernel on `stream`; returns the
@@ -633,6 +899,7 @@ int flash_attention_f32_fwd(const void* q, const void* k, const void* v, void* o
   unsigned char* ws = (unsigned char*)workspace;
 #define FWD(D, DL) \
   case D: return launch<DL, D / DL>(q, k, v, p, b, d, strides, ws, s)
+  if (run == 32) return launch_small(q, k, v, p, b, d, strides, ws, s);
   switch (run) {
     FWD(64, 64); FWD(128, 128); FWD(192, 64); FWD(256, 128);
     FWD(320, 64); FWD(384, 64); FWD(448, 64); FWD(512, 128);

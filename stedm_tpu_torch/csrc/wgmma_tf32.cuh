@@ -125,6 +125,19 @@ __device__ __forceinline__ void fence_operand(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Pins A fragments' registers until this point: a wgmma reads its A operand
+// from registers asynchronously, after the instruction has issued, so the
+// fragments must keep their registers until the wait that completes the
+// chains reading them (call it right after that wait); otherwise the
+// compiler may give those registers to new values meanwhile.
+template <int K>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) asm volatile("" : "+r"(a[k][v])::"memory");
+}
+
 // Starts a chain's accumulator: zeroes and pins it. The chain's first
 // wgmma discards it (scale-d 0) but still takes it as an operand, so without
 // the zeroes its previous values stay live into the chain, and where other
@@ -201,8 +214,11 @@ inline bool make_split_map(CUtensorMap* map, const float* ptr, int bh, int rows,
 // tokens of each group of 8 in the order pi when `perm` is set. A block
 // takes a 32-token x 32-column tile of every job. The inputs have `dx`
 // columns and the copies `d`: with dx below d (the kernels run a head
-// dimension padded to their instance, dx 32 or 96 in copies of 64 or 128)
-// the columns from dx on are written as zeros.
+// dimension padded to their instance, dx 48 or 96 in copies of 64 or 128)
+// the columns from dx on are written as zeros. The Dh-32 instance takes
+// copies of the head dimension itself (d = dx, a multiple of 4 up to 32):
+// its tensor maps declare those columns, and TMA fills the rest of each
+// 32-column box with zeros.
 // ---------------------------------------------------------------------------
 
 struct SplitJob {
@@ -236,7 +252,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS) split_tf32(const SplitParams p)
       const int tok = t0 + ty + 8 * r;
       const float v = tok < p.t && d0 + tx < p.dx ? x[tok * job.st + d0 + tx] : 0.f;
       tile[ty + 8 * r][tx] = v;
-      if (job.nat != nullptr && tok < p.t) {
+      if (job.nat != nullptr && tok < p.t && d0 + tx < p.d) {
         uint32_t hi, lo;
         split(v, hi, lo);
         const size_t at = ((size_t)bh * p.t + tok) * p.d + d0 + tx;
@@ -250,7 +266,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS) split_tf32(const SplitParams p)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int dd = ty + 8 * r;
-        if (t0 + tx >= p.tp) continue;
+        if (t0 + tx >= p.tp || d0 + dd >= p.d) continue;
         uint32_t hi, lo;
         split(tile[src][dd], hi, lo);
         const size_t at = ((size_t)bh * p.d + d0 + dd) * p.tp + t0 + tx;
@@ -263,7 +279,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS) split_tf32(const SplitParams p)
 }
 
 inline cudaError_t launch_split(const SplitParams& p, cudaStream_t stream) {
-  const dim3 grid((p.tp + 31) / 32, p.d / 32, p.bh);
+  const dim3 grid((p.tp + 31) / 32, (p.d + 31) / 32, p.bh);
   split_tf32<<<grid, SPLIT_THREADS, 0, stream>>>(p);
   return cudaGetLastError();
 }
@@ -271,20 +287,26 @@ inline cudaError_t launch_split(const SplitParams& p, cudaStream_t stream) {
 inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
 // The head-dimension split of both kernels over the instance they run (run
-// below): the columns a block, 128 at 128, 256, 512 and every instance
-// above 512, else 64 (the backward's 3-block instance of 128 columns, Dh
-// 384, spilled), and instance / columns blocks a cluster, at most 8, the
-// portable cluster size, at Dh 1024 (ops/blocked_attention.py: fp32_plan
-// passes that cluster size, which the entry points check).
+// below): the columns a block, 32 at the Dh-32 instance, 128 at 128, 256,
+// 512 and every instance above 512, else 64 (the backward's 3-block
+// instance of 128 columns, Dh 384, spilled), and instance / columns blocks
+// a cluster, at most 8, the portable cluster size, at Dh 1024
+// (ops/blocked_attention.py: fp32_columns gives that cluster size, which
+// the entry points check).
 inline int block_columns(int run) {
-  return run == 128 || run == 256 || run >= 512 ? 128 : 64;
+  return run == 32 ? 32 : run == 128 || run == 256 || run >= 512 ? 128 : 64;
 }
 
 // The instance (head dimension) the kernels run a head dimension d (a
-// multiple of 4 up to 1024) at: the smallest multiple of 64 at or above it
-// up to 512, of 128 above (one 128-column slice a cluster rank). The split
-// copies carry zeros in the columns past d, and only the real columns of
-// the outputs are stored.
-inline int run_columns(int d) { return d <= 512 ? (d + 63) / 64 * 64 : (d + 127) / 128 * 128; }
+// multiple of 4 up to 1024) at: 32 up to 32, then the smallest multiple of
+// 64 at or above it up to 512, of 128 above (one 128-column slice a
+// cluster rank). Only the real columns of the outputs are stored.
+inline int run_columns(int d) {
+  return d <= 32 ? 32 : d <= 512 ? (d + 63) / 64 * 64 : (d + 127) / 128 * 128;
+}
+
+// The columns of the split copies: the head dimension itself at the Dh-32
+// instance, else the instance's, zeros past the head dimension.
+inline int copy_columns(int d) { return d <= 32 ? d : run_columns(d); }
 
 }  // namespace tf32w

@@ -23,10 +23,13 @@ multiples of 64 up to 512, the bf16 backward at 32 (an instance of its own,
 256 keys a block), 64, 128 (the U-Net's AttentionBlock in diffusion
 training), 256 and 512 (the codec's AttnBlockVQ in codec fine-tuning,
 where a thread-block cluster splits the head dimension), the fp32 kernels
-at the multiples of 64; above 512 every kernel at the multiples of 128 up
-to 1024 (``CLUSTER_HEAD_DIMS``: one 128-column slice of the head dimension
-a block, over a cluster of 5 to 8 blocks; the landscape U-Net at
-``num_heads: 1`` and a codec whose mid-block is 1024 wide).
+at 32 (instances of their own: the forward's blocks persistent over
+128-row work items, the backward's 128 keys a block, on split copies of
+the head dimension's own columns) and the multiples of 64; above 512
+every kernel at the multiples of 128 up to 1024 (``CLUSTER_HEAD_DIMS``:
+one 128-column slice of the head dimension a block, over a cluster of 5
+to 8 blocks; the landscape U-Net at ``num_heads: 1`` and a codec whose
+mid-block is 1024 wide).
 ``head_dim_plan`` maps every head dimension from 1 to ``MAX_HEAD_DIM``
 onto the smallest instance at or above it, whose tensor maps (or split
 copies) declare the true columns, so the columns past them arrive as zeros
@@ -60,22 +63,22 @@ from stedm_tpu_torch.ops import LAUNCHES
 MAX_HEAD_DIM = 1024
 # above 512, every kernel's instances: one 128-column slice a cluster rank
 CLUSTER_HEAD_DIMS = (640, 768, 896, 1024)
-# the compiled instances of the bf16 forward: 32, the multiples of 64 up to
-# 512, then CLUSTER_HEAD_DIMS (the fp32 kernels': the same but 32); the bf16
-# backward's: BWD_HEAD_DIMS
+# the compiled instances of the bf16 forward and both fp32 kernels: 32, the
+# multiples of 64 up to 512, then CLUSTER_HEAD_DIMS; the bf16 backward's:
+# BWD_HEAD_DIMS
 HEAD_DIMS = (32,) + tuple(range(64, 513, 64)) + CLUSTER_HEAD_DIMS
 BWD_HEAD_DIMS = (32, 64, 128, 256, 512) + CLUSTER_HEAD_DIMS
-# the fp32 kernels' head dims split 128 columns a block (the others: 64)
+# the fp32 kernels' head dims split 128 columns a block (Dh 32: 32, the
+# others: 64)
 FP32_WIDE_HEAD_DIMS = (128, 256, 512) + CLUSTER_HEAD_DIMS
 _LOG2E = 1.0 / math.log(2.0)
 # the kernels of each dtype: (forward, backward) sources under csrc/, each
 # also the name of its LAUNCHES count
 KERNELS = {torch.bfloat16: ("flash_attention", "flash_attention_bwd"),
            torch.float32: ("flash_attention_f32", "flash_attention_bwd_f32")}
-# each kernel's compiled instances, by head dim (the fp32 kernels run Dh 32
-# on their Dh-64 instance)
+# each kernel's compiled instances, by head dim
 INSTANCES = {"flash_attention": HEAD_DIMS, "flash_attention_bwd": BWD_HEAD_DIMS,
-             "flash_attention_f32": HEAD_DIMS[1:], "flash_attention_bwd_f32": HEAD_DIMS[1:]}
+             "flash_attention_f32": HEAD_DIMS, "flash_attention_bwd_f32": HEAD_DIMS}
 ABOVE_MAX = (f"the flash kernels take head dims up to {MAX_HEAD_DIM} (ROADMAP.md §2: a kernel "
              "above it is still to be written); sdpa's exact, chunked and auto, and the "
              "codec's AttnBlockVQ, run the plain path there")
@@ -225,18 +228,25 @@ def fwd_workspace_bytes(bh: int, t: int, d: int) -> int:
     return _kernel_fn(stem, f"{stem}_workspace", [ctypes.c_int] * 3, ctypes.c_size_t)(bh, t, d)
 
 
+def fp32_columns(d: int) -> tuple[int, int]:
+    """The head-dimension split of the fp32 kernels at head dim ``d`` (a
+    multiple of 4 up to ``MAX_HEAD_DIM``): the columns a block of the
+    instance that runs it (``head_dim_plan``: 32 at the Dh-32 instance,
+    128 at ``FP32_WIDE_HEAD_DIMS``, else 64) and the thread-block cluster of
+    instance / columns blocks (at most 8, the portable cluster size: Dh
+    1024). The C side refuses any other cluster size."""
+    run = head_dim_plan(d, torch.float32, True).instance
+    cols = 32 if run == 32 else 128 if run in FP32_WIDE_HEAD_DIMS else 64
+    return cols, run // cols
+
+
 def fp32_plan(b: int, h: int, t: int, d: int) -> dict:
     """The fp32 kernels' launch plan for ``[B, H, T, Dh]`` (``d`` a multiple
-    of 4 up to ``MAX_HEAD_DIM``): the instance that runs it
-    (``head_dim_plan``) split into ``columns`` a block
-    (``FP32_WIDE_HEAD_DIMS`` take 128, the others 64) over a thread-block
-    ``cluster`` of instance / columns blocks (at most 8, the portable
-    cluster size: Dh 1024), the C entry points (``fwd``, ``bwd``) and the
-    workspace bytes each asks for. The C side refuses any other cluster
-    size."""
-    run = head_dim_plan(d, torch.float32, True).instance
-    cols = 128 if run in FP32_WIDE_HEAD_DIMS else 64
-    return {"columns": cols, "cluster": run // cols,
+    of 4 up to ``MAX_HEAD_DIM``): ``columns`` a block and the ``cluster``
+    size (``fp32_columns``), the C entry points (``fwd``, ``bwd``) and the
+    workspace bytes each asks for."""
+    cols, cluster = fp32_columns(d)
+    return {"columns": cols, "cluster": cluster,
             "fwd": _fwd_lib(torch.float32), "bwd": _bwd_lib(torch.float32),
             "fwd_workspace": fwd_workspace_bytes(b * h, t, d),
             "bwd_workspace": bwd_workspace_bytes(b * h, t, d, torch.float32)}

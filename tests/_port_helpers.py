@@ -52,7 +52,10 @@ def jax_init(mode: str):
     calls op by op, one compile a primitive) is cheaper: ``"jit"`` gives the
     same values through one ``jax.jit``; ``"memo"`` computes them as flax
     does, once for each module, key and input shapes in this process (a
-    test's own init and its JAX entry point's); ``"shapes"`` gives zeros of
+    test's own init and its JAX entry point's); ``"jit-memo"`` is ``"memo"``
+    with each init computed through one ``quick_jit`` (op by op, flax
+    compiles each primitive at full optimisation: ~35 s of a seg net's
+    entry-point test); ``"shapes"`` gives zeros of
     the shapes ``eval_shape`` traces, for a JAX entry point whose parameters
     are all restored or whose init values no check reads. The JAX package
     itself is unchanged."""
@@ -70,17 +73,19 @@ def jax_init(mode: str):
             return orig(self, r, *full, **kwargs)
 
         arrays = [args[i] for i in dyn]
-        if mode == "memo":
-            key = (repr(self), np.asarray(jax.random.key_data(rngs) if jnp.issubdtype(
+        if mode in ("memo", "jit-memo"):
+            key = (mode, repr(self), np.asarray(jax.random.key_data(rngs) if jnp.issubdtype(
                 rngs.dtype, jax.dtypes.prng_key) else rngs).tobytes(),
                 tuple((np.shape(a), str(np.asarray(a).dtype)) if i in dyn else repr(a)
                       for i, a in enumerate(args)), repr(sorted(kwargs.items())))
             if key not in _INIT_MEMO:   # host copies: a caller may donate its arrays
                 _INIT_MEMO[key] = jax.tree_util.tree_map(
-                    np.array, orig(self, rngs, *args, **kwargs))
+                    np.array, quick_jit(call)(rngs, *arrays) if mode == "jit-memo"
+                    else orig(self, rngs, *args, **kwargs))
             return jax.tree_util.tree_map(jnp.array, _INIT_MEMO[key])
         if mode == "shapes":
-            return jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
+            # host zeros: jnp.zeros compiles a broadcast for every leaf's shape
+            return jax.tree_util.tree_map(lambda s: jnp.asarray(np.zeros(s.shape, s.dtype)),
                                           jax.eval_shape(call, rngs, *arrays))
         return jax.jit(call)(rngs, *arrays)
 

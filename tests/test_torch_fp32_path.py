@@ -65,6 +65,7 @@ def test_kernels_take_bf16_and_fp32_only():
     (torch.float32, 192, "CUDA tensor"),
     (torch.float32, 448, "CUDA tensor"),
     (torch.float32, 96, "CUDA tensor"),          # on the Dh-128 instance
+    (torch.float32, 20, "CUDA tensor"),          # on the Dh-32 instance
     (torch.bfloat16, 640, "CUDA tensor"),        # a cluster of 5 blocks of 128 columns
     (torch.float32, 1024, "CUDA tensor"),        # a cluster of 8
     (torch.bfloat16, 1152, "ROADMAP.md §2"),
@@ -73,7 +74,7 @@ def test_kernels_take_bf16_and_fp32_only():
 def test_backward_head_dims_by_dtype(dtype, dh, match):
     """Both backwards take every head dimension up to 1024 (head_dim_plan:
     the bf16 one on its instances 32, 64, 128, 256 and 512, the fp32 one on
-    the multiples of 64, both on the multiples of 128 above 512) and refuse
+    32 and the multiples of 64, both on the multiples of 128 above 512) and refuse
     the larger ones; past the gates, a CPU tensor is refused before any
     launch."""
     q = torch.zeros(1, 1, 64, dh, dtype=dtype)
@@ -95,12 +96,12 @@ def test_fp32_strided_views_of_the_attention_block():
         pattn.check_strided(torch.zeros(2, 2, 16, 66)[..., :64], "q")   # a 264-byte pitch
 
 
-@pytest.mark.parametrize("d", list(range(64, 513, 64)) + [640, 768, 896, 1024])
+@pytest.mark.parametrize("d", [32] + list(range(64, 513, 64)) + [640, 768, 896, 1024])
 def test_fp32_launch_plan_matches_the_c_side(monkeypatch, d):
     """For every instance the fp32 kernels run: the columns a block and the
-    cluster size the C entry points insist on (128 columns at Dh 128, 256,
-    512 and above 512, else 64; Dh / columns blocks, at most 8, the portable
-    cluster size), the entry points resolved with their ctypes
+    cluster size the C entry points insist on (32 columns at Dh 32, 128 at
+    Dh 128, 256, 512 and above 512, else 64; Dh / columns blocks, at most 8,
+    the portable cluster size), the entry points resolved with their ctypes
     signatures (the cluster size after Dh, the workspace pointer after the
     tensors), and each workspace exactly what the C side's
     ``*_workspace(B * H, T, Dh)`` returns for the launch's shape."""
@@ -117,7 +118,7 @@ def test_fp32_launch_plan_matches_the_c_side(monkeypatch, d):
     monkeypatch.setattr(pattn, "_kernel_fn", fake)
     b, h, t = 2, 3, 100
     plan = pattn.fp32_plan(b, h, t, d)
-    cols = 128 if d in (128, 256) or d >= 512 else 64
+    cols = 32 if d == 32 else 128 if d in (128, 256) or d >= 512 else 64
     assert (plan["columns"], plan["cluster"]) == (cols, d // cols)
     assert plan["cluster"] * plan["columns"] == d and 1 <= plan["cluster"] <= 8
     fwd_stem, bwd_stem = pattn.KERNELS[torch.float32]

@@ -36,10 +36,11 @@ DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, to
 CLUSTERED = (640, 768, 896, 1024)
 INSTANCES = {(torch.bfloat16, False): (32, 64, 128, 192, 256, 320, 384, 448, 512) + CLUSTERED,
              (torch.bfloat16, True): (32, 64, 128, 256, 512) + CLUSTERED,
-             (torch.float32, False): (64, 128, 192, 256, 320, 384, 448, 512) + CLUSTERED,
-             (torch.float32, True): (64, 128, 192, 256, 320, 384, 448, 512) + CLUSTERED}
-PLAN_DIMS = (8, 16, 20, 32, 40, 48, 64, 96, 160, 192, 320, 384, 448, 512, 640, 1024, 516, 520,
-             576, 700, 768, 1000, 1028, 1152)
+             (torch.float32, False): (32, 64, 128, 192, 256, 320, 384, 448, 512) + CLUSTERED,
+             (torch.float32, True): (32, 64, 128, 192, 256, 320, 384, 448, 512) + CLUSTERED}
+# (fp32 Dh 4 .. 32: the Dh-32 instances at their own widths; 36: the Dh-64 ones)
+PLAN_DIMS = (4, 8, 12, 16, 20, 24, 28, 32, 36, 40, 48, 64, 96, 160, 192, 320, 384, 448, 512, 640,
+             1024, 516, 520, 576, 700, 768, 1000, 1028, 1152)
 
 
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
@@ -49,7 +50,9 @@ def test_head_dim_plan(d, dtype, backward):
     """The width is Dh rounded up to 16 bytes (8 bf16, 4 fp32 values), the
     instance the smallest compiled one at or above it; none above 1024. A
     launch counts under the kernel's own name only at its compiled
-    multiples of 64 up to 512."""
+    multiples of 64 up to 512. fp32 splits the instance into 32 columns a
+    block at the Dh-32 instance (Dh 4 .. 32: a cluster of 1), else 128 or 64
+    (``fp32_columns``)."""
     tdt = DTYPES[dtype][1]
     plan = pattn.head_dim_plan(d, tdt, backward)
     stem = pattn.KERNELS[tdt][int(backward)]
@@ -63,6 +66,10 @@ def test_head_dim_plan(d, dtype, backward):
     assert pattn.INSTANCES[stem] == instances
     own = d % 64 == 0 and d <= 512 and d in instances
     assert pattn.launch_counter(stem, d) == (stem if own else f"{stem}_dh{d}")
+    if tdt == torch.float32:
+        cols = 32 if d <= 32 else 128 if plan.instance in (128, 256) or d > 448 else 64
+        assert pattn.fp32_columns(d) == (cols, plan.instance // cols)
+        assert (d <= 32) == (plan == (32, d))
 
 
 def test_every_head_dim_up_to_512_has_a_kernel():

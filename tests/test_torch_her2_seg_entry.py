@@ -60,7 +60,8 @@ SEG_BASE = ["data.patch_size=64", "data.base_scale=1", "data.samples=8", "num_ep
 
 def _tiny_seg(monkeypatch, jtrain_seg):
     tiny = functools.partial(JSegUNet, decoder_channels=DEC, encoder_config=ENC)
-    with jax_init("memo"):   # JAX's main makes this init again
+    # JAX's main makes this init again (one quick jit: _port_helpers)
+    with quick_compile(), jax_init("jit-memo"):
         init = tiny(classes=2).init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), False)
     sd = seg_state_dict(jax.tree_util.tree_map(np.asarray, init["params"]),
                         jax.tree_util.tree_map(np.asarray, init["batch_stats"]))
@@ -92,7 +93,7 @@ def test_train_seg_her2_matches_jax(tree, tmp_path, monkeypatch):
     _tiny_seg(monkeypatch, jtrain_seg)
     args = HER2_OVERRIDES + SEG_BASE + ["data/dataset=[her2_anno,her2_syn]",
                                         "data.ratios=[0.2,0.8]", "style_sampling=none"]
-    with quick_compile(), jax_init("memo"):
+    with quick_compile(), jax_init("jit-memo"):
         jtrain_seg.main(args + _where(tree, tmp_path / "jax"))
     out = train_seg.main(args + _where(tree, tmp_path / "port"), device="cpu")
     run = "seg_her2_syn"
@@ -133,7 +134,7 @@ def test_train_seg_catch_logs_the_subtype_iou(tmp_path_factory, tmp_path, monkey
     monkeypatch.setattr(jtrain_seg, "_epoch_metrics", with_subtypes)
     args = CATCH_OVERRIDES + SEG_BASE + ["data.overlap_val=8", "style_sampling=none",
                                          "num_epochs=1"]
-    with quick_compile(), jax_init("memo"):
+    with quick_compile(), jax_init("jit-memo"):
         jtrain_seg.main(args + _where(data, tmp_path / "jax"))
     out = train_seg.main(args + _where(data, tmp_path / "port"), device="cpu")
     jev, pev = _events(tmp_path / "jax" / "seg_catch"), _events(tmp_path / "port" / "seg_catch")

@@ -688,12 +688,16 @@ def _f32_forward_tolerance(q, k, v, s, ref):
 
 
 # T not a multiple of the 64-row / 64-key tiles, Dh 512 below one tile, and
-# every cluster size (Dh / 128, or Dh / 64 at 192, 320, 448)
+# every cluster size (Dh / 128, or Dh / 64 at 192, 320, 448); the Dh-32
+# instance at Dh 4 .. 32, ragged over its 128-row work items, with more
+# work items than SMs (its blocks walk several) and a single row
 @pytest.mark.parametrize("shape", [(2, 3, 40, 64), (1, 2, 200, 128), (1, 1, 130, 192),
                                    (1, 2, 300, 256), (1, 1, 100, 320), (1, 1, 333, 448),
                                    (1, 1, 2500, 512), (3, 16, 300, 128), (2, 2, 97, 384),
                                    (1, 2, 40, 512), (2, 1, 1, 512), (1, 3, 129, 64),
-                                   (2, 3, 40, 32), (2, 8, 1024, 32)])
+                                   (2, 3, 40, 32), (2, 8, 1024, 32), (2, 3, 200, 4),
+                                   (1, 2, 130, 8), (2, 2, 300, 16), (1, 3, 257, 20),
+                                   (2, 1, 129, 28), (4, 40, 300, 32), (2, 2, 1, 32)])
 def test_flash_attention_f32_forward(cuda, shape):
     """Every head-dimension class at ragged T: O within 2^-16 (P|V| + |ref|)
     of the plain version (TF32 off), the LSE against torch.logsumexp, two
@@ -703,7 +707,7 @@ def test_flash_attention_f32_forward(cuda, shape):
     q, k, v = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(3))
     s = shape[-1] ** -0.5
     counter = a.launch_counter("flash_attention_f32", shape[-1])
-    before = LAUNCHES[counter]
+    before = LAUNCHES.get(counter, 0)
     got, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
     assert LAUNCHES[counter] == before + 1
     ref = a.attention_reference(q, k, v, s)
@@ -714,7 +718,7 @@ def test_flash_attention_f32_forward(cuda, shape):
 
 
 @pytest.mark.parametrize("b,t,h,dh", [(2, 256, 8, 128), (1, 200, 4, 64), (2, 70, 1, 512),
-                                     (2, 256, 8, 32)])
+                                     (2, 256, 8, 32), (1, 200, 4, 16), (2, 70, 3, 20)])
 def test_flash_attention_f32_strided_equals_contiguous(cuda, b, t, h, dh):
     from stedm_tpu_torch.ops import blocked_attention as a
 
@@ -743,12 +747,16 @@ def _f64_backward(q, k, v, o, lse, do, s):
     return ref, bounds
 
 
-# T not a multiple of the 32-query / 64-key tiles, Dh 512 below one tile
+# T not a multiple of the 32-query / 64-key tiles, Dh 512 below one tile;
+# the Dh-32 instance (128 keys a block) at Dh 4 .. 32, a block's second
+# 64 keys partly or wholly past T
 @pytest.mark.parametrize("shape", [(2, 3, 40, 64), (1, 2, 200, 128), (1, 1, 130, 192),
                                    (1, 2, 300, 256), (1, 1, 100, 320), (1, 1, 257, 512),
                                    (3, 8, 130, 64), (2, 1, 1000, 512), (2, 2, 97, 384),
                                    (1, 2, 20, 512), (1, 1, 333, 448), (2, 1, 33, 128),
-                                   (2, 3, 40, 32), (2, 4, 1030, 32)])
+                                   (2, 3, 40, 32), (2, 4, 1030, 32), (2, 3, 130, 4),
+                                   (1, 2, 200, 8), (2, 2, 333, 16), (1, 3, 97, 20),
+                                   (2, 1, 257, 28), (1, 2, 65, 32)])
 def test_flash_attention_f32_backward(cuda, shape):
     """dq, dk, dv within 2^-16 (sqrt(sum terms^2) + |ref|) of the plain
     version's steps in float64; two launches give the same bits."""
@@ -758,7 +766,7 @@ def test_flash_attention_f32_backward(cuda, shape):
     s = shape[-1] ** -0.5
     o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
     counter = a.launch_counter("flash_attention_bwd_f32", shape[-1])
-    before = LAUNCHES[counter]
+    before = LAUNCHES.get(counter, 0)
     got = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
     assert LAUNCHES[counter] == before + 1
     ref, bounds = _f64_backward(q, k, v, o, lse, do, s)
@@ -801,7 +809,7 @@ def test_flash_attention_f32_cluster_instances(cuda, shape):
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 700, 512), (2, 4, 333, 128), (1, 2, 650, 192),
-                                   (1, 1, 700, 1024)])
+                                   (1, 1, 700, 1024), (2, 3, 700, 32), (1, 4, 333, 16)])
 def test_flash_attention_f32_backward_is_deterministic(cuda, shape):
     """Many 64-key blocks add their parts of dQ into the sums in key-block
     order behind turn counters (one per head, query tile and cluster rank):
@@ -821,10 +829,10 @@ def test_flash_attention_f32_backward_is_deterministic(cuda, shape):
             assert torch.equal(g, g2), name
 
 
-@pytest.mark.parametrize("d", [64, 192, 256, 512])
+@pytest.mark.parametrize("d", [32, 64, 192, 256, 512])
 def test_flash_attention_f32_refuses_another_cluster(cuda, d):
     """The C side takes only the wrapper's plan: Dh / 128 blocks a cluster,
-    or Dh / 64 when Dh is not a multiple of 128."""
+    or Dh / 64 when Dh is not a multiple of 128, and 1 at Dh 32."""
     import ctypes
 
     from stedm_tpu_torch.ops import blocked_attention as a
@@ -842,19 +850,22 @@ def test_flash_attention_f32_refuses_another_cluster(cuda, d):
     torch.cuda.synchronize()
 
 
-def test_flash_attention_function_f32_launches_fp32_kernels(cuda):
+@pytest.mark.parametrize("dh", [64, 32, 16])
+def test_flash_attention_function_f32_launches_fp32_kernels(cuda, dh):
     """The U-Net's AttentionBlock at fp32: FlashAttentionFunction on strided
     views runs the fp32 forward and backward and equals the direct launches."""
     from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
 
-    proj = torch.randn(1, 96, 2, 3, 64, generator=cuda, device="cuda").requires_grad_()
+    proj = torch.randn(1, 96, 2, 3, dh, generator=cuda, device="cuda").requires_grad_()
     q, k, v = proj.permute(0, 2, 3, 1, 4).unbind(2)
-    do = torch.randn(1, 96, 2, 64, generator=cuda, device="cuda")
+    do = torch.randn(1, 96, 2, dh, generator=cuda, device="cuda")
+    fwd, bwd = (a.launch_counter(stem, dh) for stem in ("flash_attention_f32",
+                                                         "flash_attention_bwd_f32"))
     before = dict(LAUNCHES)
     out = a.flash_attention(q, k, v, 0.125)
     out.transpose(1, 2).backward(do)
-    assert LAUNCHES["flash_attention_f32"] == before["flash_attention_f32"] + 1
-    assert LAUNCHES["flash_attention_bwd_f32"] == before["flash_attention_bwd_f32"] + 1
+    assert LAUNCHES[fwd] == before[fwd] + 1
+    assert LAUNCHES[bwd] == before[bwd] + 1
     assert LAUNCHES["flash_attention"] == before["flash_attention"]
     qd, kd, vd = (t.detach() for t in (q, k, v))
     o, lse = a.flash_attention_cuda(qd, kd, vd, 0.125, return_lse=True)

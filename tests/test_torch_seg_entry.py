@@ -87,7 +87,8 @@ def test_train_seg_main_matches_jax(data, tmp_path, monkeypatch):
     import train_seg as jtrain_seg
 
     tiny = functools.partial(JSegUNet, decoder_channels=DEC, encoder_config=ENC)
-    with jax_init("memo"):   # JAX's main makes this init again
+    # JAX's main makes this init again (one quick jit: _port_helpers)
+    with quick_compile(), jax_init("jit-memo"):
         init = tiny(classes=2).init(jax.random.PRNGKey(0), jnp.zeros((1, PATCH, PATCH, 3)),
                                     False)
     sd = seg_state_dict(jax.tree_util.tree_map(np.asarray, init["params"]),
@@ -101,7 +102,7 @@ def test_train_seg_main_matches_jax(data, tmp_path, monkeypatch):
     monkeypatch.setattr(jtrain_seg, "SegUNet", tiny)
     monkeypatch.setattr(jloader.ConcatDataset, "__getitem__", ConcatDataset.__getitem__)
     monkeypatch.setattr(train_seg, "build_seg_model", build_tiny)
-    with quick_compile(), jax_init("memo"):
+    with quick_compile(), jax_init("jit-memo"):
         jtrain_seg.main(OVERRIDES + _where(data, tmp_path / "jax"))
     out = train_seg.main(OVERRIDES + _where(data, tmp_path / "port"), device="cpu")
 

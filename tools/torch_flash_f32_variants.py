@@ -27,6 +27,24 @@ exactly once. The variants:
   turn (the key-block order that keeps dQ the same bits from run to run):
   what the order costs. Its dQ is wrong where block 0's store lands after
   another block's add;
+* ``padded`` (both): head dimensions up to 32 on the Dh-64 instance over
+  split copies zero-padded to 64 columns, the route before the Dh-32
+  instances. Its dQ, dK and dV must be the shipped bits (the Dh-32
+  backward adds the same 64-key parts in the same order); its O and LSE
+  differ in the last bits (the Dh-32 forward's rows take their max and sum
+  over a tile's 64 keys at once, the Dh-64 instance's over two 32-key
+  halves combined at the end), and the script prints by how much;
+* ``noexp`` and ``nosplit`` (both, at the Dh-32 instances' shapes): the
+  per-score work taken out, one part at a time: ``noexp`` takes P (the
+  forward's P, the backward's P^T) without its exp2, ``nosplit`` hands the
+  products P (forward), P^T and dS^T (backward) as their raw bits with a
+  zero lo half instead of splitting each into TF32 hi and lo. Their
+  outputs are wrong (not judged); the shipped time less theirs is what
+  that work costs;
+* ``nocopy`` (both, at the same shapes): the split pass left out (the
+  backward keeps its stats pass), so the kernels read a workspace nobody
+  wrote this call. Its outputs are wrong (not judged); the shipped time
+  less its time is the split pass's share;
 * ``long`` (both): no 4-k-step cap on the wgmma chains (the tensor cores
   truncate as they accumulate: measured on mma.sync for the first fp32
   kernels), so the shipped kernels start a fresh accumulator every 4
@@ -46,12 +64,14 @@ times in turns (shipped, each variant, each variant again in reverse order,
 shipped), with the card's name and power limit::
 
     python3 tools/torch_flash_f32_variants.py [--kernel fwd|bwd ...] \\
-        [--variant allread|scatter2|local|unordered|long ...] [--shape B,H,T,D ...]
+        [--variant allread|scatter2|local|unordered|padded|noexp|nosplit|nocopy|long ...] \\
+        [--shape B,H,T,D ...]
 
 It also prints each build's spills by kernel instance (``ptxas -v``).
 It exits non-zero if the check rejects the shipped kernel or a variant whose
 outputs are right, accepts ``local``, or finds the bits of ``allread`` or
-``scatter2`` differ from the shipped kernel's.
+``scatter2`` (or the gradients of ``padded``) differ from the shipped
+kernel's.
 The variants are not part of the port.
 """
 
@@ -734,6 +754,49 @@ BWD_ALLREAD = [
      """"""),
 ]
 
+# the route before the Dh-32 instances: run_columns and copy_columns give 64
+# from 4 to 32 columns
+PADDED = [("""#include "wgmma_tf32.cuh"
+""", """#include "wgmma_tf32.cuh"
+
+namespace tf32w {
+inline int run_padded(int d) { return d <= 32 ? 64 : run_columns(d); }
+inline int copy_padded(int d) { return d <= 32 ? 64 : copy_columns(d); }
+}  // namespace tf32w
+#define run_columns run_padded
+#define copy_columns copy_padded
+""")]
+# the Dh-32 instances' per-score work taken out (outputs wrong)
+def raw_a(src: str, hi: str, lo: str) -> str:
+    """A loop body giving the A fragments of k-step kk as the raw bits of
+    the accumulator `src` (acc_to_a's order) and a zero lo half."""
+    return ("{\n      const float* d = SRC + 4 * kk;\n"
+            "      HI[kk][0] = __float_as_uint(d[0]);\n      HI[kk][1] = __float_as_uint(d[2]);\n"
+            "      HI[kk][2] = __float_as_uint(d[1]);\n      HI[kk][3] = __float_as_uint(d[3]);\n"
+            "      LO[kk][0] = LO[kk][1] = LO[kk][2] = LO[kk][3] = 0u;\n    }"
+            ).replace("SRC", src).replace("HI", hi).replace("LO", lo)
+FWD_NOEXP = [("""        s[e] = exp2f(fmaf(s[e], p.scale_log2, -m[r]));
+        l[r] += s[e];""", """        s[e] = fmaf(s[e], p.scale_log2, -m[r]);
+        l[r] += s[e];""")]
+BWD_NOEXP = [("""      x[e] = ok ? exp2f(fmaf(x[e], p.scale_log2, -stat[q])) : 0.f;
+      y[e] = x[e] * (y[e] - stat[BQ + q]) * p.sm_scale;""", """      x[e] = ok ? fmaf(x[e], p.scale_log2, -stat[q]) : 0.f;
+      y[e] = x[e] * (y[e] - stat[BQ + q]) * p.sm_scale;""")]
+FWD_NOSPLIT = [("""      for (int kk = 0; kk < 8; ++kk) acc_to_a(s + 4 * kk, ph[kk], pl[kk]);""",
+                """      for (int kk = 0; kk < 8; ++kk) """ + raw_a("s", "ph", "pl"))]
+BWD_NOSPLIT = [("""    for (int kk = 0; kk < 4; ++kk) acc_to_a(x + 4 * kk, ah[kk], al[kk]);
+    float ga[16], gb[16];""", """    for (int kk = 0; kk < 4; ++kk) """ + raw_a("x", "ah", "al") + """
+    float ga[16], gb[16];"""),
+               ("""    for (int kk = 0; kk < 4; ++kk) acc_to_a(y + 4 * kk, sh[kk], sl[kk]);""",
+                """    for (int kk = 0; kk < 4; ++kk) """ + raw_a("y", "sh", "sl"))]
+
+# the split pass left out (outputs wrong)
+NOCOPY = [("  return launch_split(sp, stream);\n}", "  (void)sp;\n  return cudaSuccess;\n}")]
+
+# phase 12a's and 13a's shapes at Dh 32 and 16 and the entry points' batch 2
+DH32 = {"fwd": ((16, 32, 256, 32), (8, 32, 1024, 32), (2, 32, 1024, 32), (16, 64, 256, 16),
+                (8, 64, 1024, 16)),
+        "bwd": ((8, 32, 1024, 32), (2, 32, 1024, 32), (8, 64, 1024, 16))}
+
 # 14a's fp32 shapes (the one-head U-Net's 512^2 training, the 1024-wide
 # codec at 256^2), phase 10a's Dh-512 ones (the VQ encoder at 512^2, batch
 # 8; the codec's backward at 256^2), the other instances of 128 columns a
@@ -756,6 +819,10 @@ KERNELS = {
         "allread": (FWD_ALLREAD, True, SINGLE["fwd"] + NEW_SHAPES["fwd"]),
         "scatter2": (FWD_SCATTER2, True, NEW_SHAPES["fwd"]),
         "local": (FWD_LOCAL, False, SCATTERED["fwd"]),
+        "padded": (PADDED, True, DH32["fwd"]),
+        "noexp": (FWD_NOEXP, None, DH32["fwd"]),
+        "nosplit": (FWD_NOSPLIT, None, DH32["fwd"]),
+        "nocopy": (NOCOPY, None, DH32["fwd"]),
         "long": (FWD_LONG, True, ((8, 8, 1024, 128), (2, 1, 16384, 512), (1, 1, 2500, 512))),
     }),
     "bwd": ("flash_attention_bwd_f32", {
@@ -763,6 +830,10 @@ KERNELS = {
         "scatter2": (BWD_SCATTER2, True, NEW_SHAPES["bwd"]),
         "local": (BWD_LOCAL, False, SCATTERED["bwd"]),
         "unordered": (BWD_UNORDERED, None, SCATTERED["bwd"]),
+        "padded": (PADDED, True, DH32["bwd"]),
+        "noexp": (BWD_NOEXP, None, DH32["bwd"]),
+        "nosplit": (BWD_NOSPLIT, None, DH32["bwd"]),
+        "nocopy": (NOCOPY, None, DH32["bwd"]),
         "long": (BWD_LONG, True, ((2, 8, 1024, 128), (2, 1, 4096, 512), (2, 1, 16384, 512))),
     }),
 }
@@ -795,7 +866,8 @@ def build_variant(kernel: str, name: str) -> subprocess.Popen:
 
 
 def variant_fn(kernel: str, name: str):
-    """The variant's C entry point with the shipped one's signature."""
+    """The variant's C entry point with the shipped one's signature, and its
+    workspace bytes for (B * H, T, Dh)."""
     import torch
 
     from stedm_tpu_torch import _device
@@ -809,7 +881,9 @@ def variant_fn(kernel: str, name: str):
     else:
         fn = lib.flash_attention_bwd_f32
         fn.argtypes, fn.restype = a._bwd_lib(torch.float32).argtypes, ctypes.c_int
-    return fn
+    ws = getattr(lib, f"{stem}_workspace")
+    ws.argtypes, ws.restype = [ctypes.c_int] * 3, ctypes.c_size_t
+    return fn, ws
 
 
 def fwd_errors(torch, got, q, k, v, s) -> float:
@@ -860,7 +934,8 @@ def main() -> int:
                     help="kernels to run (default: both)")
     ap.add_argument("--variant", action="append",
                     choices=sorted({n for _, v in KERNELS.values() for n in v}),
-                    help="variants to run where the kernel has them (default: all but long)")
+                    help="variants to run where the kernel has them (default: all but long, "
+                         "padded, noexp, nosplit and nocopy)")
     ap.add_argument("--shape", action="append",
                     help="B,H,T,D to run instead of each variant's shapes")
     args = ap.parse_args()
@@ -902,9 +977,9 @@ def main() -> int:
             q, k, v, do = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
             s = d ** -0.5
             strides = [x for y in (q, k, v, q) for x in a.check_strided(y, "x")]
+            nbytes = max([plan[f"{kernel}_workspace"]] + [w(b * h, t, d) for _, w in fns.values()])
+            ws = torch.empty(nbytes, device="cuda", dtype=torch.uint8)
             if kernel == "fwd":
-                ws = torch.empty(plan["fwd_workspace"], device="cuda", dtype=torch.uint8)
-
                 def launch(fn):
                     out, lse = torch.empty_like(q), torch.empty(shape[:3], device="cuda")
                     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -919,7 +994,6 @@ def main() -> int:
                 parts = ("O", "LSE")
             else:
                 o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
-                ws = torch.empty(plan["bwd_workspace"], device="cuda", dtype=torch.uint8)
                 bstrides = strides[:9] + [x for y in (o, do) for x in a.check_strided(y, "x")]
 
                 def launch(fn):
@@ -936,7 +1010,7 @@ def main() -> int:
                 errors = lambda got: bwd_errors(torch, cs, got, q, k, v, o, lse, do, s)
                 parts = ("dQ", "dK", "dV")
             runs = {"shipped": shipped}
-            runs.update({n: (lambda fn=fns[n]: launch(fn)) for n in names})
+            runs.update({n: (lambda fn=fns[n][0]: launch(fn)) for n in names})
             outs = {n: [x.clone() for x in f()] for n, f in runs.items()}
             torch.cuda.synchronize()
             errs = {n: errors(outs[n]) for n in runs}
@@ -963,6 +1037,13 @@ def main() -> int:
                     failed.append(f"{kernel} {n} {list(shape)}: judged wrongly")
                 if n in ("allread", "scatter2") and not all(same.values()):
                     failed.append(f"{kernel} {n} {list(shape)}: other bits")
+                if n == "padded" and kernel == "bwd" and not all(same.values()):
+                    failed.append(f"{kernel} {n} {list(shape)}: other gradient bits")
+                if n == "padded" and kernel == "fwd":
+                    worst = {p: float((x - y).abs().max())
+                             for p, x, y in zip(parts, outs[n], outs["shipped"])}
+                    print("    largest |padded - shipped|: "
+                          + ", ".join(f"{p} {x:.3e}" for p, x in worst.items()), flush=True)
             del q, k, v, do, outs
             torch.cuda.empty_cache()
     print(f"card: {card}")
