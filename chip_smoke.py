@@ -246,11 +246,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``predict_diff.main`` with ``num_heads=1`` (Dh 1024: the forward's
    cluster instance, counted as ``flash_attention_dh1024``), 4 pairs at
    DDIM-4, on 13c's checkpoint, the same model's flash override reaching
-   its AttentionBlocks, and above every kernel, on tiny tensors: the
-   codec's AttnBlockVQ at 1152 channels runs the plain attention on the
-   card (counted as ``attention_plain``) and matches the CPU, and the
-   flash wrappers and ``sdpa(impl='flash')`` raise the ValueError that
-   names ROADMAP.md §2. No path counts ``attention_plain``;
+   its AttentionBlocks, and above the cluster instances, on tiny tensors:
+   the codec's AttnBlockVQ at 1152 channels launches the band kernel on
+   the card and matches the CPU, and at Dh 1152, 2048 and 4096 ``sdpa``
+   under each impl, ``flash_attention`` with its gradient and AttnBlockVQ
+   launch the band kernels, no plain version on a CUDA tensor;
 14. the flash kernels above Dh 512 (thread-block clusters of Dh / 128, up
    to 8), on phase 6's tree: 14a. the clusters each instance holds at
    once; the Dh-1024 instances against their plain versions with phase 2's,
@@ -267,7 +267,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``ddconfig.ch_mult=[1,2,8]`` (the mid-block 1024 wide, T 16384 at
    512^2). Each path must launch its Dh-1024 kernels
    (``<kernel>_dh1024``) and no plain attention;
-15. a ``kernels`` JSON line, the card line, and as the last line
+15. the band route above Dh 1024 (``ops/flash_band.py``, ``csrc/flash_band.cu``:
+   tiled products over bands of rows with fused epilogues), on phase 6's
+   tree: 15a. the four band kernels (bf16 and fp32, forward and backward)
+   at Dh 1100 (bf16 copies of width 1104), 1152, 1536 and 2048 at ``[2, 4,
+   320, Dh]`` (each timed once), then at the one-head U-Net's ``[16, 1,
+   256, 2048]``, the 2048-wide codec's ``[2, 1, 4096, 2048]`` and ``[2, 1,
+   16384, 2048]``, and ``[2, 1, 1024, 4096]``, against their plain versions
+   (bf16 2^-7, fp32 2^-16 against float64), two backward launches bit for
+   bit, timed beside the plain route on the card, SDPA (its backend named)
+   and the bound; the band route against the cluster instances at ``[2, 1,
+   16384, 1024]`` (a record; the wrappers keep the cluster there); 15b.
+   ``train_diff.main`` (2 micro-steps; fp32 one) and ``predict_diff.main``
+   (4 pairs, DDIM-4) at ``num_heads=1`` and ``channel_mult=[1,4,16]``
+   (Dh 2048 at the bottleneck), bf16 and fp32; 15c. ``train_ae.main`` (2
+   steps and the val decode) with ``ddconfig.ch_mult=[1,2,16]`` at 256^2
+   (the mid-block 2048 wide, T 4096). Each path must launch the band
+   kernels and no plain version on a CUDA tensor;
+16. a ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 fp32 matrix products and convolutions run without TF32 here (both backend
@@ -384,6 +401,11 @@ PATH_13D = "dh1024_entry_predict"
 PATHS_14 = ("dh1024_train", "dh1024_predict")
 PATHS_14_F32 = ("dh1024_f32_train", "dh1024_f32_predict")
 PATH_14_AE = "dh1024_entry_ae"
+# phase 15's: the entry points at num_heads 1 and channel_mult [1, 4, 16]
+# (15b, bf16 and fp32), train_ae with a 2048-wide codec mid-block (15c)
+PATHS_15 = ("dh2048_train", "dh2048_predict")
+PATHS_15_F32 = ("dh2048_f32_train", "dh2048_f32_predict")
+PATH_15_AE = "dh2048_entry_ae"
 
 
 # ptxas's notes that wgmma instructions were serialised
@@ -405,7 +427,8 @@ class KernelRecord:
                   "dpm_batch", "canvas_predict", "svit_train", "svit_predict", "handoff_ae",
                   "handoff_train", "handoff_predict", "dist_train", "dist_predict")
     PATHS = (PATHS_BF16 + PATHS_F32 + PATHS_WIDE + PATHS_12 + PATHS_12_F32 + PATHS_13
-             + (PATH_13_F32, PATH_13D) + PATHS_14 + PATHS_14_F32 + (PATH_14_AE,))
+             + (PATH_13_F32, PATH_13D) + PATHS_14 + PATHS_14_F32 + (PATH_14_AE,) + PATHS_15
+             + PATHS_15_F32 + (PATH_15_AE,))
 
     def __init__(self, name, route, source, replaces, counter=None, paths=PATHS_BF16):
         # the launch counter the kernel's wrapper adds to, and the main paths
@@ -545,6 +568,26 @@ def kernel_records() -> dict:
             "stedm_tpu_torch/csrc/flash_attention_bwd_f32.cu",
             f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
             "(_flash_attention_bwd_dq)", paths=("dh1024_f32_train",)),
+        # phase 15's: the band route above Dh 1024 (csrc/flash_band.cu; the
+        # one-head U-Net at channel_mult [1, 4, 16], a 2048-wide codec
+        # mid-block), each kernel counted under its own name
+        "flash_band": KernelRecord(
+            "flash_band", "cuda", "stedm_tpu_torch/csrc/flash_band.cu",
+            f"{stock_flash}:589 (_flash_attention_impl), reached through "
+            "stedm_tpu/ops/blocked_attention.py:99 and stedm_tpu/models/vq.py:89",
+            paths=PATHS_15 + (PATH_15_AE,)),
+        "flash_band_bwd": KernelRecord(
+            "flash_band_bwd", "cuda", "stedm_tpu_torch/csrc/flash_band.cu",
+            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
+            "(_flash_attention_bwd_dq)", paths=(PATHS_15[0], PATH_15_AE)),
+        "flash_band_f32": KernelRecord(
+            "flash_band_f32", "cuda", "stedm_tpu_torch/csrc/flash_band.cu",
+            f"{stock_flash}:589 (_flash_attention_impl), reached through "
+            "stedm_tpu/ops/blocked_attention.py:99", paths=PATHS_15_F32),
+        "flash_band_bwd_f32": KernelRecord(
+            "flash_band_bwd_f32", "cuda", "stedm_tpu_torch/csrc/flash_band.cu",
+            f"{stock_flash}:941 (_flash_attention_bwd_dkv) and {stock_flash}:1287 "
+            "(_flash_attention_bwd_dq)", paths=(PATHS_15_F32[0],)),
     }
 
 
@@ -3271,12 +3314,14 @@ class PlainOnCard:
 
     NAMES = (("blocked_attention", "attention_reference"),
              ("blocked_attention", "attention_backward_reference"),
+             ("flash_band", "forward_plain"), ("flash_band", "backward_plain"),
              ("quantize", "nearest_code_reference"))
 
     def __enter__(self):
-        from stedm_tpu_torch.ops import blocked_attention, quantize
+        from stedm_tpu_torch.ops import blocked_attention, flash_band, quantize
 
-        self.mods = {"blocked_attention": blocked_attention, "quantize": quantize}
+        self.mods = {"blocked_attention": blocked_attention, "flash_band": flash_band,
+                     "quantize": quantize}
         self.saved, self.calls = {}, 0
         for mod, name in self.NAMES:
             fn = getattr(self.mods[mod], name)
@@ -4369,7 +4414,8 @@ def _padded_width_check(torch, flush, kernel: str, d: int) -> dict:
                ratio=ratio, ms=time_ms(fn, 1, flush), plain_ms=time_ms(plain, 1, flush),
                library_ms=time_ms(library, 1, flush), bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
-    log(f"  {kernel} Dh {d} {list(shape)} on the Dh-{plan.instance} instance"
+    where = "the band route" if plan.band else f"the Dh-{plan.instance} instance"
+    log(f"  {kernel} Dh {d} {list(shape)} on {where}"
         + (f" (copies of width {plan.width})" if plan.width != d else "")
         + f": {ratio:.3f} of its tolerance {'ok' if ratio <= 1 else 'OUT OF TOLERANCE'}; "
         f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
@@ -4423,7 +4469,7 @@ def head_dim_tiny_parity(torch) -> dict:
     counts = dict(LAUNCHES)
     _tiny_close(torch, got, ref, f"tiny STEDM {DH16} card vs CPU")
     log(f"    launches {counts}")
-    require(counts["flash_attention_dh16"] > 0 and counts["attention_plain"] == 0,
+    require(counts["flash_attention_dh16"] > 0,
             f"the tiny sampler at Dh 16 did not run the Dh-16 forward: {counts}")
     del cpu, gpu
     return f32_tiny_parity(torch, DH16, "_dh16")
@@ -4485,7 +4531,7 @@ def head_dim_entry_points(torch, entry_root: Path) -> tuple:
     check_pairs(Path(pred["predict_dir"]), 4, patch)
     out["predict_dh1024"] = {k: v for k, v in predict_rates(pred).items() if k != "predict_dir"}
     c = counts[PATH_13D]
-    require(c.get("flash_attention_dh1024", 0) > 0 and c["attention_plain"] == 0,
+    require(c.get("flash_attention_dh1024", 0) > 0,
             f"predict at Dh 1024 did not run the Dh-1024 forward: {c}")
     cfg = compose("config_predict", readme + [HEADS1, UNET_KEY + "attn_impl=flash"])
     blocks = [m for m in build_stedm(cfg, "meta").unet.modules() if isinstance(m, AttentionBlock)]
@@ -4496,10 +4542,11 @@ def head_dim_entry_points(torch, entry_root: Path) -> tuple:
 
 def above_the_kernels(torch) -> dict:
     """13d: above Dh 1024, on tiny tensors: the codec's AttnBlockVQ at 1152
-    channels runs the plain attention on the card (counted as
-    attention_plain) and matches its CPU copy, sdpa under exact runs it too,
-    and the flash wrappers and sdpa(impl='flash') raise the ValueError that
-    names ROADMAP.md §2."""
+    channels launches the band kernel on the card and matches its CPU copy
+    (the band route's plain versions); at Dh 1152, 2048 and 4096 sdpa under
+    each of its four impls, flash_attention with a gradient and AttnBlockVQ
+    launch the band kernels (``flash_band``, ``flash_band_bwd``), and the
+    plain attention runs on no CUDA tensor."""
     from stedm_tpu_torch.models.vq import AttnBlockVQ
     from stedm_tpu_torch.ops import LAUNCHES
     from stedm_tpu_torch.ops import blocked_attention as a
@@ -4509,32 +4556,36 @@ def above_the_kernels(torch) -> dict:
     x = torch.randn(1, 1152, 8, 8)
     with torch.no_grad():
         ref = block(x)
-        before = LAUNCHES["attention_plain"]
+        before = LAUNCHES["flash_band_f32"]
         got = block.cuda()(x.cuda())
         torch.cuda.synchronize()
-    plain = LAUNCHES["attention_plain"] - before
     err = _tiny_rel(torch, got, ref)
-    q = torch.randn((1, 1, 64, 1152), device="cuda", dtype=torch.bfloat16)
-    before = LAUNCHES["attention_plain"]
-    a.sdpa(q, q, q, 1152 ** -0.25, impl="exact")
-    sdpa_plain = LAUNCHES["attention_plain"] - before
-    raised = []
-    for call in (lambda: a.flash_attention_cuda(q, q, q, 0.05),
-                 lambda: a.flash_attention_bwd_cuda(q, q, q, q, q[..., 0].float(), q, 0.05),
-                 lambda: a.sdpa(q, q, q, 1152 ** -0.25, impl="flash")):
-        try:
-            call()
-            raised.append("")
-        except ValueError as e:
-            raised.append(str(e))
-    log(f"  13d: AttnBlockVQ at 1152 channels on the card: {plain} plain attention call(s), "
-        f"relative L2 {err:.3e} against the CPU (fp32); sdpa(exact) at Dh 1152: {sdpa_plain}; "
-        f"the forward, backward and sdpa(flash) raise: {raised[0]!r}")
-    require(plain == 1 and sdpa_plain == 1, "above Dh 1024 the plain attention was not counted")
+    require(LAUNCHES["flash_band_f32"] == before + 1, "AttnBlockVQ at 1152 channels did not "
+            "launch the band forward")
     require(err <= 1e-4, f"AttnBlockVQ at 1152 channels, card against CPU: {err}")
-    require(all("ROADMAP.md §2" in r for r in raised),
-            f"a flash route at Dh 1152 did not raise naming ROADMAP §2: {raised}")
-    return {"above_1024_rel_err": err}
+    del block
+    launched = {}
+    with PlainOnCard() as guard:
+        for d in (1152, 2048, 4096):
+            q = torch.randn((1, 1, 64, d), device="cuda", dtype=torch.bfloat16)
+            before = dict(LAUNCHES)
+            for impl in ("exact", "chunked", "flash", "auto"):
+                a.sdpa(q, q, q, d ** -0.25, impl=impl)
+            leaf = q.clone().requires_grad_()
+            a.flash_attention(leaf, leaf, leaf, d ** -0.5).sum().backward()
+            with torch.no_grad():
+                AttnBlockVQ(d).cuda()(torch.randn(1, d, 8, 8, device="cuda"))
+            torch.cuda.synchronize()
+            launched[d] = {k: LAUNCHES[k] - before[k] for k in ("flash_band", "flash_band_bwd",
+                                                              "flash_band_f32")}
+    log(f"  13d: AttnBlockVQ at 1152 channels on the card: relative L2 {err:.3e} against the "
+        f"CPU (fp32); band launches at Dh 1152 / 2048 / 4096 of sdpa's four impls, "
+        f"flash_attention with its gradient and AttnBlockVQ: {launched}")
+    require(guard.calls == 0, "a plain version ran on a CUDA tensor above Dh 1024")
+    require(all(n == {"flash_band": 5, "flash_band_bwd": 1, "flash_band_f32": 1}
+                for n in launched.values()), f"above Dh 1024 a route missed the band kernels: "
+            f"{launched}")
+    return {"above_1024_rel_err": err, "above_1024_launches": launched}
 
 
 def head_dims(torch, entry_root: Path, recs: dict) -> tuple:
@@ -4654,7 +4705,7 @@ def wide_head_entry_points(torch, entry_root: Path) -> tuple:
             torch.cuda.synchronize()
         counts[name] = dict(LAUNCHES)
         log(f"    {time.time() - t1:.1f} s; launches {counts[name]}")
-        require(guard.calls == 0 and counts[name]["attention_plain"] == 0,
+        require(guard.calls == 0,
                 f"{name}: the plain attention ran on the card")
         torch.cuda.empty_cache()
         return res
@@ -4719,6 +4770,288 @@ def wide_heads(torch, entry_root: Path, recs: dict) -> tuple:
     return {"phase14_widths": rows, "phase14_entry": entry, "phase14_seconds": seconds}, counts
 
 
+
+# ---- phase 15: the band route above Dh 1024 (ops/flash_band.py) ----
+
+# 15a's shapes: the four kernels at widths through the route's copies and
+# TMA fill ([2, 4, 320, Dh], each timed once), then at the main paths' shapes:
+# the one-head U-Net's bottleneck at Dh 2048 sampling at 256^2 (CFG batch
+# 16), the 2048-wide codec mid-block at 256^2 and 512^2 (batch 2), Dh 4096
+BAND_PAD_WIDTHS = (1100, 1152, 1536, 2048)
+BAND_SHAPES = ((16, 1, 256, 2048), (2, 1, 4096, 2048), (2, 1, 16384, 2048), (2, 1, 1024, 4096))
+# 15b: the landscape U-Net with a 2048-wide bottleneck in one head; 15c: the
+# codec with a 2048-wide last level and mid-block
+BAND_UNET = [HEADS1, UNET_KEY + "channel_mult=[1,4,16]"]
+BAND_CODEC = "diffusion.first_stage_config.params.ddconfig.ch_mult=[1,2,16]"
+
+
+def _band_fwd_check(torch, q, k, v, s, f32: bool):
+    """The forward's O and LSE against the band route's plain version (bf16:
+    2^-7 (P|V| + |ref|), phase 2's form) or the float64 steps (fp32: 2^-16
+    (P|V| + |ref|), 10a's), a sample at a time; (max |err|, max ratio)."""
+    from stedm_tpu_torch.ops import blocked_attention as a
+    from stedm_tpu_torch.ops import flash_band
+
+    got, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+    err, ratio, lse_ok = 0.0, 0.0, True
+    for i in range(q.shape[0]):
+        sl = slice(i, i + 1)
+        if f32:
+            qd, kd, vd = (x[sl].double() for x in (q, k, v))
+            logits = (qd @ kd.transpose(-1, -2)) * s
+            p = torch.softmax(logits, -1)
+            ref, lref = p @ vd, torch.logsumexp(logits, -1)
+        else:
+            ref, lref = flash_band.forward_plain(q[sl], k[sl], v[sl], s, return_lse=True)
+            p = torch.softmax((q[sl].float() @ k[sl].float().transpose(-1, -2)) * s, -1)
+        tol = (F32_REL if f32 else 2 ** -7) * (p @ v[sl].to(p.dtype).abs() + ref.abs().to(p.dtype))
+        d = (got[sl].to(p.dtype) - ref.to(p.dtype)).abs()
+        err, ratio = max(err, float(d.max())), max(ratio, float((d / tol).max()))
+        lse_ok &= bool(((lse[sl].double() - lref.double()).abs()
+                        <= 1e-5 * lref.double().abs() + 1e-4).all())
+        del p, ref, tol, d
+    require(lse_ok, f"the band forward's LSE at {list(q.shape)}")
+    return err, ratio
+
+
+def _band_bwd_check(torch, q, k, v, o, lse, do, s, got, f32: bool):
+    """The backward's dq, dk, dv against the band route's plain version
+    (bf16: 2^-7 (sqrt(sum terms^2) + |ref|), phase 2b's form) or the float64
+    steps (fp32: 2^-16, 10a's), a sample at a time; (max |err|, max ratio)."""
+    from stedm_tpu_torch.ops import flash_band
+
+    err, ratio = 0.0, 0.0
+    for i in range(q.shape[0]):
+        sl = slice(i, i + 1)
+        args = tuple(x[sl] for x in (q, k, v, o, lse, do)) + (s,)
+        if f32:
+            ref, bounds = _f64_backward(torch, *args)
+        else:
+            ref = flash_band.backward_plain(*args)
+            p = torch.softmax((q[sl].float() @ k[sl].float().transpose(-1, -2)) * s, -1)
+            ds = p * (do[sl].float() @ v[sl].float().transpose(-1, -2)
+                      - (do[sl].float() * o[sl].float()).sum(-1, keepdim=True)) * s
+            bounds = (_rms_bound((ds, k[sl])), _rms_bound((ds.transpose(-1, -2), q[sl])),
+                      _rms_bound((p.transpose(-1, -2), do[sl])))
+            del p, ds
+        for g, r, bd in zip(got, ref, bounds):
+            r = r.to(bd.dtype)
+            d = (g[sl].to(bd.dtype) - r).abs()
+            tol = (F32_REL if f32 else 2 ** -7) * (bd + r.abs())
+            err, ratio = max(err, float(d.max())), max(ratio, float((d / tol).max()))
+            del d, tol
+        del ref, bounds
+        torch.cuda.empty_cache()
+    return err, ratio
+
+
+def band_kernel_checks(torch, recs, flush, shapes, time_it: bool = True) -> list:
+    """15a: at each shape the four band kernels (bf16 and fp32, forward and
+    backward, through the flash wrappers) against their plain versions,
+    two backward launches bit for bit, each timed beside its plain version
+    (the band route's, on the card) and SDPA (its backend named), and added
+    to its record with the bound."""
+    from stedm_tpu_torch.ops import blocked_attention as a
+    from stedm_tpu_torch.ops import flash_band
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for shape in shapes:
+        b, h, t, d = shape
+        bh, s = b * h, d ** -0.5
+        iters = 3 if t <= 4096 else 1
+        for dtype in (torch.bfloat16, torch.float32):
+            f32 = dtype == torch.float32
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                           for _ in range(4))
+            fname, bname = flash_band.COUNTERS[dtype]
+            err, ratio = _band_fwd_check(torch, q, k, v, s, f32)
+            o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+            got = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+            again = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            del again
+            berr, bratio = _band_bwd_check(torch, q, k, v, o, lse, do, s, got, f32)
+            backend = sdpa_backend(torch, q, k, v, s)
+            row = dict(shape=list(shape), dtype=str(dtype), fwd_ratio=ratio, bwd_ratio=bratio,
+                       sdpa=backend, two_launches_equal=same)
+            log(f"  band {dtype} {list(shape)}: forward {ratio:.3f} of its tolerance, backward "
+                f"{bratio:.3f} ({'2^-16 against float64' if f32 else '2^-7 against the plain version'}"
+                f"); two backward launches equal: {same}; SDPA runs {backend}")
+            require(ratio <= 1 and bratio <= 1 and same,
+                    f"the band kernels at {dtype} {list(shape)} disagree with their plain versions")
+            if time_it:
+                fwd = lambda: a.flash_attention_cuda(q, k, v, s)
+                bwd = lambda: a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s)
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=s)
+                lib_b = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+                lib_f = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=s)
+                t_ = {n: time_ms(f, iters, flush) for n, f in (
+                    ("fwd", fwd), ("bwd", bwd), ("lib_f", lib_f), ("lib_b", lib_b),
+                    ("plain_f", lambda: flash_band.forward_plain(q, k, v, s)),
+                    ("plain_b", lambda: flash_band.backward_plain(q, k, v, o, lse, do, s)))}
+                del out, leaves
+                # fp32: three TF32 products a product (3xTF32)
+                es, peak, mul = (4, TF32_FLOPS, 3) if f32 else (2, BF16_FLOPS, 1)
+                recs[fname].add(shape, err, True, t_["fwd"], t_["plain_f"], t_["lib_f"],
+                                4 * bh * t * d * es, mul * 4 * bh * t * t * d, peak)
+                recs[bname].add(shape, berr, True, t_["bwd"], t_["plain_b"], t_["lib_b"],
+                                8 * bh * t * d * es + bh * t * 4, mul * 10 * bh * t * t * d, peak)
+                row.update({f"{n}_ms": x for n, x in t_.items()})
+            rows.append(row)
+            del q, k, v, do, o, lse, got
+            torch.cuda.empty_cache()
+    return rows
+
+
+def band_at_1024(torch) -> dict:
+    """15a's record for later work: the band route against the Dh-1024
+    cluster instances at the 1024-wide codec's 512^2 shape, bf16, forward
+    and backward, in turns (cluster, band, band, cluster), each the faster
+    of its two turns. The wrappers keep the cluster instances at 1024."""
+    from stedm_tpu_torch.ops import blocked_attention as a
+    from stedm_tpu_torch.ops import flash_band
+
+    shape = (2, 1, 16384, 1024)
+    gen = torch.Generator(device="cuda").manual_seed(1024)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    s = 1024 ** -0.5
+    o, lse = a.flash_attention_cuda(q, k, v, s, return_lse=True)
+    st = {n: a.check_strided(x, n) for n, x in (("q", q), ("k", k), ("v", v), ("o", o),
+                                                   ("do", do))}
+    band_o = torch.empty_like(q)
+
+    def band_fwd():
+        flash_band.forward_cuda(q, k, v, s, band_o, None, {**st, "out": st["q"]})
+
+    fns = {"cluster_fwd": lambda: a.flash_attention_cuda(q, k, v, s), "band_fwd": band_fwd,
+           "cluster_bwd": lambda: a.flash_attention_bwd_cuda(q, k, v, o, lse, do, s),
+           "band_bwd": lambda: flash_band.backward_cuda(q, k, v, o, lse, do, s, st)}
+    band_fwd()
+    o_err = float((band_o.float() - o.float()).abs().max())
+    out = {}
+    for kind in ("fwd", "bwd"):
+        order = (f"cluster_{kind}", f"band_{kind}", f"band_{kind}", f"cluster_{kind}")
+        turns = [(n, time_ms(fns[n], 2)) for n in order]
+        for n in (f"cluster_{kind}", f"band_{kind}"):
+            out[f"{n}_ms"] = min(x for m, x in turns if m == n)
+    log(f"  the band route at Dh 1024 [2, 1, 16384, 1024] bf16 against the cluster instances "
+        f"(in turns): forward {out['band_fwd_ms']:.4f} ms vs {out['cluster_fwd_ms']:.4f}, "
+        f"backward {out['band_bwd_ms']:.4f} vs {out['cluster_bwd_ms']:.4f}; O max |diff| "
+        f"{o_err:.3e}")
+    return out
+
+
+def band_entry_points(torch, entry_root: Path) -> tuple:
+    """15b: train_diff (2 micro-steps at 512^2; fp32 one) and predict_diff
+    (4 pairs, DDIM-4) with phase 6's config at num_heads 1 and channel_mult
+    [1, 4, 16] (the bottleneck in one head of 2048), bf16 and fp32; 15c:
+    train_ae (2 steps and the val decode) with the codec at ch_mult [1, 2,
+    16] at 256^2 (mid-block 2048 wide, T 4096). Each path must launch the
+    band kernels and no plain version on a CUDA tensor."""
+    from stedm_tpu_torch import predict_diff, train_ae, train_diff
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    data = entry_root / "data"
+    counts, out = {}, {}
+    prune_results(entry_root)
+
+    def run(name: str, main, args: list):
+        log(f"  {main.__module__}.main({args})")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        with PlainOnCard() as guard:
+            res = main(args)
+            torch.cuda.synchronize()
+        counts[name] = dict(LAUNCHES)
+        log(f"    {time.time() - t1:.1f} s; launches {counts[name]}")
+        require(guard.calls == 0, f"{name}: a plain version ran on the card")
+        torch.cuda.empty_cache()
+        return res
+
+    for dtype, (tr_path, pr_path) in (("bfloat16", PATHS_15), ("float32", PATHS_15_F32)):
+        f32 = dtype == "float32"
+        where = [f"location.data_dir={data}", f"location.result_dir={entry_root / tr_path}"]
+        extra = ["diffusion.compute_dtype=float32"] if f32 else []
+        tr = run(tr_path, train_diff.main, [
+            "data=flowers", "style_sampling=augmented", "style_agg=mean", *where, *BAND_UNET,
+            *extra, "+diffusion.scale_by_std=true", "data.samples=2" if f32 else "data.samples=4",
+            "num_epochs=1", "+preview_ddim_steps=4", "accumulate_grad_batches=1"])
+        ep = tr["epochs"][0]
+        out[tr_path] = ep["samples"] / ep["seconds"]
+        log(f"  {tr_path}: {ep['micro_steps']} micro-step(s) at num_heads 1, channel_mult [1, 4, "
+            f"16] ({dtype}), loss {ep['loss']:.5f}, {out[tr_path]:.4f} samples/s over the epoch")
+        require(tr["step"] == (1 if f32 else 2) and math.isfinite(ep["loss"]),
+                f"{tr_path}: {tr['step']} steps, loss {ep['loss']}")
+        pred = run(pr_path, predict_diff.main, [
+            "data=flowers", "data/dataset=[flowers_anno,flowers_unanno]", "data.ratios=[1.0,1.0]",
+            "cfg_scale=1.5", "style_sampling=augmented", "style_agg=mean", *where, *BAND_UNET,
+            *extra, "data.samples=2", "ddim_steps=4", "+host_loop=false",
+            f"+predict_name={pr_path}"])
+        check_pairs(Path(pred["predict_dir"]), 4, ENTRY_PATCH)
+        out[pr_path] = {k: v for k, v in predict_rates(pred).items() if k != "predict_dir"}
+        fwd, bwd = ("flash_band_f32", "flash_band_bwd_f32") if f32 else ("flash_band",
+                                                                         "flash_band_bwd")
+        _launch_check(counts[tr_path], (fwd, bwd), tr_path)
+        _launch_check(counts[pr_path], (fwd,), pr_path)
+        prune_results(entry_root)
+    ae = run(PATH_15_AE, train_ae.main, [
+        "data=flowers", "style_sampling=augmented", f"location.data_dir={data}",
+        f"location.result_dir={entry_root / PATH_15_AE}", "data.samples=4", "num_epochs=1",
+        "data.patch_size=256", "loss.disc_start=0", f"run_name={PATH_15_AE}", BAND_CODEC])
+    ep = ae["epochs"][0]
+    require(ae["step"] == 2 and all(math.isfinite(v) for v in {**ep["train"], **ep["val"]}.values()),
+            f"train_ae with a 2048-wide mid-block: {ae['step']} steps, {ep}")
+    _launch_check(counts[PATH_15_AE], ("flash_band", "flash_band_bwd"), PATH_15_AE)
+    out[PATH_15_AE] = dict(samples_per_s=ep["steps"] * 2 / ep["seconds"], seconds=ep["seconds"],
+                           val_rec_loss=ep["val"]["val/rec_loss"])
+    log(f"  {PATH_15_AE}: 2 steps and the val decode at ch_mult [1, 2, 16], 256^2 (mid-block 2048 "
+        f"wide, T 4096), {out[PATH_15_AE]['samples_per_s']:.4f} samples/s over the epoch, val "
+        f"rec_loss {ep['val']['val/rec_loss']:.5f}")
+    prune_results(entry_root)
+    return out, counts
+
+
+def band_route(torch, entry_root: Path, recs: dict) -> tuple:
+    """Phase 15, on phase 6's tree; returns its numbers and each path's
+    launches (zeroed just before each path and read just after)."""
+    from stedm_tpu_torch.ops import flash_band
+
+    t0 = time.time()
+    log("== phase 15a: the band route (csrc/flash_band.cu) above Dh 1024 against its plain "
+        "versions")
+    log(f"  card: {card_line()}")
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # the L2 flush
+    flush = scratch.zero_
+    log(f"  -- Dh {', '.join(map(str, BAND_PAD_WIDTHS))} at {list(PAD_SHAPE)} + [Dh] (1100: "
+        "bf16 copies of width 1104), correctness, each timed once")
+    widths = [_padded_width_check(torch, flush, kernel, d) for d in BAND_PAD_WIDTHS
+              for kernel in ("fwd", "bwd", "f32_fwd", "f32_bwd")]
+    for shape in BAND_SHAPES:
+        b, h, t, d = shape
+        plans = {f"{dt}_{'bwd' if bw else 'fwd'}": flash_band.band_plan(b * h, t, d, dt, bw)
+                 for dt in (torch.bfloat16, torch.float32) for bw in (False, True)}
+        log(f"  {list(shape)}: bands (heads x rows, bands, workspace MiB) " + ", ".join(
+            f"{n} {p.heads} x {p.rows}, {len(p.chunks)}, {p.workspace / 2 ** 20:.1f}"
+            for n, p in plans.items()))
+    rows = band_kernel_checks(torch, recs, flush, BAND_SHAPES)
+    del scratch, flush
+    at_1024 = band_at_1024(torch)
+    torch.cuda.empty_cache()
+    t_a = time.time() - t0
+    log(f"  phase 15a took {t_a:.1f} s")
+    log("== phase 15b/15c: train_diff / predict_diff at num_heads 1, channel_mult [1, 4, 16] "
+        "(Dh 2048), bf16 and fp32; train_ae with a 2048-wide codec mid-block at 256^2")
+    entry, counts = band_entry_points(torch, entry_root)
+    seconds = time.time() - t0
+    log(f"  phase 15 took {seconds:.1f} s (15a {t_a:.1f})")
+    return {"phase15_widths": widths, "phase15_kernels": rows, "phase15_at_1024": at_1024,
+            "phase15_entry": entry, "phase15_seconds": seconds}, counts
+
+
 def main() -> int:
     global LOG_FILE
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4760,7 +5093,7 @@ def main() -> int:
     log(f"== phase 1: header\n  card: {card}\n  torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; TF32 off for fp32 matmul and cuDNN")
     builds = build_all(["gn_silu", "flash_attention", "flash_attention_bwd", "nearest_code",
-                        "flash_attention_f32", "flash_attention_bwd_f32"])
+                        "flash_attention_f32", "flash_attention_bwd_f32", "flash_band"])
     (out_dir / "nvcc.log").write_text("\n".join(f"== {k}\n{v}" for k, v in builds.items()))
     for stem, text in builds.items():
         regs = [ln.strip() for ln in text.splitlines() if "Used" in ln and "registers" in ln]
@@ -4772,7 +5105,7 @@ def main() -> int:
             f"{serialised} with serialised wgmma")
         # the fp32 flash kernels sit near the register budget, where ptxas
         # spills or serialises wgmma without failing the build
-        require(stem not in ("flash_attention_f32", "flash_attention_bwd_f32")
+        require(stem not in ("flash_attention_f32", "flash_attention_bwd_f32", "flash_band")
                 or not (spills or serialised),
                 f"{stem} spills or serialises wgmma ({', '.join(SERIALISED)})")
     log(f"  build {time.time() - t0:.1f} s")
@@ -4902,6 +5235,7 @@ def main() -> int:
                                             sum(ms for _, _, ms in kernels))
     phase13, phase13_counts = head_dims(torch, entry_root, recs)
     phase14, phase14_counts = wide_heads(torch, entry_root, recs)
+    phase15, phase15_counts = band_route(torch, entry_root, recs)
     shutil.rmtree(entry_root, ignore_errors=True)
     # launches: each kernel's count on each main path it runs on, zeroed just
     # before and read just after (the sampler's batch, the serving batch, one
@@ -4913,9 +5247,9 @@ def main() -> int:
                    "seg_train_step": seg["seg_launches_per_micro_step"],
                    "seg_entry": seg_entry["seg_entry_counts"], **her2.pop("her2_counts"),
                    **workflow_counts, **phase10_counts, **phase11_counts, **phase12_counts,
-                   **phase13_counts, **phase14_counts}
-    # the plain attention runs on the card only above the kernels' head dims
-    # (Dh 1024): on no main path
+                   **phase13_counts, **phase14_counts, **phase15_counts}
+    # no route runs the plain attention on the card (above Dh 1024 the band
+    # kernels), so no path counts it
     plain = {p: c.get("attention_plain", 0) for p, c in path_counts.items()}
     log(f"  attention_plain on each path: {plain}")
     for p, n in plain.items():
@@ -4940,7 +5274,7 @@ def main() -> int:
                       "host_us_per_call": host_us, **serving, **train, **codec, **entry,
                       **seg_parity, **seg, **seg_entry, "seg_seconds": seg_seconds,
                       **her2, **workflow, **phase10, **phase11, **phase12, **phase13,
-                      **phase14, "card": card}))
+                      **phase14, **phase15, "card": card}))
     # the line holds each kernel's summary; its shapes and its launches on
     # every path (tens of kB) go to <out>/kernels.json
     (out_dir / "kernels.json").write_text(json.dumps([r.entry for r in recs.values()], indent=1))

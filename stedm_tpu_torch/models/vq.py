@@ -27,7 +27,7 @@ from stedm_tpu_torch.models.layers import (
     conv3x3,
     upsample_nearest_2x,
 )
-from stedm_tpu_torch.ops.blocked_attention import attention_or_plain
+from stedm_tpu_torch.ops.blocked_attention import flash_attention
 from stedm_tpu_torch.ops.quantize import nearest_code
 
 _EPS = 1e-6   # the codec's GroupNorm eps (reference model.py:37-39)
@@ -55,9 +55,8 @@ class AttnBlockVQ(nn.Module):
     """Single-head spatial self-attention, ``sm_scale = C ** -0.5`` after the
     matmul (stedm_tpu vq.py:69-103). Runs through ``flash_attention`` at
     every T: the kernels on the card (the forward and, when a gradient is
-    wanted, the backward, at any width up to 1024 channels), their plain
-    versions on the CPU; above 1024 channels the plain attention on the card
-    too (``attention_or_plain``)."""
+    wanted, the backward, at any width; above 1024 channels the band route),
+    their plain versions on the CPU."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -75,7 +74,7 @@ class AttnBlockVQ(nn.Module):
             return F.linear(tok, conv.weight[:, :, 0, 0].to(tok.dtype),
                             conv.bias.to(tok.dtype)).contiguous()
 
-        out = attention_or_plain(proj(self.q), proj(self.k), proj(self.v), float(c) ** -0.5)
+        out = flash_attention(proj(self.q), proj(self.k), proj(self.v), float(c) ** -0.5)
         out = out.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return x + self.proj_out(out)
 

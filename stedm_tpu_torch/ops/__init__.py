@@ -10,9 +10,9 @@ Each flash kernel's launches at a head dimension that is not one of its
 compiled multiples of 64 count under its name with ``_dh<Dh>`` appended
 (``_dh32`` at ``num_head_channels: 32``, ``_dh16`` at 16), and not under its
 own (``blocked_attention.launch_counter``; the keys of other head dimensions
-appear at their first launch); ``attention_plain`` counts the ``sdpa`` calls
-that run the plain attention on the card, above the kernels' largest head
-dimension;
+appear at their first launch); above head dimension 1024 the band route's
+kernels count as ``flash_band``, ``flash_band_bwd``, ``flash_band_f32`` and
+``flash_band_bwd_f32`` (``blocked_attention.launch_counter``);
 GroupNorm launches with FiLM (``use_scale_shift_norm``) count under
 ``gn_silu_film``, the others under ``gn_silu``.
 ``nearest_code`` counts the width-3 kernel with the codebook slice resident,
@@ -31,7 +31,7 @@ LAUNCHES = {"gn_silu": 0, "flash_attention": 0, "flash_attention_bwd": 0, "neare
             "flash_attention_f32_dh32": 0, "flash_attention_bwd_f32_dh32": 0,
             "gn_silu_film": 0, "flash_attention_dh16": 0, "flash_attention_bwd_dh16": 0,
             "flash_attention_f32_dh16": 0, "flash_attention_bwd_f32_dh16": 0,
-            "attention_plain": 0}
+            "flash_band": 0, "flash_band_bwd": 0, "flash_band_f32": 0, "flash_band_bwd_f32": 0}
 PLAIN_CALLS = {"gn_silu_bwd": 0}
 
 

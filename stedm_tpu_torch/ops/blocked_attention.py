@@ -30,22 +30,24 @@ every kernel at the multiples of 128 up to 1024 (``CLUSTER_HEAD_DIMS``:
 one 128-column slice of the head dimension a block, over a cluster of 5
 to 8 blocks; the landscape U-Net at ``num_heads: 1`` and a codec whose
 mid-block is 1024 wide).
-``head_dim_plan`` maps every head dimension from 1 to ``MAX_HEAD_DIM``
+``head_dim_plan`` maps every head dimension from 1 to ``MAX_INSTANCE``
 onto the smallest instance at or above it, whose tensor maps (or split
 copies) declare the true columns, so the columns past them arrive as zeros
 and are never stored; a head dimension whose rows are not 16 bytes apart
-first goes into zero-padded copies of the next such width.
+first goes into zero-padded copies of the next such width. Above
+``MAX_INSTANCE`` every head dimension runs the band route
+(``ops/flash_band.py``, ``csrc/flash_band.cu``: tiled products over bands of
+rows with fused epilogues, no limit of width), its launches counted as
+``flash_band`` (bf16 forward), ``flash_band_bwd``, ``flash_band_f32`` and
+``flash_band_bwd_f32``; on the CPU the wrappers take its plain versions,
+band by band.
 
 ``sdpa`` keeps the JAX dispatch by name. ``exact``, ``chunked``, ``flash`` and
 ``auto`` name TPU memory strategies for one function, so on a CUDA tensor all
-four launch the kernel; on the CPU ``exact`` and ``chunked`` run their plain
-versions (``_exact`` / ``chunked_sdpa``, stedm_tpu/ops/blocked_attention.py
-:73-84 and :50-70) under autograd, ``flash`` the wrapper's plain versions and
-``auto`` resolves to ``chunked``. Above ``MAX_HEAD_DIM`` no kernel exists
-(ROADMAP.md §2): there ``exact``, ``chunked`` and ``auto`` run those plain
-versions on the card too, as the JAX package's jnp path does off the TPU
-(counted as ``LAUNCHES["attention_plain"]``), and ``flash`` raises;
-``attention_or_plain`` does the same for the codec's AttnBlockVQ.
+four launch the kernel at any head dimension; on the CPU ``exact`` and
+``chunked`` run their plain versions (``_exact`` / ``chunked_sdpa``,
+stedm_tpu/ops/blocked_attention.py:73-84 and :50-70) under autograd,
+``flash`` the wrapper's plain versions and ``auto`` resolves to ``chunked``.
 """
 
 from __future__ import annotations
@@ -58,9 +60,10 @@ import torch
 import torch.nn.functional as F
 
 from stedm_tpu_torch._device import check_cuda_tensor, load_library
-from stedm_tpu_torch.ops import LAUNCHES
+from stedm_tpu_torch.ops import LAUNCHES, flash_band
 
-MAX_HEAD_DIM = 1024
+# the largest compiled instance; above it the band route (ops/flash_band.py)
+MAX_INSTANCE = 1024
 # above 512, every kernel's instances: one 128-column slice a cluster rank
 CLUSTER_HEAD_DIMS = (640, 768, 896, 1024)
 # the compiled instances of the bf16 forward and both fp32 kernels: 32, the
@@ -79,30 +82,35 @@ KERNELS = {torch.bfloat16: ("flash_attention", "flash_attention_bwd"),
 # each kernel's compiled instances, by head dim
 INSTANCES = {"flash_attention": HEAD_DIMS, "flash_attention_bwd": BWD_HEAD_DIMS,
              "flash_attention_f32": HEAD_DIMS, "flash_attention_bwd_f32": HEAD_DIMS}
-ABOVE_MAX = (f"the flash kernels take head dims up to {MAX_HEAD_DIM} (ROADMAP.md §2: a kernel "
-             "above it is still to be written); sdpa's exact, chunked and auto, and the "
-             "codec's AttnBlockVQ, run the plain path there")
 
 
 class HeadDimPlan(NamedTuple):
     """How a kernel runs a head dimension: on its compiled ``instance``,
     reading ``width`` columns (the head dimension itself, or the width of
     the zero-padded copies that the wrapper makes when the rows are not 16
-    bytes apart)."""
+    bytes apart); above ``MAX_INSTANCE`` the band route, whose instance is
+    the width (its tensor maps declare it, TMA fills the rest of a
+    128-byte box)."""
 
     instance: int
     width: int
 
+    @property
+    def band(self) -> bool:
+        return self.instance > MAX_INSTANCE
 
-def head_dim_plan(d: int, dtype, backward: bool) -> HeadDimPlan | None:
+
+def head_dim_plan(d: int, dtype, backward: bool) -> HeadDimPlan:
     """The plan of the ``dtype`` forward (or ``backward``) kernel at head dim
     ``d``: the smallest instance at or above the width, where the width is
     ``d`` rounded up to 16 bytes (8 bf16 or 4 fp32 values: TMA and the
-    16-byte copies step rows so); None above ``MAX_HEAD_DIM``."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        return None
+    16-byte copies step rows so); above ``MAX_INSTANCE`` the band route."""
+    if d < 1:
+        raise ValueError(f"head dim must be positive, got {d}")
     per_row = 16 // torch.empty((), dtype=dtype).element_size()
     width = -(-d // per_row) * per_row
+    if width > MAX_INSTANCE:
+        return HeadDimPlan(width, width)
     stem = KERNELS[dtype][int(backward)]
     return HeadDimPlan(next(i for i in INSTANCES[stem] if i >= width), width)
 
@@ -111,7 +119,12 @@ def launch_counter(stem: str, d: int) -> str:
     """The ``LAUNCHES`` key of a launch of ``stem`` at head dim ``d``: a head
     dim that is not one of the kernel's compiled multiples of 64 up to 512
     counts apart, as ``<stem>_dh<d>`` (Dh 32: ``<stem>_dh32``; the cluster
-    instances above 512: ``<stem>_dh1024`` and so on)."""
+    instances above 512: ``<stem>_dh1024`` and so on); above
+    ``MAX_INSTANCE`` the band route's counter of the same dtype and
+    direction (``flash_band``, ``flash_band_bwd``, ``flash_band_f32``,
+    ``flash_band_bwd_f32``)."""
+    if d > MAX_INSTANCE:
+        return stem.replace("flash_attention", "flash_band")
     own = d % 64 == 0 and d <= 512 and d in INSTANCES[stem]
     return stem if own else f"{stem}_dh{d}"
 
@@ -216,7 +229,10 @@ def bwd_workspace_bytes(bh: int, t: int, d: int, dtype=torch.bfloat16) -> int:
     output, the dQ turn counters and, with more than one 128-key tile, the
     fp32 sums of dQ; fp32, the TF32 hi and lo copies of Q, K, V and dO (and
     of Q and dO transposed), LSE * log2(e) and Di, the turn counters and the
-    fp32 sums of dQ^T."""
+    fp32 sums of dQ^T; above ``MAX_INSTANCE`` the band route's
+    (``flash_band.band_plan``)."""
+    if d > MAX_INSTANCE:
+        return flash_band.band_plan(bh, t, d, dtype, True).workspace
     stem = KERNELS[dtype][1]
     return _kernel_fn(stem, f"{stem}_workspace", [ctypes.c_int] * 3, ctypes.c_size_t)(bh, t, d)
 
@@ -230,7 +246,7 @@ def fwd_workspace_bytes(bh: int, t: int, d: int) -> int:
 
 def fp32_columns(d: int) -> tuple[int, int]:
     """The head-dimension split of the fp32 kernels at head dim ``d`` (a
-    multiple of 4 up to ``MAX_HEAD_DIM``): the columns a block of the
+    multiple of 4 up to ``MAX_INSTANCE``): the columns a block of the
     instance that runs it (``head_dim_plan``: 32 at the Dh-32 instance,
     128 at ``FP32_WIDE_HEAD_DIMS``, else 64) and the thread-block cluster of
     instance / columns blocks (at most 8, the portable cluster size: Dh
@@ -242,7 +258,7 @@ def fp32_columns(d: int) -> tuple[int, int]:
 
 def fp32_plan(b: int, h: int, t: int, d: int) -> dict:
     """The fp32 kernels' launch plan for ``[B, H, T, Dh]`` (``d`` a multiple
-    of 4 up to ``MAX_HEAD_DIM``): ``columns`` a block and the ``cluster``
+    of 4 up to ``MAX_INSTANCE``): ``columns`` a block and the ``cluster``
     size (``fp32_columns``), the C entry points (``fwd``, ``bwd``) and the
     workspace bytes each asks for."""
     cols, cluster = fp32_columns(d)
@@ -300,18 +316,11 @@ def _check_launchable(named, strided: bool = True) -> list:
     return strides
 
 
-def _plan_or_raise(d: int, dtype, backward: bool) -> HeadDimPlan:
-    plan = head_dim_plan(d, dtype, backward)
-    if plan is None:
-        raise ValueError(f"{ABOVE_MAX}; got head dim {d}")
-    return plan
-
-
 def flash_attention_cuda(q, k, v, sm_scale: float, return_lse: bool = False, out=None):
     """Launch the forward kernel of q's dtype (bf16 or fp32, ``KERNELS``) on
     ``[B, H, T, Dh]`` CUDA tensors whose last dimension is contiguous (any
-    16-byte-aligned batch, head and token strides), at any Dh up to
-    ``MAX_HEAD_DIM`` (``head_dim_plan``). ``out`` is where O is written, in
+    16-byte-aligned batch, head and token strides), at any Dh
+    (``head_dim_plan``; above ``MAX_INSTANCE`` the band route). ``out`` is where O is written, in
     any such layout (default: a new contiguous tensor); with ``return_lse``
     also returns the fp32 ``[B, H, T]`` LSE."""
     if not (q.shape == k.shape == v.shape):
@@ -321,7 +330,7 @@ def flash_attention_cuda(q, k, v, sm_scale: float, return_lse: bool = False, out
         raise ValueError(f"out must have q's shape {tuple(q.shape)}, got {tuple(out.shape)}")
     named = (("q", q), ("k", k), ("v", v)) + ((("out", out),) if out is not None else ())
     dtype = _check_dtypes(named)
-    plan = _plan_or_raise(d, dtype, backward=False)
+    plan = head_dim_plan(d, dtype, backward=False)
     if out is None:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if plan.width != d:                 # rows not 16 bytes apart: zero-padded copies
@@ -332,22 +341,32 @@ def flash_attention_cuda(q, k, v, sm_scale: float, return_lse: bool = False, out
         run = [q, k, v, out]
     strides = _check_launchable(tuple(zip(("q", "k", "v", "out"), run)))
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32) if return_lse else None
-    ptrs = tuple(x.data_ptr() for x in run) + (None if lse is None else lse.data_ptr(),)
-    tail = ((ctypes.c_int64 * 12)(*strides), float(sm_scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if dtype == torch.float32:
-        fplan = fp32_plan(b, h, t, plan.width)
-        ws = torch.empty(fplan["fwd_workspace"], device=q.device, dtype=torch.uint8)
-        err = fplan["fwd"](*ptrs, ws.data_ptr(), b, h, t, plan.width, fplan["cluster"], *tail)
-    else:
-        err = _fwd_lib(dtype)(*ptrs, b, h, t, plan.width, *tail)
     stem = KERNELS[dtype][0]
-    if err:
-        raise RuntimeError(f"{stem} launch failed: cudaError {err}")
+    if plan.band:
+        flash_band.forward_cuda(*run[:3], sm_scale, run[3], lse,
+                                _named_strides(("q", "k", "v", "out"), strides))
+    else:
+        ptrs = tuple(x.data_ptr() for x in run) + (None if lse is None else lse.data_ptr(),)
+        tail = ((ctypes.c_int64 * 12)(*strides), float(sm_scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+        if dtype == torch.float32:
+            fplan = fp32_plan(b, h, t, plan.width)
+            ws = torch.empty(fplan["fwd_workspace"], device=q.device, dtype=torch.uint8)
+            err = fplan["fwd"](*ptrs, ws.data_ptr(), b, h, t, plan.width, fplan["cluster"],
+                               *tail)
+        else:
+            err = _fwd_lib(dtype)(*ptrs, b, h, t, plan.width, *tail)
+        if err:
+            raise RuntimeError(f"{stem} launch failed: cudaError {err}")
     if run[3] is not out:
         out.copy_(run[3][..., :d])
     _count(launch_counter(stem, d))
     return (out, lse) if return_lse else out
+
+
+def _named_strides(names, strides) -> dict:
+    """``_check_launchable``'s strides, three a tensor, by name."""
+    return {n: tuple(strides[3 * i:3 * i + 3]) for i, n in enumerate(names)}
 
 
 def _row_dot(do, o):
@@ -360,13 +379,15 @@ def _row_dot(do, o):
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=None):
     """Launch the backward of q's dtype on the forward's inputs, its output
     ``o`` and LSE (fp32 ``[B, H, T]``, contiguous) and the output gradient
-    ``do``, at any Dh up to ``MAX_HEAD_DIM`` (``head_dim_plan``). bf16
+    ``do``, at any Dh (``head_dim_plan``). bf16
     (``csrc/flash_attention_bwd.cu``): a small pass computes Di = rowsum(do
     * o) on the card, then one fused kernel computes all three gradients.
     fp32 (``csrc/flash_attention_bwd_f32.cu``): a stats pass (LSE * log2(e),
     Di), a split pass (TF32 hi and lo copies), one fused kernel computing
     each of the five products once (the head dimension split across a
-    cluster, ``fp32_plan``) and a pass that writes dQ.
+    cluster, ``fp32_plan``) and a pass that writes dQ. Above ``MAX_INSTANCE``
+    the band route (``flash_band.backward_cuda``: a Di pass, a query sweep
+    and a key sweep of tiled products).
     q, k, v, o and do are ``[B, H, T, Dh]`` CUDA tensors of one dtype in any
     layout ``check_strided`` takes.
     Returns contiguous ``(dq, dk, dv)``; ``LAUNCHES`` counts the call's
@@ -376,7 +397,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=Non
     new one when given; bf16: it starts with the Di pass's output, fp32
     ``[B * H, ceil(T / 64), 2, 64]``: LSE * log2(e) (+inf past T), then Di (0
     past T); fp32: the layout of ``flash_attention_bwd_f32_workspace``
-    (csrc/flash_attention_bwd_f32.cu)."""
+    (csrc/flash_attention_bwd_f32.cu); the band route: ``flash_band.band_plan``'s
+    layout, starting with LSE * log2(e) and Di, fp32 ``[B * H, T]`` each."""
     if not (q.shape == k.shape == v.shape == o.shape == do.shape):
         raise ValueError(f"q, k, v, o, do shapes differ: {q.shape}, {k.shape}, {v.shape}, "
                          f"{o.shape}, {do.shape}")
@@ -384,7 +406,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=Non
     names = ("q", "k", "v", "o", "do")
     named = tuple(zip(names, (q, k, v, o, do)))
     dtype = _check_dtypes(named)
-    plan = _plan_or_raise(d, dtype, backward=True)
+    plan = head_dim_plan(d, dtype, backward=True)
     if plan.width != d:                 # rows not 16 bytes apart: zero-padded copies
         _check_launchable(named, strided=False)
         named = tuple((n, _padded(x, plan.width)) for n, x in named)
@@ -393,6 +415,11 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=Non
     if tuple(lse.shape) != (b, h, t) or lse.device != q.device:
         raise ValueError(f"lse must be [B, H, T] = {(b, h, t)} on q's device, got "
                          f"{tuple(lse.shape)}")
+    stem = KERNELS[dtype][1]
+    if plan.band:
+        dq, dk, dv = flash_band.backward_cuda(*(x for _, x in named[:4]), lse, named[4][1],
+                                              sm_scale, _named_strides(names, strides), workspace)
+        return _unpadded(stem, d, dq, dk, dv)
     shape = (b, h, t, plan.width)
     dq, dk, dv = (torch.empty(shape, device=q.device, dtype=q.dtype) for _ in range(3))
     fplan = fp32_plan(b, h, t, plan.width) if dtype == torch.float32 else None
@@ -413,13 +440,17 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale: float, workspace=Non
         err = fplan["bwd"](*ptrs, b, h, t, plan.width, fplan["cluster"], *tail)
     else:
         err = _bwd_lib(dtype)(*ptrs, b, h, t, plan.width, *tail)
-    stem = KERNELS[dtype][1]
     if err:
         raise RuntimeError(f"{stem} launch failed: cudaError {err}")
+    return _unpadded(stem, d, dq, dk, dv)
+
+
+def _unpadded(stem: str, d: int, *grads) -> tuple:
+    """Counts the backward's launch; the gradients cut to the head dimension."""
     _count(launch_counter(stem, d))
-    if plan.width != d:
-        dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
-    return dq, dk, dv
+    if grads[0].shape[-1] != d:
+        grads = tuple(x[..., :d].contiguous() for x in grads)
+    return grads
 
 
 def _readable(t: torch.Tensor) -> torch.Tensor:
@@ -448,6 +479,8 @@ class FlashAttentionFunction(torch.autograd.Function):
             q, k, v = _readable(q), _readable(k), _readable(v)
             out = torch.empty((b, t, h, d), device=q.device, dtype=q.dtype).permute(0, 2, 1, 3)
             out, lse = flash_attention_cuda(q, k, v, sm_scale, return_lse=True, out=out)
+        elif q.shape[-1] > MAX_INSTANCE:
+            out, lse = flash_band.forward_plain(q, k, v, sm_scale, return_lse=True)
         else:
             out, lse = attention_reference(q, k, v, sm_scale, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -459,6 +492,8 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if q.is_cuda:
             dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, _readable(do), ctx.sm_scale)
+        elif q.shape[-1] > MAX_INSTANCE:
+            dq, dk, dv = flash_band.backward_plain(q, k, v, out, lse, do, ctx.sm_scale)
         else:
             dq, dk, dv = attention_backward_reference(q, k, v, out, lse, do, ctx.sm_scale)
         return dq, dk, dv, None
@@ -477,29 +512,17 @@ def flash_attention(q, k, v, sm_scale: float):
         b, h, t, d = q.shape
         out = torch.empty((b, t, h, d), device=q.device, dtype=q.dtype).permute(0, 2, 1, 3)
         return flash_attention_cuda(q, k, v, sm_scale, out=out)
+    if q.shape[-1] > MAX_INSTANCE:
+        return flash_band.forward_plain(q, k, v, sm_scale)
     return attention_reference(q, k, v, sm_scale)
-
-
-def attention_or_plain(q, k, v, sm_scale: float):
-    """``flash_attention`` where a kernel takes the head dimension; above
-    ``MAX_HEAD_DIM`` on the card the plain version under autograd, counted
-    as ``LAUNCHES["attention_plain"]`` (the JAX codec's einsum path, which
-    it takes wherever Pallas does not run)."""
-    if q.is_cuda and q.shape[-1] > MAX_HEAD_DIM:
-        _count("attention_plain")
-        return attention_reference(q, k, v, sm_scale)
-    return flash_attention(q, k, v, sm_scale)
 
 
 def sdpa(q, k, v, scale, *, impl: str = "exact", q_chunk: int = 256):
     """Dispatch by implementation name; ``scale`` is the reference's
-    per-operand ``dh ** -0.25`` (the kernel takes its square). On the card
-    above ``MAX_HEAD_DIM`` the plain versions run (``flash`` raises)."""
+    per-operand ``dh ** -0.25`` (the kernel takes its square)."""
     if impl not in ("exact", "chunked", "flash", "auto"):
         raise ValueError(f"unknown attn impl {impl!r}")
-    if q.is_cuda and impl != "flash" and q.shape[-1] > MAX_HEAD_DIM:
-        _count("attention_plain")
-    elif q.is_cuda or impl == "flash":
+    if q.is_cuda or impl == "flash":
         return flash_attention(q, k, v, float(scale) ** 2)
     if impl == "exact":
         return _exact(q, k, v, scale)

@@ -14,7 +14,7 @@ import torch
 
 import _port_helpers  # noqa: F401  (caps torch threads)
 from _flowers_helpers import CLASS_OVERRIDES, TINY_OVERRIDES
-from _port_helpers import random_params
+from _port_helpers import init_shapes, random_params
 
 from stedm_tpu.config import compose as jcompose
 from stedm_tpu.config import to_container as jto_container
@@ -95,7 +95,7 @@ def test_build_stedm_shipped_widths_by_shape(monkeypatch):
     against a port model on the meta device."""
     overrides = ["data=flowers", "style_sampling=augmented", "style_agg=mean"]
     jmodel = jbuild_stedm(jcompose("config_diff", overrides))
-    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), *_jax_init_args(512))
+    shapes = init_shapes(jmodel.init, *_jax_init_args(512))
     # zero-stride stand-ins; the bridge's transposes keep them views
     tree = jax.tree_util.tree_map(lambda s: np.broadcast_to(np.float32(0), s.shape),
                                   shapes["params"])
@@ -115,7 +115,7 @@ def test_build_stedm_svit_shipped_widths_by_shape(monkeypatch):
     by ``eval_shape`` through the bridge against a meta port model."""
     overrides = ["data=flowers", "style_sampling=augmented", "style_agg=svit"]
     jmodel = jbuild_stedm(jcompose("config_diff", overrides))
-    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), *_jax_init_args(512))
+    shapes = init_shapes(jmodel.init, *_jax_init_args(512))
     tree = jax.tree_util.tree_map(lambda s: np.broadcast_to(np.float32(0), s.shape),
                                   shapes["params"])
     monkeypatch.setattr(weights.np, "ascontiguousarray", lambda a: a)

@@ -68,14 +68,14 @@ def test_kernels_take_bf16_and_fp32_only():
     (torch.float32, 20, "CUDA tensor"),          # on the Dh-32 instance
     (torch.bfloat16, 640, "CUDA tensor"),        # a cluster of 5 blocks of 128 columns
     (torch.float32, 1024, "CUDA tensor"),        # a cluster of 8
-    (torch.bfloat16, 1152, "ROADMAP.md §2"),
-    (torch.float32, 1088, "ROADMAP.md §2"),
+    (torch.bfloat16, 1152, "CUDA tensor"),       # the band route above 1024
+    (torch.float32, 1088, "CUDA tensor"),
 ])
 def test_backward_head_dims_by_dtype(dtype, dh, match):
-    """Both backwards take every head dimension up to 1024 (head_dim_plan:
-    the bf16 one on its instances 32, 64, 128, 256 and 512, the fp32 one on
-    32 and the multiples of 64, both on the multiples of 128 above 512) and refuse
-    the larger ones; past the gates, a CPU tensor is refused before any
+    """Both backwards take every head dimension (head_dim_plan: the bf16 one
+    on its instances 32, 64, 128, 256 and 512, the fp32 one on 32 and the
+    multiples of 64, both on the multiples of 128 above 512 and on the band
+    route above 1024); past the gates, a CPU tensor is refused before any
     launch."""
     q = torch.zeros(1, 1, 64, dh, dtype=dtype)
     lse = torch.zeros(1, 1, 64)

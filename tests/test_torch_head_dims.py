@@ -1,11 +1,11 @@
-"""Every head dimension up to 1024 on the flash kernels, and the plain path above.
+"""Every head dimension up to 1024 on the flash kernels' instances, and the band route above.
 
 ``head_dim_plan`` maps a head dimension onto the compiled instance that runs
 it (the smallest at or above it, reading the true columns; above 512 the
 multiples of 128, a cluster of Dh / 128 blocks) and, where a row is not 16
 bytes long, onto zero-padded copies of the next such width; above 1024
-there is no plan, and on the card ``sdpa`` and the codec's AttnBlockVQ run
-the plain attention there (``flash`` raises). On the CPU the wrappers take
+onto the band route (``ops/flash_band.py``, held in
+``tests/test_torch_wide_heads.py``). On the CPU the wrappers take
 their plain versions, so the tests hold those: the padding identity the
 kernels rely on, the stock Pallas TPU kernels in interpret mode at the
 widths the port now runs padded and at Dh 640 and 1024 (the forward, and
@@ -48,19 +48,20 @@ PLAN_DIMS = (4, 8, 12, 16, 20, 24, 28, 32, 36, 40, 48, 64, 96, 160, 192, 320, 38
 @pytest.mark.parametrize("d", PLAN_DIMS)
 def test_head_dim_plan(d, dtype, backward):
     """The width is Dh rounded up to 16 bytes (8 bf16, 4 fp32 values), the
-    instance the smallest compiled one at or above it; none above 1024. A
-    launch counts under the kernel's own name only at its compiled
-    multiples of 64 up to 512. fp32 splits the instance into 32 columns a
-    block at the Dh-32 instance (Dh 4 .. 32: a cluster of 1), else 128 or 64
-    (``fp32_columns``)."""
+    instance the smallest compiled one at or above it; above 1024 the band
+    route, counted under its own names. A launch counts under the kernel's
+    own name only at its compiled multiples of 64 up to 512. fp32 splits
+    the instance into 32 columns a block at the Dh-32 instance (Dh 4 .. 32:
+    a cluster of 1), else 128 or 64 (``fp32_columns``)."""
     tdt = DTYPES[dtype][1]
     plan = pattn.head_dim_plan(d, tdt, backward)
     stem = pattn.KERNELS[tdt][int(backward)]
-    if d > 1024:
-        assert plan is None
-        return
     per_row = 8 if tdt == torch.bfloat16 else 4
     width = -(-d // per_row) * per_row
+    if d > 1024:
+        assert plan == (width, width) and plan.band
+        assert pattn.launch_counter(stem, d) == stem.replace("flash_attention", "flash_band")
+        return
     instances = INSTANCES[(tdt, backward)]
     assert plan == (min(i for i in instances if i >= width), width)
     assert pattn.INSTANCES[stem] == instances
@@ -89,7 +90,7 @@ def test_every_head_dim_up_to_512_has_a_kernel():
             assert {f"{stem}_dh16", f"{stem}_dh32"} <= set(LAUNCHES)
     assert pattn.head_dim_plan(16, torch.bfloat16, True).instance == 32
     assert pattn.head_dim_plan(160, torch.bfloat16, True).instance == 256
-    assert "attention_plain" in LAUNCHES
+    assert {"flash_band", "flash_band_bwd", "flash_band_f32", "flash_band_bwd_f32"} <= set(LAUNCHES)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
@@ -97,16 +98,16 @@ def test_every_head_dim_up_to_512_has_a_kernel():
 def test_every_head_dim_up_to_1024_has_a_kernel(dtype, backward):
     """Dh 513 .. 1024: the smallest of the cluster instances (640, 768, 896,
     1024) at or above the width, so one 128-column slice a rank over 5 to 8
-    ranks, counted apart as ``<kernel>_dh<Dh>``; none from 1025 on. fp32
-    plans the same split (``fp32_plan``'s columns and cluster)."""
+    ranks, counted apart as ``<kernel>_dh<Dh>``; the band route from 1025
+    on. fp32 plans the same split (``fp32_plan``'s columns and cluster)."""
     stem = pattn.KERNELS[dtype][int(backward)]
     for d in range(513, 1025):
         plan = pattn.head_dim_plan(d, dtype, backward)
         assert plan.instance == next(i for i in CLUSTERED if i >= plan.width) and plan.width >= d
         assert pattn.launch_counter(stem, d) == f"{stem}_dh{d}"
         assert plan.instance // 128 <= 8
-    assert pattn.head_dim_plan(1025, dtype, backward) is None
-    assert pattn.MAX_HEAD_DIM == 1024 and pattn.CLUSTER_HEAD_DIMS == CLUSTERED
+    assert pattn.head_dim_plan(1025, dtype, backward).band
+    assert pattn.MAX_INSTANCE == 1024 and pattn.CLUSTER_HEAD_DIMS == CLUSTERED
 
 
 WORKSPACE_DIMS = (520, 576, 640, 700, 768, 1000, 1024)
@@ -222,8 +223,8 @@ def test_plain_attention_matches_the_stock_kernels(t, dh, dtype):
 @pytest.mark.parametrize("dh", [20, 1024, 1152])
 def test_sdpa_matches_jax_at_any_head_dim(dh, impl):
     """``sdpa`` at Dh 20 (the kernels' copy route on the card), 1024 (the
-    largest cluster instance) and 1152 (above every kernel: the plain path
-    on the card too) against JAX's jnp ``sdpa``, the output and
+    largest cluster instance) and 1152 (the band route on the card)
+    against JAX's jnp ``sdpa``, the output and
     ``jax.grad`` of sum(out * w), fp32."""
     r = np.random.default_rng(dh)
     q, k, v, w = (r.normal(size=(2, 2, 64, dh)).astype(np.float32) for _ in range(4))
@@ -243,27 +244,23 @@ def test_sdpa_matches_jax_at_any_head_dim(dh, impl):
 
 
 def test_wrappers_refuse_head_dims_above_512():
-    """Above the largest kernel (Dh 1152, past 1024) the kernel wrappers
-    raise the ValueError that names ROADMAP.md §2 and "up to 1024" before
-    looking at the device, while at Dh 640 they pass the head dimension and
-    refuse the CPU tensor; ``sdpa`` and ``attention_or_plain`` on the CPU
-    keep the plain path (no count)."""
-    from stedm_tpu_torch.ops import LAUNCHES
+    """Above 512 (Dh 640, a cluster instance, and 1152, the band route) the
+    kernel wrappers pass the head dimension and refuse the CPU tensor;
+    ``sdpa`` under every impl and ``flash_attention`` on the CPU take their
+    plain versions and count no launch."""
+    from stedm_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
-    q = torch.zeros(1, 1, 64, 1152)
-    lse = torch.zeros(1, 1, 64)
-    with pytest.raises(ValueError, match="up to 1024 \\(ROADMAP.md §2"):
-        pattn.flash_attention_cuda(q, q, q, 0.1)
-    with pytest.raises(ValueError, match="ROADMAP.md §2"):
-        pattn.flash_attention_bwd_cuda(q, q, q, q, lse, q, 0.1)
-    q640 = torch.zeros(1, 1, 64, 640)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        pattn.flash_attention_cuda(q640, q640, q640, 0.1)
-    before = LAUNCHES["attention_plain"]
-    for impl in ("exact", "chunked", "auto", "flash"):
-        assert pattn.sdpa(q, q, q, 0.2, impl=impl).shape == q.shape
-    assert pattn.attention_or_plain(q, q, q, 0.1).shape == q.shape
-    assert LAUNCHES["attention_plain"] == before
+    reset_launch_counts()
+    for d in (640, 1152):
+        q = torch.zeros(1, 1, 64, d)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            pattn.flash_attention_cuda(q, q, q, 0.1)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            pattn.flash_attention_bwd_cuda(q, q, q, q, torch.zeros(1, 1, 64), q, 0.1)
+        for impl in ("exact", "chunked", "auto", "flash"):
+            assert pattn.sdpa(q, q, q, 0.2, impl=impl).shape == q.shape
+        assert pattn.flash_attention(q, q, q, 0.1).shape == q.shape
+    assert not any(LAUNCHES.values()), LAUNCHES
 
 
 def test_tiny_stedm_at_16_wide_heads_matches_jax():

@@ -158,15 +158,17 @@ def test_flash_attention_kernel(cuda, shape):
 
 
 def test_flash_attention_gates_head_dim(cuda):
-    """Every head dimension up to 1024 runs; above it the kernels raise the
-    ValueError that names ROADMAP.md §2."""
-    from stedm_tpu_torch.ops import blocked_attention as a
+    """Every head dimension runs: above 1024 ``flash_attention`` and
+    ``sdpa(impl='flash')`` launch the band forward (``flash_band``)."""
+    from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
 
-    q = torch.zeros(1, 1, 64, 1152, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="ROADMAP.md §2"):
-        a.flash_attention(q, q, q, 0.1)
-    with pytest.raises(ValueError, match="ROADMAP.md §2"):
-        a.sdpa(q, q, q, 0.2, impl="flash")
+    q = torch.randn(1, 1, 64, 1152, generator=cuda, device="cuda").to(torch.bfloat16)
+    before = LAUNCHES["flash_band"]
+    for out in (a.flash_attention(q, q, q, 0.1), a.sdpa(q, q, q, 0.1 ** 0.5, impl="flash")):
+        ref = a.attention_reference(q, q, q, 0.1)
+        assert bool(((out.float() - ref.float()).abs()
+                     <= _attention_tolerance(q, q, q, 0.1, ref)).all())
+    assert LAUNCHES["flash_band"] == before + 2
 
 
 def _attention_tolerance(q, k, v, s, ref):
@@ -476,13 +478,20 @@ def test_flash_attention_launches_from_another_thread(cuda, shape):
 
 @pytest.mark.parametrize("dh", [1152, 2048])
 def test_flash_attention_backward_gates_head_dim(cuda, dh):
-    """Above 1024 the backward raises before any launch (the forward too)."""
-    from stedm_tpu_torch.ops import blocked_attention as a
+    """Above 1024 the backward runs the band route (counted as
+    ``flash_band_bwd``) within phase 2b's tolerance."""
+    from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
 
-    q = torch.randn(1, 1, 64, dh, generator=cuda, device="cuda").to(torch.bfloat16)
-    lse = torch.zeros(1, 1, 64, device="cuda")
-    with pytest.raises(ValueError, match="ROADMAP.md §2"):
-        a.flash_attention_bwd_cuda(q, q, q, q, lse, q, 0.05)
+    q, k, v, do = (torch.randn(1, 1, 64, dh, generator=cuda, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = a.flash_attention_cuda(q, k, v, 0.05, return_lse=True)
+    before = LAUNCHES["flash_band_bwd"]
+    got = a.flash_attention_bwd_cuda(q, k, v, o, lse, do, 0.05)
+    assert LAUNCHES["flash_band_bwd"] == before + 1
+    ref = a.attention_backward_reference(q, k, v, o, lse, do, 0.05)
+    for name, g, r, tol in zip(("dq", "dk", "dv"), got, ref,
+                               _backward_tolerance(q, k, v, o, do, 0.05, ref)):
+        assert bool(((g.float() - r.float()).abs() <= tol).all()), name
 
 
 # every head dimension up to 1024 on the smallest instance at or above it:
@@ -491,14 +500,16 @@ def test_flash_attention_backward_gates_head_dim(cuda, dh):
 # bytes apart), the padded instances (the backward's 192-448 on its cluster
 # instances, whose last ranks hold only zero columns), the cluster instances
 # above 512 (520 on 640: rank 4 of 5 holds 8 real columns; 768 and 1024
-# ragged); bf16 and fp32
+# ragged), the band route above 1024 (1100: bf16 copies of width 1104;
+# 2048 over two heads); bf16 and fp32
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape", [(1, 2, 100, 32), (2, 3, 300, 32), (1, 2, 256, 32),
                                    (2, 8, 1100, 32), (2, 4, 300, 16), (1, 3, 200, 20),
                                    (1, 2, 70, 4), (2, 2, 130, 8), (1, 2, 300, 48),
                                    (1, 2, 300, 96), (1, 2, 300, 160), (1, 2, 300, 192),
                                    (1, 2, 300, 320), (1, 1, 300, 448), (1, 2, 300, 520),
-                                   (1, 1, 200, 768), (2, 1, 140, 1024)])
+                                   (1, 1, 200, 768), (2, 1, 140, 1024), (1, 2, 300, 1100),
+                                   (1, 1, 130, 1152), (2, 1, 140, 2048)])
 def test_flash_attention_every_head_dim(cuda, dtype, shape):
     from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
 
@@ -531,39 +542,42 @@ def test_flash_attention_every_head_dim(cuda, dtype, shape):
 
 
 def test_sdpa_runs_the_plain_attention_above_512(cuda):
-    """Above 1024 (Dh 1152): exact, chunked and auto run the plain attention
-    on the card, counted as attention_plain, with its gradient; flash
-    raises. At Dh 1024 (the landscape bottleneck at num_heads 1) every impl
-    launches the cluster kernels, counted as ``<kernel>_dh1024``."""
+    """Above 1024 (Dh 1152) every impl launches the band kernels (counted as
+    ``flash_band`` and ``flash_band_bwd``) with their gradient, the output
+    within phase 2's tolerance of the exact path. At Dh 1024 (the landscape
+    bottleneck at num_heads 1) every impl launches the cluster kernels,
+    counted as ``<kernel>_dh1024``."""
     from stedm_tpu_torch.ops import LAUNCHES, blocked_attention as a
 
     q, k, v = (torch.randn((2, 1, 256, 1152), generator=cuda, device="cuda")
                .to(torch.bfloat16).requires_grad_() for _ in range(3))
-    for impl in ("exact", "chunked", "auto"):
-        before = LAUNCHES["attention_plain"]
+    for impl in ("exact", "chunked", "auto", "flash"):
+        before = dict(LAUNCHES)
         out = a.sdpa(q, k, v, 1152 ** -0.25, impl=impl, q_chunk=64)
-        torch.testing.assert_close(out, a._exact(q, k, v, 1152 ** -0.25))
+        ref = a.attention_reference(q, k, v, 1152 ** -0.5)
+        p = torch.softmax((q.float() @ k.float().transpose(-1, -2)) * 1152 ** -0.5, -1)
+        tol = 2 ** -7 * (p @ v.float().abs() + ref.float().abs())
+        assert bool(((out.float() - ref.float()).abs() <= tol).all()), impl
         out.float().sum().backward()
-        assert LAUNCHES["attention_plain"] == before + 1
-    with pytest.raises(ValueError, match="ROADMAP.md §2"):
-        a.sdpa(q, k, v, 1152 ** -0.25, impl="flash")
+        assert LAUNCHES["flash_band"] == before["flash_band"] + 1
+        assert LAUNCHES["flash_band_bwd"] == before["flash_band_bwd"] + 1
     q, k, v = (x[..., :1024].detach().contiguous().requires_grad_() for x in (q, k, v))
     before = dict(LAUNCHES)
     for impl in ("exact", "chunked", "auto", "flash"):
         a.sdpa(q, k, v, 1024 ** -0.25, impl=impl).float().sum().backward()
     assert LAUNCHES["flash_attention_dh1024"] - before.get("flash_attention_dh1024", 0) == 4
     assert LAUNCHES["flash_attention_bwd_dh1024"] - before.get("flash_attention_bwd_dh1024", 0) == 4
-    assert LAUNCHES["attention_plain"] == before["attention_plain"]
+    assert LAUNCHES["flash_band"] == before["flash_band"]
 
 
 def test_codec_attention_above_1024_runs_the_plain_attention(cuda):
-    """AttnBlockVQ above 1024 channels runs the plain attention on the card
-    (counted as attention_plain) and matches its CPU copy; at 1024 it
-    launches the Dh-1024 forward (fp32 here)."""
+    """AttnBlockVQ above 1024 channels launches the band forward on the card
+    (fp32 here, counted as ``flash_band_f32``) and matches its CPU copy (the
+    band route's plain versions); at 1024 it launches the Dh-1024 forward."""
     from stedm_tpu_torch.models.vq import AttnBlockVQ
     from stedm_tpu_torch.ops import LAUNCHES
 
-    for c, key in ((1152, "attention_plain"), (1024, "flash_attention_f32_dh1024")):
+    for c, key in ((1152, "flash_band_f32"), (1024, "flash_attention_f32_dh1024")):
         torch.manual_seed(c)
         block = AttnBlockVQ(c).eval()
         x = torch.randn(1, c, 8, 8)
@@ -572,8 +586,7 @@ def test_codec_attention_above_1024_runs_the_plain_attention(cuda):
             before = LAUNCHES.get(key, 0)
             got = block.cuda()(x.cuda()).cpu()
         assert LAUNCHES[key] == before + 1
-        if key == "attention_plain":
-            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("shape,mode", [((2, 16, 16, 128), "add"), ((2, 8, 8, 640), "plain"),

@@ -156,7 +156,8 @@ def test_cpu_wrappers_launch_nothing():
                              "flash_attention_bwd_f32_dh32", "gn_silu_film",
                              "flash_attention_dh16", "flash_attention_bwd_dh16",
                              "flash_attention_f32_dh16", "flash_attention_bwd_f32_dh16",
-                             "attention_plain"}
+                             "flash_band", "flash_band_bwd", "flash_band_f32",
+                             "flash_band_bwd_f32"}
     assert not any(LAUNCHES.values()), LAUNCHES
 
 

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _port_helpers import ATOL, RTOL, random_params
+from _port_helpers import ATOL, RTOL, init_shapes, random_params
 
 from stedm_tpu.models import segformer as J
 from stedm_tpu.utils.torch_import import load_seg_encoder as jload_seg_encoder
@@ -44,8 +44,7 @@ class _Bound:
 
 
 def _batch_stats(module, seed: int, *args, **static):
-    shapes = jax.eval_shape(lambda k, *a: module.init(k, *a, **static),
-                            jax.random.PRNGKey(0), *args)["batch_stats"]
+    shapes = init_shapes(lambda k, *a: module.init(k, *a, **static), *args)["batch_stats"]
     rng = np.random.default_rng(seed)
     return jax.tree_util.tree_map_with_path(
         lambda p, s: (rng.normal(0, 0.1, s.shape) if p[-1].key == "mean"
@@ -216,8 +215,7 @@ def test_bridge_key_set_and_shapes_at_the_shipped_widths():
     """``seg_state_dict`` of the shipped SegUNet's tree (by eval_shape at
     512^2) gives exactly the meta-device port model's keys and shapes: 396
     parameters and 20 BatchNorm running-stat buffers (1,984 values)."""
-    shapes = jax.eval_shape(J.SegUNet(classes=2).init, jax.random.PRNGKey(0),
-                            jnp.zeros((1, 512, 512, 3)))
+    shapes = init_shapes(J.SegUNet(classes=2).init, jnp.zeros((1, 512, 512, 3)))
     zeros = lambda tree: jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), tree)
     sd = seg_state_dict(zeros(shapes["params"]), zeros(shapes["batch_stats"]))
     with torch.device("meta"):

@@ -19,7 +19,7 @@ from test_torch_serving import BASE, B, P, _schedules, models  # noqa: F401
 
 import _port_helpers  # noqa: F401  (caps torch threads)
 from _flowers_helpers import run_overrides, write_flowers_tree
-from _port_helpers import jax_init, quick_jit, random_params
+from _port_helpers import jax_init, random_params
 
 import stedm_tpu.train.host_sampler as jhost
 from stedm_tpu.config import compose as jcompose
@@ -97,7 +97,8 @@ def test_canvas_sampler_matches_jax(models, case, host):  # noqa: F811
         want = np.asarray(jhost.make_host_sample_fn(jm, jsched, JSamplerConfig(**kw),
                                                     unroll=2)(params, jbatch, rng))
     else:
-        want = np.asarray(quick_jit(jmake_sample_fn(jm, jsched, JSamplerConfig(**kw)))(
+        # optimised: at 64^2 a QUICK_COMPILE reference's run outlasts the compile it saves
+        want = np.asarray(jax.jit(jmake_sample_fn(jm, jsched, JSamplerConfig(**kw)))(
             params, jbatch, rng))
     x_T = torch.from_numpy(np.array(jax.random.normal(
         rng, (B, CANVAS // 4, CANVAS // 4, 3), jnp.float32)))

@@ -29,7 +29,7 @@ import torch
 
 import _port_helpers  # noqa: F401  (caps torch threads)
 from _flowers_helpers import run_overrides, write_flowers_tree
-from _port_helpers import jax_init, random_params
+from _port_helpers import init_shapes, jax_init, random_params
 
 import stedm_tpu.utils.torch_import as jimport
 from stedm_tpu.config import compose as jcompose
@@ -66,9 +66,8 @@ def test_flax_paths_name_the_jax_tree(tree, agg, width):
     jcfg = jcompose("config_diff", overrides)
     jm = jbuild_stedm(jcfg)
     p = jcfg.data.patch_size
-    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, p, p, 3)),
-                            jnp.zeros((1, p, p, 2)), jnp.zeros((1, 1, p, p, 3)),
-                            jnp.zeros((1,), jnp.int32))["params"]
+    shapes = init_shapes(jm.init, jnp.zeros((1, p, p, 3)), jnp.zeros((1, p, p, 2)),
+                         jnp.zeros((1, 1, p, p, 3)), jnp.zeros((1,), jnp.int32))["params"]
     leaves = _jax_tree_paths(shapes)
     model = build_stedm(compose("config_diff", overrides), device="meta")
     names = weights.flax_paths(model)
@@ -244,7 +243,7 @@ def test_jax_train_diff_does_not_take_a_jax_train_ae_directory(tree, monkeypatch
     gen = random_params(codec, 0, jnp.zeros((1, p, p, 3)))
     loss_cfg = VAELossConfig(**dict(cfg.loss))
     disc = build_discriminator(loss_cfg)
-    disc_vars = jax.eval_shape(disc.init, jax.random.PRNGKey(1), jnp.zeros((1, p, p, 3)))
+    disc_vars = init_shapes(disc.init, jnp.zeros((1, p, p, 3)))
     disc_vars = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), disc_vars)
     state = create_ae_state(gen, disc_vars, *ae_optimizers(1e-4))
     ckpt = results / "jax_ae" / "ae_flowers" / "ckpt"
